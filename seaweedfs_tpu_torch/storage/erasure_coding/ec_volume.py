@@ -1,0 +1,194 @@
+"""EcVolume: serve reads from striped shard files.
+
+The port's counterpart of `seaweedfs_tpu/storage/erasure_coding/ec_volume.py`
+(after `weed/storage/erasure_coding/ec_volume.go` and the local half of
+`weed/storage/store_ec.go`): needle lookup by binary search over the sorted
+.ecx, interval math to shard reads, and on-miss interval reconstruction
+from any 10 surviving local shards through the codec's kernel (a degraded
+read).
+
+Not ported yet: deletes, remote shard and partial fetchers, fault points,
+events and metrics. All file access uses positional os.pread, so
+concurrent reads are safe.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
+from seaweedfs_tpu_torch.storage import idx as idx_mod
+from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
+from seaweedfs_tpu_torch.storage.types import NEEDLE_MAP_ENTRY_SIZE, size_is_deleted
+from seaweedfs_tpu_torch.storage.volume import NotFound
+
+from . import encoder
+from .geometry import (
+    DATA_SHARDS_COUNT,
+    LARGE_BLOCK_SIZE,
+    SMALL_BLOCK_SIZE,
+    TOTAL_SHARDS_COUNT,
+    Interval,
+    locate_data,
+    to_ext,
+)
+
+
+class NeedleNotFound(NotFound):
+    pass
+
+
+def ec_shard_file_name(collection: str, dir_: str, vid: int) -> str:
+    base = f"{collection}_{vid}" if collection else str(vid)
+    return os.path.join(dir_, base)
+
+
+class EcVolume:
+    def __init__(
+        self,
+        dir_: str,
+        collection: str,
+        volume_id: int,
+        dir_idx: str | None = None,
+        codec: RSCodec | None = None,
+        large_block_size: int = LARGE_BLOCK_SIZE,
+        small_block_size: int = SMALL_BLOCK_SIZE,
+    ) -> None:
+        self.dir = dir_
+        self.dir_idx = dir_idx or dir_
+        self.collection = collection
+        self.volume_id = volume_id
+        self.codec = codec or RSCodec()
+        self.large_block_size = large_block_size
+        self.small_block_size = small_block_size
+        self._closed = False
+        self.data_base = ec_shard_file_name(collection, self.dir, volume_id)
+        self.index_base = ec_shard_file_name(collection, self.dir_idx, volume_id)
+        if not os.path.exists(self.index_base + ".ecx"):
+            raise FileNotFoundError(self.index_base + ".ecx")
+        self._ecx_fd = os.open(self.index_base + ".ecx", os.O_RDONLY)
+        self.ecx_file_size = os.path.getsize(self.index_base + ".ecx")
+
+        info = encoder.load_volume_info(self.data_base + ".vif")
+        self.version = int(info.get("version", 3)) or 3
+        if not info:
+            encoder.save_volume_info(self.data_base + ".vif", version=self.version)
+        # a .vif that records a block geometry is authoritative over the
+        # constructor defaults
+        if "large_block_size" in info:
+            self.large_block_size = int(info["large_block_size"])
+        if "small_block_size" in info:
+            self.small_block_size = int(info["small_block_size"])
+
+        self.shards: dict[int, int] = {}
+        self.shard_size = 0
+        for shard_id in range(TOTAL_SHARDS_COUNT):
+            p = self.data_base + to_ext(shard_id)
+            if os.path.exists(p):
+                self.shards[shard_id] = os.open(p, os.O_RDONLY)
+                self.shard_size = max(self.shard_size, os.path.getsize(p))
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        os.close(self._ecx_fd)
+        for fd in self.shards.values():
+            os.close(fd)
+        self.shards.clear()
+
+    def __enter__(self) -> "EcVolume":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # --- index ----------------------------------------------------------------
+    def find_needle_from_ecx(self, needle_id: int) -> tuple[int, int]:
+        """Binary search the sorted .ecx (`ec_volume.go:236-263`).
+        Returns (offset, size); raises NeedleNotFound."""
+        found, _, offset, size = self._search(needle_id)
+        if not found:
+            raise NeedleNotFound(f"needle {needle_id:x}")
+        return offset, size
+
+    def _search(self, needle_id: int) -> tuple[bool, int, int, int]:
+        lo, hi = 0, self.ecx_file_size // NEEDLE_MAP_ENTRY_SIZE
+        while lo < hi:
+            mid = (lo + hi) // 2
+            buf = os.pread(
+                self._ecx_fd, NEEDLE_MAP_ENTRY_SIZE, mid * NEEDLE_MAP_ENTRY_SIZE
+            )
+            key, offset, size = idx_mod.entry_from_bytes(buf)
+            if key == needle_id:
+                return True, mid, offset, size
+            if key < needle_id:
+                lo = mid + 1
+            else:
+                hi = mid
+        return False, -1, 0, 0
+
+    # --- reads ------------------------------------------------------------------
+    def locate_intervals(self, offset: int, size: int) -> list[Interval]:
+        return locate_data(
+            self.large_block_size,
+            self.small_block_size,
+            DATA_SHARDS_COUNT * self.shard_size,
+            offset,
+            get_actual_size(size, self.version),
+        )
+
+    def _pread_shard(self, shard_id: int, off: int, size: int) -> bytes | None:
+        """Full-length positional read, or None if the shard can't serve it
+        (absent or truncated — both are 'missing' to the erasure code)."""
+        fd = self.shards.get(shard_id)
+        if fd is None:
+            return None
+        data = os.pread(fd, size, off)
+        return data if len(data) == size else None
+
+    def _read_interval(self, interval: Interval) -> bytes:
+        shard_id, off = interval.to_shard_id_and_offset(
+            self.large_block_size, self.small_block_size
+        )
+        data = self._pread_shard(shard_id, off, interval.size)
+        if data is not None:
+            return data
+        return self._recover_interval(shard_id, off, interval.size)
+
+    def _recover_interval(self, missing_shard: int, off: int, size: int) -> bytes:
+        """Reconstruct one interval from 10 surviving local shards
+        (`store_ec.go:339-395`, local half)."""
+        present: dict[int, np.ndarray] = {}
+        for shard_id in self.shards:
+            if shard_id == missing_shard:
+                continue
+            data = self._pread_shard(shard_id, off, size)
+            if data is None:
+                continue
+            present[shard_id] = np.frombuffer(data, dtype=np.uint8)
+            if len(present) >= DATA_SHARDS_COUNT:
+                break
+        if len(present) < DATA_SHARDS_COUNT:
+            raise IOError(
+                f"cannot recover shard {missing_shard}: only {len(present)} present"
+            )
+        out = self.codec.reconstruct(present, targets=[missing_shard])
+        return out[missing_shard].tobytes()
+
+    def read_needle(self, needle_id: int, cookie: int | None = None) -> Needle:
+        offset, size = self.find_needle_from_ecx(needle_id)
+        if size_is_deleted(size):
+            raise NeedleNotFound(f"needle {needle_id:x} deleted")
+        blob = b"".join(
+            self._read_interval(iv) for iv in self.locate_intervals(offset, size)
+        )
+        n = Needle.from_bytes(blob, size=size, version=self.version)
+        if cookie is not None and n.cookie != cookie:
+            raise NeedleNotFound("cookie mismatch")
+        return n
+
+    def shard_ids(self) -> list[int]:
+        return sorted(self.shards)

@@ -1,0 +1,127 @@
+"""EC striping geometry — where a .dat byte range lives across shards.
+
+Exact behavioral port of the reference's subtle-and-fully-unit-testable locate
+math (`weed/storage/erasure_coding/ec_locate.go:15-87`, constants
+`ec_encoder.go:17-23`): a volume is striped as rows of 10 large (1GB) blocks
+while it lasts, then rows of 10 small (1MB) blocks; block b of a row lives in
+shard b at a shard-file offset determined by the row index.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from seaweedfs_tpu_torch.ops.rs_kernel import (
+    DATA_SHARDS as DATA_SHARDS_COUNT,
+    PARITY_SHARDS as PARITY_SHARDS_COUNT,
+    TOTAL_SHARDS as TOTAL_SHARDS_COUNT,
+)
+LARGE_BLOCK_SIZE = 1024 * 1024 * 1024  # 1GB
+SMALL_BLOCK_SIZE = 1024 * 1024  # 1MB
+
+
+def to_ext(ec_index: int) -> str:
+    return f".ec{ec_index:02d}"
+
+
+@dataclass(frozen=True)
+class Interval:
+    block_index: int
+    inner_block_offset: int
+    size: int
+    is_large_block: bool
+    large_block_rows_count: int
+
+    def to_shard_id_and_offset(
+        self, large_block_size: int, small_block_size: int
+    ) -> tuple[int, int]:
+        offset = self.inner_block_offset
+        row_index = self.block_index // DATA_SHARDS_COUNT
+        if self.is_large_block:
+            offset += row_index * large_block_size
+        else:
+            offset += (
+                self.large_block_rows_count * large_block_size
+                + row_index * small_block_size
+            )
+        return self.block_index % DATA_SHARDS_COUNT, offset
+
+
+def _locate_offset_within_blocks(block_length: int, offset: int) -> tuple[int, int]:
+    return offset // block_length, offset % block_length
+
+
+def _locate_offset(
+    large_block_length: int, small_block_length: int, dat_size: int, offset: int
+) -> tuple[int, bool, int]:
+    large_row_size = large_block_length * DATA_SHARDS_COUNT
+    n_large_block_rows = dat_size // large_row_size
+    if offset < n_large_block_rows * large_row_size:
+        block_index, inner = _locate_offset_within_blocks(large_block_length, offset)
+        return block_index, True, inner
+    offset -= n_large_block_rows * large_row_size
+    block_index, inner = _locate_offset_within_blocks(small_block_length, offset)
+    return block_index, False, inner
+
+
+def locate_data(
+    large_block_length: int,
+    small_block_length: int,
+    dat_size: int,
+    offset: int,
+    size: int,
+) -> list[Interval]:
+    """Split [offset, offset+size) of the original .dat into shard intervals."""
+    block_index, is_large, inner = _locate_offset(
+        large_block_length, small_block_length, dat_size, offset
+    )
+    # the reference adds one small row so the large-row count can be derived
+    # from a shard size alone (ec_locate.go:18-19)
+    n_large_block_rows = (dat_size + DATA_SHARDS_COUNT * small_block_length) // (
+        large_block_length * DATA_SHARDS_COUNT
+    )
+
+    intervals: list[Interval] = []
+    while size > 0:
+        block_remaining = (
+            large_block_length if is_large else small_block_length
+        ) - inner
+        this_size = min(size, block_remaining)
+        intervals.append(
+            Interval(
+                block_index=block_index,
+                inner_block_offset=inner,
+                size=this_size,
+                is_large_block=is_large,
+                large_block_rows_count=n_large_block_rows,
+            )
+        )
+        size -= this_size
+        if size <= 0:
+            break
+        block_index += 1
+        if is_large and block_index == n_large_block_rows * DATA_SHARDS_COUNT:
+            is_large = False
+            block_index = 0
+        inner = 0
+    return intervals
+
+
+def shard_file_size(
+    dat_size: int,
+    large_block_size: int = LARGE_BLOCK_SIZE,
+    small_block_size: int = SMALL_BLOCK_SIZE,
+) -> int:
+    """Length of every shard file produced for a .dat of dat_size bytes,
+    mirroring encodeDatFile's loop structure (`ec_encoder.go:198-235`)."""
+    remaining = dat_size
+    size = 0
+    large_row = large_block_size * DATA_SHARDS_COUNT
+    while remaining > large_row:
+        size += large_block_size
+        remaining -= large_row
+    small_row = small_block_size * DATA_SHARDS_COUNT
+    while remaining > 0:
+        size += small_block_size
+        remaining -= small_row
+    return size
