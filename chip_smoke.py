@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (seaweedfs_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--volume-mib MIB]
+    python3 chip_smoke.py [--seed N] [--volume-mib MIB] [--upload-blobs N]
+                          [--chunked-mib MIB] [--cdc-uploads N] [--stream-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
-  2. build    every native source of the port compiled at once (nvcc, g++)
+  2. build    every native source of the port compiled at once (nvcc, g++);
+              the integer operations of one block in md5_batch_kernel's
+              SASS (cuobjdump), which the MD5 bound counts
   3. kernel   gf256_matmul held byte for byte against its plain PyTorch
               version on the card (parity, decode and random matrices up to
               14x14, ragged and unaligned lengths, the 32 MiB pipeline
               batch), against the numpy oracle on a 64 KiB slice, and timed
               at the main path's batch beside its bound
+     hash_kernels  crc32c_batch, md5_batch and gear_hash held word for word
+              against their plain versions on the card (lengths 0-65536,
+              n = 1, 3, 33, 8192, strided row views; gear over 1 B to
+              64 MiB), a sample against hashlib, the host CRC and the numpy
+              gear oracle, each timed at its path shape beside its bound
   4. main     the EC main path on a volume of --volume-mib (1 GiB) written
               from --seed, at the reference geometry: write_ec_files, parity
               spot checks, rebuild of shards {2,5,11,13}, 256 degraded
@@ -20,7 +28,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               device time of kernel and copies, the device's idle share
   5. cols     a small volume at 1 MiB / 64 KiB blocks through the schedule's
               column-split jobs, byte-identical to a CPU plain encode
-  6. entry    entry() on the card equal to the CPU codec
+  6. upload   --upload-blobs (1,048,576) seeded 4096-byte blobs submitted to
+              HashService(device=cuda) from 16 threads, each waiting for its
+              blob's result before the next, as the filer does (BASELINE.md
+              config 3); every MD5 and CRC equal to hashlib and the host CRC
+     chunked  one --chunked-mib (1 GiB) + 12,345-byte upload cut into the
+              filer's 4 MiB chunks through submit_many; ETags equal hashlib;
+              the full chunks on the card through both kernels, CRC equal to
+              its plain version, MD5 to hashlib
+  7. cdc      find_boundaries at the filer's dedup settings over
+              --cdc-uploads (64) seeded 64 MiB uploads, and chunk_stream at
+              its defaults over --stream-mib (1 GiB); cuts equal the plain
+              version's on the card, the first upload's the numpy oracle's
+  8. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -30,12 +50,15 @@ Exits non-zero, printing no result, when CUDA is not available.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import itertools
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -43,7 +66,10 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.entry import entry
-from seaweedfs_tpu_torch.ops import _build, gf256
+from seaweedfs_tpu_torch.ops import _build, cdc, gf256
+from seaweedfs_tpu_torch.ops.crc32c_kernel import crc32c_batch_kernel, crc32c_batch_torch
+from seaweedfs_tpu_torch.ops.hash_service import HashService
+from seaweedfs_tpu_torch.ops.md5_kernel import _pad_len, md5_batch_kernel, md5_batch_torch
 from seaweedfs_tpu_torch.ops.rs_cuda import gf256_matmul, gf_matmul_torch
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.storage import crc
@@ -56,6 +82,11 @@ REPO = Path(__file__).resolve().parent
 MIB = 1024 * 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM scalar float32 peak, the table's non-tensor rate
+# H100 SXM 32-bit integer peak: 64 operations per clock per SM (CUDA C++
+# programming guide, arithmetic throughput, compute capability 9.0) x 132
+# SMs x 1.98 GHz boost clock, at the 700 W limit
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+TABLE_OPS_PER_BYTE = 3  # a table CRC or gear step: lookup, shift, XOR
 REBUILD_LOST = (2, 5, 11, 13)
 DEGRADED_LOST = (1, 4, 7, 9)
 DEGRADED_READS = 256
@@ -76,6 +107,60 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+# not arithmetic: memory, branches, special registers, the uniform datapath
+_NOT_COUNTED = ("LD", "ST", "BRA", "EXIT", "NOP", "U", "S2", "CS2", "BAR", "BSSY", "BSYNC")
+
+
+def sass_loop_ops(src: _build.Source, kernel: str) -> dict:
+    """Arithmetic instructions per iteration of one kernel's first loop, read
+    from the SASS of its built library (cuobjdump): from the target of the
+    first backward branch to that branch, along the path that takes every
+    forward branch inside it. For md5_batch_kernel that is one 64-byte
+    block read with 16-byte loads (the byte-wise load path is jumped over).
+    Memory, branch, special-register, uniform-datapath and NOP instructions
+    are not counted."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(src))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    insts = {}  # address -> (opcode, branch target or None), first listing only
+    inside = False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            if insts:
+                break
+            inside = kernel in ln
+            continue
+        s = ln.strip()
+        if not inside or not s.startswith("/*") or "*/" not in s:
+            continue
+        addr, rest = s[2:].split("*/", 1)
+        words = rest.split(";")[0].split()
+        if not words or words[0].startswith("/*"):
+            continue  # an encoding line
+        if words[0].startswith("@"):  # a predicate
+            words = words[1:]
+        op = words[0].split(".")[0]
+        target = int(words[1], 16) if op == "BRA" and words[1:2] and words[1].startswith("0x") else None
+        insts[int(addr, 16)] = (op, target)
+    addrs = sorted(insts)
+    back = next(((a, insts[a][1]) for a in addrs
+                 if insts[a][1] is not None and insts[a][1] < a), None)
+    check(back is not None, f"no loop found in the SASS of {kernel}")
+    end, pc = back
+    nxt = dict(zip(addrs, addrs[1:] + [None]))
+    hist = {}
+    while pc is not None and pc < end:
+        op, target = insts[pc]
+        if op == "BRA" and target is not None and pc < target <= end:
+            pc = target
+            continue
+        if not op.startswith(_NOT_COUNTED):
+            hist[op] = hist.get(op, 0) + 1
+        pc = nxt[pc]
+    return {"ops": sum(hist.values()), "opcodes": dict(sorted(hist.items(), key=lambda kv: -kv[1])),
+            "loop": [hex(back[1]), hex(end)]}
 
 
 def same_file(a: str, b: str, chunk: int = 64 * MIB) -> bool:
@@ -184,6 +269,124 @@ def kernel_phase(dev: torch.device, seed: int) -> dict:
          kernel_gbps=(14 * 32 * MIB) / ms / 1e6, bound_share=b_ms / ms,
          library_ms=None, library="no single PyTorch call computes a GF(2^8) matmul")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+# --- hash kernels vs plain ------------------------------------------------------
+HASH_LENGTHS = (0, 1, 7, 55, 56, 63, 64, 65, 4096, 4097, 65536)
+HASH_NS = (1, 3, 33, 8192)
+GEAR_NS = (1, 31, 32, 33, MIB + 3, 64 * MIB)
+PATH_BLOBS, PATH_LEN = 8192, 4096  # the service's full batch of 4 KiB blobs
+GEAR_PATH = 64 * MIB  # one upload of the cdc phase
+
+
+def u32(t: torch.Tensor) -> torch.Tensor:
+    """uint32 words as int64, for arithmetic on any device."""
+    return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def hash_bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    """Least time: bytes moved over the memory rate, or integer operations
+    over the integer rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hash_kernel_phase(dev: torch.device, seed: int, md5_ops_per_block: int) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    rng = np.random.RandomState(seed + 1)
+
+    def rand(shape) -> torch.Tensor:
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+    stats = {k: {"cases": 0, "max_abs_err": 0} for k in ("crc32c_batch", "md5_batch", "gear_hash")}
+
+    def agree(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+        torch.cuda.synchronize()
+        if name == "md5_batch":
+            a, b = got.to(torch.int64), want.to(torch.int64)
+        else:
+            a, b = u32(got), u32(want)
+        err = int((a - b).abs().max()) if a.numel() else 0
+        st = stats[name]
+        st["cases"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        check(err == 0 and got.shape == want.shape, f"{name} kernel != plain for {what}")
+
+    sampled = 0
+    for length in HASH_LENGTHS:
+        # one buffer per length; the n cases are row ranges of it, so one
+        # plain pass (whose cost is per block, not per blob) covers them all
+        whole = rand((sum(HASH_NS), length))
+        plain_md5 = md5_batch_torch(whole)
+        plain_crc = crc32c_batch_torch(whole) if length else None
+        r0 = 0
+        for n in HASH_NS:
+            x = whole[r0 : r0 + n]
+            agree("md5_batch", md5_batch_kernel(x), plain_md5[r0 : r0 + n], f"L={length} n={n}")
+            if length:
+                agree("crc32c_batch", crc32c_batch_kernel(x), plain_crc[r0 : r0 + n],
+                      f"L={length} n={n}")
+            r0 += n
+        # a sample against hashlib and the host CRC
+        host = whole.cpu().numpy()
+        for i in rng.choice(len(host), size=16, replace=False):
+            blob = host[i].tobytes()
+            check(plain_md5[i].cpu().numpy().tobytes() == hashlib.md5(blob).digest(),
+                  f"md5 plain != hashlib at L={length}")
+            if length:
+                check(int(u32(plain_crc[i])) == crc.crc32c(blob),
+                      f"crc plain != host CRC at L={length}")
+            sampled += 1
+    # strided row views: unaligned (the byte path) and 16-byte aligned rows
+    for length, lead, extra in ((65, 3, 19), (4097, 1, 30), (4096, 16, 16), (63, 0, 1)):
+        wide = rand((33, length + extra))
+        view = wide[:, lead : lead + length]
+        agree("md5_batch", md5_batch_kernel(view), md5_batch_torch(view),
+              f"view L={length} stride={wide.stride(0)}")
+        agree("crc32c_batch", crc32c_batch_kernel(view), crc32c_batch_torch(view),
+              f"view L={length} stride={wide.stride(0)}")
+
+    for n in GEAR_NS:
+        x = rand((n,))
+        agree("gear_hash", cdc.gear_hash_kernel(x), cdc.gear_hashes_torch(x), f"n={n}")
+        if n == MIB + 3:
+            check(np.array_equal(cdc.gear_hash_kernel(x).cpu().numpy(),
+                                 cdc.gear_hashes_numpy(x.cpu().numpy())),
+                  "gear kernel != numpy oracle at 1 MiB + 3")
+            y = x[1:]  # an odd start: the kernel's byte path for every tile
+            agree("gear_hash", cdc.gear_hash_kernel(y), cdc.gear_hashes_torch(y), "offset 1")
+
+    # time each kernel at its path shape; inputs rotate over more than the
+    # 50 MB L2 so every launch reads from device memory
+    blobs = [rand((PATH_BLOBS, PATH_LEN)) for _ in range(4)]
+    cyc = itertools.cycle(blobs)
+    n, length = PATH_BLOBS, PATH_LEN
+    out = {}
+    out["crc32c_batch"] = dict(
+        ms=time_cuda(lambda: crc32c_batch_kernel(next(cyc))),
+        plain_ms=time_cuda(lambda: crc32c_batch_torch(blobs[0]), warmup=1, reps=3),
+        bound=hash_bound_ms(n * length + 4 * n, TABLE_OPS_PER_BYTE * n * length),
+        shape=[n, length])
+    out["md5_batch"] = dict(
+        ms=time_cuda(lambda: md5_batch_kernel(next(cyc))),
+        plain_ms=time_cuda(lambda: md5_batch_torch(blobs[0]), warmup=0, reps=1),
+        bound=hash_bound_ms(n * length + 16 * n,
+                            md5_ops_per_block * n * (_pad_len(length) // 64)),
+        shape=[n, length])
+    data = rand((GEAR_PATH,))
+    out["gear_hash"] = dict(
+        ms=time_cuda(lambda: cdc.gear_hash_kernel(data)),
+        plain_ms=time_cuda(lambda: cdc.gear_hashes_torch(data), warmup=1, reps=3),
+        bound=hash_bound_ms(5 * GEAR_PATH, TABLE_OPS_PER_BYTE * GEAR_PATH),
+        shape=[GEAR_PATH])
+    for name, o in out.items():
+        b_ms, b_by = o.pop("bound")
+        o.update(stats[name], bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / o["ms"])
+    emit("hash_kernels", sampled_vs_hashlib=sampled, int32_ops_per_s=INT32_OPS_PER_S,
+         library_ms=None,
+         library="no single PyTorch call computes CRC32C, MD5 or a gear hash", **out)
+    return out
 
 
 # --- phase 4: the main path -------------------------------------------------------
@@ -382,10 +585,289 @@ def cols_phase(work: str, codec: RSCodec, seed: int) -> dict:
                 launches=launches, identical_shards=14)
 
 
+# --- phase 6: the upload path -------------------------------------------------------
+UPLOAD_THREADS = 16  # the concurrency of the reference's `weed benchmark` (BASELINE.md)
+UPLOAD_PROFILED = 65536  # blobs of the profiled window
+BLOB = 4096
+FILER_CHUNK = 4 * MIB  # server/filer.py: chunk_size_mb=4
+
+
+def drive_upload(svc: HashService, blobs: list) -> dict:
+    """Submit blobs[t] from thread t as the filer's upload handler does
+    (server/filer.py: `submit(data).md5_hex()`): one blob, then wait for its
+    result before the next, so at most one blob per thread is in flight.
+    Returns the wall time, each blob's (md5, crc), its submit-to-result
+    latency (HashResult.done_at) and the (blobs, seconds) of every batch
+    the flusher hashed."""
+    results = [[None] * len(b) for b in blobs]
+    lat = [np.zeros(len(b)) for b in blobs]
+    batches = []
+    errors = []
+    real_batch_hash = svc._batch_hash
+
+    def timed_batch_hash(items, length):
+        t0 = time.perf_counter()
+        out = real_batch_hash(items, length)
+        batches.append((len(items), time.perf_counter() - t0))
+        return out
+
+    def work(t: int) -> None:
+        try:
+            for i, blob in enumerate(blobs[t]):
+                ts = time.perf_counter()
+                fut = svc.submit(blob).wait(120)
+                results[t][i] = (fut.md5, fut.crc)
+                lat[t][i] = fut.done_at - ts
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(len(blobs))]
+    svc._batch_hash = timed_batch_hash
+    try:
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+    finally:
+        del svc._batch_hash
+    if errors:
+        raise errors[0]
+    return dict(wall=wall, results=results, lat=lat, batches=batches)
+
+
+def upload_phase(svc: HashService, n_blobs: int, seed: int) -> dict:
+    """n_blobs seeded 4 KiB blobs through the service from 16 synchronous
+    threads, the kernels' launches counted over that run alone; every result
+    held against hashlib and the host CRC. After the count is read: one
+    batch of the mean size timed alone, then the first UPLOAD_PROFILED blobs
+    again under torch.profiler, for the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    per = [n_blobs // UPLOAD_THREADS + (t < n_blobs % UPLOAD_THREADS)
+           for t in range(UPLOAD_THREADS)]
+    blobs = []
+    for t, count in enumerate(per):
+        raw = np.random.default_rng([seed, 3, t]).bytes(count * BLOB)
+        blobs.append([raw[i * BLOB : (i + 1) * BLOB] for i in range(count)])
+        del raw
+    gen_s = time.perf_counter() - t0
+    # yardstick: the host alone, one thread, hashlib + the host CRC per blob
+    sample = blobs[0][:16384]
+    t0 = time.perf_counter()
+    for blob in sample:
+        hashlib.md5(blob).digest()
+        crc.crc32c(blob)
+    host_rate = len(sample) / (time.perf_counter() - t0)
+
+    b0 = svc.batch_blobs, svc.host_blobs
+    zero_launches()
+    run = drive_upload(svc, blobs)
+    launches = read_launches()
+    wall, batches = run["wall"], run["batches"]
+    kernel_blobs = svc.batch_blobs - b0[0]
+    host_blobs = svc.host_blobs - b0[1]
+    check(kernel_blobs > 0, "the kernels hashed no upload blob")
+    check(kernel_blobs + host_blobs == n_blobs, "blobs unaccounted for")
+    t0 = time.perf_counter()
+    for bl, res in zip(blobs, run["results"]):  # one thread: the GIL makes more slower
+        for blob, (md5, c) in zip(bl, res):
+            check(md5 == hashlib.md5(blob).digest() and c == crc.crc32c(blob),
+                  "an upload MD5 or CRC differs from hashlib / the host CRC")
+    verify_s = time.perf_counter() - t0
+    lat_ms = np.concatenate(run["lat"]) * 1e3
+    # the same batch with no submitter running: its cost without GIL contention
+    mean_batch = float(np.mean([b for b, _ in batches]))
+    items = [(blob, None) for blob in blobs[0][: max(1, round(mean_batch))]]
+    svc._batch_hash(items, BLOB)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        svc._batch_hash(items, BLOB)
+    alone_ms = (time.perf_counter() - t0) / 50 * 1e3
+
+    # a profiled window: device time of the kernels and copies over its wall
+    head = [bl[: UPLOAD_PROFILED // UPLOAD_THREADS] for bl in blobs]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = drive_upload(svc, head)
+        torch.cuda.synchronize()
+    for res, ref in zip(again["results"], run["results"]):
+        check(res == ref[: len(res)], "the profiled upload's hashes differ")
+    us = {"md5": 0.0, "crc": 0.0, "h2d": 0.0, "d2h": 0.0}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if "md5_batch_kernel" in e.key:
+            us["md5"] += t
+        elif "crc32c_batch_kernel" in e.key:
+            us["crc"] += t
+        elif "HtoD" in e.key:
+            us["h2d"] += t
+        elif "DtoH" in e.key:
+            us["d2h"] += t
+    check(us["md5"] > 0 and us["crc"] > 0, "the profiler saw no hash kernel time")
+    busy = sum(us.values()) / 1e6 / again["wall"]
+    profiled = dict(blobs=sum(len(h) for h in head), seconds=again["wall"],
+                    blobs_per_s=sum(len(h) for h in head) / again["wall"],
+                    batches=len(again["batches"]),
+                    md5_us_per_batch=us["md5"] / max(1, len(again["batches"])),
+                    **{f"{k}_ms": v / 1e3 for k, v in us.items()},
+                    device_busy_share=busy, device_idle_share=1 - busy)
+    sizes = np.array([b for b, _ in batches])
+    return dict(blobs=n_blobs, blob_bytes=BLOB, threads=UPLOAD_THREADS, in_flight_per_thread=1,
+                launches=launches,
+                seconds=wall, blobs_per_s=n_blobs / wall, gbps=n_blobs * BLOB / wall / 1e9,
+                p50_ms=float(np.percentile(lat_ms, 50)), p99_ms=float(np.percentile(lat_ms, 99)),
+                kernel_blobs=kernel_blobs, host_blobs=host_blobs,
+                kernel_share=kernel_blobs / n_blobs,
+                batches=len(batches), mean_batch=mean_batch,
+                batch_p50=float(np.percentile(sizes, 50)), batch_max=int(sizes.max()),
+                batch_hash_s=sum(t for _, t in batches),
+                batch_hash_mean_ms=sum(t for _, t in batches) / len(batches) * 1e3,
+                batch_hash_alone_ms=alone_ms,
+                flusher_busy_share=sum(t for _, t in batches) / wall,
+                host_one_thread_blobs_per_s=host_rate,
+                generate_s=gen_s, verify_s=verify_s, all_equal_hashlib=True,
+                profiled=profiled)
+
+
+def chunked_phase(dev: torch.device, svc: HashService, nbytes: int, seed: int) -> dict:
+    """One upload cut into the filer's 4 MiB chunks, hashed through
+    submit_many as the filer's chunked upload does; twice, the first with
+    the staging buffer still to be pinned, the kernels' launches counted
+    over those two runs alone. Then the full chunks, staged on the card,
+    through both kernels directly: CRC against its plain version, MD5
+    against hashlib (the plain MD5 takes minutes at 65,537 blocks a row)."""
+    data = np.random.default_rng([seed, 4]).bytes(nbytes)
+    pieces = [data[o : o + FILER_CHUNK] for o in range(0, len(data), FILER_CHUNK)]
+    runs = []
+    zero_launches()
+    for _ in range(2):
+        b0 = svc.batch_blobs, svc.host_blobs
+        t0 = time.perf_counter()
+        futs = svc.submit_many(pieces)
+        for f in futs:
+            f.wait(300)
+        runs.append((time.perf_counter() - t0, svc.batch_blobs - b0[0], svc.host_blobs - b0[1]))
+        for p, f in zip(pieces, futs):
+            check(f.md5_hex() == hashlib.md5(p).hexdigest(), "chunk ETag != hashlib")
+            check(f.crc == crc.crc32c(p), "chunk CRC != host CRC")
+    launches = read_launches()
+    (cold_s, kernel_chunks, host_chunks), (warm_s, _, _) = runs
+    ragged = len(data) % FILER_CHUNK
+    full = len(data) // FILER_CHUNK
+    check(kernel_chunks == full, "full chunks not hashed by the kernels")
+    check(host_chunks == (1 if ragged else 0), "the ragged last chunk did not take the host")
+
+    x = torch.frombuffer(bytearray(data[: full * FILER_CHUNK]), dtype=torch.uint8)
+    x = x.view(full, FILER_CHUNK).to(dev)
+    got_crc, want_crc = crc32c_batch_kernel(x), crc32c_batch_torch(x)
+    torch.cuda.synchronize()
+    crc_err = int((u32(got_crc) - u32(want_crc)).abs().max())
+    check(crc_err == 0, "crc32c_batch kernel != plain at the chunked shape")
+    got_md5 = md5_batch_kernel(x).cpu().numpy()
+    check(all(got_md5[i].tobytes() == hashlib.md5(pieces[i]).digest() for i in range(full)),
+          "md5_batch kernel != hashlib at the chunked shape")
+    return dict(bytes=len(data), chunks=len(pieces), ragged_bytes=ragged, launches=launches,
+                kernel_chunks=kernel_chunks, host_chunks=host_chunks,
+                cold_s=cold_s, cold_gbps=len(data) / cold_s / 1e9,
+                warm_s=warm_s, warm_gbps=len(data) / warm_s / 1e9, etags_equal_hashlib=True,
+                staged_shape=[full, FILER_CHUNK], crc_kernel_vs_plain_max_abs_err=crc_err,
+                md5_kernel_equal_hashlib=True)
+
+
+# --- phase 7: content-defined chunking ---------------------------------------------
+DEDUP = dict(avg_bits=16, min_size=16 * 1024, max_size=512 * 1024)  # server/filer.py:66-68
+CDC_UPLOAD = 64 * MIB
+
+
+def plain_candidates(dev: torch.device, data: np.ndarray, avg_bits: int,
+                     window: int = 64 * MIB) -> np.ndarray:
+    """Cut candidates of a buffer from the plain gear hashes on the card,
+    computed over windows that carry the 31 bytes before them."""
+    out = []
+    for s in range(0, len(data), window):
+        lo = max(0, s - (cdc.WINDOW - 1))
+        h = cdc.gear_hashes_torch(torch.from_numpy(data[lo : s + window]).to(dev))
+        out.append(cdc.candidates(h[s - lo :], avg_bits) + s)
+    return np.concatenate(out) if out else np.zeros(0, dtype=np.int64)
+
+
+def cdc_phase(dev: torch.device, uploads: int, stream_bytes: int, seed: int) -> dict:
+    rng = np.random.default_rng([seed, 5])
+    kernel_s = 0.0
+    n_cuts = 0
+    for u in range(uploads):
+        data = np.frombuffer(bytearray(rng.bytes(CDC_UPLOAD)), dtype=np.uint8)
+        t0 = time.perf_counter()
+        cuts = cdc.find_boundaries(data, device=dev, **DEDUP)
+        kernel_s += time.perf_counter() - t0
+        plain = cdc.cut_points(plain_candidates(dev, data, DEDUP["avg_bits"]), len(data),
+                               DEDUP["min_size"], DEDUP["max_size"])
+        check(cuts == plain, f"find_boundaries != plain on upload {u}")
+        if u == 0:
+            h = cdc.gear_hashes_numpy(data)
+            mask = np.uint32((1 << DEDUP["avg_bits"]) - 1)
+            oracle = cdc.cut_points(np.nonzero((h & mask) == 0)[0], len(data),
+                                    DEDUP["min_size"], DEDUP["max_size"])
+            check(cuts == oracle, "find_boundaries != the numpy cut rule on upload 0")
+        n_cuts += len(cuts)
+
+    raw = np.random.default_rng([seed, 6]).integers(0, 256, stream_bytes, dtype=np.uint8)
+    pos = 0
+
+    def read(n: int) -> bytes:
+        nonlocal pos
+        piece = raw[pos : pos + n].tobytes()
+        pos += len(piece)
+        return piece
+
+    t0 = time.perf_counter()
+    chunks = list(cdc.chunk_stream(read, device=dev))
+    stream_s = time.perf_counter() - t0
+    ends = [o + n for o, n in chunks]
+    plain = cdc.cut_points(plain_candidates(dev, raw, 13), len(raw), 2048, 65536)
+    check(ends == plain, "chunk_stream != the plain cut rule over the whole stream")
+    total = uploads * CDC_UPLOAD
+    return dict(uploads=uploads, upload_bytes=CDC_UPLOAD, **DEDUP,
+                find_boundaries_s=kernel_s, find_boundaries_gbps=total / kernel_s / 1e9,
+                cuts=n_cuts, mean_chunk=total / n_cuts,
+                stream_bytes=stream_bytes, stream_s=stream_s,
+                stream_gbps=stream_bytes / stream_s / 1e9, stream_chunks=len(chunks),
+                cuts_equal_plain=True, first_upload_equal_numpy=True)
+
+
+WRAPPERS = {
+    "gf256_matmul": gf256_matmul,
+    "crc32c_batch": crc32c_batch_kernel,
+    "md5_batch": md5_batch_kernel,
+    "gear_hash": cdc.gear_hash_kernel,
+}
+KERNEL_ROWS = {  # name -> (source, the JAX device function it replaces, what it computes)
+    "gf256_matmul": ("gf256_matmul.cu", "seaweedfs_tpu/ops/rs_pallas.py:74", "a GF(2^8) matmul"),
+    "crc32c_batch": ("crc32c_batch.cu", "seaweedfs_tpu/ops/crc32c_kernel.py:75", "CRC32C"),
+    "md5_batch": ("md5_batch.cu", "seaweedfs_tpu/ops/md5_kernel.py:36", "MD5"),
+    "gear_hash": ("gear_hash.cu", "seaweedfs_tpu/ops/cdc.py:51", "a gear hash"),
+}
+
+
+def zero_launches() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--volume-mib", type=int, default=1024)
+    ap.add_argument("--upload-blobs", type=int, default=1 << 20)
+    ap.add_argument("--chunked-mib", type=int, default=1024)
+    ap.add_argument("--cdc-uploads", type=int, default=64)
+    ap.add_argument("--stream-mib", type=int, default=1024)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -402,28 +884,60 @@ def main() -> int:
     logs = _build.build()
     for src in _build.SOURCES:
         _build.load(src)
+    # the MD5 bound counts the integer operations of one block as the card
+    # runs them (about 4 a round: LOP3, IADD3, IMAD.IADD, LEA.HI)
+    md5_block = sass_loop_ops(_build.MD5_BATCH, "md5_batch_kernel")
     emit("build", seconds=time.perf_counter() - t0,
          sources=[s.file for s in _build.SOURCES],
          ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-                for k, v in logs.items()})
+                for k, v in logs.items()},
+         md5_block_sass=md5_block)
 
-    kern = kernel_phase(dev, args.seed)
+    timed = {"gf256_matmul": kernel_phase(dev, args.seed)}
+    timed.update(hash_kernel_phase(dev, args.seed, md5_block["ops"]))
 
+    launches = {}
     (REPO / "build").mkdir(exist_ok=True)  # git-ignored scratch beside the checkout
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=REPO / "build")
     try:
         codec = RSCodec(device=dev)
-        gf256_matmul.launches = 0
+        zero_launches()
         torch.cuda.reset_peak_memory_stats()
         res = main_path(work, codec, args.volume_mib * MIB, args.seed)
-        main_launches = gf256_matmul.launches
+        ec = read_launches()
+        launches["gf256_matmul"] = ec["gf256_matmul"]
         res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-        emit("main", launches_total=main_launches, **res)
-        check(main_launches > 0, "the main path launched no kernel")
+        emit("main", launches_total=ec["gf256_matmul"], **res)
+        check(ec["gf256_matmul"] > 0, "the main path launched no kernel")
         emit("profile", **profile_phase(work, codec))
         emit("cols", **cols_phase(work, codec, args.seed))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # the upload hashing paths, each counted over its own run: per-blob
+    # submits, then a chunked upload
+    svc = HashService(device=dev)
+    svc.start()
+    try:
+        up = upload_phase(svc, args.upload_blobs, args.seed)
+        emit("upload", **up)
+        ch = chunked_phase(dev, svc, args.chunked_mib * MIB + 12345, args.seed)
+        emit("chunked", **ch)
+    finally:
+        svc.stop()
+    for name in ("crc32c_batch", "md5_batch"):
+        launches[name] = up["launches"][name] + ch["launches"][name]
+        check(up["launches"][name] > 0, f"the upload path launched no {name} kernel")
+        check(ch["launches"][name] > 0, f"the chunked path launched no {name} kernel")
+    timed["crc32c_batch"]["max_abs_err"] = max(timed["crc32c_batch"]["max_abs_err"],
+                                               ch["crc_kernel_vs_plain_max_abs_err"])
+    check(svc.failed_blobs == 0, "the hash service failed a batch")
+
+    zero_launches()
+    cd = cdc_phase(dev, args.cdc_uploads, args.stream_mib * MIB, args.seed)
+    launches["gear_hash"] = read_launches()["gear_hash"]
+    emit("cdc", launches=launches["gear_hash"], **cd)
+    check(launches["gear_hash"] > 0, "the cdc path launched no gear_hash kernel")
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()
@@ -431,14 +945,17 @@ def main() -> int:
     check(got.shape == (4, 256 * 1024) and np.array_equal(got, want), "entry()")
     emit("entry", shape=list(got.shape), matches_cpu=True)
 
-    print(json.dumps({"kernels": [dict(
-        name="gf256_matmul", route="cuda",
-        source="seaweedfs_tpu_torch/csrc/gf256_matmul.cu",
-        replaces="seaweedfs_tpu/ops/rs_pallas.py:74",
-        launches=main_launches, max_abs_err=kern["max_abs_err"],
-        ms=kern["ms"], plain_ms=kern["plain_ms"], bound_ms=kern["bound_ms"],
-        bound_by=kern["bound_by"], library_ms=None, matches_plain=True,
-    )]}), flush=True)
+    kernels = []
+    for name, (src, replaces, computes) in KERNEL_ROWS.items():
+        k = timed[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"seaweedfs_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=launches[name], max_abs_err=k["max_abs_err"],
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=None,
+            library=f"no single PyTorch call computes {computes}", matches_plain=True,
+        ))
+    print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

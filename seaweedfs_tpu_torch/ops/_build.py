@@ -5,6 +5,9 @@ library with a plain C interface (no PyTorch headers), named by a hash of
 its source and flags, in `seaweedfs_tpu_torch/build/` (git-ignored):
 
   gf256_matmul.cu   nvcc, sm_90a  -> the GF(2^8) shard-matmul CUDA kernel
+  crc32c_batch.cu   nvcc, sm_90a  -> CRC32C of N equal-length blobs
+  md5_batch.cu      nvcc, sm_90a  -> MD5 of N equal-length blobs
+  gear_hash.cu      nvcc, sm_90a  -> gear window hash of every position (CDC)
   crc32c_host.cpp   g++           -> host CRC32C for needle checksums
 
 `build()` starts every missing compile at once (one compiler process per
@@ -38,15 +41,14 @@ class Source:
     flags: tuple[str, ...]
 
 
-GF256_MATMUL = Source(
-    "gf256_matmul",
-    "gf256_matmul.cu",
-    "nvcc",
-    (
-        "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-    ),
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GF256_MATMUL = Source("gf256_matmul", "gf256_matmul.cu", "nvcc", _NVCC_FLAGS)
+CRC32C_BATCH = Source("crc32c_batch", "crc32c_batch.cu", "nvcc", _NVCC_FLAGS)
+MD5_BATCH = Source("md5_batch", "md5_batch.cu", "nvcc", _NVCC_FLAGS)
+GEAR_HASH = Source("gear_hash", "gear_hash.cu", "nvcc", _NVCC_FLAGS)
 CRC32C_HOST = Source(
     "crc32c_host",
     "crc32c_host.cpp",
@@ -54,7 +56,7 @@ CRC32C_HOST = Source(
     ("-O3", "-std=c++17", "-shared", "-fPIC")
     + (("-march=native",) if platform.machine() in ("x86_64", "AMD64") else ()),
 )
-SOURCES = (GF256_MATMUL, CRC32C_HOST)
+SOURCES = (GF256_MATMUL, CRC32C_BATCH, MD5_BATCH, GEAR_HASH, CRC32C_HOST)
 
 
 def _compiler(src: Source) -> str:

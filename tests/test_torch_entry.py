@@ -74,5 +74,11 @@ def test_library_names_follow_sources():
     b = _build.library_path(_build.CRC32C_HOST)
     assert a != b and a.parent == b.parent == _build.BUILD_DIR
     assert a == _build.library_path(_build.GF256_MATMUL)
-    assert "-gencode" in _build.GF256_MATMUL.flags
-    assert "arch=compute_90a,code=sm_90a" in _build.GF256_MATMUL.flags
+    cuda = (_build.GF256_MATMUL, _build.CRC32C_BATCH, _build.MD5_BATCH, _build.GEAR_HASH)
+    assert set(cuda) < set(_build.SOURCES)
+    assert len({_build.library_path(s) for s in _build.SOURCES}) == len(_build.SOURCES)
+    for src in cuda:
+        assert src.compiler == "nvcc" and src.file.endswith(".cu")
+        assert (_build.CSRC_DIR / src.file).is_file()
+        assert "-gencode" in src.flags
+        assert "arch=compute_90a,code=sm_90a" in src.flags
