@@ -16,9 +16,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               at the main path's batch beside its bound
      hash_kernels  crc32c_batch, md5_batch and gear_hash held word for word
               against their plain versions on the card (lengths 0-65536,
-              n = 1, 3, 33, 8192, strided row views; gear over 1 B to
-              64 MiB), a sample against hashlib, the host CRC and the numpy
-              gear oracle, each timed at its path shape beside its bound
+              n = 1 to 8193, strided row views; gear over 1 B to 64 MiB),
+              MD5 against hashlib at 1 MiB + 17, 4 MiB and an unaligned
+              4 MiB + 3 view, a sample against hashlib, the host CRC and
+              the numpy gear oracle; each timed at its paths' shapes
+              (16 x 4 KiB, 8192 x 4 KiB, 256 x 4 MiB; gear 64 MiB) by device
+              time (a CUDA graph of 20 or more launches replayed between events),
+              beside one call's event time, its bound and, for MD5, its
+              dependent chain
   4. main     the EC main path on a volume of --volume-mib (1 GiB) written
               from --seed, at the reference geometry: write_ec_files, parity
               spot checks, rebuild of shards {2,5,11,13}, 256 degraded
@@ -101,26 +106,31 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout
     return out.strip().splitlines()[0]
 
 
-# not arithmetic: memory, branches, special registers, the uniform datapath
-_NOT_COUNTED = ("LD", "ST", "BRA", "EXIT", "NOP", "U", "S2", "CS2", "BAR", "BSSY", "BSYNC")
+# not arithmetic: memory, branches, barriers, special registers, the uniform datapath
+_NOT_COUNTED = ("LD", "ST", "BRA", "EXIT", "NOP", "U", "S2", "CS2", "BAR", "BSSY", "BSYNC",
+                "DEPBAR", "WARPSYNC", "MEMBAR")
+_MOVES = ("MOV", "IMAD.MOV")  # register copies (IMAD.MOV is a move on the integer pipe)
+# one 64-byte MD5 block: 64 rounds of about 4 integer instructions, the
+# state update and the loop (273 on sm_90a)
+MD5_BLOCK_OPS = (200, 400)
 
 
 def sass_loop_ops(src: _build.Source, kernel: str) -> dict:
     """Arithmetic instructions per iteration of one kernel's first loop, read
     from the SASS of its built library (cuobjdump): from the target of the
     first backward branch to that branch, along the path that takes every
-    forward branch inside it. For md5_batch_kernel that is one 64-byte
-    block read with 16-byte loads (the byte-wise load path is jumped over).
-    Memory, branch, special-register, uniform-datapath and NOP instructions
-    are not counted."""
+    forward branch inside it. For md5_batch_kernel (the aligned path; the
+    byte path is md5_batch_bytes_kernel) that is one 64-byte block read
+    from the shared-memory ring. Memory, branch, barrier, special-register,
+    uniform-datapath, move and NOP instructions are not counted."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library_path(src))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
@@ -143,20 +153,20 @@ def sass_loop_ops(src: _build.Source, kernel: str) -> dict:
             words = words[1:]
         op = words[0].split(".")[0]
         target = int(words[1], 16) if op == "BRA" and words[1:2] and words[1].startswith("0x") else None
-        insts[int(addr, 16)] = (op, target)
+        insts[int(addr, 16)] = (op, words[0], target)
     addrs = sorted(insts)
-    back = next(((a, insts[a][1]) for a in addrs
-                 if insts[a][1] is not None and insts[a][1] < a), None)
+    back = next(((a, insts[a][2]) for a in addrs
+                 if insts[a][2] is not None and insts[a][2] < a), None)
     check(back is not None, f"no loop found in the SASS of {kernel}")
     end, pc = back
     nxt = dict(zip(addrs, addrs[1:] + [None]))
     hist = {}
     while pc is not None and pc < end:
-        op, target = insts[pc]
+        op, full, target = insts[pc]
         if op == "BRA" and target is not None and pc < target <= end:
             pc = target
             continue
-        if not op.startswith(_NOT_COUNTED):
+        if not op.startswith(_NOT_COUNTED) and not full.startswith(_MOVES):
             hist[op] = hist.get(op, 0) + 1
         pc = nxt[pc]
     return {"ops": sum(hist.values()), "opcodes": dict(sorted(hist.items(), key=lambda kv: -kv[1])),
@@ -184,8 +194,10 @@ def bound_ms(rows: int, cols: int, columns: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_cuda(fn, warmup: int = 5, reps: int = 20) -> float:
-    """Median milliseconds of fn() over reps launches, by CUDA events."""
+def call_ms(fn, warmup: int = 5, reps: int = 20) -> float:
+    """Median milliseconds of one fn() call between two CUDA events: what a
+    caller pays, the wrapper's host work included when it outlasts the
+    device's."""
     for _ in range(warmup):
         fn()
     times = []
@@ -197,6 +209,37 @@ def time_cuda(fn, warmup: int = 5, reps: int = 20) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3, replays: int = 3) -> float:
+    """Device milliseconds of one launch: fn() captured reps times into one
+    CUDA graph, the graph replayed between two CUDA events, the median
+    replay over reps. The wrapper's host work runs once, at capture, so
+    the launches run back to back on the device: what is timed is the
+    kernels and the graph's gaps between them. (torch.profiler's kernel
+    times missed every launch of whole sessions on the H100 host.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm caches and builds off the capture
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -260,23 +303,40 @@ def kernel_phase(dev: torch.device, seed: int) -> dict:
         cases += 1
 
     # time at the encode batch: 320 MiB in, 128 MiB out, cold in L2 (50 MB)
-    ms = time_cuda(lambda: gf256_matmul(parity, batch))
+    ms = device_ms(lambda: gf256_matmul(parity, batch))
+    c_ms = call_ms(lambda: gf256_matmul(parity, batch))
     x2 = batch.permute(1, 0, 2).reshape(10, -1)
-    plain_ms = time_cuda(lambda: gf_matmul_torch(parity, x2), warmup=1, reps=3)
+    plain_ms = call_ms(lambda: gf_matmul_torch(parity, x2), warmup=1, reps=3)
     b_ms, b_by = bound_ms(4, 10, 32 * MIB)
     emit("kernel", cases=cases, max_abs_err=max_err, shape=[32, 10, MIB],
-         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+         ms=ms, call_ms=c_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
          kernel_gbps=(14 * 32 * MIB) / ms / 1e6, bound_share=b_ms / ms,
          library_ms=None, library="no single PyTorch call computes a GF(2^8) matmul")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=max_err, ms=ms, call_ms=c_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, shape=[32, 10, MIB])
 
 
 # --- hash kernels vs plain ------------------------------------------------------
-HASH_LENGTHS = (0, 1, 7, 55, 56, 63, 64, 65, 4096, 4097, 65536)
-HASH_NS = (1, 3, 33, 8192)
+HASH_LENGTHS = (0, 1, 7, 55, 56, 63, 64, 65, 191, 193, 4096, 4097, 65536)
+# 16 and 8193 are not multiples of a block's blobs; 1057 = 132 x 8 + 1
+HASH_NS = (1, 3, 16, 33, 1057, 8192, 8193)
+# lengths whose plain MD5 (a Python loop over 64-byte blocks) would take
+# minutes: hashlib stands in for it there
+LONG_LENGTHS = (MIB + 17, 4 * MIB)
+LONG_NS = (1, 3, 33)
 GEAR_NS = (1, 31, 32, 33, MIB + 3, 64 * MIB)
-PATH_BLOBS, PATH_LEN = 8192, 4096  # the service's full batch of 4 KiB blobs
+# the hash paths' shapes: upload at the filer's load (16 submitters), the
+# service's full batch (_MAX_BATCH), the chunked path's 4 MiB chunks
+HASH_SHAPES = ((16, 4096), (8192, 4096), (256, 4 * MIB))
 GEAR_PATH = 64 * MIB  # one upload of the cdc phase
+ROTATE_BYTES = 64 * MIB  # timed inputs rotate over more than the 50 MB L2
+# MD5's dependent chain: a round is 4 dependent instructions on sm_90 (LOP3
+# -> IADD3 -> IMAD.IADD -> LEA.HI, read from the kernel's SASS), each
+# assumed to take 4 cycles before the next can issue (not published), at
+# the 1.98 GHz boost clock
+MD5_CHAIN_DEPS, MD5_CHAIN_CYCLES, SM_CLOCK_HZ = 4, 4, 1.98e9
+MD5_CHAIN_ASSUMPTION = ("padded blocks x 64 rounds x 4 dependent instructions (SASS) x 4 cycles "
+                        "each (assumed, not published) / 1.98 GHz")
 
 
 def u32(t: torch.Tensor) -> torch.Tensor:
@@ -347,6 +407,25 @@ def hash_kernel_phase(dev: torch.device, seed: int, md5_ops_per_block: int) -> d
         agree("crc32c_batch", crc32c_batch_kernel(view), crc32c_batch_torch(view),
               f"view L={length} stride={wide.stride(0)}")
 
+    def against_hashlib(x: torch.Tensor, what: str) -> None:
+        got = md5_batch_kernel(x).cpu().numpy()
+        host = x.cpu().numpy()
+        st = stats["md5_batch"]
+        st["cases"] += 1
+        check(all(got[i].tobytes() == hashlib.md5(host[i].tobytes()).digest()
+                  for i in range(len(host))), f"md5_batch kernel != hashlib for {what}")
+        agree("crc32c_batch", crc32c_batch_kernel(x), crc32c_batch_torch(x), what)
+
+    # lengths past the staging rings, and an unaligned view of 4 MiB + 3
+    for length in LONG_LENGTHS:
+        whole = rand((sum(LONG_NS), length))
+        r0 = 0
+        for n in LONG_NS:
+            against_hashlib(whole[r0 : r0 + n], f"L={length} n={n}")
+            r0 += n
+    wide = rand((3, 4 * MIB + 3 + 13))
+    against_hashlib(wide[:, 5 : 5 + 4 * MIB + 3], "view L=4 MiB + 3 at offset 5")
+
     for n in GEAR_NS:
         x = rand((n,))
         agree("gear_hash", cdc.gear_hash_kernel(x), cdc.gear_hashes_torch(x), f"n={n}")
@@ -357,35 +436,58 @@ def hash_kernel_phase(dev: torch.device, seed: int, md5_ops_per_block: int) -> d
             y = x[1:]  # an odd start: the kernel's byte path for every tile
             agree("gear_hash", cdc.gear_hash_kernel(y), cdc.gear_hashes_torch(y), "offset 1")
 
-    # time each kernel at its path shape; inputs rotate over more than the
-    # 50 MB L2 so every launch reads from device memory
-    blobs = [rand((PATH_BLOBS, PATH_LEN)) for _ in range(4)]
-    cyc = itertools.cycle(blobs)
-    n, length = PATH_BLOBS, PATH_LEN
-    out = {}
-    out["crc32c_batch"] = dict(
-        ms=time_cuda(lambda: crc32c_batch_kernel(next(cyc))),
-        plain_ms=time_cuda(lambda: crc32c_batch_torch(blobs[0]), warmup=1, reps=3),
-        bound=hash_bound_ms(n * length + 4 * n, TABLE_OPS_PER_BYTE * n * length),
-        shape=[n, length])
-    out["md5_batch"] = dict(
-        ms=time_cuda(lambda: md5_batch_kernel(next(cyc))),
-        plain_ms=time_cuda(lambda: md5_batch_torch(blobs[0]), warmup=0, reps=1),
-        bound=hash_bound_ms(n * length + 16 * n,
-                            md5_ops_per_block * n * (_pad_len(length) // 64)),
-        shape=[n, length])
+    # time each kernel at its paths' shapes: device time of a CUDA graph of
+    # launches (the row's ms) beside one call's event time (call_ms); inputs
+    # rotate over more than the 50 MB L2, so every launch reads device memory
+    shapes = {"crc32c_batch": [], "md5_batch": []}
+    chain_ms = {}
+    for n, length in HASH_SHAPES:
+        per = n * length
+        views = max(2, -(-ROTATE_BYTES // per) + 1)
+        pool = rand((views * n, length))
+        cyc = itertools.cycle([pool[i * n : (i + 1) * n] for i in range(views)])
+        x0 = pool[:n]
+        blocks = _pad_len(length) // 64
+        # the graph holds a launch per input, so that its replay reads them all
+        reps = max(20, views)
+        b_ms, b_by = hash_bound_ms(per + 4 * n, TABLE_OPS_PER_BYTE * per)
+        shapes["crc32c_batch"].append(dict(
+            shape=[n, length], ms=device_ms(lambda: crc32c_batch_kernel(next(cyc)), reps=reps),
+            call_ms=call_ms(lambda: crc32c_batch_kernel(next(cyc))),
+            plain_ms=call_ms(lambda: crc32c_batch_torch(x0), warmup=1, reps=3),
+            bound_ms=b_ms, bound_by=b_by))
+        b_ms, b_by = hash_bound_ms(per + 16 * n, md5_ops_per_block * n * blocks)
+        shapes["md5_batch"].append(dict(
+            shape=[n, length],
+            ms=device_ms(lambda: md5_batch_kernel(next(cyc)), reps=reps, warmup=1),
+            call_ms=call_ms(lambda: md5_batch_kernel(next(cyc)), warmup=1),
+            # the plain MD5 loops over blocks in Python: minutes at 4 MiB
+            plain_ms=(call_ms(lambda: md5_batch_torch(x0), warmup=0, reps=1)
+                      if length <= 4096 else None),
+            bound_ms=b_ms, bound_by=b_by))
+        chain_ms[f"{n}x{length}"] = blocks * 64 * MD5_CHAIN_DEPS * MD5_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+        del pool, cyc, x0
     data = rand((GEAR_PATH,))
-    out["gear_hash"] = dict(
-        ms=time_cuda(lambda: cdc.gear_hash_kernel(data)),
-        plain_ms=time_cuda(lambda: cdc.gear_hashes_torch(data), warmup=1, reps=3),
-        bound=hash_bound_ms(5 * GEAR_PATH, TABLE_OPS_PER_BYTE * GEAR_PATH),
-        shape=[GEAR_PATH])
+    b_ms, b_by = hash_bound_ms(5 * GEAR_PATH, TABLE_OPS_PER_BYTE * GEAR_PATH)
+    out = {"gear_hash": dict(
+        shape=[GEAR_PATH], ms=device_ms(lambda: cdc.gear_hash_kernel(data)),
+        call_ms=call_ms(lambda: cdc.gear_hash_kernel(data)),
+        plain_ms=call_ms(lambda: cdc.gear_hashes_torch(data), warmup=1, reps=3),
+        bound_ms=b_ms, bound_by=b_by)}
+    # a hash kernel's row carries the upload path's shape (its launches are
+    # nearly all there) and every shape under "shapes"
+    for name, rows in shapes.items():
+        out[name] = dict(rows[0], shapes=rows)
     for name, o in out.items():
-        b_ms, b_by = o.pop("bound")
-        o.update(stats[name], bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / o["ms"])
+        o.update(stats[name])
+    # the phase line adds what the kernels line leaves out: each shape's
+    # bound share and MD5's chain model
+    shares = {name: {"x".join(map(str, r["shape"])): r["bound_ms"] / r["ms"]
+                     for r in o.get("shapes", [o])} for name, o in out.items()}
     emit("hash_kernels", sampled_vs_hashlib=sampled, int32_ops_per_s=INT32_OPS_PER_S,
-         library_ms=None,
-         library="no single PyTorch call computes CRC32C, MD5 or a gear hash", **out)
+         bound_share=shares, md5_chain_ms=chain_ms, md5_chain=MD5_CHAIN_ASSUMPTION,
+         library_ms=None, library="no single PyTorch call computes CRC32C, MD5 or a gear hash",
+         **out)
     return out
 
 
@@ -694,24 +796,29 @@ def upload_phase(svc: HashService, n_blobs: int, seed: int) -> dict:
         torch.cuda.synchronize()
     for res, ref in zip(again["results"], run["results"]):
         check(res == ref[: len(res)], "the profiled upload's hashes differ")
-    us = {"md5": 0.0, "crc": 0.0, "h2d": 0.0, "d2h": 0.0}
+    # a batch is one pinned copy in, one launch of each kernel and two copies
+    # out. The profiler may drop events on the card's host, so each kind's
+    # time is its mean over the events seen times the events the window made
+    nb = len(again["batches"])
+    made = {"md5": nb, "crc": nb, "h2d": nb, "d2h": 2 * nb}
+    us = dict.fromkeys(made, 0.0)
+    seen = dict.fromkeys(made, 0)
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-        if "md5_batch_kernel" in e.key:
-            us["md5"] += t
-        elif "crc32c_batch_kernel" in e.key:
-            us["crc"] += t
-        elif "HtoD" in e.key:
-            us["h2d"] += t
-        elif "DtoH" in e.key:
-            us["d2h"] += t
-    check(us["md5"] > 0 and us["crc"] > 0, "the profiler saw no hash kernel time")
-    busy = sum(us.values()) / 1e6 / again["wall"]
+        kind = next((k for k, key in (("md5", "md5_batch_kernel"), ("crc", "crc32c_batch_kernel"),
+                                      ("h2d", "HtoD"), ("d2h", "DtoH")) if key in e.key), None)
+        if kind:
+            us[kind] += t
+            seen[kind] += e.count
+    check(all(0 < seen[k] <= made[k] for k in made),
+          f"the profiler saw {seen} of the window's {made} events")
+    per = {k: us[k] / seen[k] for k in made}
+    busy = sum(per[k] * made[k] for k in made) / 1e6 / again["wall"]
     profiled = dict(blobs=sum(len(h) for h in head), seconds=again["wall"],
                     blobs_per_s=sum(len(h) for h in head) / again["wall"],
-                    batches=len(again["batches"]),
-                    md5_us_per_batch=us["md5"] / max(1, len(again["batches"])),
-                    **{f"{k}_ms": v / 1e3 for k, v in us.items()},
+                    batches=nb, profiler_events=seen, window_events=made,
+                    md5_us_per_batch=per["md5"], crc_us_per_batch=per["crc"],
+                    **{f"{k}_ms": per[k] * made[k] / 1e3 for k in made},
                     device_busy_share=busy, device_idle_share=1 - busy)
     sizes = np.array([b for b, _ in batches])
     return dict(blobs=n_blobs, blob_bytes=BLOB, threads=UPLOAD_THREADS, in_flight_per_thread=1,
@@ -877,8 +984,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
+    # the MD5 chain model assumes a 1.98 GHz SM clock; the card's maximum is
+    # printed beside the name
     emit("device", nvidia_smi=smi, name=kind, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
+         sm_clock_max=nvidia_smi("clocks.max.sm"), torch=torch.__version__,
+         cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -887,6 +997,11 @@ def main() -> int:
     # the MD5 bound counts the integer operations of one block as the card
     # runs them (about 4 a round: LOP3, IADD3, IMAD.IADD, LEA.HI)
     md5_block = sass_loop_ops(_build.MD5_BATCH, "md5_batch_kernel")
+    # a pipelined loop may move the first backward branch: it must still
+    # span one 64-byte block (64 rounds), or the bound would change meaning
+    check(MD5_BLOCK_OPS[0] <= md5_block["ops"] <= MD5_BLOCK_OPS[1],
+          f"md5_batch_kernel's first loop holds {md5_block['ops']} integer instructions, "
+          f"not one 64-byte block ({MD5_BLOCK_OPS[0]}-{MD5_BLOCK_OPS[1]})")
     emit("build", seconds=time.perf_counter() - t0,
          sources=[s.file for s in _build.SOURCES],
          ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
@@ -954,6 +1069,8 @@ def main() -> int:
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None,
             library=f"no single PyTorch call computes {computes}", matches_plain=True,
+            shape=k["shape"], call_ms=k["call_ms"],
+            **({"shapes": k["shapes"]} if "shapes" in k else {}),
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

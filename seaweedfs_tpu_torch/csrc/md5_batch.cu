@@ -6,24 +6,37 @@
 // (64 rounds per block under lax.scan) after concatenating a padded copy of
 // the blobs on the device.
 //
-// Bound: bytes, narrowly. sm_90 runs a round in 4 integer instructions
-// (LOP3 for the boolean function, IADD3 and IMAD.IADD for a + f + K + m,
-// LEA.HI for the rotate and the + b together), about 265 per 64-byte block
-// with the state update and the loop, so at the card's 32-bit integer rate
-// (64 per clock per SM) the operations take a little less time than
-// reading the bytes. MD5 is sequential within a blob, so the only
-// parallelism is across blobs: one thread per blob. The rounds
-// are unrolled, the constants sit in __constant__ memory (a warp reads the
-// same one, so it broadcasts), the rotates are __funnelshift_l, and each
-// round's message word is a register. A round is a chain of dependent
-// operations, so a thread runs at the latency of that chain; only many
-// blobs in flight fill the card, and a batch of 8192 blobs is 256 warps on
-// 528 schedulers: the card stays far from its integer rate at that size.
+// Bound: the dependent chain. MD5 is sequential within a blob: each of a
+// block's 64 rounds needs the one before, and on sm_90 a round is 4
+// dependent integer instructions (LOP3 for the boolean function, IADD3 and
+// IMAD.IADD for a + f + K + m, LEA.HI for the rotate and the + b together).
+// At a few cycles each, one 64-byte block takes about a thousand cycles
+// whatever the card does, so no design beats blocks x 64 x 4 dependent
+// issues. The bytes (N*L over 3.35 TB/s) and the integer operations (about
+// 265 a block at 64 a clock per SM) bound it only when far more blobs than
+// the card has schedulers are hashed at once.
 //
-// Full blocks are read in place (16-byte loads when the rows are aligned,
-// bytes otherwise); the last one or two blocks, with the 0x80 byte, the
-// zeros and the 64-bit bit length, are built in registers. No padded copy
-// of the blobs is made.
+// What the design does about it: one thread per blob (the only parallelism
+// there is) and nothing else on the chain. Loading a block's 16 words at
+// the top of its iteration would make every block wait one memory round
+// trip (about 730 cycles) before its first round. So each warp owns 32 blobs and a ring of kStages blocks per blob in shared memory,
+// filled by cp.async: while a block's rounds run, the next kStages - 1
+// blocks of all 32 blobs are in flight. The warp fetches cooperatively:
+// lane l copies 16-byte piece l % 4 of blob l / 4 + 8q (q = 0..3), so each
+// copy instruction moves 8 whole 64-byte blocks. A 16-byte copy needs a
+// 16-byte aligned destination, so the layout is not padded but swizzled:
+// piece p of blob b sits in slot 4b + (p ^ ((b >> 1) & 3)), and the 8 lanes
+// of each quarter-warp that read piece p of their blobs with one 16-byte
+// load hit 8 different groups of 4 banks. Blocks are one warp each, so a
+// batch spreads over ceil(N / 32) SMs' schedulers (the chunked path's 256
+// blobs run on 8 SMs).
+//
+// The rounds are unrolled, K sits in __constant__ memory (a warp reads the
+// same one, so it broadcasts), the rotates are __funnelshift_l. The last
+// one or two blocks, with the 0x80 byte, the zeros and the 64-bit bit
+// length, are built in registers; no padded copy of the blobs is made.
+// Rows that are not 16-byte aligned (a view at an odd offset) take
+// md5_batch_bytes_kernel, which reads each block byte by byte in place.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns cudaGetLastError() (0 = launched).
@@ -33,7 +46,9 @@
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kBlobs = 32;   // blobs per warp, one per lane; blocks are one warp
+constexpr int kStages = 4;   // the block being hashed and three ahead, per blob
+constexpr int kPieces = 4;   // 16-byte pieces of a 64-byte block
 
 __constant__ uint32_t kK[64] = {
     0xd76aa478u, 0xe8c7b756u, 0x242070dbu, 0xc1bdceeeu,
@@ -94,40 +109,13 @@ __device__ __forceinline__ void md5_block(uint32_t s[4], const uint32_t m[16]) {
     s[3] += d;
 }
 
-__global__ void __launch_bounds__(kThreads)
-md5_batch_kernel(const uint8_t* __restrict__ x, long long stride, long long n, long long len,
-                 uint8_t* __restrict__ out, int vec) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const uint8_t* row = x + i * stride;
-    uint32_t s[4] = {0x67452301u, 0xefcdab89u, 0x98badcfeu, 0x10325476u};
-    uint32_t m[16];
-    const long long full = len / 64;
-    for (long long blk = 0; blk < full; ++blk) {
-        const uint8_t* p = row + blk * 64;
-        if (vec) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const uint4 v = reinterpret_cast<const uint4*>(p)[q];
-                m[4 * q] = v.x;
-                m[4 * q + 1] = v.y;
-                m[4 * q + 2] = v.z;
-                m[4 * q + 3] = v.w;
-            }
-        } else {
-#pragma unroll
-            for (int w = 0; w < 16; ++w)
-                m[w] = (uint32_t)p[4 * w] | (uint32_t)p[4 * w + 1] << 8 |
-                       (uint32_t)p[4 * w + 2] << 16 | (uint32_t)p[4 * w + 3] << 24;
-        }
-        md5_block(s, m);
-    }
-    // the last L % 64 bytes, 0x80, zeros and the bit length: one block, or
-    // two when fewer than 8 bytes are left for the length
-    const int r = (int)(len - full * 64);
-    const uint8_t* p = row + full * 64;
+// the last len % 64 bytes at p, 0x80, zeros and the bit length: one block,
+// or two when fewer than 8 bytes are left for the length
+__device__ __forceinline__ void md5_tail(uint32_t s[4], const uint8_t* p, long long len) {
+    const int r = (int)(len & 63);
     const int tail_blocks = r < 56 ? 1 : 2;
     const unsigned long long bits = (unsigned long long)len * 8ull;
+    uint32_t m[16];
     for (int e = 0; e < tail_blocks; ++e) {
 #pragma unroll
         for (int w = 0; w < 16; ++w) m[w] = 0;
@@ -146,6 +134,104 @@ md5_batch_kernel(const uint8_t* __restrict__ x, long long stride, long long n, l
         }
         md5_block(s, m);
     }
+}
+
+__device__ __forceinline__ int slot_of(int blob, int piece) {
+    return blob * kPieces + (piece ^ ((blob >> 1) & 3));
+}
+
+__device__ __forceinline__ void cp_async16(uint4* dst, const void* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every copy group but the newest kStages - 1 has landed
+__device__ __forceinline__ void cp_async_wait_oldest() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+}
+
+// rows 16-byte aligned: blocks staged through the per-warp cp.async ring
+__global__ void __launch_bounds__(kBlobs)
+md5_batch_kernel(const uint8_t* __restrict__ x, long long stride, long long n, long long len,
+                 uint8_t* __restrict__ out) {
+    __shared__ uint4 ring[kStages][kBlobs * kPieces];
+    const int lane = threadIdx.x;
+    const long long first = (long long)blockIdx.x * kBlobs;
+    const long long full = len / 64;
+
+    // this lane's four copies of each block: piece lane % 4 of blobs lane / 4 + 8q
+    const int piece = lane & 3;
+    const uint8_t* src[4];
+    int dst[4];
+    bool live[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int b = (lane >> 2) + 8 * q;
+        live[q] = first + b < n;
+        src[q] = x + (live[q] ? (first + b) * stride : 0) + 16 * piece;
+        dst[q] = slot_of(b, piece);
+    }
+    // one commit group per block, empty past the last full block, so that
+    // the wait below always leaves exactly kStages - 1 groups in flight
+    auto fetch = [&](long long blk) {
+        if (blk < full) {
+            uint4* stage = ring[blk & (kStages - 1)];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                if (live[q]) cp_async16(stage + dst[q], src[q] + blk * 64);
+        }
+        cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) fetch(s);
+
+    uint32_t s[4] = {0x67452301u, 0xefcdab89u, 0x98badcfeu, 0x10325476u};
+    for (long long blk = 0; blk < full; ++blk) {
+        __syncwarp();  // every lane has read the stage the next fetch refills
+        fetch(blk + kStages - 1);
+        cp_async_wait_oldest();  // this lane's copies of block blk have landed
+        __syncwarp();            // and so have every other lane's
+        const uint4* stage = ring[blk & (kStages - 1)];
+        uint32_t m[16];
+#pragma unroll
+        for (int p = 0; p < kPieces; ++p) {
+            const uint4 v = stage[slot_of(lane, p)];
+            m[4 * p] = v.x;
+            m[4 * p + 1] = v.y;
+            m[4 * p + 2] = v.z;
+            m[4 * p + 3] = v.w;
+        }
+        md5_block(s, m);
+    }
+    const long long i = first + lane;
+    if (i >= n) return;
+    md5_tail(s, x + i * stride + full * 64, len);
+    reinterpret_cast<uint4*>(out)[i] = make_uint4(s[0], s[1], s[2], s[3]);
+}
+
+// rows at any byte offset: each block read byte by byte in place
+__global__ void __launch_bounds__(kBlobs)
+md5_batch_bytes_kernel(const uint8_t* __restrict__ x, long long stride, long long n,
+                       long long len, uint8_t* __restrict__ out) {
+    const long long i = (long long)blockIdx.x * kBlobs + threadIdx.x;
+    if (i >= n) return;
+    const uint8_t* row = x + i * stride;
+    uint32_t s[4] = {0x67452301u, 0xefcdab89u, 0x98badcfeu, 0x10325476u};
+    uint32_t m[16];
+    const long long full = len / 64;
+    for (long long blk = 0; blk < full; ++blk) {
+        const uint8_t* p = row + blk * 64;
+#pragma unroll
+        for (int w = 0; w < 16; ++w)
+            m[w] = (uint32_t)p[4 * w] | (uint32_t)p[4 * w + 1] << 8 |
+                   (uint32_t)p[4 * w + 2] << 16 | (uint32_t)p[4 * w + 3] << 24;
+        md5_block(s, m);
+    }
+    md5_tail(s, row + full * 64, len);
     reinterpret_cast<uint4*>(out)[i] = make_uint4(s[0], s[1], s[2], s[3]);
 }
 
@@ -155,10 +241,14 @@ extern "C" int md5_batch(const void* x, long long stride, long long n, long long
                          void* stream) {
     if (n <= 0) return 0;
     if (len < 0 || ((uintptr_t)out % 16) != 0) return (int)cudaErrorInvalidValue;
-    const int vec = ((uintptr_t)x % 16 == 0) && (n == 1 || stride % 16 == 0);
-    const long long blocks = (n + kThreads - 1) / kThreads;
+    const long long blocks = (n + kBlobs - 1) / kBlobs;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-    md5_batch_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)x, stride, n, len, (uint8_t*)out, vec);
+    const bool aligned = ((uintptr_t)x % 16 == 0) && (n == 1 || stride % 16 == 0);
+    if (aligned)
+        md5_batch_kernel<<<(unsigned)blocks, kBlobs, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)x, stride, n, len, (uint8_t*)out);
+    else
+        md5_batch_bytes_kernel<<<(unsigned)blocks, kBlobs, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)x, stride, n, len, (uint8_t*)out);
     return (int)cudaGetLastError();
 }

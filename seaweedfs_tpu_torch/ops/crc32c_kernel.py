@@ -10,10 +10,12 @@ k. The host algebra below (`_byte_step_matrix`, `_block_matrix`,
 `crc32c_batch_kernel` is the wrapper of the hand-written kernel
 `csrc/crc32c_batch.cu` (it replaces the JAX device function
 `crc32c_kernel.py::_compiled_batch`, a bit-matrix product on the MXU). The
-kernel keeps the affine structure but not the bit form: one warp per blob,
-each lane the register-only CRC of a 1/32 segment by slice-by-8 tables,
-carried to the end of the blob by `A^(bytes after it)` (`_lane_columns`),
-XOR-reduced across the warp, then XOR `crc(0^L)`. For a CUDA tensor the
+kernel keeps the affine structure but not the bit form: a blob is cut into
+`crc_warps(n, L)` spans, one warp each; lane j of a warp takes the 16-byte
+pieces j, j + 32, ... of its span (coalesced loads) and advances its
+register-only CRC by 512 bytes a piece with 16 tables (`_piece_tables`).
+Lanes fold into their warp and warps into the blob by host-built columns
+of A^e (`_fold_columns`, e may be negative), then XOR `crc(0^L)`. For a CUDA tensor the
 wrapper launches the kernel or raises; for a tensor on the CPU it runs
 `crc32c_batch_torch`, the plain version. Nothing else is chosen.
 
@@ -176,57 +178,170 @@ def crc32c_batch_torch(blocks: torch.Tensor) -> torch.Tensor:
 
 
 # --- the kernel -------------------------------------------------------------
-def _slice8_tables() -> np.ndarray:
-    """(8, 256) uint32: table t advances a byte through t further zero
-    bytes, as the host library's slice-by-8."""
-    t = np.zeros((8, 256), dtype=np.uint32)
+# The kernel's layout: a blob is cut into `warps` spans of `span` bytes (a
+# multiple of STRIDE; the last span may be short or empty). In a span, lane
+# j takes the 16-byte pieces j, j + 32, j + 64, ..., so a warp's load is
+# STRIDE contiguous bytes. A lane's register-only CRC advances by STRIDE
+# bytes a piece: its piece, then the 496 bytes of the other lanes' pieces
+# as zeros (`_piece_tables`). Lanes fold into their warp with the level-1
+# columns (to the end of the warp's span), warps into the blob with the
+# level-2 columns (to the end of the blob): `_fold_columns`.
+PIECE = 16
+STRIDE = 32 * PIECE
+SMS = 132  # an H100 SXM's streaming multiprocessors
+# warps per blob grow until the batch has this many (16 warps a SM) or a
+# warp's span would fall under MIN_SPAN bytes
+TARGET_WARPS = SMS * 16
+MIN_SPAN = 1024
+# a block holds max(warps, BLOCK_WARPS) warps: whole blobs, so tables and
+# columns are staged once for several small blobs
+BLOCK_WARPS = 8
+# threads a SM holds at once, whatever the block size: __launch_bounds__(1024)
+# keeps registers at 64 a thread or fewer, and four blocks' 28.8 KB of shared
+# memory fit; the grid is capped at SMS times this
+RESIDENT_THREADS = 1024
+
+
+def _advance_tables(count: int) -> np.ndarray:
+    """(count, 256) uint32: row m is the register-only CRC of byte v
+    followed by m zero bytes. Rows 0-7 are the host library's slice-by-8."""
+    t = np.zeros((count, 256), dtype=np.uint32)
     for i in range(256):
         c = i
         for _ in range(8):
             c = (c >> 1) ^ (_POLY if c & 1 else 0)
         t[0, i] = c
-    for j in range(1, 8):
+    for j in range(1, count):
         t[j] = (t[j - 1] >> 8) ^ t[0, t[j - 1] & 0xFF]
     return t
 
 
-def lane_segment(length: int) -> int:
-    """Bytes per lane: ceil(L / 32) rounded up to 16, so every lane's
-    segment starts 16-byte aligned within the blob."""
-    per_lane = -(-length // 32)
-    return max(16, -(-per_lane // 16) * 16)
+@functools.lru_cache(maxsize=1)
+def _piece_tables() -> np.ndarray:
+    """(16, 256) uint32: table k advances byte k of a 16-byte piece through
+    the rest of the piece and the STRIDE - PIECE zero bytes after it, so
+    r' = XOR_k table[k][byte k of (piece ^ r)] moves a lane by STRIDE."""
+    return _advance_tables(STRIDE)[STRIDE - 1 : STRIDE - 1 - PIECE : -1].copy()
+
+
+def crc_warps(n: int, length: int) -> int:
+    """Warps per blob for a batch of n blobs of `length` bytes: one,
+    doubled up to 32 while the batch has fewer than TARGET_WARPS warps and
+    each span keeps at least MIN_SPAN bytes."""
+    warps = 1
+    while warps < 32 and n * warps < TARGET_WARPS and length >= 2 * warps * MIN_SPAN:
+        warps *= 2
+    return warps
+
+
+def crc_span(length: int, warps: int) -> int:
+    """Bytes of each warp's span: length / warps rounded up to STRIDE."""
+    return max(STRIDE, -(-length // (warps * STRIDE)) * STRIDE)
+
+
+def crc_grid(n: int, warps: int) -> tuple[int, int]:
+    """(threads a block, blocks) of a launch over n blobs of `warps` warps.
+    Blocks loop over groups of whole blobs; the grid is capped at what the
+    card holds at once, then cut to the fewest blocks that take the same
+    number of rounds over the groups."""
+    threads = 32 * max(warps, BLOCK_WARPS)
+    groups = -(-n // (threads // 32 // warps))
+    rounds = -(-groups // (SMS * RESIDENT_THREADS // threads))
+    return threads, -(-groups // rounds)
+
+
+@functools.lru_cache(maxsize=1)
+def _inverse_step_matrix() -> bytes:
+    """A^-1 over GF(2), by Gauss-Jordan elimination: it carries a state
+    back over a zero byte (A is invertible: the polynomial's x^0 term is 1)."""
+    a = np.frombuffer(_byte_step_matrix(), dtype=np.uint8).reshape(32, 32)
+    aug = np.concatenate([a.copy(), np.eye(32, dtype=np.uint8)], axis=1)
+    for col in range(32):
+        pivot = col + int(np.nonzero(aug[col:, col])[0][0])
+        aug[[col, pivot]] = aug[[pivot, col]]
+        for row in np.nonzero(aug[:, col])[0]:
+            if row != col:
+                aug[row] ^= aug[col]
+    return aug[:, 32:].tobytes()
+
+
+def _signed_power_matrix(e: int) -> np.ndarray:
+    """A^e for any integer e: a negative power undoes zero bytes that a
+    lane's last piece ran past the end of its span."""
+    if e >= 0:
+        return np.frombuffer(_power_matrix(e), dtype=np.uint8).reshape(32, 32)
+    inv = np.frombuffer(_inverse_step_matrix(), dtype=np.uint8).reshape(32, 32)
+    result = np.eye(32, dtype=np.uint8)
+    k = -e
+    while k:
+        if k & 1:
+            result = _matmul2(result, inv)
+        inv = _matmul2(inv, inv)
+        k >>= 1
+    return result
+
+
+def _columns(m: np.ndarray) -> np.ndarray:
+    """(32,) uint32: column k of a GF(2) matrix, bit i = m[i, k]."""
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    return (m.astype(np.uint64) * weights[:, None]).sum(0).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=1)
+def _full_span_columns() -> np.ndarray:
+    """(32, 32) uint32: lane j of a full span, A^-16j: its last piece's
+    window runs 16j bytes past the span's end."""
+    back = _signed_power_matrix(-PIECE)
+    cols = np.zeros((32, 32), dtype=np.uint32)
+    m = np.eye(32, dtype=np.uint8)
+    for lane in range(32):
+        cols[lane] = _columns(m)
+        m = _matmul2(m, back)
+    return cols
 
 
 @functools.lru_cache(maxsize=64)
-def _lane_columns(length: int) -> np.ndarray:
-    """(32 lanes, 32) uint32: column i of A^(bytes after lane's segment),
-    which carries a lane's register-only CRC to the end of the blob. Lanes
-    are walked from the last: each earlier lane's power is the next one's
-    times A^seg."""
-    seg = lane_segment(length)
-    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
-    step = np.frombuffer(_power_matrix(seg), dtype=np.uint8).reshape(32, 32)
-    cols = np.zeros((32, 32), dtype=np.uint32)
-    prev = 0  # bytes after the lane walked before
-    for lane in range(31, -1, -1):
-        after = length - min((lane + 1) * seg, length)
-        if prev == 0:  # the lane holding the blob's end, or one past it
-            p = np.frombuffer(_power_matrix(after), dtype=np.uint8).reshape(32, 32)
-        else:  # a full lane: seg more bytes after it than after the next
-            p = _matmul2(p, step)
-        prev = after
-        cols[lane] = (p.astype(np.uint64) * weights[:, None]).sum(0).astype(np.uint32)
+def _fold_columns(length: int, warps: int) -> np.ndarray:
+    """(64 + warps, 32) uint32 columns of the kernel's two-level fold.
+    Rows 0-31: lane j of a full span (`_full_span_columns`). Rows 32-63:
+    lane j of the blob's last span, A^(L - end of its window), its window
+    ending one STRIDE past the start of its last piece (a partial last
+    piece is read with zeros past the blob's end); 0 for a lane with no
+    piece. Rows 64 + w: warp w, A^(L - end of its span), 0 for an empty
+    span. Each run of exponents steps by a constant, so the powers are
+    walked one product at a time."""
+    span = crc_span(length, warps)
+    last = (length - 1) // span
+    start = last * span
+    pieces = -(-(length - start) // PIECE)
+    cols = np.zeros((64 + warps, 32), dtype=np.uint32)
+    cols[:32] = _full_span_columns()
+    # a lane's last piece is one of the span's last 32; walk them backwards,
+    # each window ending PIECE bytes earlier than the one after it
+    step = _signed_power_matrix(PIECE)
+    m = _signed_power_matrix(length - (start + (pieces - 1) * PIECE + STRIDE))
+    for p in range(pieces - 1, max(pieces - 32, 0) - 1, -1):
+        cols[32 + p % 32] = _columns(m)
+        m = _matmul2(m, step)
+    # the last span ends at L (last < warps, as warps * span >= L); each
+    # earlier one ends a span before the next
+    cols[64 + last] = _columns(np.eye(32, dtype=np.uint8))
+    step = _signed_power_matrix(span)
+    m = _signed_power_matrix(length - last * span)
+    for w in range(last - 1, -1, -1):
+        cols[64 + w] = _columns(m)
+        m = _matmul2(m, step)
     return cols
 
 
 @functools.lru_cache(maxsize=8)
 def _device_tables(device: str) -> torch.Tensor:
-    return torch.from_numpy(_slice8_tables().view(np.int32)).to(device)
+    return torch.from_numpy(_piece_tables().view(np.int32)).to(device)
 
 
 @functools.lru_cache(maxsize=64)
-def _device_columns(length: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(_lane_columns(length).view(np.int32)).to(device)
+def _device_columns(length: int, warps: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(_fold_columns(length, warps).view(np.int32)).to(device)
 
 
 _ARGTYPES = (
@@ -234,9 +349,12 @@ _ARGTYPES = (
     ctypes.c_longlong,  # row stride
     ctypes.c_longlong,  # n
     ctypes.c_longlong,  # L
-    ctypes.c_longlong,  # lane segment
-    ctypes.c_void_p,  # slice-by-8 tables (8, 256) u32
-    ctypes.c_void_p,  # lane columns (32, 32) u32
+    ctypes.c_int,  # warps per blob
+    ctypes.c_longlong,  # span bytes
+    ctypes.c_int,  # threads a block
+    ctypes.c_longlong,  # blocks
+    ctypes.c_void_p,  # piece tables (16, 256) u32
+    ctypes.c_void_p,  # fold columns (64 + warps, 32) u32
     ctypes.c_uint32,  # crc(0^L)
     ctypes.c_void_p,  # out (n,) u32
     ctypes.c_void_p,  # stream
@@ -270,15 +388,17 @@ def crc32c_batch_kernel(blocks: torch.Tensor) -> torch.Tensor:
     if n == 0 or length == 0:
         return out.zero_().view(torch.uint32)  # crc of no bytes is 0
     dev = str(blocks.device)
+    warps = crc_warps(n, length)
+    threads, grid = crc_grid(n, warps)
     tables = _device_tables(dev)
-    cols = _device_columns(length, dev)
+    cols = _device_columns(length, warps, dev)
     kernel = _kernel()
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = kernel(
-            blocks.data_ptr(), blocks.stride(0), n, length, lane_segment(length),
-            tables.data_ptr(), cols.data_ptr(), _zero_crc(length), out.data_ptr(),
-            stream,
+            blocks.data_ptr(), blocks.stride(0), n, length, warps, crc_span(length, warps),
+            threads, grid, tables.data_ptr(), cols.data_ptr(), _zero_crc(length),
+            out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"crc32c_batch kernel launch failed: CUDA error {rc}")

@@ -4,8 +4,10 @@ hashed at once; RFC 1321, byte-identical to hashlib.
 
 `md5_batch_kernel` is the wrapper of the hand-written kernel
 `csrc/md5_batch.cu` (it replaces the JAX device function
-`md5_kernel.py::_compiled_batch`): one thread per blob, rounds unrolled,
-padding built in registers, no padded copy of the blobs. For a CUDA tensor
+`md5_kernel.py::_compiled_batch`): one thread per blob, a warp's 32 blobs
+fed through a cp.async ring in shared memory so that no block waits on
+memory, rounds unrolled, padding built in registers, no padded copy of the
+blobs. For a CUDA tensor
 the wrapper launches the kernel or raises; for a tensor on the CPU it runs
 `md5_batch_torch`, the plain version. Nothing else is chosen.
 

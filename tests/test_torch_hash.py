@@ -2,6 +2,7 @@
 package's, on the CPU. Inputs are seeded numpy; the tolerance is exact
 equality, because these are bytes and words."""
 
+import functools
 import hashlib
 import sys
 import threading
@@ -26,6 +27,45 @@ def _rand(seed, shape):
 
 def _host_crcs(blocks):
     return np.array([crc_cpu.crc32c(b.tobytes()) for b in blocks], dtype=np.uint32)
+
+
+def _fold(cols, r):
+    """XOR over k of cols[:, k] where bit k of r is set, lane by lane."""
+    bits = (r[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+    return np.bitwise_xor.reduce(np.where(bits == 1, cols, 0).astype(np.uint32), axis=1)
+
+
+def emulate_crc_kernel(row, warps):
+    """csrc/crc32c_batch.cu on one blob, in numpy: `warps` spans; lane j of a
+    span takes pieces j, j + 32, ... (a partial last piece read with zeros
+    after it) and advances by STRIDE bytes a piece with the piece tables;
+    level-1 columns fold the lanes into their warp, level-2 the warps into
+    the blob; ^ crc(0^L)."""
+    length = len(row)
+    span = crc_mod.crc_span(length, warps)
+    cols = crc_mod._fold_columns(length, warps)
+    assert cols.shape == (64 + warps, 32)
+    t = crc_mod._piece_tables()
+    padded = np.zeros(-(-length // 16) * 16, np.uint8)
+    padded[:length] = row
+    words = padded.view("<u4").reshape(-1, 4)
+    last = (length - 1) // span
+    total = 0
+    for w in range(min(warps, last + 1)):
+        start, end = w * span, min(w * span + span, length)
+        pieces = words[start // 16 : start // 16 - (-(end - start) // 16)]
+        r = np.zeros(32, np.uint32)
+        for k in range(0, len(pieces), 32):
+            v = pieces[k : k + 32]
+            lanes = len(v)
+            acc = np.zeros(lanes, np.uint32)
+            for q, word in enumerate((v[:, 0] ^ r[:lanes], v[:, 1], v[:, 2], v[:, 3])):
+                for b in range(4):
+                    acc ^= t[4 * q + b][(word >> (8 * b)) & 0xFF]
+            r[:lanes] = acc
+        y = np.bitwise_xor.reduce(_fold(cols[32:64] if w == last else cols[:32], r))
+        total ^= int(_fold(cols[64 + w][None, :], np.array([y], np.uint32))[0])
+    return total ^ crc_mod._zero_crc(length)
 
 
 class TestCRCBatch:
@@ -68,25 +108,17 @@ class TestCRCBatch:
 
     @pytest.mark.parametrize("length", [1, 15, 16, 33, 511, 512, 513, 4097])
     def test_kernel_lane_algebra(self, length):
-        """The kernel's split, run on the host: 32 lanes' register-only CRCs
-        of their segments, each times its lane columns, XORed, ^ crc(0^L)."""
+        """The kernel's split at the geometry a lone blob gets, run on the
+        host: each lane's register-only CRC of its interleaved pieces,
+        folded into its warp and the warps into the blob, ^ crc(0^L)."""
         row = _rand(length, length)
-        seg = crc_mod.lane_segment(length)
-        assert seg % 16 == 0 and 32 * seg >= length
-        cols = crc_mod._lane_columns(length)
-        table = crc_mod._slice8_tables()[0]
-        total = 0
-        for lane in range(32):
-            r = 0
-            for b in row[lane * seg : min((lane + 1) * seg, length)].tolist():
-                r = int(table[(r ^ b) & 0xFF]) ^ (r >> 8)
-            for k in range(32):
-                if r >> k & 1:
-                    total ^= int(cols[lane, k])
-        assert total ^ crc_mod._zero_crc(length) == crc_cpu.crc32c(row.tobytes())
+        warps = crc_mod.crc_warps(1, length)
+        span = crc_mod.crc_span(length, warps)
+        assert span % crc_mod.STRIDE == 0 and warps * span >= length
+        assert emulate_crc_kernel(row, warps) == crc_cpu.crc32c(row.tobytes())
 
     def test_slice8_tables(self):
-        t = crc_mod._slice8_tables()
+        t = crc_mod._advance_tables(8)
         assert np.array_equal(t[0], crc_cpu._TABLE)
         rng = np.random.RandomState(2)
         for _ in range(20):
@@ -123,6 +155,94 @@ class TestCRCBatch:
     def test_u32_tensor(self):
         v = torch.tensor([0, 1, (1 << 31) - 1, 1 << 31, (1 << 32) - 1])
         assert crc_mod.u32_tensor(v).to(torch.int64).tolist() == v.tolist()
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_row(length):
+    return _rand(length + 3, length)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_crc(length):
+    return int(np.asarray(ref_crc.crc32c_batch(_layout_row(length)[None, :], backend="jax"))[0])
+
+
+class TestCRCKernelLayout:
+    """The host-side layout and algebra of csrc/crc32c_batch.cu."""
+
+    @pytest.mark.parametrize("length", [1, 15, 16, 33, 4096, 4097, 65536 + 5])
+    @pytest.mark.parametrize("segments", [32, 64, 256, 1024])
+    def test_two_level_fold(self, segments, length):
+        """segments = 32 lanes x warps per blob: the emulated kernel equals
+        the host CRC and the JAX package's crc32c_batch."""
+        row = _layout_row(length)
+        got = emulate_crc_kernel(row, segments // 32)
+        assert got == crc_cpu.crc32c(row.tobytes()) == _jax_crc(length)
+
+    def test_piece_tables(self):
+        """One piece step: r ^ the piece's first word, 16 lookups, equals the
+        byte-wise CRC over the piece and the 496 zero bytes after it."""
+        t = crc_mod._piece_tables()
+        assert t.shape == (16, 256) and t.dtype == np.uint32
+        rng = np.random.RandomState(3)
+        for _ in range(8):
+            r = int(rng.randint(0, 1 << 32, dtype=np.uint64))
+            piece = rng.randint(0, 256, 16).astype(np.uint8)
+            want = r
+            for b in piece.tolist() + [0] * (crc_mod.STRIDE - crc_mod.PIECE):
+                want = int(crc_cpu._TABLE[(want ^ b) & 0xFF]) ^ (want >> 8)
+            words = piece.view("<u4").astype(np.uint32)
+            words[0] ^= r
+            got = 0
+            for k in range(16):
+                got ^= int(t[k][(int(words[k // 4]) >> (8 * (k % 4))) & 0xFF])
+            assert got == want
+
+    def test_inverse_powers(self):
+        eye = np.eye(32, dtype=np.uint8)
+        a = np.frombuffer(crc_mod._byte_step_matrix(), dtype=np.uint8).reshape(32, 32)
+        inv = np.frombuffer(crc_mod._inverse_step_matrix(), dtype=np.uint8).reshape(32, 32)
+        assert np.array_equal(crc_mod._matmul2(a, inv), eye)
+        for e in (1, 16, 496, 4096 + 7):
+            fwd = crc_mod._signed_power_matrix(e)
+            assert np.array_equal(fwd, np.frombuffer(crc_mod._power_matrix(e), np.uint8).reshape(32, 32))
+            assert np.array_equal(crc_mod._matmul2(crc_mod._signed_power_matrix(-e), fwd), eye)
+
+    @pytest.mark.parametrize("n, length, warps", [
+        (16, 4096, 4),  # upload at the filer's load
+        (8192, 4096, 1),  # the service's full batch
+        (256, 4 << 20, 16),  # the chunked path: 4,096 warps
+        (1, 4 << 20, 32),
+        (3, (1 << 20) + 17, 32),
+        (16, 65536, 32),
+        (8193, 1, 1),
+    ])
+    def test_geometry(self, n, length, warps):
+        assert crc_mod.crc_warps(n, length) == warps
+        span = crc_mod.crc_span(length, warps)
+        assert span % crc_mod.STRIDE == 0 and warps * span >= length
+        assert warps == 1 or span >= crc_mod.MIN_SPAN
+        if warps > 1:  # one more warp would have cut a span short or been idle
+            assert n * warps <= 2 * crc_mod.TARGET_WARPS
+
+    @pytest.mark.parametrize("n, length, threads, blocks", [
+        (16, 4096, 256, 8),  # 2 blobs a block
+        (8192, 4096, 256, 512),  # 1,024 groups in two rounds of 512
+        (256, 4 << 20, 512, 256),
+        (1, 4 << 20, 1024, 1),
+        (132 * 8 + 1, 4096, 256, 265),
+        (8193, 1, 256, 513),
+    ])
+    def test_grid(self, n, length, threads, blocks):
+        """Whole blobs a block; the grid within what the card holds at once
+        and no larger than the fewest rounds over the groups need."""
+        warps = crc_mod.crc_warps(n, length)
+        assert crc_mod.crc_grid(n, warps) == (threads, blocks)
+        assert threads % (32 * warps) == 0 and threads <= 1024
+        assert blocks * threads <= crc_mod.SMS * crc_mod.RESIDENT_THREADS
+        groups = -(-n // (threads // 32 // warps))
+        rounds = -(-groups // blocks)
+        assert blocks == 1 or -(-groups // (blocks - 1)) > rounds  # one block fewer: a round more
 
 
 class TestMD5Batch:
