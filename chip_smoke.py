@@ -8,12 +8,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
   2. build    every native source of the port compiled at once (nvcc, g++);
               the integer operations of one block in md5_batch_kernel's
-              SASS (cuobjdump), which the MD5 bound counts
+              SASS (cuobjdump), which the MD5 bound counts, and the
+              shared-memory loads of one 16-byte unit of
+              gf256_matmul_kernel<4, 10> (160: one a byte for four rows)
   3. kernel   gf256_matmul held byte for byte against its plain PyTorch
               version on the card (parity, decode and random matrices up to
-              14x14, ragged and unaligned lengths, the 32 MiB pipeline
-              batch), against the numpy oracle on a 64 KiB slice, and timed
-              at the main path's batch beside its bound
+              14x14, every row count at 10 columns, ragged and unaligned
+              lengths, the 32 MiB pipeline batch), against the numpy oracle
+              on a 64 KiB slice, and timed by device time at the EC path's
+              shapes (encode (32, 10, 1 MiB), rebuild (10, 32 MiB), degraded
+              reads (10, 64 KiB) and (10, 1 MiB)) beside its bound, and
+              again on zero bytes (no bank conflicts)
      hash_kernels  crc32c_batch, md5_batch and gear_hash held word for word
               against their plain versions on the card (lengths 0-65536,
               n = 1 to 8193, strided row views; gear over 1 B to 64 MiB),
@@ -95,6 +100,14 @@ TABLE_OPS_PER_BYTE = 3  # a table CRC or gear step: lookup, shift, XOR
 REBUILD_LOST = (2, 5, 11, 13)
 DEGRADED_LOST = (1, 4, 7, 9)
 DEGRADED_READS = 256
+# gf256_matmul's shapes on the EC path (encoder.py, ec_volume.py): (path,
+# x); encode reads the (row_count, 10, block) .dat layout in place
+GF_SHAPES = (
+    ("encode", (32, 10, MIB)),
+    ("rebuild", (10, 32 * MIB)),
+    ("degraded", (10, 64 * 1024)),
+    ("degraded", (10, MIB)),
+)
 
 
 def emit(phase: str, **fields) -> None:
@@ -121,16 +134,25 @@ _MOVES = ("MOV", "IMAD.MOV")  # register copies (IMAD.MOV is a move on the integ
 # one 64-byte MD5 block: 64 rounds of about 4 integer instructions, the
 # state update and the loop (273 on sm_90a)
 MD5_BLOCK_OPS = (200, 400)
+# one 16-byte unit of gf256_matmul_kernel<4, 10> (RS(10,4) parity and the
+# 4-shard rebuild): ceil(4 / 4) packed lookups per input byte, 10 columns
+# x 16 bytes
+GF_UNIT_INSTANCE = "gf256_matmul_kernelILi4ELi10EE"
+GF_UNIT_LDS = 1 * 10 * 16
 
 
-def sass_loop_ops(src: _build.Source, kernel: str) -> dict:
-    """Arithmetic instructions per iteration of one kernel's first loop, read
-    from the SASS of its built library (cuobjdump): from the target of the
-    first backward branch to that branch, along the path that takes every
-    forward branch inside it. For md5_batch_kernel (the aligned path; the
-    byte path is md5_batch_bytes_kernel) that is one 64-byte block read
-    from the shared-memory ring. Memory, branch, barrier, special-register,
-    uniform-datapath, move and NOP instructions are not counted."""
+def sass_loop_ops(src: _build.Source, kernel: str, pick: str = "first") -> dict:
+    """Instructions per iteration of one loop of one kernel, read from the
+    SASS of its built library (cuobjdump): from the target of a backward
+    branch to that branch, along the path that takes every forward branch
+    inside it. `pick` chooses the loop: "first", the first backward branch
+    (for md5_batch_kernel, the aligned path, one 64-byte block read from the
+    shared-memory ring; its byte path is md5_batch_bytes_kernel), or
+    "most_lds", the loop with the most shared-memory loads, the innermost of
+    equals (for gf256_matmul_kernel, one 16-byte unit, not the table
+    staging). `ops` counts arithmetic: memory, branch, barrier,
+    special-register, uniform-datapath, move and NOP instructions are not
+    counted; `lds` counts the shared-memory loads."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library_path(src))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
@@ -155,22 +177,33 @@ def sass_loop_ops(src: _build.Source, kernel: str) -> dict:
         target = int(words[1], 16) if op == "BRA" and words[1:2] and words[1].startswith("0x") else None
         insts[int(addr, 16)] = (op, words[0], target)
     addrs = sorted(insts)
-    back = next(((a, insts[a][2]) for a in addrs
-                 if insts[a][2] is not None and insts[a][2] < a), None)
-    check(back is not None, f"no loop found in the SASS of {kernel}")
-    end, pc = back
     nxt = dict(zip(addrs, addrs[1:] + [None]))
-    hist = {}
-    while pc is not None and pc < end:
-        op, full, target = insts[pc]
-        if op == "BRA" and target is not None and pc < target <= end:
-            pc = target
-            continue
-        if not op.startswith(_NOT_COUNTED) and not full.startswith(_MOVES):
-            hist[op] = hist.get(op, 0) + 1
-        pc = nxt[pc]
-    return {"ops": sum(hist.values()), "opcodes": dict(sorted(hist.items(), key=lambda kv: -kv[1])),
-            "loop": [hex(back[1]), hex(end)]}
+
+    def walk(start: int, end: int) -> dict:
+        hist = {}
+        pc = start
+        while pc is not None and pc < end:
+            op, full, target = insts[pc]
+            if op == "BRA" and target is not None and pc < target <= end:
+                pc = target
+                continue
+            key = op if op == "LDS" or not (op.startswith(_NOT_COUNTED) or full.startswith(_MOVES)) else None
+            if key:
+                hist[key] = hist.get(key, 0) + 1
+            pc = nxt[pc]
+        return hist
+
+    loops = [(insts[a][2], a) for a in addrs if insts[a][2] is not None and insts[a][2] < a]
+    check(bool(loops), f"no loop found in the SASS of {kernel}")
+    walked = [(start, end, walk(start, end)) for start, end in loops]
+    if pick == "first":
+        start, end, hist = walked[0]
+    else:
+        start, end, hist = max(walked, key=lambda w: (w[2].get("LDS", 0), w[0] - w[1]))
+    lds = hist.pop("LDS", 0)
+    return {"ops": sum(hist.values()), "lds": lds,
+            "opcodes": dict(sorted(hist.items(), key=lambda kv: -kv[1])),
+            "loop": [hex(start), hex(end)]}
 
 
 def same_file(a: str, b: str, chunk: int = 64 * MIB) -> bool:
@@ -283,6 +316,13 @@ def kernel_phase(dev: torch.device, seed: int) -> dict:
         compare(m, big[:, 1 : n + 1], f"{name} unaligned view")
         compare(m, big[:, 16 : 16 + n], f"{name} aligned view of a wider buffer")
 
+    # every row count at the EC path's 10 columns, each template instance:
+    # whole units and a tail, then an unaligned view (the byte path)
+    for rows in range(1, 15):
+        m = rng.randint(0, 256, (rows, 10)).astype(np.uint8)
+        compare(m, rand((10, 64 * 1024 + 5)), f"random{rows}x10 n=64 KiB + 5")
+        compare(m, rand((10, 8240))[:, 3 : 3 + 8193], f"random{rows}x10 unaligned view")
+
     # the main path's shapes: an encode batch (32 rows of 10 x 1 MiB blocks,
     # read in place) and a 32 MiB-per-shard rebuild batch
     parity = gf256.parity_rows(10, 4)
@@ -293,6 +333,7 @@ def kernel_phase(dev: torch.device, seed: int) -> dict:
     flat = rand((10, 32 * MIB))
     compare(rebuild_m, flat, "rebuild batch (10, 32 MiB)")
     compare(parity, flat[:, 3 : 3 + 16 * MIB + 5], "unaligned 16 MiB view")
+    del batch, flat
 
     # a 64 KiB slice against the numpy oracle
     for name, m in (matrices[0], matrices[7], matrices[11]):
@@ -302,18 +343,66 @@ def kernel_phase(dev: torch.device, seed: int) -> dict:
               f"kernel != gf_matmul_bytes for {name}")
         cases += 1
 
-    # time at the encode batch: 320 MiB in, 128 MiB out, cold in L2 (50 MB)
-    ms = device_ms(lambda: gf256_matmul(parity, batch))
-    c_ms = call_ms(lambda: gf256_matmul(parity, batch))
-    x2 = batch.permute(1, 0, 2).reshape(10, -1)
-    plain_ms = call_ms(lambda: gf_matmul_torch(parity, x2), warmup=1, reps=3)
-    b_ms, b_by = bound_ms(4, 10, 32 * MIB)
-    emit("kernel", cases=cases, max_abs_err=max_err, shape=[32, 10, MIB],
-         ms=ms, call_ms=c_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-         kernel_gbps=(14 * 32 * MIB) / ms / 1e6, bound_share=b_ms / ms,
+    shapes = gf256_shape_times(dev, seed, gf256_matmul)
+    cases += len(shapes)
+    # the phase line adds what the kernels line leaves out: each path's
+    # matrix, each shape's bound share and its device time on zero bytes
+    keys = [f"{r['path']} {'x'.join(map(str, r['shape']))}" for r in shapes]
+    emit("kernel", cases=cases, max_abs_err=max_err, shapes=shapes,
+         matrices={path: list(m.shape) for path, m in gf_path_matrices().items()},
+         bound_share={k: r["bound_ms"] / r["ms"] for k, r in zip(keys, shapes)},
+         zero_bytes_ms={k: r.pop("zero_bytes_ms") for k, r in zip(keys, shapes)},
          library_ms=None, library="no single PyTorch call computes a GF(2^8) matmul")
-    return dict(max_abs_err=max_err, ms=ms, call_ms=c_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, shape=[32, 10, MIB])
+    # the row carries the encode batch (the most bytes a launch) and every shape
+    return dict(shapes[0], max_abs_err=max_err, shapes=shapes)
+
+
+def gf_path_matrices() -> dict:
+    """gf256_matmul's matrix on each EC path: the parity rows (encode), the
+    decode matrix of the 4-shard rebuild, and a degraded read's one row,
+    which reconstructs one missing data shard from 10 survivors."""
+    def decode(lost):
+        return gf256.decode_matrix(10, 4, tuple(s for s in range(14) if s not in lost), lost)
+    return {"encode": gf256.parity_rows(10, 4), "rebuild": decode(REBUILD_LOST),
+            "degraded": decode(DEGRADED_LOST[:1])}
+
+
+def gf256_shape_times(dev: torch.device, seed: int, wrapper) -> list:
+    """`wrapper` (gf256_matmul, or another checkout's) at each of the EC
+    path's shapes: equal to the plain version on one input, then timed by
+    device time (`ms`) beside one call's event time, the plain version's
+    and the bound. Inputs smaller than the 50 MB L2 rotate over more than
+    it, so every launch reads device memory, as a fresh H2D copy's would.
+    `zero_bytes_ms` is the device time on all-zero input, where a warp's
+    lookups all hit one word and meet no bank conflict: what the conflicts
+    cost shows as the difference from `ms`."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    matrices = gf_path_matrices()
+    rows = []
+    for path, shape in GF_SHAPES:
+        m = matrices[path]
+        per = int(np.prod(shape))
+        views = 1 if per >= ROTATE_BYTES else -(-ROTATE_BYTES // per) + 1
+        pool = torch.randint(0, 256, (views * per,), dtype=torch.uint8, device=dev,
+                             generator=gen).view(views, *shape)
+        cyc = itertools.cycle(list(pool))
+        x0 = pool[0]
+        x2 = x0 if x0.dim() == 2 else x0.permute(1, 0, 2).reshape(x0.shape[1], -1)
+        want = gf_matmul_torch(m, x2)
+        check(torch.equal(wrapper(m, x0), want), f"kernel != plain at the {path} shape {shape}")
+        del want
+        b_ms, b_by = bound_ms(*m.shape, per // m.shape[1])
+        rows.append(dict(
+            path=path, shape=list(shape),
+            ms=device_ms(lambda: wrapper(m, next(cyc)), reps=max(20, views)),
+            call_ms=call_ms(lambda: wrapper(m, next(cyc))),
+            plain_ms=call_ms(lambda: gf_matmul_torch(m, x2), warmup=1, reps=3),
+            bound_ms=b_ms, bound_by=b_by))
+        pool.zero_()
+        check(not wrapper(m, x0).any(), f"kernel of zero bytes is not zero at the {path} shape")
+        rows[-1]["zero_bytes_ms"] = device_ms(lambda: wrapper(m, next(cyc)), reps=max(20, views))
+        del pool, cyc, x0, x2
+    return rows
 
 
 # --- hash kernels vs plain ------------------------------------------------------
@@ -436,50 +525,14 @@ def hash_kernel_phase(dev: torch.device, seed: int, md5_ops_per_block: int) -> d
             y = x[1:]  # an odd start: the kernel's byte path for every tile
             agree("gear_hash", cdc.gear_hash_kernel(y), cdc.gear_hashes_torch(y), "offset 1")
 
-    # time each kernel at its paths' shapes: device time of a CUDA graph of
-    # launches (the row's ms) beside one call's event time (call_ms); inputs
-    # rotate over more than the 50 MB L2, so every launch reads device memory
-    shapes = {"crc32c_batch": [], "md5_batch": []}
-    chain_ms = {}
-    for n, length in HASH_SHAPES:
-        per = n * length
-        views = max(2, -(-ROTATE_BYTES // per) + 1)
-        pool = rand((views * n, length))
-        cyc = itertools.cycle([pool[i * n : (i + 1) * n] for i in range(views)])
-        x0 = pool[:n]
-        blocks = _pad_len(length) // 64
-        # the graph holds a launch per input, so that its replay reads them all
-        reps = max(20, views)
-        b_ms, b_by = hash_bound_ms(per + 4 * n, TABLE_OPS_PER_BYTE * per)
-        shapes["crc32c_batch"].append(dict(
-            shape=[n, length], ms=device_ms(lambda: crc32c_batch_kernel(next(cyc)), reps=reps),
-            call_ms=call_ms(lambda: crc32c_batch_kernel(next(cyc))),
-            plain_ms=call_ms(lambda: crc32c_batch_torch(x0), warmup=1, reps=3),
-            bound_ms=b_ms, bound_by=b_by))
-        b_ms, b_by = hash_bound_ms(per + 16 * n, md5_ops_per_block * n * blocks)
-        shapes["md5_batch"].append(dict(
-            shape=[n, length],
-            ms=device_ms(lambda: md5_batch_kernel(next(cyc)), reps=reps, warmup=1),
-            call_ms=call_ms(lambda: md5_batch_kernel(next(cyc)), warmup=1),
-            # the plain MD5 loops over blocks in Python: minutes at 4 MiB
-            plain_ms=(call_ms(lambda: md5_batch_torch(x0), warmup=0, reps=1)
-                      if length <= 4096 else None),
-            bound_ms=b_ms, bound_by=b_by))
-        chain_ms[f"{n}x{length}"] = blocks * 64 * MD5_CHAIN_DEPS * MD5_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
-        del pool, cyc, x0
-    data = rand((GEAR_PATH,))
-    b_ms, b_by = hash_bound_ms(5 * GEAR_PATH, TABLE_OPS_PER_BYTE * GEAR_PATH)
-    out = {"gear_hash": dict(
-        shape=[GEAR_PATH], ms=device_ms(lambda: cdc.gear_hash_kernel(data)),
-        call_ms=call_ms(lambda: cdc.gear_hash_kernel(data)),
-        plain_ms=call_ms(lambda: cdc.gear_hashes_torch(data), warmup=1, reps=3),
-        bound_ms=b_ms, bound_by=b_by)}
+    out = hash_shape_times(dev, seed, HASH_WRAPPERS, md5_ops_per_block)
+    chain_ms = {f"{n}x{length}": _pad_len(length) // 64 * 64 * MD5_CHAIN_DEPS
+                * MD5_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3 for n, length in HASH_SHAPES}
     # a hash kernel's row carries the upload path's shape (its launches are
     # nearly all there) and every shape under "shapes"
-    for name, rows in shapes.items():
-        out[name] = dict(rows[0], shapes=rows)
-    for name, o in out.items():
-        o.update(stats[name])
+    for name, rows in out.items():
+        out[name] = dict(rows[0], shapes=rows) if len(rows) > 1 else rows[0]
+        out[name].update(stats[name])
     # the phase line adds what the kernels line leaves out: each shape's
     # bound share and MD5's chain model
     shares = {name: {"x".join(map(str, r["shape"])): r["bound_ms"] / r["ms"]
@@ -488,6 +541,64 @@ def hash_kernel_phase(dev: torch.device, seed: int, md5_ops_per_block: int) -> d
          bound_share=shares, md5_chain_ms=chain_ms, md5_chain=MD5_CHAIN_ASSUMPTION,
          library_ms=None, library="no single PyTorch call computes CRC32C, MD5 or a gear hash",
          **out)
+    return out
+
+
+def hash_shape_times(dev: torch.device, seed: int, wrappers: dict,
+                     md5_ops_per_block: int) -> dict:
+    """The hash kernels (`wrappers`: crc32c_batch, md5_batch and gear_hash,
+    this checkout's or another's) at their paths' shapes: each equal to
+    its plain version (MD5 past 4096 bytes: to hashlib on two blobs), then
+    timed by device time (`ms`: a CUDA graph of launches) beside one
+    call's event time, the plain version's and the bound. Inputs rotate
+    over more than the 50 MB L2, so every launch reads device memory."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    crc_k, md5_k, gear_k = (wrappers[k] for k in ("crc32c_batch", "md5_batch", "gear_hash"))
+    out = {"crc32c_batch": [], "md5_batch": []}
+    for n, length in HASH_SHAPES:
+        per = n * length
+        views = max(2, -(-ROTATE_BYTES // per) + 1)
+        pool = torch.randint(0, 256, (views * n, length), dtype=torch.uint8, device=dev,
+                             generator=gen)
+        cyc = itertools.cycle([pool[i * n : (i + 1) * n] for i in range(views)])
+        x0 = pool[:n]
+        blocks = _pad_len(length) // 64
+        # the graph holds a launch per input, so that its replay reads them all
+        reps = max(20, views)
+        check(torch.equal(u32(crc_k(x0)), u32(crc32c_batch_torch(x0))),
+              f"crc32c_batch kernel != plain at ({n}, {length})")
+        b_ms, b_by = hash_bound_ms(per + 4 * n, TABLE_OPS_PER_BYTE * per)
+        out["crc32c_batch"].append(dict(
+            shape=[n, length], ms=device_ms(lambda: crc_k(next(cyc)), reps=reps),
+            call_ms=call_ms(lambda: crc_k(next(cyc))),
+            plain_ms=call_ms(lambda: crc32c_batch_torch(x0), warmup=1, reps=3),
+            bound_ms=b_ms, bound_by=b_by))
+        got = md5_k(x0)
+        if length <= 4096:
+            check(torch.equal(got, md5_batch_torch(x0)),
+                  f"md5_batch kernel != plain at ({n}, {length})")
+        else:  # the plain MD5 loops over blocks in Python: minutes at 4 MiB
+            host = x0[:2].cpu().numpy()
+            check(all(got[i].cpu().numpy().tobytes() == hashlib.md5(host[i].tobytes()).digest()
+                      for i in range(2)), f"md5_batch kernel != hashlib at ({n}, {length})")
+        b_ms, b_by = hash_bound_ms(per + 16 * n, md5_ops_per_block * n * blocks)
+        out["md5_batch"].append(dict(
+            shape=[n, length],
+            ms=device_ms(lambda: md5_k(next(cyc)), reps=reps, warmup=1),
+            call_ms=call_ms(lambda: md5_k(next(cyc)), warmup=1),
+            plain_ms=(call_ms(lambda: md5_batch_torch(x0), warmup=0, reps=1)
+                      if length <= 4096 else None),
+            bound_ms=b_ms, bound_by=b_by))
+        del pool, cyc, x0, got
+    data = torch.randint(0, 256, (GEAR_PATH,), dtype=torch.uint8, device=dev, generator=gen)
+    check(torch.equal(u32(gear_k(data)), u32(cdc.gear_hashes_torch(data))),
+          "gear_hash kernel != plain")
+    b_ms, b_by = hash_bound_ms(5 * GEAR_PATH, TABLE_OPS_PER_BYTE * GEAR_PATH)
+    out["gear_hash"] = [dict(
+        shape=[GEAR_PATH], ms=device_ms(lambda: gear_k(data)),
+        call_ms=call_ms(lambda: gear_k(data)),
+        plain_ms=call_ms(lambda: cdc.gear_hashes_torch(data), warmup=1, reps=3),
+        bound_ms=b_ms, bound_by=b_by)]
     return out
 
 
@@ -944,12 +1055,12 @@ def cdc_phase(dev: torch.device, uploads: int, stream_bytes: int, seed: int) -> 
                 cuts_equal_plain=True, first_upload_equal_numpy=True)
 
 
-WRAPPERS = {
-    "gf256_matmul": gf256_matmul,
+HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
     "gear_hash": cdc.gear_hash_kernel,
 }
+WRAPPERS = {"gf256_matmul": gf256_matmul, **HASH_WRAPPERS}
 KERNEL_ROWS = {  # name -> (source, the JAX device function it replaces, what it computes)
     "gf256_matmul": ("gf256_matmul.cu", "seaweedfs_tpu/ops/rs_pallas.py:74", "a GF(2^8) matmul"),
     "crc32c_batch": ("crc32c_batch.cu", "seaweedfs_tpu/ops/crc32c_kernel.py:75", "CRC32C"),
@@ -1002,11 +1113,16 @@ def main() -> int:
     check(MD5_BLOCK_OPS[0] <= md5_block["ops"] <= MD5_BLOCK_OPS[1],
           f"md5_batch_kernel's first loop holds {md5_block['ops']} integer instructions, "
           f"not one 64-byte block ({MD5_BLOCK_OPS[0]}-{MD5_BLOCK_OPS[1]})")
+    # gf256_matmul's lookups: one packed LDS per input byte for four rows
+    gf_unit = sass_loop_ops(_build.GF256_MATMUL, GF_UNIT_INSTANCE, pick="most_lds")
+    check(gf_unit["lds"] == GF_UNIT_LDS,
+          f"gf256_matmul_kernel<4, 10>'s unit loop holds {gf_unit['lds']} shared-memory loads, "
+          f"not {GF_UNIT_LDS} (one a byte for 10 columns x 16 bytes)")
     emit("build", seconds=time.perf_counter() - t0,
          sources=[s.file for s in _build.SOURCES],
          ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in logs.items()},
-         md5_block_sass=md5_block)
+         md5_block_sass=md5_block, gf256_unit_sass=gf_unit)
 
     timed = {"gf256_matmul": kernel_phase(dev, args.seed)}
     timed.update(hash_kernel_phase(dev, args.seed, md5_block["ops"]))

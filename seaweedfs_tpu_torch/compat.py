@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .ops.rs_cuda import check_matrix, product_tables
+from .ops.rs_cuda import check_matrix, packed_tables
 
 
 def from_reference_matrix(np_matrix) -> np.ndarray:
@@ -17,5 +17,5 @@ def from_reference_matrix(np_matrix) -> np.ndarray:
     `gf256_matmul`: validated, C-contiguous, with its kernel tables built
     and cached."""
     m = check_matrix(np_matrix)
-    product_tables(m)
+    packed_tables(m)
     return m

@@ -4,10 +4,12 @@ plain PyTorch version.
     out[r] = XOR_c matrix[r, c] x shards[c]        (field 0x11D)
 
 `gf256_matmul` is the wrapper of the hand-written kernel
-`csrc/gf256_matmul.cu` (product tables in shared memory; it replaces the
-Pallas kernel `seaweedfs_tpu/ops/rs_pallas.py::_compiled`). For a CUDA
-tensor it launches the kernel or raises; for a tensor on the CPU it runs
-`gf_matmul_torch`, the plain version. Nothing else is chosen.
+`csrc/gf256_matmul.cu` (packed-row product tables in shared memory, one
+32-bit lookup per input byte for four output rows; it replaces the Pallas
+kernel `seaweedfs_tpu/ops/rs_pallas.py::_compiled`). `packed_tables` builds
+the host tables it reads. For a CUDA tensor it launches the kernel or
+raises; for a tensor on the CPU it runs `gf_matmul_torch`, the plain
+version. Nothing else is chosen.
 
 `gf_matmul_torch` mirrors the JAX package's XLA transform
 (`seaweedfs_tpu/ops/rs_kernel.py::_compiled_transform`): expand each byte
@@ -34,6 +36,9 @@ MAX_COLS = 14
 # Columns per chunk of the plain version: its bits tensor costs
 # 4 * 8 * cols bytes per column (320 MiB per chunk for RS(10,4)).
 PLAIN_CHUNK = 1 << 20
+# The kernel's grid is at most the device's SM count times this many
+# 256-thread blocks, split over the batches.
+BLOCKS_PER_SM = 4
 
 
 def check_matrix(matrix) -> np.ndarray:
@@ -51,22 +56,29 @@ def check_matrix(matrix) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=256)
-def _product_tables(matrix_bytes: bytes, rows: int, cols: int) -> np.ndarray:
-    m = np.frombuffer(matrix_bytes, dtype=np.uint8).reshape(rows, cols)
-    # tables[c, r, v] = m[r, c] * v: the kernel's shared-memory layout
-    return np.ascontiguousarray(gf256.mul_table()[m].transpose(1, 0, 2))
+def _packed_tables(matrix_bytes: bytes, rows: int, cols: int) -> np.ndarray:
+    groups = -(-rows // 4)
+    m = np.zeros((groups * 4, cols), dtype=np.uint8)  # rows past the last are 0
+    m[:rows] = np.frombuffer(matrix_bytes, dtype=np.uint8).reshape(rows, cols)
+    # t[g, k, c, v] = m[4g + k, c] x v, shifted into byte k
+    t = gf256.mul_table()[m].astype(np.uint32).reshape(groups, 4, cols, 256)
+    t <<= (8 * np.arange(4, dtype=np.uint32))[:, None, None]
+    # word v of table (g, c): rows 4g..4g+3 times v, low byte first
+    return np.bitwise_or.reduce(t, axis=1)
 
 
-def product_tables(matrix) -> np.ndarray:
-    """(cols, rows, 256) uint8 host tables of the kernel, cached by matrix."""
+def packed_tables(matrix) -> np.ndarray:
+    """(ceil(rows/4), cols, 256) uint32 host tables of the kernel, cached by
+    matrix: word v of (g, c) is matrix[4g + k, c] x v in byte k, 0 past the
+    last row. With one row the kernel reads only the low bytes."""
     m = check_matrix(matrix)
-    return _product_tables(m.tobytes(), *m.shape)
+    return _packed_tables(m.tobytes(), *m.shape)
 
 
 @functools.lru_cache(maxsize=256)
 def _device_tables(matrix_bytes: bytes, rows: int, cols: int, device: str):
-    t = _product_tables(matrix_bytes, rows, cols)
-    return torch.from_numpy(t).to(device)
+    t = _packed_tables(matrix_bytes, rows, cols)
+    return torch.from_numpy(t.view(np.int32)).to(device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -115,6 +127,7 @@ _ARGTYPES = (
     ctypes.c_longlong,  # out row stride
     ctypes.c_longlong,  # n
     ctypes.c_longlong,  # batches
+    ctypes.c_int,  # most blocks
     ctypes.c_void_p,  # stream
 )
 
@@ -126,6 +139,11 @@ def _kernel():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 _count_lock = threading.Lock()
@@ -169,7 +187,8 @@ def gf256_matmul(matrix, x: torch.Tensor) -> torch.Tensor:
         rc = kernel(
             tables.data_ptr(), rows, cols,
             x3.data_ptr(), x3.stride(0), x3.stride(1),
-            out.data_ptr(), out.stride(0), n, batches, stream,
+            out.data_ptr(), out.stride(0), n, batches,
+            _sm_count(x.device) * BLOCKS_PER_SM, stream,
         )
     if rc != 0:
         raise RuntimeError(f"gf256_matmul kernel launch failed: CUDA error {rc}")

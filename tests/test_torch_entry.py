@@ -16,7 +16,8 @@ from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "seaweedfs_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "seaweedfs_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "kernel_turns.py"]
 
 
 def test_entry_equals_reference():

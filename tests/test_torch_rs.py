@@ -97,14 +97,108 @@ class TestPlainTransform:
         with pytest.raises(ValueError):
             rs_cuda.check_matrix(np.ones(shape, dtype=np.uint8))
 
-    def test_product_tables(self):
-        m = _rand(9, (4, 10))
-        t = rs_cuda.product_tables(m)
-        assert t.shape == (10, 4, 256)
+
+def byte_perm(x, y, selector):
+    """CUDA's __byte_perm (prmt) on uint32 values held in int64: byte i of
+    the result is byte (nibble i of selector) of the 8 bytes y:x."""
+    b = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(b[(selector >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def emulate_gf_kernel(matrix, x, vec=True):
+    """csrc/gf256_matmul.cu on (cols, n) bytes, in plain torch: whole
+    16-byte units (when vec) take one packed lookup per input byte and
+    group, XOR across columns, and the prmt transpose into rows; the tail,
+    or every byte when not vec, one byte a thread. One row reads the
+    tables' low bytes."""
+    rows, cols = matrix.shape
+    t = torch.from_numpy(rs_cuda.packed_tables(matrix).astype(np.int64))  # (G, cols, 256)
+    xt = torch.from_numpy(x.astype(np.int64))
+    n = xt.shape[1]
+    out = torch.zeros((rows, n), dtype=torch.int64)
+    units = n // 16 if vec else 0
+    if units:
+        # the words of each column's unit as a uint4 load gives them
+        b = xt[:, : units * 16].reshape(cols, units, 4, 4)
+        words = (b << (8 * torch.arange(4))).sum(-1)  # (cols, units, 4)
+        for g in range(t.shape[0]):
+            acc = torch.zeros((units, 16), dtype=torch.int64)
+            if rows == 1:  # byte tables: acc[k] ^= table[byte j of word k] << 8j
+                for c in range(cols):
+                    for k in range(4):
+                        for j in range(4):
+                            v = (words[c, :, k] >> (8 * j)) & 0xFF
+                            acc[:, k] ^= (t[0, c, v] & 0xFF) << (8 * j)
+                out[0, : units * 16] = ((acc[:, :4, None] >> (8 * torch.arange(4))) & 0xFF).reshape(-1)
+                break
+            for c in range(cols):
+                for k in range(4):
+                    for j in range(4):
+                        acc[:, 4 * k + j] ^= t[g, c, (words[c, :, k] >> (8 * j)) & 0xFF]
+            for w in range(4):
+                a0, a1, a2, a3 = (acc[:, 4 * w + j] for j in range(4))
+                t0, t1 = byte_perm(a0, a1, 0x5140), byte_perm(a0, a1, 0x7362)
+                t2, t3 = byte_perm(a2, a3, 0x5140), byte_perm(a2, a3, 0x7362)
+                o = (byte_perm(t0, t2, 0x5410), byte_perm(t0, t2, 0x7632),
+                     byte_perm(t1, t3, 0x5410), byte_perm(t1, t3, 0x7632))
+                for k in range(4):
+                    if 4 * g + k < rows:
+                        for j in range(4):
+                            out[4 * g + k, 4 * w + j : units * 16 : 16] = (o[k] >> (8 * j)) & 0xFF
+    tail = xt[:, units * 16 :]
+    for g in range(t.shape[0]):
+        acc = torch.zeros(tail.shape[1], dtype=torch.int64)
+        for c in range(cols):
+            acc ^= t[g, c, tail[c]] & (0xFF if rows == 1 else 0xFFFFFFFF)
+        for k in range(min(4, rows - 4 * g)):
+            out[4 * g + k, units * 16 :] = (acc >> (8 * k)) & 0xFF
+    return out.to(torch.uint8).numpy()
+
+
+class TestPackedKernelLayout:
+    """The host tables and arithmetic of csrc/gf256_matmul.cu."""
+
+    @pytest.mark.parametrize("n", LENGTHS)
+    @pytest.mark.parametrize("cols", [1, 7, 10, 14])
+    @pytest.mark.parametrize("rows", range(1, 15))
+    def test_emulated_kernel(self, rows, cols, n):
+        """Whole units and the byte path both equal the JAX transform and
+        the numpy oracle, byte for byte."""
+        m = _rand(rows * 100 + cols + 7, (rows, cols))
+        x = _rand(n + 5, (cols, n))
+        want = ref_gf256.gf_matmul_bytes(m, x)
+        assert np.array_equal(np.asarray(gf_matmul_jax(m, x)), want)
+        assert np.array_equal(emulate_gf_kernel(m, x, vec=True), want)
+        assert np.array_equal(emulate_gf_kernel(m, x, vec=False), want)
+
+    @pytest.mark.parametrize("cols", [1, 10, 14])
+    @pytest.mark.parametrize("rows", [1, 4, 5, 14])
+    def test_packed_tables(self, rows, cols):
+        """Byte k of word v of table (g, c) is matrix[4g + k, c] x v, 0 past
+        the last row."""
+        m = _rand(rows * 100 + cols, (rows, cols))
+        t = rs_cuda.packed_tables(m)
+        groups = -(-rows // 4)
+        assert t.shape == (groups, cols, 256) and t.dtype == np.uint32
+        assert t.flags["C_CONTIGUOUS"]
         mul = ref_gf256.mul_table()
-        for r in range(4):
-            for c in range(10):
-                assert np.array_equal(t[c, r], mul[m[r, c]])
+        for g in range(groups):
+            for c in range(cols):
+                for k in range(4):
+                    r = 4 * g + k
+                    want = mul[m[r, c]] if r < rows else np.zeros(256, np.uint8)
+                    assert np.array_equal((t[g, c] >> (8 * k)) & 0xFF, want)
+
+    def test_transpose_selectors(self):
+        """The four prmt selectors turn words a0..a3 into out_k = byte k of
+        each, low word first: the shifts-and-masks transpose."""
+        a = [int(v) for v in np.random.RandomState(11).randint(0, 1 << 32, 4, dtype=np.uint64)]
+        t0, t1 = byte_perm(a[0], a[1], 0x5140), byte_perm(a[0], a[1], 0x7362)
+        t2, t3 = byte_perm(a[2], a[3], 0x5140), byte_perm(a[2], a[3], 0x7362)
+        got = [byte_perm(t0, t2, 0x5410), byte_perm(t0, t2, 0x7632),
+               byte_perm(t1, t3, 0x5410), byte_perm(t1, t3, 0x7632)]
+        want = [sum(((a[j] >> (8 * k)) & 0xFF) << (8 * j) for j in range(4)) for k in range(4)]
+        assert got == want
 
 
 class TestCodec:
