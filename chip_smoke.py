@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--volume-mib MIB] [--upload-blobs N]
                           [--chunked-mib MIB] [--cdc-uploads N] [--stream-mib MIB]
+                          [--dedup-gib GIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -50,7 +51,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               --cdc-uploads (64) seeded 64 MiB uploads, and chunk_stream at
               its defaults over --stream-mib (1 GiB); cuts equal the plain
               version's on the card, the first upload's the numpy oracle's
-  8. entry    entry() on the card equal to the CPU codec
+  8. dedup    the filer's CDC dedup write path (BASELINE config 4):
+              --dedup-gib (8) GiB of 64 MiB uploads, four seeded segments
+              alternating with byte-shifted repeats (bench.py's stream),
+              through FilerServer._upload_chunks_cdc on the card over a
+              Filer(MemoryStore()); wall and p75-window GB/s, dedup shares,
+              the time split per upload, gear_hash launches, peak device
+              bytes, a profiled window's device idle share; SW128 goldens,
+              cuts against the plain CPU cut rule, every miss's ETag against
+              hashlib, sampled span keys against SW128 alone, exact repeats
+              fully deduped, shifted repeats at 90 % of their bytes or more
+  9. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -75,13 +86,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from seaweedfs_tpu_torch import native
 from seaweedfs_tpu_torch.entry import entry
+from seaweedfs_tpu_torch.filer import Filer
+from seaweedfs_tpu_torch.filer.filerstore import MemoryStore
 from seaweedfs_tpu_torch.ops import _build, cdc, gf256
 from seaweedfs_tpu_torch.ops.crc32c_kernel import crc32c_batch_kernel, crc32c_batch_torch
 from seaweedfs_tpu_torch.ops.hash_service import HashService
 from seaweedfs_tpu_torch.ops.md5_kernel import _pad_len, md5_batch_kernel, md5_batch_torch
 from seaweedfs_tpu_torch.ops.rs_cuda import gf256_matmul, gf_matmul_torch
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
+from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.storage import crc
 from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometry
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
@@ -1055,6 +1070,219 @@ def cdc_phase(dev: torch.device, uploads: int, stream_bytes: int, seed: int) -> 
                 cuts_equal_plain=True, first_upload_equal_numpy=True)
 
 
+# --- phase 8: the filer's CDC dedup write path -------------------------------------
+DEDUP_SEGMENT = 64 * MIB  # bench.py bench_cdc_dedup: 64 MiB uploads
+# tests/test_hash_kernels.py TestFast128.GOLDENS: SW128's stability contract
+SW128_GOLDENS = {
+    b"": "33e3e03153b370ad09fc69b2f5458347",
+    b"hello world": "c45b2fa4798b614d6ef52c3d1a90a788",
+    b"hello worle": "d1ddba86ba4300cd658d38d5e1028a75",
+}
+DEDUP_PROFILED = 8  # uploads of the profiled window
+DEDUP_KEY_SAMPLES = 8  # spans per upload whose key is recomputed alone
+
+
+class FreshFids:
+    """The dedup phase's chunk uploader: a fresh fid per chunk and no blob
+    kept (the blob upload is what configs 1-3 measure)."""
+
+    def __init__(self) -> None:
+        self.issued = 0
+
+    def upload(self, payload, replication="", collection="", ttl="") -> dict:
+        self.issued += 1
+        return {"fid": f"3,{self.issued:x}00000000"}
+
+
+def dedup_upload(segs: list, i: int) -> bytes:
+    """Upload i of bench.py's stream: segment (i // 2) % 4 when i is even,
+    else segment (i // 3) % 4 rotated by 1 + 37 * i % 4093 bytes; as bytes,
+    as the filer receives an HTTP body."""
+    if i % 2 == 0:
+        return segs[(i // 2) % 4].tobytes()
+    shift = 1 + 37 * i % 4093
+    src = segs[(i // 3) % 4]
+    return src[shift:].tobytes() + src[:shift].tobytes()
+
+
+def dedup_phase(dev: torch.device, n_uploads: int, seed: int) -> dict:
+    """BASELINE config 4 through the port's FilerServer._upload_chunks_cdc
+    on the card: n_uploads uploads of 64 MiB that alternate four seeded
+    segments with byte-shifted repeats (bench.py bench_cdc_dedup), a
+    Filer(MemoryStore()), the filer's dedup geometry. Each upload is built
+    before its timed window. The gear_hash launches are counted over the
+    timed run alone; then a profiled window of exact repeats for the
+    device's idle share. Checks: SW128's goldens, the cuts of the first
+    upload and of a shifted repeat against the plain CPU cut rule, every
+    miss's ETag against hashlib, sampled span keys against SW128 of the span
+    alone, every exact repeat fully deduped, every shifted repeat at least
+    90 % of its bytes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for data, want in SW128_GOLDENS.items():
+        check(native.fast128(data).hex() == want, f"SW128 golden of {data!r}")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 7])
+    segs = [rng.integers(0, 256, DEDUP_SEGMENT, dtype=np.uint8) for _ in range(4)]
+    gen_s = time.perf_counter() - t0
+    client = FreshFids()
+    filer = Filer(MemoryStore())
+    server = FilerServer(filer, client, device=dev, dedup_avg_bits=DEDUP["avg_bits"],
+                         dedup_min=DEDUP["min_size"], dedup_max=DEDUP["max_size"])
+    idx = server.dedup_index
+    svc = server.hash_service
+    # the time split: the path's calls timed where the server makes them
+    # (the index: every lookup and insert; the rest is the whole-upload MD5,
+    # the loops and chunk records); what each returned is kept for the checks
+    split = {"find_boundaries": 0.0, "span_keys": 0.0, "index": 0.0, "md5_spans": 0.0}
+    last = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            split[name] += time.perf_counter() - t
+            last[name] = out
+            return out
+        return run
+
+    real_fb = cdc.find_boundaries
+    cdc.find_boundaries = timed("find_boundaries", real_fb)
+    svc.span_keys = timed("span_keys", svc.span_keys)
+    svc.md5_spans = timed("md5_spans", svc.md5_spans)
+    idx.lookup = timed("index", idx.lookup)
+    idx.insert = timed("index", idx.insert)
+    seen_segments = set()
+    rows = []
+    stream_md5 = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        zero_launches()
+        for i in range(n_uploads):
+            kind = ("exact" if (i // 2) % 4 in seen_segments else "fresh") if i % 2 == 0 \
+                else "shifted"
+            data = dedup_upload(segs, i)
+            before = dict(split, hits=idx.hits, saved=idx.bytes_saved, issued=client.issued)
+            t = time.perf_counter()
+            chunks, etag = server._upload_chunks_cdc(data, "", "", "")
+            window = time.perf_counter() - t
+            row = dict(kind=kind, bytes=len(data), window_s=window, chunks=len(chunks),
+                       hits=idx.hits - before["hits"], saved=idx.bytes_saved - before["saved"],
+                       **{k: split[k] - before[k] for k in split})
+            rows.append(row)
+            # checks, outside the window
+            check(sum(c.size for c in chunks) == len(data), f"upload {i}: chunks cover the upload")
+            if i < 2:  # the first upload and a shifted repeat: the plain CPU cut rule
+                arr = np.frombuffer(data, dtype=np.uint8)
+                h = cdc.gear_hashes_numpy(arr)
+                plain = cdc.cut_points(np.nonzero((h & np.uint32((1 << DEDUP["avg_bits"]) - 1))
+                                                  == 0)[0], len(arr), DEDUP["min_size"],
+                                       DEDUP["max_size"])
+                check(last["find_boundaries"] == plain, f"upload {i}: cuts != the plain CPU cuts")
+                del arr, h
+            for c in chunks:  # a miss's fid was issued by this upload
+                if int(c.file_id.split(",")[1][:-8], 16) > before["issued"]:
+                    check(c.etag == hashlib.md5(data[c.offset : c.offset + c.size]).hexdigest(),
+                          f"upload {i}: a miss's ETag != hashlib at {c.offset}")
+            keys = last["span_keys"]
+            for j in np.random.default_rng([seed, 8, i]).choice(len(chunks),
+                                                                 min(DEDUP_KEY_SAMPLES, len(chunks)),
+                                                                 replace=False):
+                c = chunks[j]
+                alone = native.fast128(memoryview(data)[c.offset : c.offset + c.size], idx.seed)
+                check(keys[j] == "x" + alone.hex(), f"upload {i}: span key {j} != SW128 alone")
+            if kind == "exact":
+                check(row["hits"] == len(chunks), f"upload {i}: an exact repeat not fully deduped")
+            if kind == "shifted":
+                check((i // 3) % 4 in seen_segments, f"upload {i}: a shift of an unseen segment")
+                check(row["saved"] >= 0.9 * len(data),
+                      f"upload {i}: a shifted repeat deduped {row['saved'] / len(data):.3f}")
+            if i % 2 == 0:
+                seen_segments.add((i // 2) % 4)
+            if i < 8:  # the whole-upload MD5 alone, which the window holds
+                t = time.perf_counter()
+                hashlib.md5(data).digest()
+                stream_md5.append(time.perf_counter() - t)
+        launches = read_launches()["gear_hash"]
+        peak = torch.cuda.max_memory_allocated()
+        stats, uploaded = idx.stats(), client.issued
+        hits_misses = idx.hits + idx.misses
+        check(launches > 0, "the dedup path launched no gear_hash kernel")
+        check(launches == n_uploads, f"{launches} gear_hash launches for {n_uploads} uploads")
+
+        # a profiled window of exact repeats: the device's share of an upload
+        window = [dedup_upload(segs, 2 * k) for k in range(DEDUP_PROFILED)]
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for data in window:
+                    server._upload_chunks_cdc(data, "", "", "")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            device_us, events = {}, {}
+            for e in prof.key_averages():
+                if getattr(e, "device_type", None) == DeviceType.CUDA:
+                    t_us = getattr(e, "self_device_time_total", None)
+                    if t_us is None:
+                        t_us = e.self_cuda_time_total
+                    name = e.key[:60]  # kernels' full names run to hundreds of characters
+                    device_us[name] = device_us.get(name, 0.0) + t_us
+                    events[name] = events.get(name, 0) + e.count
+            gear_seen = sum(n for k, n in events.items() if "gear_hash_kernel" in k)
+            if gear_seen:
+                break
+        check(gear_seen > 0, "the profiler saw no gear_hash kernel in three windows")
+    finally:
+        cdc.find_boundaries = real_fb
+        filer.close()
+    busy_s = sum(device_us.values()) / 1e6
+    # the profiler drops events on the card's host: each upload launches
+    # gear_hash once, so the device time seen is scaled by the window's
+    # uploads over the gear events seen
+    busy_scaled_s = busy_s * len(window) / gear_seen
+    total = sum(r["bytes"] for r in rows)
+    wall_s = sum(r["window_s"] for r in rows)
+    rates = sorted(r["bytes"] / r["window_s"] for r in rows)
+
+    # per upload of each kind, mean ms: the timed calls, and the rest of the
+    # window (whole-upload MD5, loops, chunk records)
+    by_kind = {}
+    for kind in ("fresh", "exact", "shifted"):
+        mine = [r for r in rows if r["kind"] == kind]
+        if not mine:
+            continue
+        ms = {k: float(np.mean([r[k] for r in mine])) * 1e3 for k in (*split, "window_s")}
+        window_ms = ms.pop("window_s")
+        by_kind[kind] = dict(uploads=len(mine), window_ms=window_ms,
+                             **{f"{k}_ms": v for k, v in ms.items()},
+                             rest_ms=window_ms - sum(ms.values()),
+                             chunks=float(np.mean([r["chunks"] for r in mine])),
+                             hits=float(np.mean([r["hits"] for r in mine])))
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    return dict(
+        gib=n_uploads * DEDUP_SEGMENT / (1024 * MIB), uploads=n_uploads, upload_bytes=DEDUP_SEGMENT, **DEDUP,
+        bytes=total, wall_s=wall_s, gbps=total / wall_s / 1e9,
+        gbps_p75_window=rates[3 * len(rates) // 4] / 1e9,
+        chunks=sum(r["chunks"] for r in rows),
+        dedup_chunk_pct=100.0 * stats["hits"] / hits_misses,
+        dedup_byte_pct=100.0 * stats["bytes_saved"] / total,
+        **stats, uploaded_chunks=uploaded,
+        split_total_s={k: sum(r[k] for r in rows) for k in split}, split_ms_per_upload=by_kind,
+        stream_md5_ms=float(np.mean(stream_md5)) * 1e3,
+        gear_hash_launches=launches, peak_device_bytes=peak,
+        profiled=dict(uploads=len(window), seconds=wall, device_busy_s=busy_s,
+                      device_busy_scaled_s=busy_scaled_s,
+                      device_idle_share_scaled=1 - busy_scaled_s / wall,
+                      device_busy_share=busy_s / wall, device_idle_share=1 - busy_s / wall,
+                      profiler_windows=attempt + 1, gear_events=gear_seen,
+                      device_ms_by_event={k: v / 1e3 for k, v in top},
+                      events_by_event={k: events[k] for k, _ in top}),
+        generate_segments_s=gen_s, sw128_goldens=True, cuts_equal_plain_cpu=True,
+        miss_etags_equal_hashlib=True, sampled_keys_equal_sw128=True,
+        nvidia_smi=nvidia_smi())
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -1086,6 +1314,7 @@ def main() -> int:
     ap.add_argument("--chunked-mib", type=int, default=1024)
     ap.add_argument("--cdc-uploads", type=int, default=64)
     ap.add_argument("--stream-mib", type=int, default=1024)
+    ap.add_argument("--dedup-gib", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1169,6 +1398,11 @@ def main() -> int:
     launches["gear_hash"] = read_launches()["gear_hash"]
     emit("cdc", launches=launches["gear_hash"], **cd)
     check(launches["gear_hash"] > 0, "the cdc path launched no gear_hash kernel")
+
+    # the filer's dedup write path (BASELINE config 4); its own count
+    dd = dedup_phase(dev, args.dedup_gib * 1024 * MIB // DEDUP_SEGMENT, args.seed)
+    emit("dedup", **dd)
+    launches["gear_hash"] += dd["gear_hash_launches"]
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

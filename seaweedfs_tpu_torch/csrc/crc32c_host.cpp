@@ -63,3 +63,12 @@ extern "C" uint32_t crc32c_update(uint32_t crc, const unsigned char* data, size_
 #endif
     return ~c;
 }
+
+// CRC32C of n sub-ranges of one contiguous buffer (the CDC chunks of an
+// upload): out[i] = CRC of base[offs[i], offs[i] + lens[i]). The port's
+// counterpart of the JAX package's native sw_crc32c_batch_spans, equal in
+// output; spans are hashed one after another.
+extern "C" void sw_crc32c_batch_spans(const unsigned char* base, const size_t* offs,
+                                      const size_t* lens, size_t n, uint32_t* out) {
+    for (size_t i = 0; i < n; i++) out[i] = crc32c_update(0, base + offs[i], lens[i]);
+}

@@ -8,7 +8,9 @@ its source and flags, in `seaweedfs_tpu_torch/build/` (git-ignored):
   crc32c_batch.cu   nvcc, sm_90a  -> CRC32C of N equal-length blobs
   md5_batch.cu      nvcc, sm_90a  -> MD5 of N equal-length blobs
   gear_hash.cu      nvcc, sm_90a  -> gear window hash of every position (CDC)
-  crc32c_host.cpp   g++           -> host CRC32C for needle checksums
+  crc32c_host.cpp   g++           -> host CRC32C for needle checksums and CDC spans
+  fast128.cpp       g++           -> SW128, the dedup index's identity hash
+  md5_host.cpp      g++           -> host MD5 of CDC spans (dedup ETags)
 
 `build()` starts every missing compile at once (one compiler process per
 source) and waits for all of them; a failed compile raises with the
@@ -49,14 +51,13 @@ GF256_MATMUL = Source("gf256_matmul", "gf256_matmul.cu", "nvcc", _NVCC_FLAGS)
 CRC32C_BATCH = Source("crc32c_batch", "crc32c_batch.cu", "nvcc", _NVCC_FLAGS)
 MD5_BATCH = Source("md5_batch", "md5_batch.cu", "nvcc", _NVCC_FLAGS)
 GEAR_HASH = Source("gear_hash", "gear_hash.cu", "nvcc", _NVCC_FLAGS)
-CRC32C_HOST = Source(
-    "crc32c_host",
-    "crc32c_host.cpp",
-    "g++",
-    ("-O3", "-std=c++17", "-shared", "-fPIC")
-    + (("-march=native",) if platform.machine() in ("x86_64", "AMD64") else ()),
+_HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC") + (
+    ("-march=native",) if platform.machine() in ("x86_64", "AMD64") else ()
 )
-SOURCES = (GF256_MATMUL, CRC32C_BATCH, MD5_BATCH, GEAR_HASH, CRC32C_HOST)
+CRC32C_HOST = Source("crc32c_host", "crc32c_host.cpp", "g++", _HOST_FLAGS)
+FAST128 = Source("fast128", "fast128.cpp", "g++", _HOST_FLAGS)
+MD5_HOST = Source("md5_host", "md5_host.cpp", "g++", _HOST_FLAGS)
+SOURCES = (GF256_MATMUL, CRC32C_BATCH, MD5_BATCH, GEAR_HASH, CRC32C_HOST, FAST128, MD5_HOST)
 
 
 def _compiler(src: Source) -> str:

@@ -11,7 +11,7 @@ k. The host algebra below (`_byte_step_matrix`, `_block_matrix`,
 `csrc/crc32c_batch.cu` (it replaces the JAX device function
 `crc32c_kernel.py::_compiled_batch`, a bit-matrix product on the MXU). The
 kernel keeps the affine structure but not the bit form: a blob is cut into
-`crc_warps(n, L)` spans, one warp each; lane j of a warp takes the 16-byte
+`crc_warps(n, L, sms)` spans, one warp each; lane j of a warp takes the 16-byte
 pieces j, j + 32, ... of its span (coalesced loads) and advances its
 register-only CRC by 512 bytes a piece with 16 tables (`_piece_tables`).
 Lanes fold into their warp and warps into the blob by host-built columns
@@ -40,6 +40,7 @@ import torch
 
 from ..storage import crc as crc_cpu
 from . import _build
+from .rs_cuda import sm_count
 from .rs_kernel import _as_tensor, resolve_device
 
 # --- GF(2) 32-bit state algebra (host-side, numpy) ------------------------
@@ -188,17 +189,17 @@ def crc32c_batch_torch(blocks: torch.Tensor) -> torch.Tensor:
 # level-2 columns (to the end of the blob): `_fold_columns`.
 PIECE = 16
 STRIDE = 32 * PIECE
-SMS = 132  # an H100 SXM's streaming multiprocessors
-# warps per blob grow until the batch has this many (16 warps a SM) or a
-# warp's span would fall under MIN_SPAN bytes
-TARGET_WARPS = SMS * 16
+# warps per blob grow until the batch has WARPS_PER_SM warps for each of
+# the device's SMs (`sms`, read by the wrapper) or a warp's span would fall
+# under MIN_SPAN bytes
+WARPS_PER_SM = 16
 MIN_SPAN = 1024
 # a block holds max(warps, BLOCK_WARPS) warps: whole blobs, so tables and
 # columns are staged once for several small blobs
 BLOCK_WARPS = 8
 # threads a SM holds at once, whatever the block size: __launch_bounds__(1024)
 # keeps registers at 64 a thread or fewer, and four blocks' 28.8 KB of shared
-# memory fit; the grid is capped at SMS times this
+# memory fit; the grid is capped at the device's SMs times this
 RESIDENT_THREADS = 1024
 
 
@@ -224,12 +225,12 @@ def _piece_tables() -> np.ndarray:
     return _advance_tables(STRIDE)[STRIDE - 1 : STRIDE - 1 - PIECE : -1].copy()
 
 
-def crc_warps(n: int, length: int) -> int:
-    """Warps per blob for a batch of n blobs of `length` bytes: one,
-    doubled up to 32 while the batch has fewer than TARGET_WARPS warps and
-    each span keeps at least MIN_SPAN bytes."""
+def crc_warps(n: int, length: int, sms: int) -> int:
+    """Warps per blob for a batch of n blobs of `length` bytes on a device
+    of `sms` SMs: one, doubled up to 32 while the batch has fewer than
+    sms x WARPS_PER_SM warps and each span keeps at least MIN_SPAN bytes."""
     warps = 1
-    while warps < 32 and n * warps < TARGET_WARPS and length >= 2 * warps * MIN_SPAN:
+    while warps < 32 and n * warps < sms * WARPS_PER_SM and length >= 2 * warps * MIN_SPAN:
         warps *= 2
     return warps
 
@@ -239,14 +240,14 @@ def crc_span(length: int, warps: int) -> int:
     return max(STRIDE, -(-length // (warps * STRIDE)) * STRIDE)
 
 
-def crc_grid(n: int, warps: int) -> tuple[int, int]:
-    """(threads a block, blocks) of a launch over n blobs of `warps` warps.
-    Blocks loop over groups of whole blobs; the grid is capped at what the
-    card holds at once, then cut to the fewest blocks that take the same
-    number of rounds over the groups."""
+def crc_grid(n: int, warps: int, sms: int) -> tuple[int, int]:
+    """(threads a block, blocks) of a launch over n blobs of `warps` warps
+    on a device of `sms` SMs. Blocks loop over groups of whole blobs; the
+    grid is capped at what the card holds at once, then cut to the fewest
+    blocks that take the same number of rounds over the groups."""
     threads = 32 * max(warps, BLOCK_WARPS)
     groups = -(-n // (threads // 32 // warps))
-    rounds = -(-groups // (SMS * RESIDENT_THREADS // threads))
+    rounds = -(-groups // (sms * RESIDENT_THREADS // threads))
     return threads, -(-groups // rounds)
 
 
@@ -388,8 +389,9 @@ def crc32c_batch_kernel(blocks: torch.Tensor) -> torch.Tensor:
     if n == 0 or length == 0:
         return out.zero_().view(torch.uint32)  # crc of no bytes is 0
     dev = str(blocks.device)
-    warps = crc_warps(n, length)
-    threads, grid = crc_grid(n, warps)
+    sms = sm_count(blocks.device)
+    warps = crc_warps(n, length, sms)
+    threads, grid = crc_grid(n, warps, sms)
     tables = _device_tables(dev)
     cols = _device_columns(length, warps, dev)
     kernel = _kernel()

@@ -22,9 +22,15 @@ The device is fixed at construction: `HashService()` runs on cuda or
 raises. There is no backend pick, rate calibration or override. Counters:
 `batch_blobs` (hashed by the batch path), `host_blobs`, `failed_blobs`.
 
-Left for the dedup slice: `span_keys`, `md5_spans` and `hash_spans`, which
-need the JAX package's native SW128 and span libraries to give the same
-dedup keys.
+The dedup write path's span methods, `span_keys`, `md5_spans` and
+`hash_spans`, are synchronous host code on either device, as in the JAX
+package (span batches are host-resident and latency-bound, the worst case
+for a device round trip): one call into the port's host libraries
+(`seaweedfs_tpu_torch.native`) per batch of spans of one buffer. Keys are
+SW128 with the "x" prefix, equal to the JAX package's for the same seed.
+The JAX package's "f" (MD5) keys exist only for when its native library is
+absent; the port never lacks its host library (a failed build raises), so
+it has no such fallback.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from .. import native
 from ..storage import crc as crc_mod
 from .crc32c_kernel import crc32c_batch_kernel
 from .md5_kernel import md5_batch_kernel
@@ -206,6 +213,29 @@ class HashService:
         md5, crc = _hash_one(data)
         self._count(host=1)
         return binascii.hexlify(md5).decode(), crc
+
+    def span_keys(self, buf, cuts, seed: bytes = b"") -> list[str]:
+        """Dedup identity keys per CDC span (cuts are exclusive ends):
+        "x<hex32>", SW128 keyed by the caller's per-store 16-byte seed."""
+        if len(cuts) == 0:
+            return []
+        return ["x" + d.tobytes().hex() for d in native.fast128_spans(buf, cuts, seed)]
+
+    def md5_spans(self, buf, ranges: list[tuple[int, int]]) -> list[str]:
+        """MD5 hex per (offset, length) span of one buffer, in one batch.
+        The dedup path hashes its index MISSES only (their upload ETags)."""
+        if not ranges:
+            return []
+        digests = native.md5_spans(buf, [r[0] for r in ranges], [r[1] for r in ranges])
+        return [d.tobytes().hex() for d in digests]
+
+    def hash_spans(self, buf, cuts) -> list[tuple[str, int]]:
+        """[(md5 hex, crc32c)] per CDC span of one buffer, cuts being
+        exclusive ends, in one batch with no per-span copies."""
+        if len(cuts) == 0:
+            return []
+        digests, crcs = native.md5_crc_batch_spans(buf, cuts)
+        return [(d.tobytes().hex(), int(c)) for d, c in zip(digests, crcs.tolist())]
 
     # --- internals -----------------------------------------------------------
     def _flusher(self) -> None:

@@ -142,7 +142,9 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
+    """The device's streaming multiprocessors (132 on an H100 SXM), read
+    once per device: the launch geometry of gf256_matmul and crc32c_batch."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -188,7 +190,7 @@ def gf256_matmul(matrix, x: torch.Tensor) -> torch.Tensor:
             tables.data_ptr(), rows, cols,
             x3.data_ptr(), x3.stride(0), x3.stride(1),
             out.data_ptr(), out.stride(0), n, batches,
-            _sm_count(x.device) * BLOCKS_PER_SM, stream,
+            sm_count(x.device) * BLOCKS_PER_SM, stream,
         )
     if rc != 0:
         raise RuntimeError(f"gf256_matmul kernel launch failed: CUDA error {rc}")

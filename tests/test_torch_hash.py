@@ -21,6 +21,11 @@ from seaweedfs_tpu_torch.ops.hash_service import HashService
 from seaweedfs_tpu_torch.storage import crc as crc_cpu
 
 
+# the CRC kernel's geometry is emulated for an H100 SXM's SM count; on the
+# card the wrapper reads the device's own (rs_cuda.sm_count)
+H100_SMS = 132
+
+
 def _rand(seed, shape):
     return np.random.RandomState(seed).randint(0, 256, size=shape).astype(np.uint8)
 
@@ -112,7 +117,7 @@ class TestCRCBatch:
         host: each lane's register-only CRC of its interleaved pieces,
         folded into its warp and the warps into the blob, ^ crc(0^L)."""
         row = _rand(length, length)
-        warps = crc_mod.crc_warps(1, length)
+        warps = crc_mod.crc_warps(1, length, H100_SMS)
         span = crc_mod.crc_span(length, warps)
         assert span % crc_mod.STRIDE == 0 and warps * span >= length
         assert emulate_crc_kernel(row, warps) == crc_cpu.crc32c(row.tobytes())
@@ -218,12 +223,12 @@ class TestCRCKernelLayout:
         (8193, 1, 1),
     ])
     def test_geometry(self, n, length, warps):
-        assert crc_mod.crc_warps(n, length) == warps
+        assert crc_mod.crc_warps(n, length, H100_SMS) == warps
         span = crc_mod.crc_span(length, warps)
         assert span % crc_mod.STRIDE == 0 and warps * span >= length
         assert warps == 1 or span >= crc_mod.MIN_SPAN
         if warps > 1:  # one more warp would have cut a span short or been idle
-            assert n * warps <= 2 * crc_mod.TARGET_WARPS
+            assert n * warps <= 2 * H100_SMS * crc_mod.WARPS_PER_SM
 
     @pytest.mark.parametrize("n, length, threads, blocks", [
         (16, 4096, 256, 8),  # 2 blobs a block
@@ -236,10 +241,10 @@ class TestCRCKernelLayout:
     def test_grid(self, n, length, threads, blocks):
         """Whole blobs a block; the grid within what the card holds at once
         and no larger than the fewest rounds over the groups need."""
-        warps = crc_mod.crc_warps(n, length)
-        assert crc_mod.crc_grid(n, warps) == (threads, blocks)
+        warps = crc_mod.crc_warps(n, length, H100_SMS)
+        assert crc_mod.crc_grid(n, warps, H100_SMS) == (threads, blocks)
         assert threads % (32 * warps) == 0 and threads <= 1024
-        assert blocks * threads <= crc_mod.SMS * crc_mod.RESIDENT_THREADS
+        assert blocks * threads <= H100_SMS * crc_mod.RESIDENT_THREADS
         groups = -(-n // (threads // 32 // warps))
         rounds = -(-groups // blocks)
         assert blocks == 1 or -(-groups // (blocks - 1)) > rounds  # one block fewer: a round more
