@@ -1,27 +1,38 @@
-"""EcVolume: serve reads from striped shard files.
+"""EcVolume: serve reads/deletes from striped shard files.
 
 The port's counterpart of `seaweedfs_tpu/storage/erasure_coding/ec_volume.py`
 (after `weed/storage/erasure_coding/ec_volume.go` and the local half of
 `weed/storage/store_ec.go`): needle lookup by binary search over the sorted
-.ecx, interval math to shard reads, and on-miss interval reconstruction
+.ecx, interval math to shard reads, on-miss interval reconstruction
 from any 10 surviving local shards through the codec's kernel (a degraded
-read).
+read), and deletion via .ecx tombstone + .ecj journal append.
 
-Not ported yet: deletes, remote shard and partial fetchers, fault points,
-events and metrics. All file access uses positional os.pread, so
-concurrent reads are safe.
+Not ported yet: the remote shard and partial fetchers (they need master
+lookups), fault points, events and metrics. All file access uses
+positional os.pread/os.pwrite, so concurrent reads and read+delete are
+safe.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.storage import idx as idx_mod
 from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
-from seaweedfs_tpu_torch.storage.types import NEEDLE_MAP_ENTRY_SIZE, size_is_deleted
+from seaweedfs_tpu_torch.storage.types import (
+    NEEDLE_ID_SIZE,
+    NEEDLE_MAP_ENTRY_SIZE,
+    OFFSET_SIZE,
+    TOMBSTONE_FILE_SIZE,
+    put_u32,
+    put_u64,
+    size_is_deleted,
+    size_to_u32,
+)
 from seaweedfs_tpu_torch.storage.volume import NotFound
 
 from . import encoder
@@ -64,12 +75,16 @@ class EcVolume:
         self.large_block_size = large_block_size
         self.small_block_size = small_block_size
         self._closed = False
+        self._ecj_lock = threading.Lock()
         self.data_base = ec_shard_file_name(collection, self.dir, volume_id)
         self.index_base = ec_shard_file_name(collection, self.dir_idx, volume_id)
         if not os.path.exists(self.index_base + ".ecx"):
             raise FileNotFoundError(self.index_base + ".ecx")
-        self._ecx_fd = os.open(self.index_base + ".ecx", os.O_RDONLY)
+        self._ecx_fd = os.open(self.index_base + ".ecx", os.O_RDWR)
         self.ecx_file_size = os.path.getsize(self.index_base + ".ecx")
+        self.ecj_path = self.index_base + ".ecj"
+        if not os.path.exists(self.ecj_path):
+            open(self.ecj_path, "wb").close()
 
         info = encoder.load_volume_info(self.data_base + ".vif")
         self.version = int(info.get("version", 3)) or 3
@@ -192,3 +207,18 @@ class EcVolume:
 
     def shard_ids(self) -> list[int]:
         return sorted(self.shards)
+
+    # --- deletes ----------------------------------------------------------------
+    def delete_needle(self, needle_id: int) -> None:
+        """Tombstone in .ecx + append id to .ecj (`ec_volume_delete.go:27-49`)."""
+        found, pos, _, _ = self._search(needle_id)
+        if not found:
+            return
+        os.pwrite(
+            self._ecx_fd,
+            put_u32(size_to_u32(TOMBSTONE_FILE_SIZE)),
+            pos * NEEDLE_MAP_ENTRY_SIZE + NEEDLE_ID_SIZE + OFFSET_SIZE,
+        )
+        with self._ecj_lock:
+            with open(self.ecj_path, "ab") as f:
+                f.write(put_u64(needle_id))

@@ -1,7 +1,6 @@
 """Needle: one stored blob inside an append-only volume.
 
-The port's copy of `seaweedfs_tpu/storage/needle.py` (record encode and
-decode); flag setters, body-only reads and etags are not ported yet.
+The port's copy of `seaweedfs_tpu/storage/needle.py`.
 
 Bit-compatible with the reference's on-disk record
 (`weed/storage/needle/needle.go:25-45`, `needle_write.go:14-107`,
@@ -111,20 +110,47 @@ class Needle:
     append_at_ns: int = 0  # v3 only
 
     # --- flags -------------------------------------------------------------
+    def is_compressed(self) -> bool:
+        return bool(self.flags & FLAG_IS_COMPRESSED)
+
+    def set_is_compressed(self) -> None:
+        self.flags |= FLAG_IS_COMPRESSED
+
     def has_name(self) -> bool:
         return bool(self.flags & FLAG_HAS_NAME)
+
+    def set_has_name(self) -> None:
+        self.flags |= FLAG_HAS_NAME
 
     def has_mime(self) -> bool:
         return bool(self.flags & FLAG_HAS_MIME)
 
+    def set_has_mime(self) -> None:
+        self.flags |= FLAG_HAS_MIME
+
     def has_last_modified(self) -> bool:
         return bool(self.flags & FLAG_HAS_LAST_MODIFIED)
+
+    def set_has_last_modified(self) -> None:
+        self.flags |= FLAG_HAS_LAST_MODIFIED
 
     def has_ttl(self) -> bool:
         return bool(self.flags & FLAG_HAS_TTL)
 
+    def set_has_ttl(self) -> None:
+        self.flags |= FLAG_HAS_TTL
+
     def has_pairs(self) -> bool:
         return bool(self.flags & FLAG_HAS_PAIRS)
+
+    def set_has_pairs(self) -> None:
+        self.flags |= FLAG_HAS_PAIRS
+
+    def is_chunked_manifest(self) -> bool:
+        return bool(self.flags & FLAG_IS_CHUNK_MANIFEST)
+
+    def set_is_chunk_manifest(self) -> None:
+        self.flags |= FLAG_IS_CHUNK_MANIFEST
 
     # --- size / layout ------------------------------------------------------
     def body_size(self, version: int) -> int:
@@ -145,6 +171,9 @@ class Needle:
         if self.has_pairs():
             size += 2 + len(self.pairs)
         return size
+
+    def disk_size(self, version: int) -> int:
+        return get_actual_size(self.body_size(version), version)
 
     def update_append_at_ns(self, volume_last_append_at_ns: int) -> None:
         self.append_at_ns = max(time.time_ns(), volume_last_append_at_ns + 1)
@@ -273,3 +302,26 @@ class Needle:
             ts_off = NEEDLE_HEADER_SIZE + n.size + NEEDLE_CHECKSUM_SIZE
             n.append_at_ns = get_u64(blob, ts_off)
         return n
+
+    def read_needle_body_bytes(self, body: bytes, version: int) -> None:
+        """Hydrate from header-parsed state plus the body blob
+        (`needle_read.go:ReadNeedleBodyBytes`)."""
+        if not body:
+            return
+        if version == VERSION1:
+            self.data = bytes(body[: self.size])
+        else:
+            self._read_body_v2(body[: self.size])
+            if version == VERSION3:
+                ts_off = self.size + NEEDLE_CHECKSUM_SIZE
+                self.append_at_ns = get_u64(body, ts_off)
+        self.checksum = crc32c_mod.crc32c(self.data)
+
+    def etag(self) -> str:
+        return put_u32(self.checksum).hex()
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (
+            f"Needle(id={self.id:x}, cookie={self.cookie:x}, size={self.size}, "
+            f"data={len(self.data)}B, name={self.name!r})"
+        )

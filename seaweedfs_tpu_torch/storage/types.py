@@ -6,8 +6,8 @@ Mirrors the semantics of the reference implementation's type layer
 (signed, -1 == tombstone), and offsets counted in units of 8 bytes.
 
 The port's copy of `seaweedfs_tpu/storage/types.py`, with 4-byte offsets
-only (32GB volumes, `offset_4bytes.go:14-17`); the JAX package's 5-byte
-variant, an import-time environment switch there, is not ported.
+only (32GB volumes, `offset_4bytes.go:14-17`). Not ported: the JAX
+package's 5-byte offset variant (an import-time environment switch there).
 """
 
 from __future__ import annotations
@@ -122,6 +122,14 @@ class TTL:
     def to_bytes(self) -> bytes:
         return bytes([self.count & 0xFF, self.unit & 0xFF])
 
+    def to_u32(self) -> int:
+        if self.count == 0:
+            return 0
+        return (self.count << 8) | self.unit
+
+    def minutes(self) -> int:
+        return self.count * _TTL_UNITS.get(self.unit, ("", 0))[1]
+
     def __str__(self) -> str:
         if self.count == 0 or self.unit == 0:
             return ""
@@ -167,4 +175,9 @@ class ReplicaPlacement:
         return (
             f"{self.diff_data_center_count}"
             f"{self.diff_rack_count}{self.same_rack_count}"
+        )
+
+    def copy_count(self) -> int:
+        return (
+            self.diff_data_center_count + self.diff_rack_count + self.same_rack_count + 1
         )
