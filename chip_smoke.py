@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--volume-mib MIB] [--upload-blobs N]
                           [--chunked-mib MIB] [--cdc-uploads N] [--stream-mib MIB]
-                          [--dedup-gib GIB] [--online-mib MIB]
+                          [--dedup-gib GIB] [--online-mib MIB] [--cluster-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -77,7 +77,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               ones; no pathological fallback; ingest and encode GB/s, write
               amplification, seal ms, degraded p50/p99, rebuild GB/s, the
               phase's launches and the kernel at a drain tick's (1, 10, 1 MiB)
- 10. entry    entry() on the card equal to the CPU codec
+ 10. cluster  BASELINE configs 1 and 2 as shell verbs over a port cluster: one
+              MasterServer and four VolumeServers on the card (racks r1-r4,
+              pulse 1 s, one process); --cluster-mib (1024) MiB of seeded
+              needles (log-uniform 1 KiB to 4 MiB) through /dir/assign and
+              POSTs from 4 threads into the 7 volumes the master grows; lock,
+              ec.encode -collection ec (14 shards a volume spread 4/4/3/3, no
+              replica left, every parity row equal to the plain version on the
+              card over the saved .dat); 256 sampled GETs at the assigned urls
+              (mostly remote shard reads); one server's shards of every volume
+              deleted and 256 GETs of needles on them read degraded from the
+              others (remote fan-in, reconstruct on the card); ec.rebuild of
+              each volume, its shards equal to the lost ones; ec.decode of each,
+              its .dat equal to the copy taken before the encode, 256 needles
+              read back at /dir/lookup's location; ingest GB/s, ec.encode wall
+              and GB/s split by admin route, remote and degraded p50/p99,
+              ec.rebuild wall and GB/s, ec.decode wall, the phase's launches
+ 11. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -114,7 +130,10 @@ from seaweedfs_tpu_torch.ops.md5_kernel import _pad_len, md5_batch_kernel, md5_b
 from seaweedfs_tpu_torch.ops.rs_cuda import gf256_matmul, gf_matmul_torch
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.server.filer import FilerServer
+from seaweedfs_tpu_torch.server.httpd import http_request
+from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
+from seaweedfs_tpu_torch.shell import CommandEnv, run_command
 from seaweedfs_tpu_torch.storage import crc, file_id
 from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometry
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
@@ -1352,6 +1371,32 @@ def online_plan(nbytes: int, seed: int) -> tuple[list, memoryview]:
     return plan, pool
 
 
+def check_parity_rows(dev: torch.device, dat: str, parity: list, block: int, rows: int,
+                      what: str) -> None:
+    """Every one of `rows` parity rows in the four files `parity` equal to the
+    plain version on the card over the .dat's rows of 10 `block`s (the
+    tail zero-padded), 16 rows at a time."""
+    stripe = 10 * block
+    parity_m = gf256.parity_rows(10, 4)
+    fds = [os.open(p, os.O_RDONLY) for p in parity]
+    try:
+        with open(dat, "rb") as f:
+            for r0 in range(0, rows, 16):
+                r1 = min(rows, r0 + 16)
+                raw = f.read((r1 - r0) * stripe)
+                x = np.zeros((r1 - r0) * stripe, np.uint8)
+                x[: len(raw)] = np.frombuffer(raw, np.uint8)
+                xd = torch.from_numpy(x).to(dev).view(r1 - r0, 10, block)
+                want = gf_matmul_torch(parity_m, xd.permute(1, 0, 2).reshape(10, -1))
+                for p in range(4):
+                    got = os.pread(fds[p], (r1 - r0) * block, r0 * block)
+                    check(np.array_equal(np.frombuffer(got, np.uint8), want[p].cpu().numpy()),
+                          f"{what}: parity shard {10 + p}, rows {r0}-{r1} != plain")
+    finally:
+        for fd in fds:
+            os.close(fd)
+
+
 def online_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
     """The volume server's online-EC path on the card: a port VolumeServer
     (no master) allocates one ecOnline volume at the default 1 MiB block;
@@ -1436,25 +1481,8 @@ def online_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
                 want = dat.reshape(rows, 10, w.block)[:, shard].tobytes()
                 check(out == want, f"open shard {shard} != the .dat's column {shard}")
                 del dat, want
-        parity_m = gf256.parity_rows(10, 4)
-        fds = [os.open(base + geometry.to_ext(10 + p), os.O_RDONLY) for p in range(4)]
-        try:
-            with open(base + ".dat", "rb") as f:
-                for r0 in range(0, rows, 16):
-                    r1 = min(rows, r0 + 16)
-                    raw = f.read((r1 - r0) * w.stripe)
-                    x = np.zeros((r1 - r0) * w.stripe, np.uint8)
-                    x[: len(raw)] = np.frombuffer(raw, np.uint8)
-                    xd = torch.from_numpy(x).to(dev).view(r1 - r0, 10, w.block)
-                    want = gf_matmul_torch(parity_m, xd.permute(1, 0, 2).reshape(10, -1))
-                    for p in range(4):
-                        got = os.pread(fds[p], (r1 - r0) * w.block, r0 * w.block)
-                        check(np.array_equal(np.frombuffer(got, np.uint8),
-                                             want[p].cpu().numpy()),
-                              f"parity shard {10 + p}, rows {r0}-{r1} != plain")
-        finally:
-            for fd in fds:
-                os.close(fd)
+        check_parity_rows(dev, base + ".dat", [base + geometry.to_ext(10 + p) for p in range(4)],
+                          w.block, rows, "online")
         needles = {nid: v.nm.get(nid) for _, nid, _, _ in plan}
         # 4. the seal
         check(w.active and not w.sealed, "the writer is active before the seal")
@@ -1535,6 +1563,274 @@ def online_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
     return res
 
 
+CLUSTER_RACKS = ("r1", "r2", "r3", "r4")  # one port volume server a rack
+CLUSTER_COLLECTION = "ec"
+CLUSTER_THREADS = 4  # client threads assigning and POSTing needles
+CLUSTER_SAMPLE = 256  # needles read through remote shards, and read degraded
+
+
+class TimedEnv(CommandEnv):
+    """The shell's command environment, summing the wall time of each admin
+    POST by route: the split of a verb's wall."""
+
+    def __init__(self, master_url: str) -> None:
+        super().__init__(master_url)
+        self.seconds: dict[str, float] = {}
+
+    def post(self, url, payload=None, timeout=300):
+        route = url.split("/admin/", 1)[-1]
+        t0 = time.perf_counter()
+        try:
+            return super().post(url, payload, timeout)
+        finally:
+            self.seconds[route] = self.seconds.get(route, 0.0) + time.perf_counter() - t0
+
+
+def cluster_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
+    """BASELINE configs 1 and 2 as shell verbs over a port cluster on the
+    card: one MasterServer (pulse 1 s) and four VolumeServers on cuda, racks
+    r1-r4, in this process. `nbytes` of seeded needles (online_plan's sizes)
+    go through /dir/assign?collection=ec and POSTs from 4 threads; every
+    .dat is copied aside; `lock` and `ec.encode -collection ec` spread each
+    volume's 14 shards 4/4/3/3 and drop the volume; every parity row equals
+    the plain version on the card over the saved .dat; 256 sampled GETs to
+    the assigned urls read equal (mostly through /admin/ec/shard); one
+    server that holds a data shard of every volume loses its shards, and
+    256 GETs of needles on them read equal from the others (remote fan-in
+    and reconstruct on the card); `ec.rebuild` restores the lost shards
+    byte for byte; `ec.decode` restores every .dat byte for byte, and the
+    sampled needles read back from /dir/lookup's location. The
+    gf256_matmul launches are counted over the whole phase."""
+    t_phase = time.perf_counter()
+    (REPO / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke-cluster-", dir=REPO / "build")
+    plan, pool = online_plan(nbytes, seed)
+    master = MasterServer(port=0, pulse_seconds=1)
+    master.start()
+    servers = []
+    res = {}
+    try:
+        for i, rack in enumerate(CLUSTER_RACKS):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url, rack=rack,
+                              pulse_seconds=PULSE_S, device=dev)
+            vs.start()
+            servers.append(vs)
+            check(vs.device.type == "cuda" and vs.store.device.type == "cuda",
+                  f"volume server {i} runs on {vs.device}, not cuda")
+        by_url = {vs.url.split("//", 1)[1]: vs for vs in servers}
+        env = TimedEnv(master.url)
+        zero_launches()
+        # 1. ingest: assign from the master, POST to the volume server it names
+        written = [None] * len(plan)
+        errors = []
+
+        def ingest(idx) -> None:
+            m = Client(master.url)
+            conns = {}
+            try:
+                for i in idx:
+                    _, _, off, size = plan[i]
+                    status, out = m.request("GET", f"/dir/assign?collection={CLUSTER_COLLECTION}")
+                    if status != 200:
+                        errors.append(f"assign -> {status}: {out[:200]!r}")
+                        return
+                    a = json.loads(out)
+                    c = conns.get(a["url"]) or conns.setdefault(a["url"], Client(f"http://{a['url']}"))
+                    status, out = c.request("POST", f"/{a['fid']}", pool[off : off + size],
+                                            {"Content-Type": "application/octet-stream"})
+                    if status != 201:
+                        errors.append(f"POST {a['fid']} -> {status}: {out[:200]!r}")
+                        return
+                    written[i] = (a["fid"], a["url"], off, size)
+            finally:
+                m.close()
+                for c in conns.values():
+                    c.close()
+
+        threads = [threading.Thread(target=ingest, args=(range(i, len(plan), CLUSTER_THREADS),))
+                   for i in range(CLUSTER_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        ingest_s = time.perf_counter() - t0
+        check(not errors and all(written), f"cluster ingest: {errors[:3]}")
+        # 2. every .dat aside (the oracle of the decode), and each needle's place
+        oracle = os.path.join(root, "oracle")
+        os.mkdir(oracle)
+        vols = {}  # vid -> (.dat bytes, saved copy)
+        needles = []  # (fid, url, off, size, vid, .dat offset, stored size)
+        for vs in servers:
+            for vid in vs.store.volume_ids():
+                v = vs.store.get_volume(vid)
+                check(v.collection == CLUSTER_COLLECTION, f"volume {vid} in {v.collection!r}")
+                copy = os.path.join(oracle, f"{vid}.dat")
+                shutil.copyfile(v.base_name + ".dat", copy)
+                vols[vid] = (os.path.getsize(copy), copy)
+        for fid, url, off, size in written:
+            vid = int(fid.split(",")[0])
+            nid, _ = file_id.parse_needle_id_cookie(fid.split(",")[1])
+            noff, nsize = by_url[url].store.get_volume(vid).nm.get(nid)
+            needles.append((fid, url, off, size, vid, noff, nsize))
+        dat_bytes = sum(n for n, _ in vols.values())
+        # 3. lock, ec.encode of the collection; 14 shards a volume, no replica left
+        check(run_command(env, "lock") == "lock acquired", "lock")
+        env.seconds.clear()
+        n0 = gf256_matmul.launches
+        t0 = time.perf_counter()
+        out = run_command(env, f"ec.encode -collection {CLUSTER_COLLECTION}")
+        encode_s = time.perf_counter() - t0
+        encode_launches = gf256_matmul.launches - n0
+        sec = env.seconds
+        encode_split = {
+            "readonly": sec.get("volume/readonly", 0.0),
+            "generate": sec.get("ec/generate", 0.0), "copy": sec.get("ec/copy", 0.0),
+            "delete": sec.get("ec/delete_shards", 0.0) + sec.get("ec/delete_volume", 0.0),
+            "mount": sec.get("ec/mount", 0.0)}
+        check(out.count("shards spread") == len(vols), f"ec.encode: {out[:300]}")
+        check(encode_launches > 0, "ec.encode launched no gf256_matmul kernel")
+        views = env.servers()
+        check(not any(sv.volumes for sv in views), "a replica of an encoded volume is left")
+        placement = {}
+        for vid in vols:
+            held = {sv.url: sorted(sv.ec_shards.get(vid, [])) for sv in views}
+            check(sorted(s for shards in held.values() for s in shards) == list(range(14)),
+                  f"volume {vid}: shards mounted {held}")
+            check(sorted(len(x) for x in held.values()) == [3, 3, 4, 4],
+                  f"volume {vid}: not spread 4/4/3/3: {held}")
+            placement[vid] = held
+
+        def shard_path(vid: int, shard: int) -> str:
+            (url,) = [u for u, shards in placement[vid].items() if shard in shards]
+            d = by_url[url].store.locations[0].directory
+            return os.path.join(d, f"{CLUSTER_COLLECTION}_{vid}{geometry.to_ext(shard)}")
+
+        parity_rows = 0
+        for vid, (size, copy) in vols.items():
+            rows = -(-size // (10 * geometry.SMALL_BLOCK_SIZE))
+            check(size < 10 * geometry.LARGE_BLOCK_SIZE, "a volume reached a large row")
+            check_parity_rows(dev, copy, [shard_path(vid, 10 + p) for p in range(4)],
+                              geometry.SMALL_BLOCK_SIZE, rows, f"cluster volume {vid}")
+            parity_rows += rows
+        # 4. sampled GETs at the assigned urls, mostly through remote shards
+        rng = np.random.default_rng([seed, 11])
+        clients = {url: Client(f"http://{url}") for url in by_url}
+        try:
+            remote_lat = []
+            for i in rng.choice(len(needles), size=min(CLUSTER_SAMPLE, len(needles)),
+                                replace=False):
+                fid, url, off, size = needles[i][:4]
+                t0 = time.perf_counter()
+                status, got = clients[url].request("GET", f"/{fid}")
+                remote_lat.append(time.perf_counter() - t0)
+                check(status == 200 and got == pool[off : off + size], f"remote GET {fid}")
+            # 5. lose one server's shards of every volume; GETs on them read degraded
+            victim = next(
+                url for url in by_url
+                if all(any(s < 10 for s in placement[vid][url]) for vid in vols))
+            lost_dir = os.path.join(root, "lost")
+            os.mkdir(lost_dir)
+            lost = {vid: placement[vid][victim] for vid in vols}
+            for vid, shards in lost.items():
+                for s in shards:
+                    shutil.copyfile(shard_path(vid, s),
+                                    os.path.join(lost_dir, f"{vid}{geometry.to_ext(s)}"))
+                out = env.post(f"http://{victim}/admin/ec/delete_shards",
+                               {"volume": vid, "collection": CLUSTER_COLLECTION,
+                                "shards": shards, "delete_index": False})
+                check(sorted(out["removed"]) == shards, f"delete_shards {vid}: {out}")
+            others = [u for u in by_url if u != victim]
+            on_lost = []
+            for fid, url, off, size, vid, noff, nsize in needles:
+                shard_size = geometry.shard_file_size(
+                    vols[vid][0], geometry.LARGE_BLOCK_SIZE, geometry.SMALL_BLOCK_SIZE)
+                ivs = geometry.locate_data(geometry.LARGE_BLOCK_SIZE, geometry.SMALL_BLOCK_SIZE,
+                                           10 * shard_size, noff, get_actual_size(nsize, 3))
+                if any(iv.to_shard_id_and_offset(geometry.LARGE_BLOCK_SIZE,
+                                                 geometry.SMALL_BLOCK_SIZE)[0] in lost[vid]
+                       for iv in ivs):
+                    on_lost.append((fid, off, size))
+            pick = rng.choice(len(on_lost), size=min(CLUSTER_SAMPLE, len(on_lost)),
+                              replace=False)
+            n0 = gf256_matmul.launches
+            degraded_lat = []
+            for j, i in enumerate(pick):
+                fid, off, size = on_lost[i]
+                t0 = time.perf_counter()
+                status, got = clients[others[j % len(others)]].request("GET", f"/{fid}")
+                degraded_lat.append(time.perf_counter() - t0)
+                check(status == 200 and got == pool[off : off + size], f"degraded GET {fid}")
+            degraded_launches = gf256_matmul.launches - n0
+            check(degraded_launches >= len(pick),
+                  "every degraded GET reconstructed on the card")
+        finally:
+            for c in clients.values():
+                c.close()
+        # 6. ec.rebuild of every volume; the rebuilt shards equal the lost ones
+        n0 = gf256_matmul.launches
+        t0 = time.perf_counter()
+        for vid in vols:
+            out = run_command(env, f"ec.rebuild -volumeId {vid} -collection {CLUSTER_COLLECTION}")
+            check(f"rebuilt shards {lost[vid]}" in out, f"ec.rebuild {vid}: {out}")
+        rebuild_s = time.perf_counter() - t0
+        rebuild_launches = gf256_matmul.launches - n0
+        check(rebuild_launches > 0, "ec.rebuild launched no gf256_matmul kernel")
+        views = env.servers()
+        for vid, shards in lost.items():
+            placement[vid] = {sv.url: sorted(sv.ec_shards.get(vid, [])) for sv in views}
+            for s in shards:
+                check(same_file(shard_path(vid, s),
+                                os.path.join(lost_dir, f"{vid}{geometry.to_ext(s)}")),
+                      f"volume {vid}: rebuilt shard {s} differs from the lost one")
+        rebuild_read = sum(10 * geometry.shard_file_size(
+            n, geometry.LARGE_BLOCK_SIZE, geometry.SMALL_BLOCK_SIZE) for n, _ in vols.values())
+        # 7. ec.decode of every volume; each .dat equals its copy, needles read back
+        t0 = time.perf_counter()
+        for vid in vols:
+            out = run_command(env, f"ec.decode -volumeId {vid} -collection {CLUSTER_COLLECTION}")
+            check("reconstructed" in out, f"ec.decode {vid}: {out}")
+        decode_s = time.perf_counter() - t0
+        for vid, (_, copy) in vols.items():
+            (holder,) = [vs for vs in servers if vs.store.get_volume(vid) is not None]
+            check(same_file(holder.store.get_volume(vid).base_name + ".dat", copy),
+                  f"decoded volume {vid} differs from its .dat")
+        for i in rng.choice(len(needles), size=min(CLUSTER_SAMPLE, len(needles)), replace=False):
+            fid, _, off, size, vid = needles[i][:5]
+            locs = env.locations(vid)
+            check(len(locs) == 1, f"volume {vid} at {locs}")
+            status, _, got = http_request("GET", f"http://{locs[0]}/{fid}")
+            check(status == 200 and got == pool[off : off + size], f"decoded GET {fid}")
+        check(run_command(env, "unlock") == "lock released", "unlock")
+        launches = gf256_matmul.launches
+        rl, dl = np.array(remote_lat) * 1e3, np.array(degraded_lat) * 1e3
+        res = dict(
+            servers=len(servers), racks=list(CLUSTER_RACKS), volumes=len(vols),
+            needles=len(plan), payload_bytes=nbytes, dat_bytes=dat_bytes,
+            threads=CLUSTER_THREADS, ingest_s=ingest_s, ingest_gbps=nbytes / ingest_s / 1e9,
+            encode_s=encode_s, encode_gbps=dat_bytes / encode_s / 1e9,
+            encode_split_s=encode_split, encode_launches=encode_launches,
+            parity_rows_equal_plain=parity_rows,
+            remote_reads=len(remote_lat), remote_p50_ms=float(np.percentile(rl, 50)),
+            remote_p99_ms=float(np.percentile(rl, 99)),
+            victim=victim, lost_shards={str(k): v for k, v in lost.items()},
+            degraded_reads=len(degraded_lat), degraded_p50_ms=float(np.percentile(dl, 50)),
+            degraded_p99_ms=float(np.percentile(dl, 99)), degraded_launches=degraded_launches,
+            rebuild_s=rebuild_s, rebuild_read_bytes=rebuild_read,
+            rebuild_gbps=rebuild_read / rebuild_s / 1e9, rebuild_launches=rebuild_launches,
+            decode_s=decode_s, launches=launches, rebuilt_shards_equal=True,
+            decoded_dats_equal=True, reads_equal=True)
+    finally:
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    check(res["launches"] > 0, "the cluster path launched no gf256_matmul kernel")
+    res["nvidia_smi"] = nvidia_smi()
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -1568,6 +1864,7 @@ def main() -> int:
     ap.add_argument("--stream-mib", type=int, default=1024)
     ap.add_argument("--dedup-gib", type=int, default=8)
     ap.add_argument("--online-mib", type=int, default=1024)
+    ap.add_argument("--cluster-mib", type=int, default=1024)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1662,6 +1959,11 @@ def main() -> int:
     emit("online", **on)
     launches["gf256_matmul"] += on["launches"]
     timed["gf256_matmul"]["shapes"].append(on["kernel"])
+
+    # the shell's ec.* verbs over a master and four volume servers; its own count
+    cl = cluster_phase(dev, args.cluster_mib * MIB, args.seed)
+    emit("cluster", **cl)
+    launches["gf256_matmul"] += cl["launches"]
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

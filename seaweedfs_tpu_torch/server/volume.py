@@ -7,12 +7,18 @@ Reference: `weed/server/volume_server_handlers_read.go:45` /
 (heartbeat).
 
 Routes: the needle routes (GET/HEAD/POST/PUT/DELETE on `FID_RE`), `/status`,
-`/admin/allocate_volume` (with `ecOnline` and `ecOnlineBlock`), and the EC
+`/admin/allocate_volume` (with `ecOnline` and `ecOnlineBlock`),
+`/admin/volume/readonly`, the copy stream `/admin/volume/raw`, and the EC
 verbs `/admin/ec/{generate,mount,unmount,rebuild,online/rebuild,
-delete_volume,to_volume,shard}`. Writes and deletes on an online-EC volume
-pump its stripe writer, and a pulse loop pumps every `pulse_seconds` so
-the timed trickle flush fires between writes; it also posts the heartbeat
-when a `master_url` is given (with none, nothing is posted).
+delete_volume,to_volume,shard,copy,delete_shards}` that the shell's
+`ec.*` commands drive. Every mounted EC volume gets a remote shard
+fetcher: the master's `/dir/ec_lookup` (cached 10 s), then
+`/admin/ec/shard` range reads off the other holders, so a read of a
+shard this server lacks goes remote before it reconstructs. Writes and
+deletes on an online-EC volume pump its stripe writer, and a pulse loop
+pumps every `pulse_seconds` so the timed trickle flush fires between
+writes; it also posts the heartbeat when a `master_url` is given (with
+none, nothing is posted).
 
 The server has one device, `cuda` unless the caller passes `device="cpu"`
 (with neither nor CUDA, construction raises): the online writers'
@@ -20,15 +26,17 @@ parity, degraded reads, and `/admin/ec/rebuild` run there.
 
 Not ported: the native fastlane, JWT, peer replication (a write to a
 volume whose placement needs replicas is refused), EXIF and image
-resizing, the partial and streaming rebuild plane, remote shard
-fetchers, scrub, tiering, vacuum and copy verbs, `/query`, metrics,
-traces, events and fault points.
+resizing, the partial and streaming rebuild plane (with its partial
+fan-in), scrub, tiering, vacuum and the volume copy verbs, `/query`,
+metrics, traces, events, fault points and the retry policy of the copy
+stream (a failed range fails the copy).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import time
 import urllib.parse
@@ -43,10 +51,11 @@ from ..storage.needle import Needle
 from ..storage.store import Store
 from ..storage.super_block import SUPER_BLOCK_SIZE
 from ..storage.types import TTL
-from ..storage.volume import NotFound, VolumeError
-from .httpd import HTTPService, Request, Response, http_request, peer_url
+from ..storage.volume import NotFound, VolumeError, volume_file_name
+from .httpd import HTTPService, Request, Response, get_json, http_request, peer_url
 
 FID_RE = r"/(\d+),([0-9a-fA-F_]+)(?:\.[^/]*)?"
+_SAFE_EXT_RE = re.compile(r"\.(dat|idx|vif|ecx|ecj|ec\d\d)")
 
 
 class VolumeServer:
@@ -82,6 +91,10 @@ class VolumeServer:
         self.volume_size_limit = 30 * 1024 * 1024 * 1024
         self._stop = threading.Event()
         self._pulse: threading.Thread | None = None
+        # one heartbeat at a time, collected and posted together: a
+        # handler's beat after a change is never overtaken by the pulse's
+        # beat collected before it
+        self._hb_lock = threading.Lock()
         self._routes()
 
     def start(self) -> None:
@@ -95,6 +108,8 @@ class VolumeServer:
         )
         for loc in self.store.locations:
             loc.max_volume_count = self.max_volume_count
+            for ev in loc.ec_volumes.values():
+                self._attach_shard_fetcher(ev)
         self.heartbeat_once()
         self._pulse = threading.Thread(
             target=self._pulse_loop, name="volume-pulse", daemon=True
@@ -143,6 +158,10 @@ class VolumeServer:
         """One heartbeat POST to the master (none without a master_url)."""
         if not self.master_urls or self.store is None:
             return
+        with self._hb_lock:
+            self._heartbeat_locked()
+
+    def _heartbeat_locked(self) -> None:
         hb = self.store.collect_heartbeat()
         hb["data_center"] = self.data_center
         hb["rack"] = self.rack
@@ -174,6 +193,72 @@ class VolumeServer:
                 self.master_url = rotation.pop(0)
                 continue
             return
+
+    def _attach_shard_fetcher(self, ev) -> None:
+        """Give an EcVolume remote shard sourcing: master ec_lookup for
+        locations, then /admin/ec/shard range reads off sibling servers
+        (`store_ec.go:281` readRemoteEcShardInterval)."""
+        me = f"{self._host}:{self.service.port}"
+        state = {"expires": 0.0, "shards": {}}
+
+        def shard_map() -> dict:
+            now = time.time()
+            if now > state["expires"]:
+                info = get_json(
+                    f"{self.master_url}/dir/ec_lookup?volumeId={ev.volume_id}",
+                    timeout=5,
+                )
+                state["shards"] = info.get("shards", {})
+                state["expires"] = now + 10
+            return state["shards"]
+
+        def fetch(shard_id: int, off: int, size: int) -> bytes | None:
+            for target in shard_map().get(str(shard_id), []):
+                if target == me:
+                    continue
+                status, _, body = http_request(
+                    "GET",
+                    peer_url(target) + f"/admin/ec/shard?volume={ev.volume_id}"
+                    f"&shard={shard_id}&offset={off}&size={size}",
+                    timeout=30,
+                )
+                if status == 200 and len(body) == size:
+                    return body
+            return None
+
+        ev.shard_fetcher = fetch
+
+    def _pull_file(
+        self, source: str, vid: int, collection: str, ext: str, dest: str,
+        chunk: int = 16 * 1024 * 1024,
+    ) -> int:
+        """Ranged GETs of /admin/volume/raw until EOF -> dest file.
+        Downloads into a `.pull` sibling and renames, so a failed pull
+        never clobbers an existing good file; a range that fails raises
+        IOError. Returns the bytes pulled."""
+        tmp = dest + ".pull"
+        try:
+            offset = 0
+            with open(tmp, "wb") as f:
+                while True:
+                    url = (
+                        f"{source}/admin/volume/raw?volume={vid}&ext={ext}"
+                        f"&collection={urllib.parse.quote(collection)}"
+                        f"&offset={offset}&size={chunk}"
+                    )
+                    status, headers, body = http_request("GET", url, timeout=120)
+                    if status != 200:
+                        raise IOError(f"pull {ext} from {source}: {status}")
+                    f.write(body)
+                    offset += len(body)
+                    total = int(headers.get("X-Total-Size", offset))
+                    if offset >= total or not body:
+                        break
+            os.replace(tmp, dest)
+            return offset
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
 
     # --- routes -------------------------------------------------------------------
     def _routes(self) -> None:
@@ -233,6 +318,46 @@ class VolumeServer:
             )
             return Response({"ok": True})
 
+        @svc.route("POST", r"/admin/volume/readonly")
+        def readonly(req: Request) -> Response:
+            p = req.json()
+            self.store.mark_readonly(int(p["volume"]), bool(p.get("readonly", True)))
+            return Response({"ok": True})
+
+        @svc.route("GET", r"/admin/volume/raw")
+        def volume_raw(req: Request) -> Response:
+            """Raw byte range of one volume/EC file — the copy stream
+            (`VolumeCopy`/`CopyFile` stream in volume_server.proto)."""
+            vid = int(req.query["volume"])
+            ext = req.query["ext"]
+            collection = req.query.get("collection", "")
+            offset = int(req.query.get("offset", 0))
+            size = int(req.query.get("size", -1))
+            if not _SAFE_EXT_RE.fullmatch(ext):
+                return Response({"error": f"bad ext {ext}"}, 400)
+            v = self.store.get_volume(vid)
+            if v is not None:
+                path = v.base_name + ext
+            else:
+                path = None
+                for loc in self.store.locations:
+                    cand = volume_file_name(loc.directory, collection, vid) + ext
+                    if os.path.exists(cand):
+                        path = cand
+                        break
+            if path is None or not os.path.exists(path):
+                return Response({"error": f"no {ext} for volume {vid}"}, 404)
+            total = os.path.getsize(path)
+            if size < 0:
+                size = total - offset
+            with open(path, "rb") as f:
+                f.seek(offset)
+                data = f.read(size)
+            return Response(
+                data, content_type="application/octet-stream",
+                headers={"X-Total-Size": str(total)},
+            )
+
         # --- EC verbs (volume_grpc_erasure_coding.go) ---
         @svc.route("POST", r"/admin/ec/generate")
         def ec_generate(req: Request) -> Response:
@@ -281,6 +406,7 @@ class VolumeServer:
             if ev is None:
                 return Response(
                     {"error": f"no local .ecx for ec volume {vid}"}, 404)
+            self._attach_shard_fetcher(ev)
             self.heartbeat_once()
             return Response({"ok": True, "shards": ev.shard_ids()})
 
@@ -379,6 +505,72 @@ class VolumeServer:
             v = self.store.mount_volume(vid, collection)
             self.heartbeat_once()
             return Response({"ok": True, "size": v.size()})
+
+        @svc.route("POST", r"/admin/ec/copy")
+        def ec_copy(req: Request) -> Response:
+            """Pull EC shard files (+ .ecx/.vif) from a source server
+            (`VolumeEcShardsCopy`)."""
+            p = req.json()
+            vid = int(p["volume"])
+            collection = p.get("collection", "")
+            shards = [int(s) for s in p.get("shards", [])]
+            source = p["source"].rstrip("/")
+            loc = self.store._pick_location()
+            base = ec_shard_file_name(collection, loc.directory, vid)
+            exts = [geometry.to_ext(s) for s in shards]
+            if p.get("copy_ecx", True) and not os.path.exists(base + ".ecx"):
+                exts += [".ecx"]
+            if p.get("copy_ecj", False):
+                exts.append(".ecj")
+            if p.get("copy_vif", True) and not os.path.exists(base + ".vif"):
+                exts.append(".vif")
+            copied = []
+            pulled = 0
+            for ext in exts:
+                try:
+                    pulled += self._pull_file(
+                        source, vid, collection, ext, base + ext)
+                    copied.append(ext)
+                except IOError:
+                    if ext == ".ecj":  # deletion journal may not exist
+                        continue
+                    if ext == ".vif":  # synthesize a default when absent
+                        ec_encoder.save_volume_info(base + ".vif")
+                        continue
+                    raise
+            return Response({"ok": True, "copied": copied, "bytes": pulled})
+
+        @svc.route("POST", r"/admin/ec/delete_shards")
+        def ec_delete_shards(req: Request) -> Response:
+            """Remove local shard files after they moved elsewhere
+            (`VolumeEcShardsDelete`)."""
+            p = req.json()
+            vid = int(p["volume"])
+            collection = p.get("collection", "")
+            shards = [int(s) for s in p.get("shards", [])]
+            removed = []
+            was_mounted = self.store.get_ec_volume(vid) is not None
+            for loc in self.store.locations:
+                base = ec_shard_file_name(collection, loc.directory, vid)
+                for s in shards:
+                    path = base + geometry.to_ext(s)
+                    if os.path.exists(path):
+                        os.remove(path)
+                        removed.append(s)
+                if p.get("delete_index", False):
+                    for ext in (".ecx", ".ecj", ".vif"):
+                        if os.path.exists(base + ext):
+                            os.remove(base + ext)
+            if was_mounted:
+                # atomic swap: the old instance (whose open fds still
+                # serve the just-unlinked shards) covers concurrent reads
+                # until the refreshed one is in place, and the refresh
+                # re-attaches the remote shard fetcher
+                ev = self.store.remount_ec_volume(vid, collection)
+                if ev is not None:
+                    self._attach_shard_fetcher(ev)
+            self.heartbeat_once()
+            return Response({"ok": True, "removed": removed})
 
         @svc.route("GET", r"/admin/ec/shard")
         def ec_shard_read(req: Request) -> Response:

@@ -3,18 +3,21 @@
 The port's counterpart of `seaweedfs_tpu/storage/erasure_coding/ec_volume.py`
 (after `weed/storage/erasure_coding/ec_volume.go` and the local half of
 `weed/storage/store_ec.go`): needle lookup by binary search over the sorted
-.ecx, interval math to shard reads, on-miss interval reconstruction
-from any 10 surviving local shards through the codec's kernel (a degraded
-read), and deletion via .ecx tombstone + .ecj journal append.
+.ecx, interval math to shard reads, the local -> remote -> reconstruct
+ladder of a read (a shard this server lacks comes through the
+`shard_fetcher` the volume server attaches; a shard no one serves is
+reconstructed from 10 surviving shards, local first, then remote, through
+the codec's kernel: a degraded read), and deletion via .ecx tombstone +
+.ecj journal append.
 
-Not ported yet: the remote shard and partial fetchers (they need master
-lookups), fault points, events and metrics. All file access uses
-positional os.pread/os.pwrite, so concurrent reads and read+delete are
-safe.
+Not ported: the partial fetcher (the pipelined rebuild plane), fault
+points, events and metrics. All file access uses positional
+os.pread/os.pwrite, so concurrent reads and read+delete are safe.
 """
 
 from __future__ import annotations
 
+import http.client
 import os
 import threading
 
@@ -74,6 +77,10 @@ class EcVolume:
         self.codec = codec or RSCodec()
         self.large_block_size = large_block_size
         self.small_block_size = small_block_size
+        # optional remote sourcing hook, set by the server layer:
+        # shard_fetcher(shard_id, offset, size) -> bytes | None mirrors the
+        # remote half of `store_ec.go` (readRemoteEcShardInterval)
+        self.shard_fetcher = None
         self._closed = False
         self._ecj_lock = threading.Lock()
         self.data_base = ec_shard_file_name(collection, self.dir, volume_id)
@@ -164,18 +171,41 @@ class EcVolume:
         data = os.pread(fd, size, off)
         return data if len(data) == size else None
 
+    def _fetch_remote(self, shard_id: int, off: int, size: int) -> bytes | None:
+        """A shard range from another holder, or None when no holder
+        serves it. A transport error counts as no answer: a refused or
+        dropped connection (OSError), a malformed answer (ValueError), or
+        a holder that dies mid-response (http.client.HTTPException, e.g.
+        IncompleteRead or BadStatusLine)."""
+        if self.shard_fetcher is None:
+            return None
+        try:
+            data = self.shard_fetcher(shard_id, off, size)
+        except (OSError, ValueError, http.client.HTTPException):
+            return None
+        if data is not None and len(data) != size:
+            return None
+        return data
+
     def _read_interval(self, interval: Interval) -> bytes:
+        """local shard -> remote shard -> reconstruct, the `store_ec.go`
+        readOneEcShardInterval ladder."""
         shard_id, off = interval.to_shard_id_and_offset(
             self.large_block_size, self.small_block_size
         )
         data = self._pread_shard(shard_id, off, interval.size)
         if data is not None:
             return data
+        data = self._fetch_remote(shard_id, off, interval.size)
+        if data is not None:
+            return data
         return self._recover_interval(shard_id, off, interval.size)
 
     def _recover_interval(self, missing_shard: int, off: int, size: int) -> bytes:
-        """Reconstruct one interval from 10 surviving local shards
-        (`store_ec.go:339-395`, local half)."""
+        """Reconstruct one interval from >= 10 surviving shards, local first
+        then remote fan-in (`store_ec.go:339-395`
+        recoverOneRemoteEcShardInterval). The codec runs on its device; an
+        error there propagates to the caller."""
         present: dict[int, np.ndarray] = {}
         for shard_id in self.shards:
             if shard_id == missing_shard:
@@ -186,6 +216,16 @@ class EcVolume:
             present[shard_id] = np.frombuffer(data, dtype=np.uint8)
             if len(present) >= DATA_SHARDS_COUNT:
                 break
+        if len(present) < DATA_SHARDS_COUNT:
+            for shard_id in range(TOTAL_SHARDS_COUNT):
+                if shard_id == missing_shard or shard_id in present:
+                    continue
+                data = self._fetch_remote(shard_id, off, size)
+                if data is None:
+                    continue
+                present[shard_id] = np.frombuffer(data, dtype=np.uint8)
+                if len(present) >= DATA_SHARDS_COUNT:
+                    break
         if len(present) < DATA_SHARDS_COUNT:
             raise IOError(
                 f"cannot recover shard {missing_shard}: only {len(present)} present"

@@ -202,6 +202,12 @@ class Store:
                     return
         raise VolumeError(f"volume {vid} not found")
 
+    def mark_readonly(self, vid: int, readonly: bool = True) -> None:
+        v = self.get_volume(vid)
+        if v is None:
+            raise VolumeError(f"volume {vid} not found")
+        v.readonly = readonly
+
     # --- data ops -------------------------------------------------------------
     def write(self, vid: int, n: Needle, check_cookie: bool = False) -> tuple[int, int]:
         v = self.get_volume(vid)

@@ -119,6 +119,10 @@ class TTL:
             return TTL()
         return TTL(count=b[0], unit=b[1])
 
+    @staticmethod
+    def from_u32(v: int) -> "TTL":
+        return TTL.from_bytes(bytes([(v >> 8) & 0xFF, v & 0xFF]))
+
     def to_bytes(self) -> bytes:
         return bytes([self.count & 0xFF, self.unit & 0xFF])
 
