@@ -86,13 +86,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               replica left, every parity row equal to the plain version on the
               card over the saved .dat); 256 sampled GETs at the assigned urls
               (mostly remote shard reads); one server's shards of every volume
-              deleted and 256 GETs of needles on them read degraded from the
-              others (remote fan-in, reconstruct on the card); ec.rebuild of
-              each volume, its shards equal to the lost ones; ec.decode of each,
-              its .dat equal to the copy taken before the encode, 256 needles
-              read back at /dir/lookup's location; ingest GB/s, ec.encode wall
-              and GB/s split by admin route, remote and degraded p50/p99,
-              ec.rebuild wall and GB/s, ec.decode wall, the phase's launches
+              deleted, a 10.5 s wait for the readers' shard maps, and 256 GETs
+              of needles on them read degraded from the others through the
+              partial fan-in (one GF-scaled partial a holder, on the card), which
+              must serve every lost interval with no fallback; ec.rebuild -mode
+              classic of each volume, its shards equal to the lost ones; the
+              same loss again through ec.rebuild -mode pipelined -stream true
+              (3 hops, 3-4 targets), then one data shard a volume through the
+              default auto (which must pick pipelined): shards equal, no chain
+              restart or fallback, one stacked partial a hop link, launches in
+              each; ec.decode of each, its .dat equal to the copy taken before
+              the encode, 256 needles read back at /dir/lookup's location;
+              ingest GB/s, ec.encode wall and GB/s split by admin route, remote
+              and degraded p50/p99 with launches a lost interval, each
+              ec.rebuild round's wall, GB/s and bytes on wire beside classic's,
+              ec.decode wall, the phase's launches, and the kernel at a
+              pipelined hop's (1, 4, 983,040) and (4, 4, 983,040)
  11. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
@@ -108,6 +117,7 @@ import http.client
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -133,7 +143,7 @@ from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.server.httpd import http_request
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
-from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+from seaweedfs_tpu_torch.shell import CommandEnv, commands_ec, run_command
 from seaweedfs_tpu_torch.storage import crc, file_id
 from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometry
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
@@ -412,12 +422,16 @@ def kernel_phase(dev: torch.device, seed: int) -> dict:
 
 def gf_path_matrices() -> dict:
     """gf256_matmul's matrix on each EC path: the parity rows (encode), the
-    decode matrix of the 4-shard rebuild, and a degraded read's one row,
-    which reconstructs one missing data shard from 10 survivors."""
+    decode matrix of the 4-shard rebuild, a degraded read's one row, which
+    reconstructs one missing data shard from 10 survivors, and a pipelined
+    rebuild hop's coefficient columns for its 4 own shards, one target
+    (hop1) or four (hop4)."""
     def decode(lost):
         return gf256.decode_matrix(10, 4, tuple(s for s in range(14) if s not in lost), lost)
     return {"encode": gf256.parity_rows(10, 4), "rebuild": decode(REBUILD_LOST),
-            "degraded": decode(DEGRADED_LOST[:1]), "online": gf256.parity_rows(10, 4)}
+            "degraded": decode(DEGRADED_LOST[:1]), "online": gf256.parity_rows(10, 4),
+            "hop1": np.ascontiguousarray(decode((0,))[:, :4]),
+            "hop4": np.ascontiguousarray(decode((0, 4, 8, 12))[:, :4])}
 
 
 def gf256_shape_times(dev: torch.device, seed: int, wrapper, shapes=GF_SHAPES) -> list:
@@ -1567,6 +1581,15 @@ CLUSTER_RACKS = ("r1", "r2", "r3", "r4")  # one port volume server a rack
 CLUSTER_COLLECTION = "ec"
 CLUSTER_THREADS = 4  # client threads assigning and POSTing needles
 CLUSTER_SAMPLE = 256  # needles read through remote shards, and read degraded
+# a holder's shard map from the master's /dir/ec_lookup lives 10 s
+# (server/volume.py _attach_shard_fetcher); degraded GETs start after it
+SHARD_MAP_WAIT_S = 10.5
+# a pipelined hop's launch at the phase's ~146 MiB volumes: its 4 own
+# shards at auto_chunk(15 MiB) = 983,040 bytes, one target or four
+HOP_CHUNK = commands_ec.auto_chunk(15 * MIB)
+HOP_SHAPES = (("hop1", (4, HOP_CHUNK)), ("hop4", (4, HOP_CHUNK)))
+PIPELINED_LINE = re.compile(r"\(pipelined(, streamed)?, (\d+) hops, (\d+) B at rebuilder,"
+                            r" (\d+) B total on wire\)")
 
 
 class TimedEnv(CommandEnv):
@@ -1747,44 +1770,130 @@ def cluster_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
                     vols[vid][0], geometry.LARGE_BLOCK_SIZE, geometry.SMALL_BLOCK_SIZE)
                 ivs = geometry.locate_data(geometry.LARGE_BLOCK_SIZE, geometry.SMALL_BLOCK_SIZE,
                                            10 * shard_size, noff, get_actual_size(nsize, 3))
-                if any(iv.to_shard_id_and_offset(geometry.LARGE_BLOCK_SIZE,
-                                                 geometry.SMALL_BLOCK_SIZE)[0] in lost[vid]
-                       for iv in ivs):
-                    on_lost.append((fid, off, size))
+                n_lost = sum(iv.to_shard_id_and_offset(geometry.LARGE_BLOCK_SIZE,
+                                                       geometry.SMALL_BLOCK_SIZE)[0] in lost[vid]
+                             for iv in ivs)
+                if n_lost:
+                    on_lost.append((fid, off, size, n_lost))
             pick = rng.choice(len(on_lost), size=min(CLUSTER_SAMPLE, len(on_lost)),
                               replace=False)
+            # the readers' shard maps were fetched before the loss: past
+            # their life the fan-in asks only live holders
+            time.sleep(SHARD_MAP_WAIT_S)
+            partial0 = partial_counts(servers, vols)
             n0 = gf256_matmul.launches
             degraded_lat = []
+            lost_intervals = 0
             for j, i in enumerate(pick):
-                fid, off, size = on_lost[i]
+                fid, off, size, n_lost = on_lost[i]
+                lost_intervals += n_lost
                 t0 = time.perf_counter()
                 status, got = clients[others[j % len(others)]].request("GET", f"/{fid}")
                 degraded_lat.append(time.perf_counter() - t0)
                 check(status == 200 and got == pool[off : off + size], f"degraded GET {fid}")
             degraded_launches = gf256_matmul.launches - n0
-            check(degraded_launches >= len(pick),
-                  "every degraded GET reconstructed on the card")
+            served, fallbacks = (a - b for a, b in zip(partial_counts(servers, vols), partial0))
+            check(served == lost_intervals and fallbacks == 0,
+                  f"degraded GETs: {served} of {lost_intervals} lost intervals served by the"
+                  f" partial fan-in, {fallbacks} fallbacks")
+            check(degraded_launches >= lost_intervals,
+                  "every lost interval reconstructed on the card")
         finally:
             for c in clients.values():
                 c.close()
-        # 6. ec.rebuild of every volume; the rebuilt shards equal the lost ones
+        # 6a. ec.rebuild -mode classic of every volume; the rebuilt shards equal the lost ones
+        repair0 = decoder.REPAIR.snapshot()
         n0 = gf256_matmul.launches
         t0 = time.perf_counter()
         for vid in vols:
-            out = run_command(env, f"ec.rebuild -volumeId {vid} -collection {CLUSTER_COLLECTION}")
-            check(f"rebuilt shards {lost[vid]}" in out, f"ec.rebuild {vid}: {out}")
+            out = run_command(env, f"ec.rebuild -volumeId {vid} -collection {CLUSTER_COLLECTION}"
+                                   " -mode classic")
+            check(f"rebuilt shards {lost[vid]}" in out and "(classic)" in out,
+                  f"ec.rebuild {vid}: {out}")
         rebuild_s = time.perf_counter() - t0
         rebuild_launches = gf256_matmul.launches - n0
+        classic_bytes = (decoder.REPAIR.snapshot()["bytes_on_wire"]["classic"]
+                         - repair0["bytes_on_wire"]["classic"])
         check(rebuild_launches > 0, "ec.rebuild launched no gf256_matmul kernel")
-        views = env.servers()
-        for vid, shards in lost.items():
-            placement[vid] = {sv.url: sorted(sv.ec_shards.get(vid, [])) for sv in views}
-            for s in shards:
-                check(same_file(shard_path(vid, s),
-                                os.path.join(lost_dir, f"{vid}{geometry.to_ext(s)}")),
-                      f"volume {vid}: rebuilt shard {s} differs from the lost one")
-        rebuild_read = sum(10 * geometry.shard_file_size(
-            n, geometry.LARGE_BLOCK_SIZE, geometry.SMALL_BLOCK_SIZE) for n, _ in vols.values())
+
+        def check_rebuilt(shards_of: dict, what: str) -> None:
+            views = env.servers()
+            for vid, shards in shards_of.items():
+                placement[vid] = {sv.url: sorted(sv.ec_shards.get(vid, [])) for sv in views}
+                check(sorted(s for held in placement[vid].values() for s in held)
+                      == list(range(14)), f"{what}: volume {vid} mounts {placement[vid]}")
+                for s in shards:
+                    check(same_file(shard_path(vid, s),
+                                    os.path.join(lost_dir, f"{vid}{geometry.to_ext(s)}")),
+                          f"{what}: volume {vid}: rebuilt shard {s} differs from the lost one")
+
+        check_rebuilt(lost, "ec.rebuild -mode classic")
+        shard_sizes = {vid: geometry.shard_file_size(
+            n, geometry.LARGE_BLOCK_SIZE, geometry.SMALL_BLOCK_SIZE) for vid, (n, _) in vols.items()}
+        rebuild_read = sum(10 * n for n in shard_sizes.values())
+
+        def pipelined_round(shards_of: dict, flags: str, what: str) -> dict:
+            """Delete `shards_of` from their holders, run `ec.rebuild` with
+            `flags` on every volume, and hold the result: byte-equal shards,
+            the streamed pipelined line, no restart or fallback, the wire
+            bytes of one stacked partial a hop link."""
+            for vid, shards in shards_of.items():
+                for url, held in placement[vid].items():
+                    drop = [s for s in held if s in shards]
+                    if drop:
+                        env.post(f"http://{url}/admin/ec/delete_shards",
+                                 {"volume": vid, "collection": CLUSTER_COLLECTION,
+                                  "shards": drop})
+            classic_plan = sum(
+                len(p["shards"]) * shard_sizes[vid] for vid in shards_of
+                for p in commands_ec.plan_rebuild(env, vid, CLUSTER_COLLECTION)["pulls"])
+            before = decoder.REPAIR.snapshot()
+            n0 = gf256_matmul.launches
+            t0 = time.perf_counter()
+            total = at_rebuilder = 0
+            hops = []
+            for vid, shards in shards_of.items():
+                out = run_command(env, f"ec.rebuild -volumeId {vid}"
+                                       f" -collection {CLUSTER_COLLECTION}{flags}")
+                m = PIPELINED_LINE.search(out)
+                check(f"rebuilt shards {shards}" in out and m is not None and m.group(1),
+                      f"{what} {vid}: {out}")
+                n_hops, rb, tot = int(m.group(2)), int(m.group(3)), int(m.group(4))
+                check(tot == (n_hops - 1) * len(shards) * shard_sizes[vid]
+                      and rb == len(shards) * shard_sizes[vid],
+                      f"{what} {vid}: {tot} B on wire, {rb} at the rebuilder, {n_hops} hops")
+                hops.append(n_hops)
+                total += tot
+                at_rebuilder += rb
+            wall = time.perf_counter() - t0
+            launches = gf256_matmul.launches - n0
+            after = decoder.REPAIR.snapshot()
+            restarts = sum(after["restarts"].values()) - sum(before["restarts"].values())
+            fallbacks = sum(after["fallbacks"].values()) - sum(before["fallbacks"].values())
+            check(restarts == 0 and fallbacks == 0,
+                  f"{what}: {restarts} chain restarts, {fallbacks} fallbacks")
+            check(launches > 0, f"{what} launched no gf256_matmul kernel")
+            check_rebuilt(shards_of, what)
+            return dict(
+                wall_s=wall, gbps=sum(10 * shard_sizes[v] for v in shards_of) / wall / 1e9,
+                targets=sum(len(x) for x in shards_of.values()),
+                bytes_on_wire_total=total, bytes_on_wire_rebuilder=at_rebuilder,
+                classic_bytes_same_loss=classic_plan, hops=hops,
+                chunk_bytes=sorted({commands_ec.auto_chunk(shard_sizes[v]) for v in shards_of}),
+                chunks=sum(len(list(commands_ec._chunk_spans(
+                    shard_sizes[v], 0, commands_ec.auto_chunk(shard_sizes[v]))))
+                    for v in shards_of),
+                launches=launches, restarts=restarts, fallbacks=fallbacks)
+
+        # 6b. the same loss again, every volume through the streamed
+        # multi-target chain
+        multi = pipelined_round(lost, " -mode pipelined -stream true",
+                                "ec.rebuild -mode pipelined")
+        # 6c. BASELINE config 2: one data shard a volume, the default mode
+        # (auto picks the pipelined chain); the round's check holds each
+        # rebuilder to one shard's bytes, within config 2's 2 x shard size
+        single = pipelined_round({vid: [min(s for s in lost[vid] if s < 10)] for vid in vols},
+                                 "", "ec.rebuild (auto), one shard")
         # 7. ec.decode of every volume; each .dat equals its copy, needles read back
         t0 = time.perf_counter()
         for vid in vols:
@@ -1814,10 +1923,16 @@ def cluster_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
             remote_reads=len(remote_lat), remote_p50_ms=float(np.percentile(rl, 50)),
             remote_p99_ms=float(np.percentile(rl, 99)),
             victim=victim, lost_shards={str(k): v for k, v in lost.items()},
+            shard_map_wait_s=SHARD_MAP_WAIT_S,
             degraded_reads=len(degraded_lat), degraded_p50_ms=float(np.percentile(dl, 50)),
             degraded_p99_ms=float(np.percentile(dl, 99)), degraded_launches=degraded_launches,
+            degraded_lost_intervals=lost_intervals, degraded_partial_served=served,
+            degraded_partial_fallbacks=fallbacks,
+            degraded_launches_per_interval=degraded_launches / lost_intervals,
             rebuild_s=rebuild_s, rebuild_read_bytes=rebuild_read,
             rebuild_gbps=rebuild_read / rebuild_s / 1e9, rebuild_launches=rebuild_launches,
+            rebuild_classic_bytes_on_wire=classic_bytes,
+            rebuild_pipelined_multi=multi, rebuild_pipelined_single=single,
             decode_s=decode_s, launches=launches, rebuilt_shards_equal=True,
             decoded_dats_equal=True, reads_equal=True)
     finally:
@@ -1827,8 +1942,19 @@ def cluster_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     res["seconds"] = time.perf_counter() - t_phase
     check(res["launches"] > 0, "the cluster path launched no gf256_matmul kernel")
+    # the kernel at a pipelined hop's two shapes, after the count
+    res["kernel"] = gf256_shape_times(dev, seed, gf256_matmul, shapes=HOP_SHAPES)
     res["nvidia_smi"] = nvidia_smi()
     return res
+
+
+def partial_counts(servers: list, vols: dict) -> tuple[int, int]:
+    """Intervals served by the partial fan-in, and its fallbacks, summed over
+    every server's mounted EC volumes."""
+    evs = [ev for vs in servers for vid in vols
+           if (ev := vs.store.get_ec_volume(vid)) is not None]
+    return (sum(ev.partial_served for ev in evs),
+            sum(sum(ev.partial_fallbacks.values()) for ev in evs))
 
 
 HASH_WRAPPERS = {
@@ -1964,6 +2090,7 @@ def main() -> int:
     cl = cluster_phase(dev, args.cluster_mib * MIB, args.seed)
     emit("cluster", **cl)
     launches["gf256_matmul"] += cl["launches"]
+    timed["gf256_matmul"]["shapes"].extend(cl["kernel"])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

@@ -14,48 +14,101 @@ delete_volume,to_volume,shard,copy,delete_shards}` that the shell's
 `ec.*` commands drive. Every mounted EC volume gets a remote shard
 fetcher: the master's `/dir/ec_lookup` (cached 10 s), then
 `/admin/ec/shard` range reads off the other holders, so a read of a
-shard this server lacks goes remote before it reconstructs. Writes and
-deletes on an online-EC volume pump its stripe writer, and a pulse loop
-pumps every `pulse_seconds` so the timed trickle flush fires between
-writes; it also posts the heartbeat when a `master_url` is given (with
-none, nothing is posted).
+shard this server lacks goes remote before it reconstructs; and a partial
+fetcher, which reconstructs a lost interval from one GF-scaled partial
+per remote holder (`/admin/ec/partial` with bare `coefs`) plus this
+server's own share. Writes and deletes on an online-EC volume pump its
+stripe writer, and a pulse loop pumps every `pulse_seconds` so the timed
+trickle flush fires between writes, sweeps idle streaming sessions, and
+posts the heartbeat when a `master_url` is given (with none, nothing is
+posted).
+
+The pipelined partial-sum rebuild plane: `/admin/ec/partial/{start,
+commit,abort}` hold a rebuild's tmp shard files on the chain's writer,
+`/admin/ec/partial` runs one hop of a nested chain pass (or serves a bare
+ranged partial), and `/admin/ec/partial/stream/{open,chunk,close}` run
+the hop-parallel session mode, each hop's forwarder thread shipping
+chunk k downstream while its handler scales chunk k+1. Every hop scales
+its own shards on the mounted `EcVolume`'s codec; a codec failure is a
+500 `codec_failed`, never a transport error.
 
 The server has one device, `cuda` unless the caller passes `device="cpu"`
 (with neither nor CUDA, construction raises): the online writers'
-parity, degraded reads, and `/admin/ec/rebuild` run there.
+parity, degraded reads, every hop's partial sum, and `/admin/ec/rebuild`
+run there.
 
 Not ported: the native fastlane, JWT, peer replication (a write to a
 volume whose placement needs replicas is refused), EXIF and image
-resizing, the partial and streaming rebuild plane (with its partial
-fan-in), scrub, tiering, vacuum and the volume copy verbs, `/query`,
-metrics, traces, events, fault points and the retry policy of the copy
-stream (a failed range fails the copy).
+resizing, scrub (and with it the rebuild tmp-file guard), tiering, vacuum
+and the volume copy verbs, `/query`, metrics, traces, events, the fault
+points but `repair.partial_fetch`, and the retry policy of the copy stream
+(a failed range fails the copy).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
 import re
 import threading
 import time
 import urllib.parse
 
+import numpy as np
+
 from ..ops.rs_kernel import RSCodec, resolve_device
+from ..storage import crc as crc_mod
 from ..storage.erasure_coding import decoder as ec_decoder
 from ..storage.erasure_coding import encoder as ec_encoder
 from ..storage.erasure_coding import geometry
-from ..storage.erasure_coding.ec_volume import ec_shard_file_name
+from ..storage.erasure_coding.ec_volume import (
+    PartialCodecFailed,
+    PartialDeclined,
+    ec_shard_file_name,
+)
 from ..storage.file_id import parse_key_hash_with_delta
 from ..storage.needle import Needle
 from ..storage.store import Store
 from ..storage.super_block import SUPER_BLOCK_SIZE
 from ..storage.types import TTL
 from ..storage.volume import NotFound, VolumeError, volume_file_name
+from ..util import faults
+from ..util.retry import READ_POLICY
 from .httpd import HTTPService, Request, Response, get_json, http_request, peer_url
 
 FID_RE = r"/(\d+),([0-9a-fA-F_]+)(?:\.[^/]*)?"
 _SAFE_EXT_RE = re.compile(r"\.(dat|idx|vif|ecx|ecj|ec\d\d)")
+
+# pipelined-rebuild hop seam: an `error` here kills one node's partial-sum
+# stage mid-chain — the orchestrator's retry ladder must restart the chain
+# minus this hop or fall back to classic whole-shard pulls
+_FP_PARTIAL = faults.register("repair.partial_fetch")
+
+# streaming rebuild sessions: bounded in-flight window per hop (chunks
+# parked on the forward queue) and the stall budget after which a hop
+# declares its downstream wedged (the orchestrator's ladder restarts)
+STREAM_WINDOW = 4
+STREAM_STALL_TIMEOUT = 30.0
+STREAM_SESSION_MAX_AGE = 600.0
+
+
+class _PartialError(Exception):
+    """A partial-sum hop step failed; `payload` is the attribution dict
+    the orchestrator's retry ladder reads (error, failed_hop_server)."""
+
+    def __init__(self, payload: dict, status: int) -> None:
+        super().__init__(payload.get("error", "partial step failed"))
+        self.payload = payload
+        self.status = status
+
+
+def _error_of(body: bytes) -> dict:
+    try:
+        out = json.loads(body) if body else {}
+    except ValueError:
+        return {}
+    return out if isinstance(out, dict) else {}
 
 
 class VolumeServer:
@@ -95,6 +148,19 @@ class VolumeServer:
         # handler's beat after a change is never overtaken by the pulse's
         # beat collected before it
         self._hb_lock = threading.Lock()
+        # in-flight pipelined rebuilds: vid -> {writers, targets, ...}.
+        # The orchestrator drives start -> partial chunks -> commit; a
+        # replaced/aborted state discards its tmp files (never a
+        # half-written file under a valid shard name).
+        self._partial_rebuilds: dict[int, dict] = {}
+        self._partial_lock = threading.Lock()
+        # streaming rebuild sessions: session id -> per-hop state. Each hop
+        # ACKs a chunk after scaling its local shards and parking the XOR'd
+        # sum on a bounded forward queue; a forwarder thread ships it
+        # downstream while the hop computes the next one, so an H-hop,
+        # N-chunk rebuild costs ~(H + N) chunk-times instead of H x N.
+        self._partial_streams: dict[str, dict] = {}
+        self._stream_lock = threading.Lock()
         self._routes()
 
     def start(self) -> None:
@@ -122,6 +188,15 @@ class VolumeServer:
         if self._pulse is not None:
             self._pulse.join()
             self._pulse = None
+        with self._partial_lock:  # orphaned rebuild tmp files die with us
+            for state in self._partial_rebuilds.values():
+                state["writers"].abort()
+            self._partial_rebuilds.clear()
+        with self._stream_lock:  # wake forwarder threads so they exit
+            streams, self._partial_streams = (
+                list(self._partial_streams.values()), {})
+        for st in streams:
+            self._teardown_stream(st)
         if self.store:
             self.store.close()
             self.store = None
@@ -129,6 +204,12 @@ class VolumeServer:
     @property
     def url(self) -> str:
         return self.service.url
+
+    @property
+    def node_id(self) -> str:
+        """host:port, as the master's topology and the rebuild chain name
+        this server (and as a fault spec's `key` scopes it)."""
+        return f"{self._host}:{self.service.port}"
 
     def _codec(self) -> RSCodec:
         return RSCodec(device=self.device)
@@ -152,6 +233,12 @@ class VolumeServer:
                 self._pump_online_ec()
             except Exception:
                 pass
+            # age out streaming sessions a dead orchestrator never closed:
+            # each holds a forwarder thread and up to a window of chunks
+            with self._stream_lock:
+                swept = self._sweep_streams_locked()
+            for st in swept:
+                self._teardown_stream(st)
             self.heartbeat_once()
 
     def heartbeat_once(self) -> None:
@@ -197,8 +284,10 @@ class VolumeServer:
     def _attach_shard_fetcher(self, ev) -> None:
         """Give an EcVolume remote shard sourcing: master ec_lookup for
         locations, then /admin/ec/shard range reads off sibling servers
-        (`store_ec.go:281` readRemoteEcShardInterval)."""
-        me = f"{self._host}:{self.service.port}"
+        (`store_ec.go:281` readRemoteEcShardInterval) — plus the
+        repair-bandwidth-optimal partial fan-in: one coefficient-scaled
+        range per HOLDER (not per shard) for interval reconstruction."""
+        me = self.node_id
         state = {"expires": 0.0, "shards": {}}
 
         def shard_map() -> dict:
@@ -226,7 +315,203 @@ class VolumeServer:
                     return body
             return None
 
+        def fetch_partials(missing: int, off: int, size: int) -> bytes:
+            """Reconstruct shard `missing`'s [off, off+size) moving one
+            partial per remote holder over the wire instead of one full
+            range per shard. Declines (PartialDeclined, with its reason)
+            when a `use` shard has no live holder, a holder refuses, or an
+            answer's length or CRC is wrong; a holder's codec failure
+            raises PartialCodecFailed; transport errors propagate."""
+            smap = shard_map()
+            local = set(ev.shards)
+            present = sorted(
+                ({int(s) for s, holders in smap.items() if holders} | local)
+                - {missing}
+            )
+            if len(present) < geometry.DATA_SHARDS_COUNT:
+                raise PartialDeclined("insufficient_shards")
+            use, matrix = ec_decoder.repair_coefficients(present, [missing])
+            groups: dict[str, list[int]] = {}
+            local_use: list[int] = []
+            for sid in use:
+                if sid in local:
+                    local_use.append(sid)
+                    continue
+                holders = [t for t in smap.get(str(sid), []) if t != me]
+                if not holders:
+                    raise PartialDeclined("no_holder")
+                groups.setdefault(holders[0], []).append(sid)
+            acc = None
+            if local_use:
+                rows = []
+                for sid in local_use:
+                    data = ev._pread_shard(sid, off, size)
+                    if data is None:
+                        raise PartialDeclined("local_short")
+                    rows.append(np.frombuffer(data, dtype=np.uint8))
+                cols = [use.index(s) for s in local_use]
+                acc = ec_decoder.partial_contribution(
+                    matrix[:, cols], np.stack(rows), ev.codec)
+            for target, sids in groups.items():
+                coefs = {
+                    str(s): [int(matrix[0, use.index(s)])] for s in sids
+                }
+                url = (
+                    peer_url(target) + f"/admin/ec/partial"
+                    f"?volume={ev.volume_id}"
+                    f"&collection={urllib.parse.quote(ev.collection)}"
+                    f"&offset={off}&size={size}&targets={missing}"
+                    f"&coefs={urllib.parse.quote(json.dumps(coefs))}"
+                )
+                status, hdrs, body = http_request(
+                    "POST", url, b"", timeout=READ_POLICY.deadline)
+                if status != 200:
+                    err = _error_of(body)
+                    if err.get("error") == "codec_failed":
+                        raise PartialCodecFailed(
+                            f"holder {target} codec failed: {err.get('detail', '')}")
+                    raise PartialDeclined("holder_refused")
+                if len(body) != size:
+                    raise PartialDeclined("length")
+                want = hdrs.get("X-Repair-Crc")
+                if want is not None and int(want) != crc_mod.crc32c(body):
+                    raise PartialDeclined("crc")
+                acc = ec_decoder.xor_partials(
+                    acc, np.frombuffer(body, dtype=np.uint8).reshape(1, size)
+                )
+            return np.ascontiguousarray(acc[0]).tobytes()
+
         ev.shard_fetcher = fetch
+        ev.partial_fetcher = fetch_partials
+
+    # --- streaming rebuild sessions ------------------------------------------
+    def _scale_local_shards(
+        self, vid: int, coefs: dict[int, list[int]], targets: list[int],
+        offset: int, size: int, me: str,
+    ) -> tuple[np.ndarray | None, int]:
+        """One hop's locally-computed share of the repair sum for
+        [offset, offset+size): scale this node's `use` shards by their
+        coefficient columns on the mounted EcVolume's codec (the server's
+        device). Returns (contribution or None when the hop owns nothing,
+        bytes read from local shards); raises _PartialError with
+        orchestrator-readable attribution, `codec_failed` (500) when the
+        codec itself fails."""
+        if not coefs:
+            return None, 0
+        ev = self.store.get_ec_volume(vid)
+        if ev is None:
+            raise _PartialError(
+                {"error": "ec volume not mounted", "failed_hop_server": me},
+                409)
+        sids = sorted(coefs)
+        rows = []
+        read = 0
+        for sid in sids:
+            if len(coefs[sid]) != len(targets):
+                raise _PartialError(
+                    {"error": f"coefs for shard {sid} != targets",
+                     "failed_hop_server": me}, 400)
+            data = ev._pread_shard(sid, offset, size)
+            if data is None:
+                raise _PartialError(
+                    {"error": "shard_unavailable", "shard": sid,
+                     "failed_hop_server": me}, 409)
+            read += len(data)
+            rows.append(np.frombuffer(data, dtype=np.uint8))
+        m = np.array([coefs[s] for s in sids], dtype=np.uint8).T
+        try:
+            contrib = ec_decoder.partial_contribution(m, np.stack(rows), ev.codec)
+        except Exception as e:  # the kernel or its copies, not transport
+            raise _PartialError(
+                {"error": "codec_failed", "failed_hop_server": me,
+                 "detail": str(e)[:200]}, 500) from e
+        return contrib, read
+
+    def _stream_forwarder(self, state: dict) -> None:
+        """Per-session forwarder thread on a mid-chain hop: ship queued
+        chunks downstream IN ORDER while the HTTP handler computes the
+        next one. A downstream failure is recorded on the session
+        (attributed, with the chunk index) and the queue keeps draining so
+        upstream enqueues never block behind a dead hop."""
+        nxt = state["downstream"][0]
+        url_base = (
+            nxt["url"] + "/admin/ec/partial/stream/chunk"
+            f"?session={state['session']}"
+        )
+        while True:
+            item = state["queue"].get()
+            if item is None:
+                return
+            seq, offset, size, payload = item
+            if state["error"] is not None:
+                continue  # drain-and-discard: the session already failed
+            url = url_base + f"&seq={seq}&offset={offset}&size={size}"
+
+            def fwd():
+                return http_request(
+                    "POST", url, payload,
+                    headers={"X-Repair-Crc": str(crc_mod.crc32c(payload))},
+                    timeout=READ_POLICY.deadline,
+                )
+
+            try:
+                status, _, out = READ_POLICY.call(fwd)
+            except (IOError, OSError) as e:
+                state["error"] = {
+                    "error": "hop_unreachable",
+                    "failed_hop_server": nxt.get("server", ""),
+                    "chunk": seq, "detail": str(e)[:200],
+                }
+                continue
+            except Exception as e:  # never die with chunks enqueued
+                state["error"] = {
+                    "error": "hop_failed",
+                    "failed_hop_server": nxt.get("server", ""),
+                    "chunk": seq, "detail": str(e)[:200],
+                }
+                continue
+            if status != 200:
+                downstream = _error_of(out)
+                downstream.setdefault("error", f"hop -> {status}")
+                downstream.setdefault(
+                    "failed_hop_server", nxt.get("server", ""))
+                downstream.setdefault("chunk", seq)
+                state["error"] = downstream
+                continue
+            state["forwarded"] += 1
+            ec_decoder.REPAIR.inc("stream_chunks", "forwarded")
+
+    def _teardown_stream(self, state: dict) -> None:
+        """Stop a session's forwarder (sentinel + join). Caller already
+        removed it from _partial_streams."""
+        q, t = state.get("queue"), state.get("thread")
+        if q is not None:
+            try:
+                q.put(None, timeout=state.get("stall_timeout", 1.0))
+            except queue.Full:
+                # forwarder wedged mid-send: mark failed so it discards
+                # the backlog, then the sentinel fits
+                state["error"] = state["error"] or {
+                    "error": "stream_stall",
+                    "failed_hop_server": "", "chunk": -1}
+                try:
+                    q.put(None, timeout=5.0)
+                except queue.Full:
+                    pass
+        if t is not None:
+            t.join(timeout=10.0)
+
+    def _sweep_streams_locked(self) -> list[dict]:
+        """Drop sessions past the idle age (a dead orchestrator never
+        closed them). Caller holds _stream_lock; returns the swept
+        states for teardown OUTSIDE the lock."""
+        now = time.time()
+        swept = []
+        for sid in list(self._partial_streams):
+            st = self._partial_streams[sid]
+            if now - st["touched"] > STREAM_SESSION_MAX_AGE:
+                swept.append(self._partial_streams.pop(sid))
+        return swept
 
     def _pull_file(
         self, source: str, vid: int, collection: str, ext: str, dest: str,
@@ -538,6 +823,11 @@ class VolumeServer:
                         ec_encoder.save_volume_info(base + ".vif")
                         continue
                     raise
+            if p.get("repair") and pulled:
+                # whole-shard pulls feeding a classic rebuild: the traffic
+                # the pipelined mode exists to cut, counted at the
+                # receiving rebuilder as the partial hops are
+                ec_decoder.REPAIR.inc("bytes_on_wire", "classic", pulled)
             return Response({"ok": True, "copied": copied, "bytes": pulled})
 
         @svc.route("POST", r"/admin/ec/delete_shards")
@@ -601,6 +891,447 @@ class VolumeServer:
                 size = ev.shard_size - offset
             data = os.pread(fd, size, offset)
             return Response(data, content_type="application/octet-stream")
+
+        # --- pipelined partial-sum rebuild plane --------------------------
+        @svc.route("POST", r"/admin/ec/partial/start")
+        def ec_partial_start(req: Request) -> Response:
+            """Open a pipelined rebuild on this node (the chain's terminal
+            writer): pre-sized tmp shard files for `targets`, renamed into
+            place only at commit. `resume: true` keeps an existing
+            same-target state and returns its committed frontier, so a
+            restarted chain re-sends only the uncommitted suffix."""
+            p = req.json()
+            vid = int(p["volume"])
+            targets = [int(s) for s in p.get("targets", [])]
+            ev = self.store.get_ec_volume(vid)
+            if ev is None:
+                return Response({"error": "ec volume not mounted"}, 404)
+            if not targets or any(
+                t < 0 or t >= geometry.TOTAL_SHARDS_COUNT for t in targets
+            ):
+                return Response({"error": f"bad targets {targets}"}, 400)
+            with self._partial_lock:
+                old = self._partial_rebuilds.get(vid)
+                if (
+                    p.get("resume") and old is not None
+                    and old["targets"] == targets
+                ):
+                    return Response({
+                        "ok": True, "shard_size": old["shard_size"],
+                        "targets": targets, "resumed": True,
+                        "committed": old["committed"],
+                    })
+                old = self._partial_rebuilds.pop(vid, None)
+                if old is not None:  # stale orchestrator: replace its state
+                    old["writers"].abort()
+                writers = ec_encoder._ShardWriters(
+                    ev.data_base, ev.shard_size, shard_ids=targets
+                )
+                self._partial_rebuilds[vid] = {
+                    "writers": writers, "targets": targets,
+                    "shard_size": ev.shard_size,
+                    "collection": p.get("collection", ""),
+                    # contiguous per-shard byte frontier the chain has
+                    # landed (chunks arrive in order): restarts resume here
+                    "committed": 0,
+                }
+            return Response({
+                "ok": True, "shard_size": ev.shard_size, "targets": targets,
+                "committed": 0,
+            })
+
+        @svc.route("POST", r"/admin/ec/partial/commit")
+        def ec_partial_commit(req: Request) -> Response:
+            vid = int(req.json()["volume"])
+            with self._partial_lock:
+                state = self._partial_rebuilds.get(vid)
+                if state is not None and state["committed"] < state["shard_size"]:
+                    # committing a half-landed rebuild would rename a
+                    # partially-written file under a valid shard name
+                    return Response(
+                        {"error": "rebuild incomplete",
+                         "committed": state["committed"],
+                         "shard_size": state["shard_size"]}, 409)
+                state = self._partial_rebuilds.pop(vid, None)
+            if state is None:
+                return Response({"error": "no rebuild state"}, 404)
+            state["writers"].close()
+            # atomic swap: reads keep serving off the old instance until
+            # the one that sees the rebuilt shards replaces it
+            ev = self.store.remount_ec_volume(vid, state["collection"])
+            if ev is None:
+                return Response({"error": "ec volume vanished"}, 409)
+            self._attach_shard_fetcher(ev)
+            self.heartbeat_once()
+            return Response({
+                "ok": True, "rebuilt": state["targets"],
+                "shards": ev.shard_ids(),
+            })
+
+        @svc.route("POST", r"/admin/ec/partial/abort")
+        def ec_partial_abort(req: Request) -> Response:
+            vid = int(req.json()["volume"])
+            with self._partial_lock:
+                state = self._partial_rebuilds.pop(vid, None)
+            if state is not None:
+                state["writers"].abort()
+            return Response({"ok": True, "aborted": state is not None})
+
+        @svc.route("POST", r"/admin/ec/partial")
+        def ec_partial(req: Request) -> Response:
+            """One partial-sum hop. Body: the accumulated partial so far
+            (empty for the chain head), CRC-guarded. Query: volume /
+            collection / offset / size / targets, plus either `chain`
+            (JSON hop list, chain[0] == this node; forward the XOR to
+            chain[1], the last hop writes into the /admin/ec/partial/start
+            state) or bare `coefs` (the range-limited partial served
+            straight back: a degraded read fans in one scaled range per
+            holder). Every received or served payload counts into
+            bytes_on_wire["pipelined"]."""
+            me = self.node_id
+            q = req.query
+            vid = int(q["volume"])
+            _FP_PARTIAL.hit(key=me)
+            collection = q.get("collection", "")
+            offset = int(q["offset"])
+            size = int(q["size"])
+            targets = [int(s) for s in q.get("targets", "").split(",") if s]
+            if size <= 0 or offset < 0 or not targets:
+                return Response({"error": "bad offset/size/targets"}, 400)
+            chain = json.loads(q["chain"]) if "chain" in q else []
+            if chain:
+                hop, rest = chain[0], chain[1:]
+                coefs = {int(k): v for k, v in hop.get("coefs", {}).items()}
+                write = bool(hop.get("write"))
+            else:
+                rest, write = [], False
+                coefs = {int(k): v for k, v in
+                         json.loads(q.get("coefs", "{}")).items()}
+            body = req.body
+            if body:
+                if len(body) != len(targets) * size:
+                    return Response(
+                        {"error": "partial size mismatch",
+                         "failed_hop_server": me}, 409)
+                want = req.headers.get("X-Repair-Crc")
+                if want is not None and int(want) != crc_mod.crc32c(body):
+                    return Response(
+                        {"error": "crc_mismatch", "failed_hop_server": me},
+                        409)
+                ec_decoder.REPAIR.inc("bytes_on_wire", "pipelined", len(body))
+                partial = np.frombuffer(body, dtype=np.uint8) \
+                    .reshape(len(targets), size).copy()
+            else:
+                partial = None
+            try:
+                contrib, local_read = self._scale_local_shards(
+                    vid, coefs, targets, offset, size, me)
+            except _PartialError as e:
+                return Response(e.payload, e.status)
+            if contrib is not None:
+                partial = contrib if partial is None \
+                    else ec_decoder.xor_partials(partial, contrib)
+            if partial is None:
+                partial = np.zeros((len(targets), size), dtype=np.uint8)
+            if rest:  # forward the accumulated sum to the next hop
+                nxt = rest[0]
+                payload = np.ascontiguousarray(partial).tobytes()
+                url = (
+                    nxt["url"] + f"/admin/ec/partial?volume={vid}"
+                    f"&collection={urllib.parse.quote(collection)}"
+                    f"&offset={offset}&size={size}"
+                    f"&targets={','.join(str(t) for t in targets)}"
+                    f"&chain={urllib.parse.quote(json.dumps(rest))}"
+                )
+
+                def fwd():
+                    return http_request(
+                        "POST", url, payload,
+                        headers={"X-Repair-Crc":
+                                 str(crc_mod.crc32c(payload))},
+                        timeout=READ_POLICY.deadline,
+                    )
+
+                try:  # transport failures retry under the shared policy
+                    status, _, out = READ_POLICY.call(fwd)
+                except (IOError, OSError) as e:
+                    return Response(
+                        {"error": "hop_unreachable",
+                         "failed_hop_server": nxt.get("server", ""),
+                         "failed_hop": nxt["url"],
+                         "detail": str(e)[:200]}, 502)
+                downstream = _error_of(out)
+                if status != 200:
+                    downstream.setdefault("error", f"hop -> {status}")
+                    downstream.setdefault(
+                        "failed_hop_server", nxt.get("server", ""))
+                    return Response(downstream, 502)
+                downstream["received"] = (
+                    [len(body)] + downstream.get("received", []))
+                downstream["read"] = (
+                    [local_read] + downstream.get("read", []))
+                return Response(downstream)
+            if write:  # chain terminal: land the sum in the rebuild state
+                with self._partial_lock:
+                    state = self._partial_rebuilds.get(vid)
+                    if state is None or state["targets"] != targets:
+                        return Response(
+                            {"error": "start_failed",
+                             "detail": "no matching rebuild state",
+                             "failed_hop_server": me}, 409)
+                    for i, sid in enumerate(targets):
+                        state["writers"].pwrite(sid, partial[i], offset)
+                    if offset == state["committed"]:
+                        state["committed"] = offset + size
+                return Response({"ok": True, "received": [len(body)],
+                                 "read": [local_read]})
+            # bare ranged partial: serve the scaled range back
+            payload = np.ascontiguousarray(partial).tobytes()
+            ec_decoder.REPAIR.inc("bytes_on_wire", "pipelined", len(payload))
+            return Response(
+                payload, content_type="application/octet-stream",
+                headers={"X-Repair-Crc": str(crc_mod.crc32c(payload))},
+            )
+
+        # --- streaming session mode (hop-parallel chunk pipelining) -------
+        # A stream session arms every hop once (open cascades down the
+        # chain), then each chunk POST is ACKed after local compute +
+        # enqueue — the hop's forwarder thread ships chunk k downstream
+        # while the handler computes chunk k+1. Bounded queue = in-flight
+        # window = backpressure: a stalled downstream fills the queue and
+        # the enqueue timeout surfaces as a typed stream_stall.
+
+        @svc.route("POST", r"/admin/ec/partial/stream/open")
+        def ec_partial_stream_open(req: Request) -> Response:
+            me = self.node_id
+            p = req.json()
+            sid = str(p.get("session", ""))
+            vid = int(p["volume"])
+            chain = p.get("chain") or []
+            targets = [int(t) for t in p.get("targets", [])]
+            if not sid or not chain or not targets:
+                return Response(
+                    {"error": "bad session/chain/targets",
+                     "failed_hop_server": me}, 400)
+            _FP_PARTIAL.hit(key=me)
+            hop, rest = chain[0], chain[1:]
+            state = {
+                "session": sid, "volume": vid,
+                "collection": p.get("collection", ""),
+                "targets": targets,
+                "coefs": {int(k): v
+                          for k, v in hop.get("coefs", {}).items()},
+                "write": bool(hop.get("write")),
+                "downstream": rest,
+                "window": max(1, int(p.get("window", STREAM_WINDOW))),
+                "stall_timeout": float(
+                    p.get("stall_timeout", STREAM_STALL_TIMEOUT)),
+                "received": 0, "read": 0, "forwarded": 0,
+                "error": None, "touched": time.time(),
+                "queue": None, "thread": None,
+            }
+            if rest:
+                # arm the whole chain before any chunk flows: the open
+                # cascades downstream synchronously (chain latency once,
+                # not per chunk)
+                body = dict(p)
+                body["chain"] = rest
+                try:
+                    status, _, out = http_request(
+                        "POST",
+                        rest[0]["url"] + "/admin/ec/partial/stream/open",
+                        json.dumps(body).encode(),
+                        headers={"Content-Type": "application/json"},
+                        timeout=60,
+                    )
+                except (IOError, OSError) as e:
+                    return Response(
+                        {"error": "hop_unreachable",
+                         "failed_hop_server": rest[0].get("server", ""),
+                         "detail": str(e)[:200]}, 502)
+                if status != 200:
+                    downstream = _error_of(out)
+                    downstream.setdefault("error", f"open -> {status}")
+                    downstream.setdefault(
+                        "failed_hop_server", rest[0].get("server", ""))
+                    return Response(downstream, 502)
+                state["queue"] = queue.Queue(maxsize=state["window"])
+                t = threading.Thread(
+                    target=self._stream_forwarder, args=(state,),
+                    daemon=True, name="ec-stream-forwarder",
+                )
+                state["thread"] = t
+                t.start()
+            elif state["write"]:
+                with self._partial_lock:
+                    rb = self._partial_rebuilds.get(vid)
+                    if rb is None or rb["targets"] != targets:
+                        return Response(
+                            {"error": "start_failed",
+                             "detail": "no matching rebuild state",
+                             "failed_hop_server": me}, 409)
+            with self._stream_lock:
+                old = self._partial_streams.pop(sid, None)
+                self._partial_streams[sid] = state
+                swept = self._sweep_streams_locked()
+            if old is not None:
+                self._teardown_stream(old)
+            for st in swept:
+                self._teardown_stream(st)
+            return Response({"ok": True, "session": sid})
+
+        @svc.route("POST", r"/admin/ec/partial/stream/chunk")
+        def ec_partial_stream_chunk(req: Request) -> Response:
+            me = self.node_id
+            q = req.query
+            sid = q.get("session", "")
+            with self._stream_lock:
+                state = self._partial_streams.get(sid)
+            if state is None:
+                return Response(
+                    {"error": "unknown stream session",
+                     "failed_hop_server": me}, 404)
+            vid = state["volume"]
+            seq = int(q["seq"])
+            offset = int(q["offset"])
+            size = int(q["size"])
+            if size <= 0 or offset < 0:
+                return Response({"error": "bad offset/size",
+                                 "failed_hop_server": me,
+                                 "chunk": seq}, 400)
+            _FP_PARTIAL.hit(key=me)
+            state["touched"] = time.time()
+            if state["error"] is not None:
+                return Response(dict(state["error"]), 502)
+            targets = state["targets"]
+            body = req.body
+            partial = None
+            if body:
+                if len(body) != len(targets) * size:
+                    return Response(
+                        {"error": "partial size mismatch",
+                         "failed_hop_server": me, "chunk": seq}, 409)
+                want = req.headers.get("X-Repair-Crc")
+                if want is not None and int(want) != crc_mod.crc32c(body):
+                    ec_decoder.REPAIR.inc("stream_chunks", "crc_failed")
+                    return Response(
+                        {"error": "chunk_crc", "failed_hop_server": me,
+                         "chunk": seq}, 409)
+                state["received"] += len(body)
+                ec_decoder.REPAIR.inc("bytes_on_wire", "pipelined", len(body))
+                partial = np.frombuffer(body, dtype=np.uint8) \
+                    .reshape(len(targets), size).copy()
+            try:
+                contrib, local_read = self._scale_local_shards(
+                    vid, state["coefs"], targets, offset, size, me)
+            except _PartialError as e:
+                return Response({**e.payload, "chunk": seq}, e.status)
+            state["read"] += local_read
+            if contrib is not None:
+                partial = contrib if partial is None \
+                    else ec_decoder.xor_partials(partial, contrib)
+            if partial is None:
+                partial = np.zeros((len(targets), size), dtype=np.uint8)
+            if state["queue"] is not None:
+                payload = np.ascontiguousarray(partial).tobytes()
+                try:
+                    state["queue"].put((seq, offset, size, payload),
+                                       timeout=state["stall_timeout"])
+                except queue.Full:
+                    ec_decoder.REPAIR.inc("stream_chunks", "stalled")
+                    state["error"] = {
+                        "error": "stream_stall",
+                        "failed_hop_server":
+                            state["downstream"][0].get("server", ""),
+                        "chunk": seq,
+                    }
+                    return Response(dict(state["error"]), 503)
+                return Response({"ok": True, "chunk": seq})
+            # chain terminal: land the chunk at the committed frontier
+            with self._partial_lock:
+                rb = self._partial_rebuilds.get(vid)
+                if rb is None or rb["targets"] != targets:
+                    return Response(
+                        {"error": "start_failed",
+                         "detail": "no matching rebuild state",
+                         "failed_hop_server": me, "chunk": seq}, 409)
+                committed = rb["committed"]
+                if offset + size <= committed:
+                    # duplicate delivery: the upstream forwarder's retry
+                    # re-sent a chunk whose ACK was lost. The write already
+                    # landed — ACK it again instead of failing the session
+                    # (a 409 would get the healthy writer excluded)
+                    return Response({"ok": True, "chunk": seq,
+                                     "committed": committed,
+                                     "duplicate": True})
+                if offset != committed:
+                    return Response(
+                        {"error": f"chunk out of order (offset {offset},"
+                                  f" committed {committed})",
+                         "failed_hop_server": me, "chunk": seq}, 409)
+                for i, t in enumerate(targets):
+                    rb["writers"].pwrite(t, partial[i], offset)
+                rb["committed"] = offset + size
+            ec_decoder.REPAIR.inc("stream_chunks", "written")
+            return Response({"ok": True, "chunk": seq,
+                             "committed": offset + size})
+
+        @svc.route("POST", r"/admin/ec/partial/stream/close")
+        def ec_partial_stream_close(req: Request) -> Response:
+            """Flush-and-report: drain this hop's forward queue, cascade
+            the close downstream, and return per-hop received/read byte
+            lists (chain order) plus the terminal's committed frontier.
+            The payload carries `ok` and, on failure, the attributed error
+            so the orchestrator's ladder can resume from `committed`."""
+            me = self.node_id
+            sid = req.query.get("session", "")
+            with self._stream_lock:
+                state = self._partial_streams.pop(sid, None)
+            if state is None:
+                return Response(
+                    {"error": "unknown stream session",
+                     "failed_hop_server": me}, 404)
+            if state["queue"] is not None:
+                self._teardown_stream(state)  # drains in order, then joins
+            out: dict = {
+                "ok": True,
+                "received": [state["received"]],
+                "read": [state["read"]],
+                "committed": None,
+            }
+            if state["downstream"]:
+                nxt = state["downstream"][0]
+                try:
+                    status, _, body = http_request(
+                        "POST",
+                        nxt["url"]
+                        + f"/admin/ec/partial/stream/close?session={sid}",
+                        b"", timeout=120,
+                    )
+                    down = json.loads(body) if body else {}
+                except (IOError, OSError, ValueError) as e:
+                    down = {"error": "hop_unreachable",
+                            "failed_hop_server": nxt.get("server", ""),
+                            "detail": str(e)[:200]}
+                out["received"] += down.get("received", [])
+                out["read"] += down.get("read", [])
+                out["committed"] = down.get("committed")
+                if (down.get("error") or not down.get("ok", True)) \
+                        and state["error"] is None:
+                    state["error"] = {
+                        k: down[k]
+                        for k in ("error", "failed_hop_server", "chunk",
+                                  "detail")
+                        if k in down
+                    }
+            else:
+                with self._partial_lock:
+                    rb = self._partial_rebuilds.get(state["volume"])
+                    out["committed"] = None if rb is None else rb["committed"]
+            if state["error"] is not None:
+                out.update(state["error"])
+                out["ok"] = False
+            return Response(out)
 
     # --- handlers -------------------------------------------------------------
     def _parse_fid(self, req: Request) -> tuple[int, int, int]:

@@ -3,28 +3,61 @@
 `command_ec_decode.go:77`, `command_ec_balance.go`).
 
 The port's copy of `seaweedfs_tpu/shell/commands_ec.py`: `ec.encode`,
-`ec.decode`, `ec.rebuild` and `ec.balance`, with the rebuild plan shared by
-the verb. The GF(2^8) work runs on the volume servers' device:
-`/admin/ec/generate`, `/admin/ec/rebuild` and `/admin/ec/to_volume` with
-data shards missing launch `gf256_matmul` there.
+`ec.decode`, `ec.rebuild` and `ec.balance`. The GF(2^8) work runs on the
+volume servers' device: `/admin/ec/generate`, `/admin/ec/rebuild`,
+`/admin/ec/to_volume` with data shards missing, and every hop of a
+pipelined rebuild launch `gf256_matmul` there.
 
-`ec.rebuild` repairs by the **classic** plan: every needed shard is pulled
-to one rebuilder, which decodes locally. `-mode auto` and `-mode classic`
-both run it. The JAX package's **pipelined** mode (each holder scales its
-own shards by the decode coefficients and forwards one partial sum hop to
-hop) needs the partial and streaming rebuild plane, which is not ported:
-`-mode pipelined` raises `ShellError`. The rebuilt shards are the same
-bytes under either mode. Repair metrics, traces and events are not
-ported."""
+`ec.rebuild` runs in two modes. **classic** pulls every needed shard to
+one rebuilder, which decodes locally. **pipelined** has each surviving
+holder scale its own shards by the decode coefficients and XOR-forward one
+partial sum hop to hop, the rebuilder (last hop) writing the accumulated
+sum: no node receives more than ~targets x shard-size. **auto** picks per
+repair from the chain's hop count (and the repair scheduler's pressure,
+which the verb does not pass). The rebuilt shards are the same bytes under
+either mode.
+
+One difference from the JAX package: a hop whose codec fails answers
+`codec_failed`, and the orchestrator raises `ShellError` naming the hop
+instead of restarting the chain or falling back to classic, so a kernel
+fault never turns into a quiet classic repair. Repair metrics, traces and
+events are not ported; the plane counts into `decoder.REPAIR`."""
 
 from __future__ import annotations
 
+import json
+import time
+import urllib.parse
+import uuid
+
+from ..server.httpd import http_request
+from ..storage.erasure_coding import decoder as ec_decoder
+from ..storage.erasure_coding.ec_volume import TRANSPORT_ERRORS
 from .env import CommandEnv, ServerView, ShellError
 from .registry import command, dry_run_flag, parse_flags, render_plan
 
 TOTAL_SHARDS = 14
 DATA_SHARDS = 10
-REBUILD_MODES = ("auto", "classic", "pipelined")
+
+# partial chunk ceiling: ranges per chain pass. Big enough to amortize
+# the hop HTTP overhead, small enough that a mid-chain death retries
+# cheaply.
+PARTIAL_CHUNK = 4 * 1024 * 1024
+# auto chunk sizing (chunk=None): aim for ~STREAM_TARGET_CHUNKS chunks
+# per shard so the hop-parallel overlap engages on any shard size
+PARTIAL_CHUNK_MIN = 4096
+STREAM_TARGET_CHUNKS = 16
+
+# streaming sessions: per-hop in-flight chunk window (the bounded queue
+# each hop parks computed chunks on while its forwarder ships them)
+STREAM_WINDOW = 4
+
+
+def auto_chunk(shard_size: int) -> int:
+    """The chunk size apply_rebuild_pipelined uses when none is forced:
+    ~1/16th of the shard, clamped to [PARTIAL_CHUNK_MIN, PARTIAL_CHUNK]."""
+    want = -(-max(shard_size, 1) // STREAM_TARGET_CHUNKS)
+    return min(PARTIAL_CHUNK, max(PARTIAL_CHUNK_MIN, want))
 
 
 def _spread_plan(
@@ -213,14 +246,17 @@ def describe_rebuild(plan: dict) -> list[str]:
 
 def apply_rebuild(env: CommandEnv, plan: dict) -> list[int]:
     """Execute a plan_rebuild plan: pull inputs, rebuild on the rebuilder's
-    device (gf256_matmul on the card), drop pulled-only inputs, re-mount."""
+    device (gf256_matmul on the card), drop pulled-only inputs, re-mount.
+    The whole-shard pulls are flagged `repair` so the rebuilder counts
+    them into bytes_on_wire["classic"]."""
     vid, collection = plan["volume"], plan["collection"]
     rb = plan["rebuilder_url"]
     for p in plan["pulls"]:
         env.post(
             f"{rb}/admin/ec/copy",
             {"volume": vid, "collection": collection,
-             "shards": p["shards"], "source": p["source_url"]},
+             "shards": p["shards"], "source": p["source_url"],
+             "repair": True},
             timeout=3600,
         )
     out = env.post(
@@ -242,48 +278,496 @@ def apply_rebuild(env: CommandEnv, plan: dict) -> list[int]:
     return out.get("rebuilt", plan["missing"])
 
 
+class PipelinedRebuildError(ShellError):
+    """A pipelined rebuild could not complete; `reason` is one of
+    decoder.REPAIR_FALLBACK_REASONS and the caller falls back to classic."""
+
+    def __init__(self, reason: str, detail: str = "") -> None:
+        super().__init__(f"pipelined rebuild failed ({reason}): {detail}")
+        self.reason = reason
+        self.detail = detail
+
+
+def plan_rebuild_pipelined(
+    env: CommandEnv, vid: int, collection: str = "",
+    exclude: tuple[str, ...] = (),
+    prefer_rebuilder: str | None = None,
+) -> dict | None:
+    """The partial-sum chain plan: decode coefficients per holder, hops
+    ordered with the rebuilder LAST (it lands the accumulated sum in its
+    /admin/ec/partial/start state). `exclude` drops dead hops on a chain
+    restart. `prefer_rebuilder` pins the writer on restarts: the
+    committed frontier lives in the old rebuilder's partial state, so a
+    still-usable preferred holder always wins over the (shard-count,
+    free_slots) ranking. None when nothing is missing; ShellError when the
+    surviving (non-excluded) shards drop below 10."""
+    servers = env.servers()
+    all_holders = [sv for sv in servers if vid in sv.ec_shards]
+    holders = [sv for sv in all_holders if sv.id not in exclude]
+    # targets = shards missing from the WHOLE cluster; a dead hop's
+    # shards are unavailable as chain inputs but not lost
+    present_all = sorted(
+        {s for sv in all_holders for s in sv.ec_shards[vid]})
+    missing = [s for s in range(TOTAL_SHARDS) if s not in present_all]
+    if not missing:
+        return None
+    usable = sorted({s for sv in holders for s in sv.ec_shards[vid]})
+    if len(usable) < DATA_SHARDS:
+        raise ShellError(
+            f"volume {vid}: only {len(usable)} usable shards"
+            f" (excluding {list(exclude)}), cannot rebuild"
+        )
+    use, matrix = ec_decoder.repair_coefficients(usable, missing)
+    rebuilder = next(
+        (sv for sv in holders if sv.id == prefer_rebuilder), None
+    ) or max(
+        holders, key=lambda sv: (len(sv.ec_shards[vid]), sv.free_slots())
+    )
+    # each `use` shard contributes from exactly one hop; hops ordered
+    # non-rebuilders first (stable by id), rebuilder last as the writer
+    assigned: set[int] = set()
+    chain: list[dict] = []
+    others = sorted(
+        (sv for sv in holders if sv.id != rebuilder.id),
+        key=lambda sv: sv.id,
+    )
+    for sv in others + [rebuilder]:
+        own = [
+            s for s in sorted(sv.ec_shards[vid])
+            if s in use and s not in assigned
+        ]
+        assigned.update(own)
+        if not own and sv.id != rebuilder.id:
+            continue  # nothing to contribute, not the writer: skip the hop
+        chain.append({
+            "server": sv.id, "url": sv.http, "shards": own,
+            "coefs": {
+                str(s): [int(matrix[t, use.index(s)])
+                         for t in range(len(missing))]
+                for s in own
+            },
+            "write": sv.id == rebuilder.id,
+        })
+    return {
+        "volume": vid, "collection": collection, "mode": "pipelined",
+        "rebuilder": rebuilder.id, "rebuilder_url": rebuilder.http,
+        "missing": missing, "present": present_all, "use": use,
+        "chain": chain,
+    }
+
+
+def describe_rebuild_pipelined(plan: dict) -> list[str]:
+    """Display lines for a plan_rebuild_pipelined plan."""
+    steps = []
+    for hop in plan["chain"]:
+        if hop["write"]:
+            steps.append(
+                f"{hop['server']}: add shards {hop['shards']}, write"
+                f" rebuilt {plan['missing']} (chain terminal)"
+            )
+        else:
+            steps.append(
+                f"{hop['server']}: scale shards {hop['shards']},"
+                f" XOR-forward one partial"
+            )
+    steps.append(
+        f"bytes-on-wire at rebuilder ~{len(plan['missing'])}x shard-size"
+        f" (classic: {DATA_SHARDS}x)"
+    )
+    return steps
+
+
+def choose_rebuild_mode(pplan: dict | None, pressure: dict | None = None
+                        ) -> tuple[str, str]:
+    """auto-mode policy: a chain needs >= 3 contributing nodes before
+    hop-forwarding beats one pull burst; a 2-node chain is still worth it
+    when the repair scheduler is under pressure (token bucket drained or
+    in-flight near the global or per-node cap); single-holder volumes
+    rebuild locally either way, so classic's simpler ladder wins."""
+    if pplan is None:
+        return "classic", "no pipelined plan"
+    hops = len(pplan["chain"])
+    if hops >= 3:
+        return "pipelined", f"{hops}-hop chain cuts rebuilder fan-in" \
+            f" {DATA_SHARDS}x -> {len(pplan['missing'])}x"
+    if hops == 2 and pressure is not None:
+        node_hot = any(
+            n >= pressure.get("per_node_limit", 1)
+            for n in pressure.get("node_inflight", {}).values()
+        )
+        if (
+            pressure.get("tokens", 2.0) < 1.0
+            or pressure.get("in_flight", 0)
+            >= max(1, pressure.get("global_limit", 4) - 1)
+            or node_hot
+        ):
+            return "pipelined", "2-hop chain under repair-scheduler pressure"
+    return "classic", "too_few_holders"
+
+
+def apply_rebuild_pipelined(
+    env: CommandEnv, plan: dict, chunk: int | None = None,
+    stream: bool | None = None, window: int = STREAM_WINDOW,
+    stall_timeout: float | None = None,
+) -> tuple[list[int], dict]:
+    """Execute a pipelined plan with the retry ladder: a dead hop
+    restarts the chain minus that hop (re-planned coefficients) while
+    the survivors still cover 10 shards; a CRC mismatch or stream stall
+    restarts the SAME chain once and escalates to the typed fallback on
+    a repeat; exhausted restarts raise PipelinedRebuildError so the
+    caller falls back to classic. A hop's `codec_failed` raises
+    ShellError at once: no restart, no exclusion, no fallback.
+
+    Restarts RESUME: the rebuilder's partial-write state survives a
+    failed chain (chunks land in order, so its committed frontier is
+    exact) and the re-planned chain re-sends only the uncommitted
+    suffix. The state is aborted on any terminal failure.
+
+    `stream=None` auto-picks: multi-hop, multi-chunk repairs use the
+    streaming session mode; True/False forces. `chunk=None` sizes chunks
+    via auto_chunk() off the real shard size. Returns (rebuilt shard ids,
+    wire stats)."""
+    excluded: list[str] = []
+    restarts = 0
+    strikes = {r: 0 for r in ("crc_mismatch", "chunk_crc", "stream_stall")}
+    rb_url = plan["rebuilder_url"]
+    try:
+        while True:
+            try:
+                return _run_chain(env, plan, chunk, restarts, stream=stream,
+                                  window=window, stall_timeout=stall_timeout)
+            except _HopFailed as e:
+                reason = e.reason \
+                    if e.reason in ec_decoder.REPAIR_RESTART_REASONS \
+                    else "hop_failed"
+                ec_decoder.REPAIR.inc("restarts", reason)
+                restarts += 1
+                if reason in strikes:
+                    strikes[reason] += 1
+                    if strikes[reason] >= 2:  # twice: stop pretending
+                        raise PipelinedRebuildError(reason, e.detail)
+                elif e.server:
+                    excluded.append(e.server)
+                elif restarts > 1:
+                    # a hop failed twice without ever being attributable
+                    # (pure transport noise): classic is honest fallback
+                    raise PipelinedRebuildError("hop_failed", e.detail)
+                try:
+                    new_plan = plan_rebuild_pipelined(
+                        env, plan["volume"], plan["collection"],
+                        exclude=tuple(excluded),
+                        prefer_rebuilder=plan["rebuilder"],
+                    )
+                except ShellError as err:
+                    raise PipelinedRebuildError(
+                        "insufficient_shards", str(err))
+                if new_plan is None:  # healed underneath us
+                    return [], {"bytes_on_wire_total": 0,
+                                "bytes_on_wire_rebuilder": 0,
+                                "hops": 0, "restarts": restarts}
+                if new_plan["rebuilder_url"] != rb_url:
+                    # the committed frontier lives on the OLD rebuilder:
+                    # drop its state, the new writer starts from byte 0
+                    _abort(env, rb_url, plan["volume"])
+                    rb_url = new_plan["rebuilder_url"]
+                plan = new_plan
+    except BaseException:
+        # terminal exit (typed fallback, codec failure or unexpected): the
+        # partial state will not be resumed; abort it so no .tmp remains
+        _abort(env, rb_url, plan["volume"])
+        raise
+
+
+def _abort(env: CommandEnv, rb_url: str, vid: int) -> None:
+    try:
+        env.post(f"{rb_url}/admin/ec/partial/abort", {"volume": vid},
+                 timeout=30)
+    except TRANSPORT_ERRORS:
+        pass  # best effort: the state dies with its server anyway
+
+
+class _HopFailed(Exception):
+    def __init__(self, server: str, reason: str, detail: str = "",
+                 chunk: int | None = None) -> None:
+        super().__init__(f"chain hop {server or '?'} failed: {reason}")
+        self.server = server
+        self.reason = reason
+        self.detail = detail
+        self.chunk = chunk
+
+
+def _json_or_empty(out: bytes) -> dict:
+    try:
+        return json.loads(out) if out else {}
+    except ValueError:
+        return {}
+
+
+def _reason_of(resp: dict) -> str:
+    err = resp.get("error", "")
+    return err if err in ec_decoder.REPAIR_RESTART_REASONS else "hop_failed"
+
+
+def _hop_failed(resp: dict, server: str, chunk: int | None = None) -> Exception:
+    """The exception for a hop's failed answer: ShellError on the codec's
+    own failure (never a restart or a fallback), else _HopFailed for the
+    retry ladder."""
+    server = resp.get("failed_hop_server") or server
+    if resp.get("error") == "codec_failed":
+        return ShellError(
+            f"pipelined rebuild: codec_failed on hop {server}:"
+            f" {resp.get('detail', '')}")
+    return _HopFailed(server, _reason_of(resp), str(resp)[:300],
+                      chunk=resp.get("chunk", chunk))
+
+
+def _run_chain(env, plan, chunk, restarts, stream=None,
+               window=STREAM_WINDOW,
+               stall_timeout=None) -> tuple[list[int], dict]:
+    vid, collection = plan["volume"], plan["collection"]
+    rb = plan["rebuilder_url"]
+    chain = plan["chain"]
+    targets = plan["missing"]
+    try:
+        start = env.post(
+            f"{rb}/admin/ec/partial/start",
+            {"volume": vid, "collection": collection, "targets": targets,
+             "resume": True},
+            timeout=60,
+        )
+    except Exception as e:
+        raise PipelinedRebuildError("start_failed", str(e)[:200])
+    shard_size = int(start["shard_size"])
+    committed = int(start.get("committed", 0))
+    if chunk is None:
+        chunk = auto_chunk(shard_size)
+    saved = 0
+    if committed and len(chain) > 1:
+        # bytes a from-scratch restart would have re-sent: the committed
+        # prefix, stacked per target, over every hop link (a 1-hop chain
+        # moves no partial-sum bytes at all)
+        saved = committed * len(targets) * (len(chain) - 1)
+        ec_decoder.REPAIR.add_resumed(saved)
+    use_stream = stream if stream is not None else (
+        len(chain) > 1 and shard_size - committed > chunk)
+    if use_stream:
+        received, read_bytes = _stream_chunks(
+            plan, chunk, window, shard_size, committed,
+            stall_timeout=stall_timeout)
+    else:
+        received, read_bytes = _serial_chunks(
+            plan, chunk, shard_size, committed)
+    out = env.post(
+        f"{rb}/admin/ec/partial/commit",
+        {"volume": vid, "collection": collection}, timeout=60,
+    )
+    stats = {
+        "bytes_on_wire_total": sum(received),
+        "bytes_on_wire_rebuilder": received[-1] if received else 0,
+        "shard_size": shard_size,
+        "hops": len(chain),
+        "restarts": restarts,
+        "per_hop_received": received,
+        "survivor_bytes_read": sum(read_bytes),
+        "per_hop_read": read_bytes,
+        "resumed_bytes_saved": saved,
+        "streamed": bool(use_stream),
+        "targets": len(targets),
+    }
+    return out.get("rebuilt", targets), stats
+
+
+def _chunk_spans(shard_size: int, committed: int, chunk: int):
+    for off in range(committed, max(shard_size, 1), chunk):
+        size = min(chunk, shard_size - off)
+        if size <= 0:
+            return
+        yield off, size
+
+
+def _serial_chunks(plan, chunk, shard_size, committed):
+    """One nested chain pass per chunk: single-chunk repairs, 1-hop
+    chains, and the forced comparison with the streaming mode."""
+    vid, collection = plan["volume"], plan["collection"]
+    chain = plan["chain"]
+    targets_q = ",".join(str(t) for t in plan["missing"])
+    received = [0] * len(chain)
+    read_bytes = [0] * len(chain)
+    for off, size in _chunk_spans(shard_size, committed, chunk):
+        url = (
+            chain[0]["url"] + f"/admin/ec/partial?volume={vid}"
+            f"&collection={urllib.parse.quote(collection)}"
+            f"&offset={off}&size={size}&targets={targets_q}"
+            f"&chain={urllib.parse.quote(json.dumps(chain))}"
+        )
+        try:
+            status, _, out = http_request("POST", url, b"", timeout=120)
+        except (IOError, OSError) as e:
+            raise _HopFailed(chain[0]["server"], "hop_failed",
+                             str(e)[:200])
+        resp = _json_or_empty(out)
+        if status != 200:
+            raise _hop_failed(resp, chain[0]["server"])
+        for i, n in enumerate(resp.get("received", [])[-len(chain):]):
+            received[i] += int(n)
+        for i, n in enumerate(resp.get("read", [])[-len(chain):]):
+            read_bytes[i] += int(n)
+    return received, read_bytes
+
+
+def _stream_chunks(plan, chunk, window, shard_size, committed,
+                   stall_timeout=None):
+    """The hop-parallel dataflow: open a session along the chain once,
+    then fire chunk POSTs that each hop ACKs after local compute +
+    enqueue — chunk k rides the forwarder threads downstream while every
+    hop computes chunk k+1, so the pass costs ~(hops + chunks)
+    chunk-times instead of hops x chunks. close() flushes, cascades, and
+    reports per-hop wire/read accounting + the writer's committed
+    frontier (the resume point when anything failed)."""
+    vid, collection = plan["volume"], plan["collection"]
+    chain = plan["chain"]
+    head = chain[0]
+    session = uuid.uuid4().hex
+    open_payload = {
+        "session": session, "volume": vid, "collection": collection,
+        "targets": plan["missing"], "chain": chain, "window": window,
+    }
+    if stall_timeout is not None:
+        open_payload["stall_timeout"] = stall_timeout
+    try:
+        status, _, out = http_request(
+            "POST", head["url"] + "/admin/ec/partial/stream/open",
+            json.dumps(open_payload).encode(),
+            headers={"Content-Type": "application/json"}, timeout=120,
+        )
+    except (IOError, OSError) as e:
+        raise _HopFailed(head["server"], "hop_failed", str(e)[:200])
+    if status != 200:
+        raise _hop_failed(_json_or_empty(out), head["server"])
+    close_url = (head["url"]
+                 + f"/admin/ec/partial/stream/close?session={session}")
+    try:
+        for seq, (off, size) in enumerate(
+                _chunk_spans(shard_size, committed, chunk)):
+            url = (
+                head["url"] + "/admin/ec/partial/stream/chunk"
+                f"?session={session}&seq={seq}&offset={off}&size={size}"
+            )
+            try:
+                status, _, out = http_request("POST", url, b"", timeout=120)
+            except (IOError, OSError) as e:
+                raise _HopFailed(head["server"], "hop_failed",
+                                 str(e)[:200], chunk=seq)
+            if status != 200:
+                raise _hop_failed(_json_or_empty(out), head["server"], seq)
+    except (_HopFailed, ShellError):
+        try:  # tear the session down chain-wide; the ladder resumes
+            http_request("POST", close_url, b"", timeout=60)
+        except Exception:
+            pass
+        raise
+    try:
+        status, _, out = http_request("POST", close_url, b"", timeout=240)
+    except (IOError, OSError) as e:
+        raise _HopFailed(head["server"], "hop_failed", str(e)[:200])
+    close = _json_or_empty(out)
+    if status != 200 or not close.get("ok"):
+        raise _hop_failed(close, head["server"])
+    landed = close.get("committed")
+    if landed is not None and int(landed) < shard_size:
+        raise _HopFailed(
+            "", "hop_failed",
+            f"stream closed at {landed}/{shard_size} committed")
+    received = [int(n) for n in close.get("received", [])]
+    read_bytes = [int(n) for n in close.get("read", [])]
+    received += [0] * (len(chain) - len(received))
+    read_bytes += [0] * (len(chain) - len(read_bytes))
+    return received, read_bytes
+
+
 def run_rebuild(
     env: CommandEnv, vid: int, collection: str = "", mode: str = "auto",
-    dry_run: bool = False,
+    pressure: dict | None = None, dry_run: bool = False,
+    stream: bool | None = None,
 ) -> dict:
-    """Choose the mode, plan and apply. Returns a dict:
-    {healed} | {dry_run, mode, planned} | {mode, planned, rebuilt, rebuilder}.
-    `auto` and `classic` run the classic plan; `pipelined` raises, since
-    its plane is not ported."""
-    if mode not in REBUILD_MODES:
+    """Choose the mode, plan and apply, with the typed fallback to
+    classic. Returns a dict: {healed} | {dry_run, mode, planned} |
+    {mode, planned, rebuilt, rebuilder, stats?}."""
+    if mode not in ("auto",) + ec_decoder.REPAIR_MODES:
         raise ShellError(f"mode must be auto|classic|pipelined, got {mode}")
-    if mode == "pipelined":
-        raise ShellError(
-            "ec.rebuild -mode pipelined: the pipelined partial-sum rebuild "
-            "plane is not ported; use -mode classic or -mode auto"
-        )
     plan = plan_rebuild(env, vid, collection)
     if plan is None:
         return {"healed": True, "planned": [], "mode": mode}
-    planned = describe_rebuild(plan)
+    pplan = None
+    if mode != "classic":
+        try:
+            pplan = plan_rebuild_pipelined(env, vid, collection)
+        except (ShellError, IOError, OSError):
+            pplan = None  # no usable chain (or a transient topology
+            #               fetch failure): classic still repairs
+    if mode == "auto":
+        mode, _why = choose_rebuild_mode(pplan, pressure)
+        if mode == "classic" and pplan is not None:
+            ec_decoder.REPAIR.inc("fallbacks", "too_few_holders")
+    if mode == "pipelined" and pplan is None:
+        ec_decoder.REPAIR.inc("fallbacks", "insufficient_shards")
+        mode = "classic"
     if dry_run:
-        return {"dry_run": True, "mode": "classic", "planned": planned}
+        planned = describe_rebuild_pipelined(pplan) if mode == "pipelined" \
+            else describe_rebuild(plan)
+        return {"dry_run": True, "mode": mode, "planned": planned}
+    if mode == "pipelined":
+        planned = describe_rebuild_pipelined(pplan)
+        try:
+            rebuilt, stats = apply_rebuild_pipelined(env, pplan,
+                                                     stream=stream)
+            return {"mode": "pipelined", "planned": planned,
+                    "rebuilt": rebuilt, "rebuilder": pplan["rebuilder"],
+                    "stats": stats}
+        except PipelinedRebuildError as e:
+            ec_decoder.REPAIR.inc("fallbacks", e.reason)
+            # classic stays the fallback: re-plan (the partial state was
+            # aborted server-side)
+            plan = plan_rebuild(env, vid, collection)
+            if plan is None:
+                return {"healed": True, "planned": planned, "mode": mode}
+    planned = describe_rebuild(plan)
     rebuilt = apply_rebuild(env, plan)
     return {"mode": "classic", "planned": planned, "rebuilt": rebuilt,
             "rebuilder": plan["rebuilder"]}
 
 
 @command("ec.rebuild", "-volumeId <n> [-collection name]"
-         " [-mode classic|auto|pipelined] [-dryRun|-apply] — rebuild missing"
-         " shards: every needed shard pulled to one rebuilder, decoded on its"
-         " device (the pipelined mode is not ported)",
+         " [-mode pipelined|classic|auto] [-stream true|false]"
+         " [-dryRun|-apply] — rebuild missing shards; pipelined streams"
+         " GF partial sums hop to hop (~1x shard-size at the rebuilder"
+         " vs 10x classic), chunks pipelined hop-parallel by default",
          needs_lock=True)
 def cmd_ec_rebuild(env: CommandEnv, args: list[str]) -> str:
     flags = parse_flags(args)
     vid = int(flags["volumeId"])
+    stream = None
+    if "stream" in flags:
+        stream = flags["stream"] not in ("false", "0", "no")
     out = run_rebuild(
         env, vid, flags.get("collection", ""),
         mode=flags.get("mode", "auto"), dry_run=dry_run_flag(flags),
+        stream=stream,
     )
     if out.get("healed"):
         return f"volume {vid}: all {TOTAL_SHARDS} shards present"
     if out.get("dry_run"):
         return render_plan(f"ec.rebuild [{out['mode']}]", out["planned"])
+    stats = out.get("stats")
+    if stats is not None:
+        return (
+            f"volume {vid}: rebuilt shards {out['rebuilt']} on"
+            f" {out['rebuilder']} (pipelined"
+            f"{', streamed' if stats.get('streamed') else ''},"
+            f" {stats['hops']} hops,"
+            f" {stats['bytes_on_wire_rebuilder']} B at rebuilder,"
+            f" {stats['bytes_on_wire_total']} B total on wire)"
+        )
     return f"volume {vid}: rebuilt shards {out['rebuilt']} on" \
         f" {out['rebuilder']} (classic)"
 

@@ -11,12 +11,16 @@ survivors is out[t] = XOR_i m[t,i] x use[i] over GF(2^8), which is linear,
 so any partition of the `use` shards can be scaled and summed where those
 shards live and only the partial sums move. `repair_coefficients` builds
 the matrix, `partial_contribution` runs one holder's share on the codec's
-kernel, `xor_partials` folds contributions in any order.
+kernel, `xor_partials` folds contributions in any order. The pipelined
+rebuild plane's modes, typed reasons and chunk states are the JAX
+package's sets; its counters are plain in-process dicts (`REPAIR`) where
+the JAX package registers metric families.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -135,6 +139,76 @@ def _copy_n(src, dst, n: int) -> None:
 
 
 # --- partial-sum repair ------------------------------------------------------
+# A "fallback" is a pipelined repair degrading to classic whole-shard pulls;
+# a "restart" is the chain re-planned minus a dead hop (the retry ladder's
+# cheaper rung — the repair stays pipelined).
+REPAIR_MODES = ("classic", "pipelined")
+REPAIR_FALLBACK_REASONS = (
+    "too_few_holders",     # auto mode: a <=2-node chain spreads nothing
+    "hop_failed",          # chain restarts exhausted the surviving holders
+    "crc_mismatch",        # a partial arrived corrupt twice in a row
+    "start_failed",        # the rebuilder refused the partial-write state
+    "insufficient_shards", # survivors minus dead hops dropped below 10
+    "stream_stall",        # a streaming hop's bounded window backed up past
+                           # the stall budget twice (downstream wedged)
+    "chunk_crc",           # a streamed chunk failed its per-chunk CRC twice
+)
+REPAIR_RESTART_REASONS = ("hop_failed", "crc_mismatch", "stream_stall",
+                          "chunk_crc")
+
+# per-chunk lifecycle states of the streaming session plane: a chunk is
+# `forwarded` by a mid-chain hop's forwarder thread, `written` by the
+# terminal writer, `stalled` when the bounded in-flight window blocked past
+# the stall budget, `crc_failed` when its CRC32C did not survive the hop.
+STREAM_CHUNK_STATES = ("forwarded", "written", "stalled", "crc_failed")
+
+
+class RepairCounters:
+    """The plane's counters, by family and label: `bytes_on_wire` by mode
+    (every repair payload once, at the node that receives it or serves a
+    ranged partial), `fallbacks` and `restarts` by reason, `stream_chunks`
+    by state, and `resumed_bytes` (bytes a restarted chain did not re-send
+    because the writer's committed frontier survived)."""
+
+    FAMILIES = {
+        "bytes_on_wire": REPAIR_MODES,
+        "fallbacks": REPAIR_FALLBACK_REASONS,
+        "restarts": REPAIR_RESTART_REASONS,
+        "stream_chunks": STREAM_CHUNK_STATES,
+    }
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = {f: dict.fromkeys(labels, 0)
+                            for f, labels in self.FAMILIES.items()}
+            self._resumed = 0
+
+    def inc(self, family: str, label: str, n: int = 1) -> None:
+        """Add n to one labelled counter; an unknown label raises."""
+        with self._lock:
+            fam = self._counts[family]
+            if label not in fam:
+                raise ValueError(f"{family}: unknown label {label!r}")
+            fam[label] += n
+
+    def add_resumed(self, n: int) -> None:
+        with self._lock:
+            self._resumed += n
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = {f: dict(c) for f, c in self._counts.items()}
+            out["resumed_bytes"] = self._resumed
+        return out
+
+
+REPAIR = RepairCounters()
+
+
 def repair_coefficients(
     present, targets, data_shards: int = DATA_SHARDS_COUNT,
     parity_shards: int = PARITY_SHARDS_COUNT,

@@ -6,13 +6,15 @@ The port's counterpart of `seaweedfs_tpu/storage/erasure_coding/ec_volume.py`
 .ecx, interval math to shard reads, the local -> remote -> reconstruct
 ladder of a read (a shard this server lacks comes through the
 `shard_fetcher` the volume server attaches; a shard no one serves is
-reconstructed from 10 surviving shards, local first, then remote, through
-the codec's kernel: a degraded read), and deletion via .ecx tombstone +
-.ecj journal append.
+reconstructed, first through the `partial_fetcher`, which moves one
+GF-scaled partial per remote holder, then from 10 surviving shards, local
+first, then remote, through the codec's kernel: a degraded read), and
+deletion via .ecx tombstone + .ecj journal append.
 
-Not ported: the partial fetcher (the pipelined rebuild plane), fault
-points, events and metrics. All file access uses positional
-os.pread/os.pwrite, so concurrent reads and read+delete are safe.
+Not ported: fault points, events and metrics (the partial step keeps
+plain counters: `partial_served`, `partial_fallbacks` by reason). All file
+access uses positional os.pread/os.pwrite, so concurrent reads and
+read+delete are safe.
 """
 
 from __future__ import annotations
@@ -54,6 +56,27 @@ class NeedleNotFound(NotFound):
     pass
 
 
+# transport failures of a remote fetch: a refused or dropped connection
+# (OSError), a malformed answer (ValueError), a holder that dies
+# mid-response (http.client.HTTPException, e.g. IncompleteRead)
+TRANSPORT_ERRORS = (OSError, ValueError, http.client.HTTPException)
+
+
+class PartialDeclined(Exception):
+    """A partial fetcher cannot serve this interval; `reason` says why
+    (counted into `EcVolume.partial_fallbacks`). The read falls to the
+    classic fan-in ladder."""
+
+    def __init__(self, reason: str) -> None:
+        super().__init__(reason)
+        self.reason = reason
+
+
+class PartialCodecFailed(RuntimeError):
+    """A remote holder's codec failed while scaling its partial: not a
+    transport failure, so the read fails instead of falling back."""
+
+
 def ec_shard_file_name(collection: str, dir_: str, vid: int) -> str:
     base = f"{collection}_{vid}" if collection else str(vid)
     return os.path.join(dir_, base)
@@ -77,10 +100,18 @@ class EcVolume:
         self.codec = codec or RSCodec()
         self.large_block_size = large_block_size
         self.small_block_size = small_block_size
-        # optional remote sourcing hook, set by the server layer:
+        # optional remote sourcing hooks, set by the server layer:
         # shard_fetcher(shard_id, offset, size) -> bytes | None mirrors the
-        # remote half of `store_ec.go` (readRemoteEcShardInterval)
+        # remote half of `store_ec.go` (readRemoteEcShardInterval);
+        # partial_fetcher(missing_shard, offset, size) -> bytes reconstructs
+        # an interval moving ONE coefficient-scaled partial per remote
+        # holder instead of one full range per shard, or raises
+        # PartialDeclined with its reason
         self.shard_fetcher = None
+        self.partial_fetcher = None
+        self.partial_served = 0
+        self.partial_fallbacks: dict[str, int] = {}
+        self._count_lock = threading.Lock()
         self._closed = False
         self._ecj_lock = threading.Lock()
         self.data_base = ec_shard_file_name(collection, self.dir, volume_id)
@@ -181,7 +212,7 @@ class EcVolume:
             return None
         try:
             data = self.shard_fetcher(shard_id, off, size)
-        except (OSError, ValueError, http.client.HTTPException):
+        except TRANSPORT_ERRORS:
             return None
         if data is not None and len(data) != size:
             return None
@@ -204,8 +235,18 @@ class EcVolume:
     def _recover_interval(self, missing_shard: int, off: int, size: int) -> bytes:
         """Reconstruct one interval from >= 10 surviving shards, local first
         then remote fan-in (`store_ec.go:339-395`
-        recoverOneRemoteEcShardInterval). The codec runs on its device; an
-        error there propagates to the caller."""
+        recoverOneRemoteEcShardInterval). When the server layer attached a
+        partial_fetcher, it goes first: one GF-scaled partial per holder
+        instead of a full range per shard, byte-identical. It falls to the
+        classic ladder below only when the fetcher declines
+        (PartialDeclined), fails in transport or answers the wrong length,
+        each counted by reason.
+        The codec runs on its device; an error there, or a holder's codec
+        failure (PartialCodecFailed), propagates to the caller."""
+        if self.partial_fetcher is not None:
+            data = self._fetch_partial(missing_shard, off, size)
+            if data is not None:
+                return data
         present: dict[int, np.ndarray] = {}
         for shard_id in self.shards:
             if shard_id == missing_shard:
@@ -232,6 +273,22 @@ class EcVolume:
             )
         out = self.codec.reconstruct(present, targets=[missing_shard])
         return out[missing_shard].tobytes()
+
+    def _fetch_partial(self, missing_shard: int, off: int, size: int) -> bytes | None:
+        try:
+            data, reason = self.partial_fetcher(missing_shard, off, size), None
+        except PartialDeclined as e:
+            data, reason = None, e.reason
+        except TRANSPORT_ERRORS:
+            data, reason = None, "transport"
+        if data is not None and len(data) != size:
+            data, reason = None, "length"
+        with self._count_lock:
+            if data is not None:
+                self.partial_served += 1
+            else:
+                self.partial_fallbacks[reason] = self.partial_fallbacks.get(reason, 0) + 1
+        return data
 
     def read_needle(self, needle_id: int, cookie: int | None = None) -> Needle:
         offset, size = self.find_needle_from_ecx(needle_id)

@@ -12,9 +12,12 @@ holder's shards, degraded reads, `ec.rebuild` and `ec.decode`. Every
 shard, `.ecx` and `.vif` after the encode and after the rebuild equals
 the JAX package's `write_ec_files` (numpy codec) over a copy of the
 `.dat` and `.idx` taken before the encode; the decoded `.dat` equals the
-copy. Byte equality throughout (no tolerance). A codec that raises fails
-the verb or the GET; `ec.encode` without the lock and `ec.rebuild -mode
-pipelined` raise `ShellError`.
+copy. Degraded reads go through the partial fan-in (one GF-scaled
+partial per holder); `ec.rebuild` runs pipelined by default on the 3-hop
+chain, streamed, and classic and serial pipelined on request. Byte
+equality throughout (no tolerance). A codec that raises fails the verb or
+the GET (classic: `IOError`; pipelined: `ShellError` naming
+`codec_failed`); `ec.encode` without the lock raises `ShellError`.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from seaweedfs_tpu_torch.server.volume import VolumeServer
 from seaweedfs_tpu_torch.shell import CommandEnv, ShellError, commands_ec, registry, run_command
 from seaweedfs_tpu_torch.shell.env import ServerView
 from seaweedfs_tpu_torch.shell.shell import run_shell
-from seaweedfs_tpu_torch.storage.erasure_coding import encoder, geometry
+from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometry
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.volume import Volume
@@ -408,33 +411,51 @@ def test_ec_encode_rebuild_decode_equal_reference(cluster, tmp_path, monkeypatch
     assert sorted(out["removed"]) == sorted(lost)
     assert not any(vid in sv.ec_shards and sv.ec_shards[vid]
                    for sv in env.servers() if sv.id == victim.id)
+    # the degraded reads go through the partial fan-in: one single-target
+    # partial a holder, never the classic ladder's full decode
     calls = []
-    real = RSCodec.reconstruct
+    real = decoder.partial_contribution
 
-    def spy(self, *a, **kw):
-        calls.append(a[1] if len(a) > 1 else kw.get("targets"))
-        return real(self, *a, **kw)
+    def spy(coefs, shards, codec=None):
+        calls.append(coefs.shape)
+        return real(coefs, shards, codec)
 
-    monkeypatch.setattr(RSCodec, "reconstruct", spy)
+    monkeypatch.setattr(decoder, "partial_contribution", spy)
+    monkeypatch.setattr(RSCodec, "reconstruct", None)  # must not be reached
     others = [vs for vs in servers if vs.url != victim.http]
+    for vs in others:  # a fresh fetcher: the 10 s shard map predates the loss
+        env.post(f"{vs.url}/admin/ec/mount", {"volume": vid})
     for vs in others:
         for url, data in in_vol.items():
             assert get(f"{vs.url}/{fid_of(url)}") == (200, data), ("degraded", vs.url)
-    assert calls and all(t == [0] for t in calls)
-    monkeypatch.setattr(RSCodec, "reconstruct", real)
+    assert calls and all(shape[0] == 1 for shape in calls)
+    evs = [vs.store.get_ec_volume(vid) for vs in others]
+    assert sum(ev.partial_served for ev in evs) >= len(others)
+    assert not any(ev.partial_fallbacks for ev in evs)
+    monkeypatch.undo()
 
-    with pytest.raises(ShellError, match="pipelined"):
-        run_command(env, f"ec.rebuild -volumeId {vid} -mode pipelined")
     with pytest.raises(ShellError, match="mode must be"):
         run_command(env, f"ec.rebuild -volumeId {vid} -mode fast")
     dry = run_command(env, f"ec.rebuild -volumeId {vid} -dryRun")
+    assert dry.startswith("ec.rebuild [pipelined] (dry run)") and f"{sorted(lost)}" in dry
+    dry = run_command(env, f"ec.rebuild -volumeId {vid} -mode classic -dryRun")
     assert dry.startswith("ec.rebuild [classic] (dry run)") and f"{sorted(lost)}" in dry
     assert assert_equal_oracle(servers, vid, obase) == sorted(set(range(14)) - set(lost))
-    out = run_command(env, f"ec.rebuild -volumeId {vid}")
-    assert f"rebuilt shards {sorted(lost)}" in out and "(classic)" in out
-    present = sorted({s for sv in env.servers() for s in sv.ec_shards.get(vid, [])})
-    assert present == list(range(14))
-    assert assert_equal_oracle(servers, vid, obase) == list(range(14))
+    # the default (auto) picks the pipelined plan on the 3-hop chain; then
+    # the same loss again under -mode classic, and pipelined serial
+    for flags, kind in (("", "(pipelined, streamed, 3 hops"), (" -mode classic", "(classic)"),
+                        (" -mode pipelined -stream false", "(pipelined, 3 hops")):
+        out = run_command(env, f"ec.rebuild -volumeId {vid}{flags}")
+        assert f"rebuilt shards {sorted(lost)}" in out and kind in out, out
+        present = sorted({s for sv in env.servers() for s in sv.ec_shards.get(vid, [])})
+        assert present == list(range(14))
+        assert assert_equal_oracle(servers, vid, obase) == list(range(14))
+        if kind != "(pipelined, 3 hops":
+            for sv in env.servers():
+                drop = [s for s in sv.ec_shards.get(vid, []) if s in lost]
+                if drop:
+                    env.post(f"{sv.http}/admin/ec/delete_shards",
+                             {"volume": vid, "shards": drop})
     assert run_command(env, f"ec.rebuild -volumeId {vid}") == \
         f"volume {vid}: all 14 shards present"
 
@@ -491,13 +512,15 @@ def test_codec_failure_fails_degraded_get_and_rebuild(cluster, tmp_path, monkeyp
     def boom(*a, **kw):
         raise RuntimeError("codec failed")
 
-    monkeypatch.setattr(RSCodec, "reconstruct", boom)
+    # the path the partial fan-in, the hops and the classic rebuild share
+    monkeypatch.setattr(RSCodec, "apply2d_async", boom)
     other = next(vs for vs in servers if vs.url != victim.http)
     url, data = next(iter(in_vol.items()))
     status, body = get(f"{other.url}/{fid_of(url)}")
     assert status == 500 and b"codec failed" in body
-    monkeypatch.setattr(RSCodec, "apply2d_async", boom)
     with pytest.raises(IOError, match="/admin/ec/rebuild -> 500.*codec failed"):
+        run_command(env, f"ec.rebuild -volumeId {vid} -mode classic")
+    with pytest.raises(ShellError, match="codec_failed on hop .*codec failed"):
         run_command(env, f"ec.rebuild -volumeId {vid}")
     monkeypatch.undo()
     assert get(f"{other.url}/{fid_of(url)}") == (200, data)
