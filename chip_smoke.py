@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--seed N] [--volume-mib MIB] [--upload-blobs N]
                           [--chunked-mib MIB] [--cdc-uploads N] [--stream-mib MIB]
                           [--dedup-gib GIB] [--online-mib MIB] [--cluster-mib MIB]
+                          [--mesh-volumes N] [--mesh-mib MIB] [--filer-files N]
+                          [--filer-large-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -102,7 +104,32 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               ec.rebuild round's wall, GB/s and bytes on wire beside classic's,
               ec.decode wall, the phase's launches, and the kernel at a
               pipelined hop's (1, 4, 983,040) and (4, 4, 983,040)
- 11. entry    entry() on the card equal to the CPU codec
+ 11. mesh     BASELINE config 5 on this host's CUDA devices (one here):
+              dryrun_multichip(1); sharded_encode over make_mesh() of
+              --mesh-volumes (32) seeded host volumes of 10 x --mesh-mib (4)
+              MiB (1.25 GiB in, 0.5 GiB out: config 5's 256 volumes over 8
+              chips is 32 a device), each device copying its slice on its
+              own stream and launching gf256_matmul once, cold and warm;
+              sharded_crc32c and sharded_md5 at (8192, 4096); the whole
+              parity equal to the plain version on the card, the first and
+              last volume to the CPU codec, every CRC and digest to the host
+              CRC and hashlib; wall and GB/s with the copies, the phase's
+              launches, and each device's launch timed beside its byte bound
+ 12. filer    BASELINE config 3 as the filer takes it: a port master (pulse
+              1 s), two volume servers and a FilerServer on the card, one
+              process; --filer-files (32,768) seeded 4 KiB files PUT from 16
+              threads, each waiting for its response (one chunk, one assign,
+              one needle POST, one ETag through the filer's hash service);
+              4 uploads of --filer-large-mib (256) MiB from 4 threads (64
+              chunks of 4 MiB, one batched assign); one overwritten, one
+              deleted; every large file read whole, 256 ranged GETs across
+              chunk boundaries, 1,024 small-file GETs, a conditional GET
+              (304), the freed fids 404; every body, response md5 and chunk
+              ETag equal to hashlib; batch_blobs equal to the chunk ETags
+              made, no blob hashed on the host or failed, no per-chunk
+              assign fallback; files/s, PUT and GET p50/p99, large-upload
+              GB/s, hash batches by length, launches, the wall (limit 240 s)
+ 13. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -130,7 +157,7 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch import native
-from seaweedfs_tpu_torch.entry import entry
+from seaweedfs_tpu_torch.entry import dryrun_multichip, entry
 from seaweedfs_tpu_torch.filer import Filer
 from seaweedfs_tpu_torch.filer.filerstore import MemoryStore
 from seaweedfs_tpu_torch.ops import _build, cdc, gf256
@@ -139,6 +166,7 @@ from seaweedfs_tpu_torch.ops.hash_service import HashService
 from seaweedfs_tpu_torch.ops.md5_kernel import _pad_len, md5_batch_kernel, md5_batch_torch
 from seaweedfs_tpu_torch.ops.rs_cuda import gf256_matmul, gf_matmul_torch
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
+from seaweedfs_tpu_torch.parallel import make_mesh, sharded_crc32c, sharded_encode, sharded_md5
 from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.server.httpd import http_request
 from seaweedfs_tpu_torch.server.master import MasterServer
@@ -150,6 +178,7 @@ from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
 from seaweedfs_tpu_torch.storage.erasure_coding.online import PATHOLOGICAL_REASONS
 from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
 from seaweedfs_tpu_torch.storage.volume import Volume
+from seaweedfs_tpu_torch.util import cipher as cipher_util
 
 REPO = Path(__file__).resolve().parent
 MIB = 1024 * 1024
@@ -430,6 +459,7 @@ def gf_path_matrices() -> dict:
         return gf256.decode_matrix(10, 4, tuple(s for s in range(14) if s not in lost), lost)
     return {"encode": gf256.parity_rows(10, 4), "rebuild": decode(REBUILD_LOST),
             "degraded": decode(DEGRADED_LOST[:1]), "online": gf256.parity_rows(10, 4),
+            "mesh": gf256.parity_rows(10, 4),
             "hop1": np.ascontiguousarray(decode((0,))[:, :4]),
             "hop4": np.ascontiguousarray(decode((0, 4, 8, 12))[:, :4])}
 
@@ -612,9 +642,10 @@ def hash_kernel_phase(dev: torch.device, seed: int, md5_ops_per_block: int) -> d
 
 
 def hash_shape_times(dev: torch.device, seed: int, wrappers: dict,
-                     md5_ops_per_block: int) -> dict:
+                     md5_ops_per_block: int, shapes=HASH_SHAPES, gear: bool = True) -> dict:
     """The hash kernels (`wrappers`: crc32c_batch, md5_batch and gear_hash,
-    this checkout's or another's) at their paths' shapes: each equal to
+    this checkout's or another's) at their paths' shapes (`shapes`, and the
+    gear hash's unless `gear` is false): each equal to
     its plain version (MD5 past 4096 bytes: to hashlib on two blobs), then
     timed by device time (`ms`: a CUDA graph of launches) beside one
     call's event time, the plain version's and the bound. Inputs rotate
@@ -622,7 +653,7 @@ def hash_shape_times(dev: torch.device, seed: int, wrappers: dict,
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     crc_k, md5_k, gear_k = (wrappers[k] for k in ("crc32c_batch", "md5_batch", "gear_hash"))
     out = {"crc32c_batch": [], "md5_batch": []}
-    for n, length in HASH_SHAPES:
+    for n, length in shapes:
         per = n * length
         views = max(2, -(-ROTATE_BYTES // per) + 1)
         pool = torch.randint(0, 256, (views * n, length), dtype=torch.uint8, device=dev,
@@ -657,6 +688,8 @@ def hash_shape_times(dev: torch.device, seed: int, wrappers: dict,
                       if length <= 4096 else None),
             bound_ms=b_ms, bound_by=b_by))
         del pool, cyc, x0, got
+    if not gear:
+        return out
     data = torch.randint(0, 256, (GEAR_PATH,), dtype=torch.uint8, device=dev, generator=gen)
     check(torch.equal(u32(gear_k(data)), u32(cdc.gear_hashes_torch(data))),
           "gear_hash kernel != plain")
@@ -1180,8 +1213,9 @@ def dedup_phase(dev: torch.device, n_uploads: int, seed: int) -> dict:
     gen_s = time.perf_counter() - t0
     client = FreshFids()
     filer = Filer(MemoryStore())
-    server = FilerServer(filer, client, device=dev, dedup_avg_bits=DEDUP["avg_bits"],
-                         dedup_min=DEDUP["min_size"], dedup_max=DEDUP["max_size"])
+    server = FilerServer(filer=filer, client=client, device=dev, dedup=True,
+                         dedup_avg_bits=DEDUP["avg_bits"], dedup_min=DEDUP["min_size"],
+                         dedup_max=DEDUP["max_size"])
     idx = server.dedup_index
     svc = server.hash_service
     # the time split: the path's calls timed where the server makes them
@@ -1957,6 +1991,344 @@ def partial_counts(servers: list, vols: dict) -> tuple[int, int]:
             sum(sum(ev.partial_fallbacks.values()) for ev in evs))
 
 
+# --- phase 12: the multi-device split ---------------------------------------------
+MESH_HASH = (8192, 4096)  # sharded_crc32c / sharded_md5: the hash service's full batch
+
+
+def mesh_phase(dev: torch.device, n_volumes: int, shard_bytes: int, md5_ops_per_block: int,
+               seed: int) -> dict:
+    """BASELINE config 5 (multi-volume ec.encode across chips) on this host's
+    CUDA devices: dryrun_multichip(1); sharded_encode over make_mesh() of
+    seeded host volumes (n_volumes, 10, shard_bytes), twice (cold, warm),
+    each device copying its slice on its own stream and launching
+    gf256_matmul once; sharded_crc32c and sharded_md5 at (8192, 4096). The
+    launches are counted over those calls. Checks: the whole parity equal
+    to the plain version on the card, the first and last volume to the CPU
+    codec, every CRC to the host CRC and every digest to hashlib. Then each
+    device's launch timed at its shape beside its byte bound."""
+    t_phase = time.perf_counter()
+    zero_launches()
+    dryrun_multichip(1)
+    mesh = make_mesh()
+    check(mesh.size == torch.cuda.device_count() and all(d.type == "cuda" for d in mesh.devices),
+          f"make_mesh() holds {mesh.devices}")
+    rng = np.random.default_rng([seed, 12])
+    t0 = time.perf_counter()
+    volumes = np.empty((n_volumes, 10, shard_bytes), np.uint8)
+    for v in range(n_volumes):
+        volumes[v] = np.frombuffer(rng.bytes(10 * shard_bytes), np.uint8).reshape(10, shard_bytes)
+    n_blobs, blob_len = MESH_HASH
+    blobs = np.frombuffer(bytearray(rng.bytes(n_blobs * blob_len)), np.uint8).reshape(
+        n_blobs, blob_len)
+    gen_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        parity = sharded_encode(mesh, volumes)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    crcs = sharded_crc32c(mesh, blobs)
+    digests = sharded_md5(mesh, blobs)
+    torch.cuda.synchronize()
+    hash_s = time.perf_counter() - t0
+    launches = read_launches()
+    for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
+        check(launches[name] > 0, f"the mesh path launched no {name} kernel")
+    check(parity.shape == (n_volumes, 4, shard_bytes)
+          and len(parity.shards) == mesh.size, f"sharded parity {parity.shape}")
+    # the whole parity against the plain version on the card
+    in_bytes = volumes.nbytes
+    x = torch.from_numpy(volumes).to(dev)
+    want = gf_matmul_torch(gf256.parity_rows(10, 4), x.permute(1, 0, 2).reshape(10, -1))
+    del x
+    got = torch.cat([s.to(dev) for s in parity.shards]).permute(1, 0, 2).reshape(4, -1)
+    err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+    check(err == 0, "sharded_encode != the plain version on the card")
+    del got, want
+    cpu = RSCodec(device="cpu")
+    host_parity = np.asarray(parity)
+    for v in (0, n_volumes - 1):
+        check(np.array_equal(host_parity[v], cpu.encode(volumes[v])),
+              f"sharded_encode volume {v} != the CPU codec")
+    host_crcs, host_digests = np.asarray(crcs), np.asarray(digests)
+    for i in range(n_blobs):
+        blob = blobs[i].tobytes()
+        check(int(host_crcs[i]) == crc.crc32c(blob), f"sharded_crc32c blob {i} != host CRC")
+        check(host_digests[i].tobytes() == hashlib.md5(blob).digest(),
+              f"sharded_md5 blob {i} != hashlib")
+    # each device's launch at its slice's shape (one device here: the whole batch)
+    per_dev = (n_volumes // mesh.size, 10, shard_bytes)
+    (gf_row,) = gf256_shape_times(dev, seed, gf256_matmul, shapes=(("mesh", per_dev),))
+    hash_rows = hash_shape_times(dev, seed, HASH_WRAPPERS, md5_ops_per_block,
+                                 shapes=((n_blobs // mesh.size, blob_len),), gear=False)
+    for rows in hash_rows.values():
+        for r in rows:
+            r["path"] = "mesh"
+    return dict(
+        devices=[str(d) for d in mesh.devices], volumes=n_volumes, shard_bytes=shard_bytes,
+        in_bytes=in_bytes, out_bytes=n_volumes * 4 * shard_bytes,
+        encode_cold_s=walls[0], encode_warm_s=walls[1],
+        encode_cold_gbps=in_bytes / walls[0] / 1e9, encode_warm_gbps=in_bytes / walls[1] / 1e9,
+        hash_shape=[n_blobs, blob_len], hash_s=hash_s,
+        hash_gbps=blobs.nbytes / hash_s / 1e9, launches=launches,
+        parity_vs_plain_max_abs_err=err, cpu_codec_volumes=[0, n_volumes - 1],
+        crc_equal_host=True, md5_equal_hashlib=True, generate_s=gen_s,
+        kernel=gf_row, hash_kernels=hash_rows,
+        device_ms={"gf256_matmul": gf_row["ms"], **{k: v[0]["ms"] for k, v in hash_rows.items()}},
+        bound_ms={"gf256_matmul": gf_row["bound_ms"],
+                  **{k: v[0]["bound_ms"] for k, v in hash_rows.items()}},
+        multi_device_path="unrun: this host has one device" if mesh.size == 1 else "run",
+        seconds=time.perf_counter() - t_phase)
+
+
+# --- phase 13: the filer's HTTP write/read path --------------------------------------
+FILER_THREADS = 16  # `weed benchmark -c 16` (BASELINE.md config 3)
+FILER_SMALL = 4096  # above the filer's 2 KiB inline limit: one chunk, one ETag
+FILER_LARGE = 4  # large uploads, one a thread
+FILER_RANGED = 256
+FILER_SMALL_GETS = 1024
+FILER_WALL_LIMIT_S = 240
+OCTET = {"Content-Type": "application/octet-stream"}  # never compressed
+FILER_CUTS = ("32,768 of config 3's 1M blobs: five roles and the clients share one process"
+              " and one GIL (65,536 took the phase past its 240 s limit)", "no manifest: 1,000 chunks of 4 MiB is 4 GiB (manifests are"
+              " held on the CPU)", "no compression or cipher: seeded random bytes")
+
+
+def _pcts(lat: list) -> dict:
+    ms = np.array(lat) * 1e3
+    return dict(p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)))
+
+
+def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_block: int,
+                seed: int) -> dict:
+    """BASELINE config 3 as the filer takes it: a port MasterServer (pulse
+    1 s), two VolumeServers and a FilerServer, all on the card, in this
+    process. n_files seeded 4 KiB files PUT from 16 threads, each waiting
+    for its response (one chunk, one assign, one needle POST and one ETag
+    through the filer's hash service each); 4 uploads of large_bytes from 4
+    threads (4 MiB chunks, one batched assign each); one overwritten, one
+    deleted. The hash launches are counted over those writes. Reads: every
+    large file whole, 256 ranged GETs across chunk boundaries, 1,024 small
+    files, one conditional GET (304); the freed fids answer 404. Checks:
+    every body equal, every response md5 and chunk ETag equal to hashlib,
+    batch_blobs equal to the chunk ETags made, no host-hashed or failed
+    blob, no per-chunk assign fallback. Then the hash kernels timed at the
+    phase's commonest batch shapes."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-filer-", dir=REPO / "build")
+    master = MasterServer(port=0, pulse_seconds=1)
+    master.start()
+    servers, filer, svc = [], None, None
+    batches = []  # (blobs, length, seconds) of every batch the flusher hashed
+    try:
+        for i in range(2):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url,
+                              pulse_seconds=PULSE_S, device=dev)
+            vs.start()
+            servers.append(vs)
+        filer = FilerServer(master.url, port=0, device=dev)
+        filer.start()
+        svc = filer.hash_service
+        check(filer.device.type == "cuda" and svc.device.type == "cuda"
+              and all(vs.device.type == "cuda" for vs in servers), "a filer role is not on cuda")
+        real_batch_hash = svc._batch_hash
+
+        def timed_batch_hash(items, length):
+            t0 = time.perf_counter()
+            out = real_batch_hash(items, length)
+            batches.append((len(items), length, time.perf_counter() - t0))
+            return out
+
+        svc._batch_hash = timed_batch_hash
+        t0 = time.perf_counter()
+        per = [n_files // FILER_THREADS + (t < n_files % FILER_THREADS)
+               for t in range(FILER_THREADS)]
+        small = []
+        for t, count in enumerate(per):
+            raw = np.random.default_rng([seed, 13, t]).bytes(count * FILER_SMALL)
+            small.append([raw[i * FILER_SMALL : (i + 1) * FILER_SMALL] for i in range(count)])
+            del raw
+        # the last one overwrites file 0
+        large = [np.random.default_rng([seed, 14, k]).bytes(large_bytes)
+                 for k in range(FILER_LARGE + 1)]
+        gen_s = time.perf_counter() - t0
+        errors = []
+
+        def run_threads(fn, n: int) -> float:
+            threads = [threading.Thread(target=fn, args=(t,)) for t in range(n)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            check(not errors, f"filer phase: {errors[:3]}")
+            return time.perf_counter() - t0
+
+        def small_path(t: int, i: int) -> str:
+            return f"/small/t{t:02d}/f{i:06d}"
+
+        zero_launches()
+        # 1. small files from 16 waiting threads
+        put_lat = [[] for _ in range(FILER_THREADS)]
+
+        def put_small(t: int) -> None:
+            c = Client(filer.url)
+            try:
+                for i, data in enumerate(small[t]):
+                    t0 = time.perf_counter()
+                    status, out = c.request("PUT", small_path(t, i), data, OCTET)
+                    put_lat[t].append(time.perf_counter() - t0)
+                    if status != 201 or json.loads(out)["md5"] != hashlib.md5(data).hexdigest():
+                        errors.append(f"PUT {small_path(t, i)} -> {status}: {out[:200]!r}")
+                        return
+            except BaseException as e:  # re-raised on the main thread
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        small_s = run_threads(put_small, FILER_THREADS)
+        # 2. large uploads from 4 threads, then one overwritten and one deleted
+        large_s = [0.0] * FILER_LARGE
+
+        def put_large(k: int, path: str = "", data: bytes = b"") -> None:
+            path, data = path or f"/large/{k}", data or large[k]
+            c = Client(filer.url)
+            try:
+                t0 = time.perf_counter()
+                status, out = c.request("PUT", path, data, OCTET)
+                if k < FILER_LARGE:
+                    large_s[k] = time.perf_counter() - t0
+                if status != 201 or json.loads(out)["md5"] != hashlib.md5(data).hexdigest():
+                    errors.append(f"PUT {path} -> {status}: {out[:200]!r}")
+            except BaseException as e:
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        large_wall = run_threads(put_large, FILER_LARGE)
+        freed = [c.file_id for k in (0, 1) for c in filer.filer.find_entry(f"/large/{k}").chunks]
+        t0 = time.perf_counter()
+        put_large(FILER_LARGE, "/large/0", large[FILER_LARGE])
+        overwrite_s = time.perf_counter() - t0
+        check(not errors, f"filer overwrite: {errors[:3]}")
+        status, _, _ = http_request("DELETE", filer.url + "/large/1")
+        check(status == 204, f"DELETE /large/1 -> {status}")
+        launches = read_launches()
+        del svc._batch_hash
+        chunks_per_large = -(-large_bytes // filer.chunk_size)
+        etags = n_files + (FILER_LARGE + 1) * chunks_per_large
+        check(svc.batch_blobs == etags,
+              f"batch_blobs {svc.batch_blobs} != the {etags} chunk ETags the uploads made")
+        check(svc.host_blobs == 0, f"{svc.host_blobs} blobs hashed on the host")
+        check(svc.failed_blobs == 0, "the hash service failed a batch")
+        check(filer.assign_batch_fallbacks == 0,
+              f"{filer.assign_batch_fallbacks} multi-chunk uploads fell back to per-chunk assigns")
+        for name in ("crc32c_batch", "md5_batch"):
+            check(launches[name] > 0, f"the filer path launched no {name} kernel")
+        # 3. reads
+        content = {0: large[FILER_LARGE], 2: large[2], 3: large[3]}
+        c = Client(filer.url)
+        try:
+            t0 = time.perf_counter()
+            for k, data in content.items():
+                status, got = c.request("GET", f"/large/{k}")
+                check(status == 200 and got == data, f"GET /large/{k}")
+            whole_s = time.perf_counter() - t0
+            status, _ = c.request("GET", "/large/1")
+            check(status == 404, f"GET of the deleted /large/1 -> {status}")
+            rng = np.random.default_rng([seed, 15])
+            chunk = filer.chunk_size
+            ranged_lat = []
+            for _ in range(FILER_RANGED):
+                k = int(rng.choice(list(content)))
+                edge = int(rng.integers(1, chunks_per_large)) * chunk
+                start = edge - int(rng.integers(1, chunk // 2))
+                end = min(edge + int(rng.integers(0, chunk // 2)), large_bytes - 1)
+                t0 = time.perf_counter()
+                status, got = c.request("GET", f"/large/{k}", headers={"Range": f"bytes={start}-{end}"})
+                ranged_lat.append(time.perf_counter() - t0)
+                check(status == 206 and got == content[k][start : end + 1],
+                      f"ranged GET /large/{k} {start}-{end}")
+            get_lat = []
+            for j in rng.choice(n_files, size=min(FILER_SMALL_GETS, n_files), replace=False):
+                t, i = int(j) % FILER_THREADS, int(j) // FILER_THREADS
+                t0 = time.perf_counter()
+                status, got = c.request("GET", small_path(t, i))
+                get_lat.append(time.perf_counter() - t0)
+                check(status == 200 and got == small[t][i], f"GET {small_path(t, i)}")
+            c.conn.request("GET", small_path(0, 0))
+            resp = c.conn.getresponse()
+            resp.read()
+            etag = resp.getheader("ETag")
+            status, got = c.request("GET", small_path(0, 0), headers={"If-None-Match": etag})
+            check(status == 304 and got == b"", f"conditional GET -> {status}")
+        finally:
+            c.close()
+        for fid in freed:
+            (url,) = filer.client.lookup_file_id(fid)
+            check(http_request("GET", url)[0] == 404, f"freed fid {fid} still answers")
+        # 4. every chunk ETag against hashlib (the store, in process)
+        for t in range(FILER_THREADS):
+            for i, data in enumerate(small[t]):
+                e = filer.filer.find_entry(small_path(t, i))
+                check(len(e.chunks) == 1 and e.chunks[0].etag == hashlib.md5(data).hexdigest(),
+                      f"{small_path(t, i)}: chunk ETag != hashlib")
+        for k, data in content.items():
+            e = filer.filer.find_entry(f"/large/{k}")
+            check([ch.etag for ch in e.chunks]
+                  == [hashlib.md5(data[o : o + chunk]).hexdigest()
+                      for o in range(0, len(data), chunk)], f"/large/{k}: a chunk ETag != hashlib")
+    finally:
+        if filer is not None:
+            filer.stop()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    buckets = {}
+    for length in sorted({b[1] for b in batches}):
+        sizes = np.array([n for n, ln, _ in batches if ln == length])
+        secs = np.array([s for _, ln, s in batches if ln == length])
+        buckets[str(length)] = dict(batches=len(sizes), blobs=int(sizes.sum()),
+                                    mean_batch=float(sizes.mean()),
+                                    batch_p50=float(np.percentile(sizes, 50)),
+                                    batch_max=int(sizes.max()),
+                                    batch_hash_mean_ms=float(secs.mean() * 1e3))
+    # the kernels at the commonest batch of each length, after the count
+    shapes = []
+    for length in sorted({FILER_SMALL, filer.chunk_size}):
+        sizes = [n for n, ln, _ in batches if ln == length]
+        if sizes:
+            shapes.append((int(np.bincount(sizes).argmax()), length))
+    hash_rows = hash_shape_times(dev, seed, HASH_WRAPPERS, md5_ops_per_block,
+                                 shapes=tuple(shapes), gear=False)
+    for rows in hash_rows.values():
+        for r in rows:
+            r["path"] = "filer"
+    small_lat = [x for lat in put_lat for x in lat]
+    return dict(
+        files=n_files, file_bytes=FILER_SMALL, threads=FILER_THREADS, in_flight_per_thread=1,
+        small_s=small_s, files_per_s=n_files / small_s,
+        **{f"put_{k}": v for k, v in _pcts(small_lat).items()},
+        large_uploads=FILER_LARGE, large_bytes=large_bytes, chunks_per_large=chunks_per_large,
+        large_wall_s=large_wall, large_gbps=FILER_LARGE * large_bytes / large_wall / 1e9,
+        large_gbps_each=[large_bytes / s / 1e9 for s in large_s],
+        overwrite_s=overwrite_s, overwrite_gbps=large_bytes / overwrite_s / 1e9,
+        get_whole_gbps=sum(len(d) for d in content.values()) / whole_s / 1e9,
+        ranged_gets=FILER_RANGED, **{f"ranged_{k}": v for k, v in _pcts(ranged_lat).items()},
+        small_gets=len(get_lat), **{f"get_{k}": v for k, v in _pcts(get_lat).items()},
+        conditional_get=304,
+        freed_fids_404=len(freed), chunk_etags=etags, batch_blobs=svc.batch_blobs,
+        host_blobs=svc.host_blobs, failed_blobs=svc.failed_blobs,
+        assign_batch_fallbacks=filer.assign_batch_fallbacks,
+        hash_batches=len(batches), hash_buckets=buckets, launches=launches,
+        all_equal_hashlib=True, hash_kernels=hash_rows, generate_s=gen_s,
+        wall_s=wall, wall_limit_s=FILER_WALL_LIMIT_S, over_wall_limit=wall > FILER_WALL_LIMIT_S,
+        cuts=FILER_CUTS, cryptography_installed=cipher_util.available())
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -1991,6 +2363,10 @@ def main() -> int:
     ap.add_argument("--dedup-gib", type=int, default=8)
     ap.add_argument("--online-mib", type=int, default=1024)
     ap.add_argument("--cluster-mib", type=int, default=1024)
+    ap.add_argument("--mesh-volumes", type=int, default=32)
+    ap.add_argument("--mesh-mib", type=int, default=4)
+    ap.add_argument("--filer-files", type=int, default=32768)
+    ap.add_argument("--filer-large-mib", type=int, default=256)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2091,6 +2467,19 @@ def main() -> int:
     emit("cluster", **cl)
     launches["gf256_matmul"] += cl["launches"]
     timed["gf256_matmul"]["shapes"].extend(cl["kernel"])
+
+    # the multi-device split (BASELINE config 5 on this host's devices); its own count
+    ms = mesh_phase(dev, args.mesh_volumes, args.mesh_mib * MIB, md5_block["ops"], args.seed)
+    emit("mesh", **ms)
+    # the filer's HTTP path (BASELINE config 3 as the filer takes it); its own count
+    fl = filer_phase(dev, args.filer_files, args.filer_large_mib * MIB, md5_block["ops"],
+                     args.seed)
+    emit("filer", **fl)
+    for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
+        launches[name] += ms["launches"][name] + fl["launches"][name]
+    timed["gf256_matmul"]["shapes"].append(ms["kernel"])
+    for name in ("crc32c_batch", "md5_batch"):
+        timed[name]["shapes"].extend(ms["hash_kernels"][name] + fl["hash_kernels"][name])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

@@ -225,3 +225,15 @@ class SqliteStore(FilerStore):
 
     def close(self) -> None:
         self._conn.close()
+
+
+def make_store(kind: str, path: str | None = None) -> FilerStore:
+    """The store a filer runs on: "memory" or "sqlite" (needs a path). The
+    JAX package's other kinds are not ported and raise."""
+    if kind == "memory":
+        return MemoryStore()
+    if kind == "sqlite":
+        if not path:
+            raise ValueError("sqlite store needs a path")
+        return SqliteStore(path)
+    raise ValueError(f"filer store {kind!r} is not ported (memory, sqlite)")

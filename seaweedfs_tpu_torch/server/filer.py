@@ -1,69 +1,276 @@
-"""Filer server, dedup write path: the port's partial copy of
-`seaweedfs_tpu/server/filer.py`.
+"""Filer HTTP server: upload pipeline with auto-chunking + MD5 tee, streamed
+ranged reads via visible intervals, directory listings, recursive delete.
+The port's copy of the core of `seaweedfs_tpu/server/filer.py`.
 
-`FilerServer._upload_chunks_cdc` is the JAX package's content-defined dedup
-write path (BASELINE config 4) line for line: cut the upload at
-content-defined boundaries (`ops/cdc.find_boundaries`, the `gear_hash`
-kernel on the server's device), key every span by SW128 seeded with the
-store's secret (`HashService.span_keys`, host code), look each
-(key, length) up in the dedup index, hash MD5 ETags for the index misses
-only (`HashService.md5_spans`, host code), upload only the misses, and
-record each miss under a shadow `m<md5>-<len>` entry and then its primary
-entry.
+Reference: `weed/server/filer_server_handlers_write_autochunk.go:26-155`,
+`_write_upload.go:30-141` (chunk fan-out + whole-stream MD5),
+`_read.go:91` (ranged streaming), `filer/stream.go:153`.
 
-Chunks go to `client`, any object with the JAX package's
-`WeedClient.upload(payload, replication=, collection=, ttl=)` signature
-that returns `{"fid": ...}`. The server's device is cuda unless the caller
-passes `device="cpu"`; with neither it raises.
+Write path (`_do_write`): `mv.from`, `link.from`, `meta.entry`, mkdir,
+multipart, the `fs.configure` rule of the path (`filer/filer_conf.py`),
+TTL, inline content of 2 KiB or less, and larger bodies cut into
+`chunk_size` chunks (`_upload_chunks_plain`: one batched assign for a
+multi-chunk upload, each chunk maybe-compressed and, with `cipher=True`,
+AES-GCM encrypted, POSTed to its volume server through
+`filer/wdclient.py`), over 1,000 chunks stored as manifests; an
+overwritten version's chunks are reclaimed, except blobs the dedup index
+owns (`_dedup_managed`). Read path (`_do_read`): `?metadata=true`, lazy
+TTL reaping, the ETag and 304, Range (206, 416), HEAD, directory
+listings (JSON and HTML); compressed and ciphered chunks are fetched whole
+through the tiered chunk cache and sliced.
 
-Not ported yet: the HTTP handlers, master and volume clients,
-`_upload_chunks_plain`, manifests, cipher, `_dedup_managed`, the reclaim
-path and `dedup_gc`.
+Hashing runs on the server's device, through its own `HashService`
+(`self.hash_service`, started and stopped with the server): every chunk's
+ETag goes through `submit_many`, whose buckets the batch kernels
+(`md5_batch`, `crc32c_batch`) hash on cuda; inline content goes through
+`submit`, whose lone blob on an idle service hashes on the host, as in the
+JAX package. The filer's service takes `min_batch=1`, so a bucket of any
+size goes to the kernels: every chunk ETag is counted in
+`hash_service.batch_blobs`. The whole-stream MD5 tee stays a sequential
+host hash. With `dedup=True` uploads take the content-defined dedup path
+(`_upload_chunks_cdc`, the `gear_hash` kernel on the server's device).
+
+The server's device is cuda unless the caller passes `device="cpu"`; with
+neither it raises. `filer=` and `client=` (keyword-only) inject a `Filer`
+and a client with `WeedClient`'s `upload` / `upload_to` / `assign_batch` /
+`fetch` / `delete` in place of the store and master client.
+
+Not ported (ROADMAP #10c): the native fastlane front door (`_fl_*`),
+remote storage mounts, `/__dlm__/*`, the `/__meta__/` event, notify,
+change-volume and merge routes, `/cluster/register`, qos admission and
+usage accounting, metrics and telemetry, `dedup_gc` and `/__dedup__/*`,
+JWT security, the stores other than memory and sqlite, and
+`filer/filer_client.py`.
 """
 
 from __future__ import annotations
 
+import base64
 import hashlib
+import logging
 import os
 import threading
 import time
+import urllib.parse
+from xml.sax.saxutils import escape as _esc
+from xml.sax.saxutils import quoteattr as _qa
 
-from ..filer import FileChunk, Filer
+from ..filer import Attributes, Entry, FileChunk, Filer
 from ..filer.dedup import DedupIndex
+from ..filer.filechunks import maybe_manifestize, resolve_chunk_manifest, view_from_chunks
+from ..filer.filer import FilerError, normalize
+from ..filer.filer_conf import FILER_CONF_PATH, FilerConf
+from ..filer.filerstore import make_store
+from ..filer.wdclient import WeedClient
 from ..ops import cdc
 from ..ops.hash_service import HashService
 from ..ops.rs_kernel import resolve_device
-from ..util.compression import maybe_compress_data
+from ..storage.types import TTL
+from ..util import cipher as cipher_util
+from ..util.chunk_cache import TieredChunkCache
+from ..util.compression import decompress_data, maybe_compress_data
+from .httpd import HTTPService, Request, Response
+
+SMALL_CONTENT_LIMIT = 2 * 1024  # inline small files in the entry
+
+log = logging.getLogger(__name__)
 
 
 class FilerServer:
     def __init__(
         self,
-        filer: Filer,
-        client,
-        device=None,
+        master_url: str = "",
+        host: str = "127.0.0.1",
+        port: int = 8888,
+        store_kind: str = "memory",
+        store_path: str | None = None,
+        chunk_size_mb: int = 4,
+        default_replication: str = "",
+        collection: str = "",
+        cipher: bool = False,
         compress: bool = True,
+        chunk_cache_dir: str | None = None,
+        dedup: bool = False,
         dedup_avg_bits: int = 16,
         dedup_min: int = 16 * 1024,
         dedup_max: int = 512 * 1024,
+        device=None,
+        *,
+        filer: Filer | None = None,
+        client=None,
     ) -> None:
         self.device = resolve_device(device)
-        self.filer = filer
+        # -encryptVolumeData / compression defaults (`weed/command/filer.go`)
+        if cipher and not cipher_util.available():
+            # fail at boot, not with a 500 on the first write
+            raise RuntimeError(
+                "-encryptVolumeData needs the 'cryptography' package,"
+                " which is not installed"
+            )
+        if client is None:
+            if not master_url:
+                raise ValueError("FilerServer needs a master_url or a client")
+            client = WeedClient(master_url)
+        self.filer = filer if filer is not None else Filer(make_store(store_kind, store_path))
         self.client = client
+        self.chunk_size = chunk_size_mb * 1024 * 1024
+        self.default_replication = default_replication
+        self.collection = collection
+        self.service = HTTPService(host, port)
+        self.cipher = cipher
         self.compress = compress
-        # span keys and ETags are host code on either device
-        self.hash_service = HashService(device=self.device)
-        self.dedup_index = DedupIndex(self.filer)
-        self.dedup_avg_bits = dedup_avg_bits
-        self.dedup_min = dedup_min
-        self.dedup_max = dedup_max
-        # gc-vs-upload coordination (the JAX package's dedup_gc): hits record
-        # the fid under this lock; gc condemns keys under the same lock, so
-        # every hit either lands before the gc decision (gc skips the fid) or
-        # sees the key condemned (upload treats it as a miss).
-        self._dedup_mu = threading.Lock()
-        self._dedup_recent: dict[str, float] = {}
-        self._dedup_condemned: set[str] = set()
+        # the server's own batch hash service, on its device: chunk ETags
+        # (submit_many) and inline content (submit); min_batch=1 sends a
+        # bucket of any size to the kernels
+        self.hash_service = HashService(device=self.device, min_batch=1)
+        self._count_mu = threading.Lock()
+        self.assign_batch_fallbacks = 0  # multi-chunk uploads assigned per chunk
+        # CDC dedup (filer/dedup.py): content-defined chunking + hash index.
+        # Mutually exclusive with cipher — random per-chunk AES keys make
+        # equal plaintexts distinct, and convergent encryption leaks equality.
+        self.dedup = dedup and not cipher
+        if self.dedup:
+            self.dedup_index = DedupIndex(self.filer)
+            self.dedup_avg_bits = dedup_avg_bits
+            self.dedup_min = dedup_min
+            self.dedup_max = dedup_max
+            # gc-vs-upload coordination (the JAX package's dedup_gc): hits
+            # record the fid under this lock; gc condemns keys under the
+            # same lock, so every hit either lands before the gc decision
+            # (gc skips the fid) or sees the key condemned (upload treats
+            # it as a miss).
+            self._dedup_mu = threading.Lock()
+            self._dedup_recent: dict[str, float] = {}
+            self._dedup_condemned: set[str] = set()
+        self.chunk_cache = TieredChunkCache(disk_dir=chunk_cache_dir)
+        # per-path storage rules (`weed/filer/filer_conf.go`): loaded from
+        # /etc/seaweedfs/filer.conf, hot-reloaded via the meta-log
+        conf_entry = self.filer.find_entry(FILER_CONF_PATH)
+        self.filer_conf = FilerConf.from_bytes(
+            bytes(conf_entry.content) if conf_entry else b"")
+        self.filer.subscribe(self._conf_on_meta)
+        self._routes()
+
+    def _conf_on_meta(self, ev) -> None:
+        """Hot-reload /etc/seaweedfs/filer.conf on any mutation of it."""
+        target = ev.new_entry or ev.old_entry
+        if target is None or target.full_path != FILER_CONF_PATH:
+            return
+        if ev.new_entry is not None and not ev.new_entry.content and \
+                ev.new_entry.chunks:
+            # chunk-backed conf (written by an old build): refusing to
+            # parse b"" keeps the PREVIOUS rules instead of silently
+            # dropping enforcement
+            log.warning("filer.conf is chunk-backed; keeping previous"
+                        " rules (rewrite it to inline)")
+            return
+        content = ev.new_entry.content if ev.new_entry else b""
+        self.filer_conf = FilerConf.from_bytes(bytes(content))
+
+    def start(self) -> None:
+        # the flusher thread must run, or submit_many hashes on the host
+        self.hash_service.start()
+        self.service.start()
+
+    def stop(self) -> None:
+        self.service.stop()
+        self.hash_service.stop()
+        close = getattr(self.client, "close", None)
+        if close is not None:
+            close()
+        self.filer.close()
+
+    @property
+    def url(self) -> str:
+        return self.service.url
+
+    # --- upload pipeline --------------------------------------------------------
+    def _upload_chunks(
+        self, data: bytes, ttl: str, collection: str, replication: str,
+        mime: str = "", filename: str = "",
+    ) -> tuple[list[FileChunk], str]:
+        """Split into chunks, upload each, tee a whole-stream MD5
+        (`filer_server_handlers_write_upload.go:30`). Each chunk is
+        independently maybe-compressed (mime heuristic) and AES-GCM
+        encrypted when the filer runs ciphered (`upload_content.go`)."""
+        if self.dedup:
+            return self._upload_chunks_cdc(
+                data, ttl, collection, replication, mime=mime, filename=filename,
+            )
+        return self._upload_chunks_plain(
+            data, ttl, collection, replication, mime=mime, filename=filename,
+        )
+
+    def _upload_chunks_plain(
+        self, data: bytes, ttl: str, collection: str, replication: str,
+        mime: str = "", filename: str = "",
+    ) -> tuple[list[FileChunk], str]:
+        ext = os.path.splitext(filename)[1]
+        md5 = hashlib.md5()
+        chunks: list[FileChunk] = []
+        pieces = [
+            data[o : o + self.chunk_size]
+            for o in range(0, len(data), self.chunk_size)
+        ]
+        # per-chunk MD5 via the batch hash service: every chunk of this
+        # upload (and of concurrent uploads) coalesces into one batch-kernel
+        # call (`upload_content.go` md5 ETag semantics)
+        etag_futures = self.hash_service.submit_many(pieces)
+        # batched Assign: one master RPC leases fids for EVERY chunk of
+        # this upload (base fid + _delta fids on one volume) instead of an
+        # assign round-trip per chunk
+        batch_fids: list[str] | None = None
+        batch_loc = batch_auth = ""
+        if len(pieces) > 1:
+            try:
+                batch_fids, batch_loc, batch_auth = self.client.assign_batch(
+                    len(pieces), replication=replication,
+                    collection=collection, ttl=ttl,
+                )
+            except IOError:
+                batch_fids = None  # per-chunk assigns still work
+                with self._count_mu:
+                    self.assign_batch_fallbacks += 1
+        offset = 0
+        for i, piece in enumerate(pieces):
+            md5.update(piece)
+            logical_size = len(piece)
+            payload, compressed = (
+                maybe_compress_data(piece, mime, ext) if self.compress
+                else (piece, False)
+            )
+            key_b64 = ""
+            if self.cipher:
+                payload, key = cipher_util.encrypt(payload)
+                key_b64 = base64.b64encode(key).decode()
+            if batch_fids is not None:
+                out = self.client.upload_to(
+                    batch_fids[i], batch_loc, payload, ttl=ttl,
+                    auth=batch_auth,
+                )
+                out["fid"] = batch_fids[i]
+            else:
+                out = self.client.upload(
+                    payload, replication=replication, collection=collection,
+                    ttl=ttl,
+                )
+            chunks.append(
+                FileChunk(
+                    file_id=out["fid"],
+                    offset=offset,
+                    size=logical_size,
+                    modified_ts_ns=time.time_ns(),
+                    etag=out.get("eTag", ""),
+                    cipher_key=key_b64,
+                    is_compressed=compressed,
+                )
+            )
+            offset += logical_size
+        for chunk, fut in zip(chunks, etag_futures):
+            chunk.etag = fut.md5_hex()
+        if not data:
+            md5.update(b"")
+        return chunks, md5.hexdigest()
 
     def _upload_chunks_cdc(
         self, data: bytes, ttl: str, collection: str, replication: str,
@@ -180,3 +387,426 @@ class FilerServer:
             prev = c
             offset += ln
         return chunks, md5.hexdigest()
+
+    def _save_manifest_blob(self, blob: bytes) -> FileChunk:
+        # manifests carry every per-chunk AES key — on a ciphered filer they
+        # must be as opaque to volume servers as the data itself
+        key_b64 = ""
+        if self.cipher:
+            blob, key = cipher_util.encrypt(blob)
+            key_b64 = base64.b64encode(key).decode()
+        out = self.client.upload(blob, collection=self.collection)
+        return FileChunk(
+            file_id=out["fid"], offset=0, size=len(blob),
+            modified_ts_ns=time.time_ns(), cipher_key=key_b64,
+        )
+
+    def _fetch_chunk(self, chunk: FileChunk) -> bytes:
+        raw = self.client.fetch(chunk.file_id)
+        if chunk.cipher_key:
+            raw = cipher_util.decrypt(raw, base64.b64decode(chunk.cipher_key))
+        return raw
+
+    def _resolved_chunks(self, entry: Entry) -> list[FileChunk]:
+        return resolve_chunk_manifest(self._fetch_chunk, entry.chunks)
+
+    # --- routes -----------------------------------------------------------------
+    def _routes(self) -> None:
+        svc = self.service
+        path_re = r"(/.*)"
+
+        @svc.route("GET", r"/__meta__/info")
+        def meta_info(req: Request) -> Response:
+            return Response(
+                {
+                    "signature": self.filer.signature,
+                    "latest_ts_ns": self.filer.log_buffer.latest_ts_ns,
+                    "master": getattr(self.client, "master_url", ""),
+                    "chunk_size": self.chunk_size,
+                }
+            )
+
+        @svc.route("GET", path_re)
+        def read(req: Request) -> Response:
+            return self._do_read(req, head=False)
+
+        @svc.route("HEAD", path_re)
+        def head(req: Request) -> Response:
+            return self._do_read(req, head=True)
+
+        @svc.route("POST", path_re)
+        def post(req: Request) -> Response:
+            return self._do_write(req)
+
+        @svc.route("PUT", path_re)
+        def put(req: Request) -> Response:
+            return self._do_write(req)
+
+        @svc.route("DELETE", path_re)
+        def delete(req: Request) -> Response:
+            return self._do_delete(req)
+
+    def _resolve_collection(self, req: Request) -> str:
+        """The tenant dimension, resolved exactly like the write path's
+        placement: explicit ?collection=, then the fs.configure rule, then
+        the filer default."""
+        path = normalize(urllib.parse.unquote(req.path))
+        coll = req.query.get("collection")
+        if not coll and not path.startswith("/etc/"):
+            rule = self.filer_conf.match(path) or {}
+            coll = rule.get("collection")
+        return coll or self.collection or "default"
+
+    # --- handlers ---------------------------------------------------------------
+    @staticmethod
+    def _parse_signatures(req: Request) -> list[int]:
+        """?signatures=1,2 — carried by filer.sync replays to break
+        replication loops (`filer_sync.go:119-385`)."""
+        raw = req.query.get("signatures", "")
+        out = []
+        for piece in raw.split(","):
+            piece = piece.strip()
+            if piece:
+                try:
+                    out.append(int(piece))
+                except ValueError:
+                    pass
+        return out
+
+    def _do_write(self, req: Request) -> Response:
+        path = normalize(urllib.parse.unquote(req.path))
+        signatures = self._parse_signatures(req)
+        if "mv.from" in req.query:
+            # POST /new/path?mv.from=/old/path — rename/move, matching the
+            # reference filer's mv.from query API (filer_server_handlers_write.go)
+            try:
+                self.filer.rename(req.query["mv.from"], path)
+            except FilerError as e:
+                return Response({"error": str(e)}, 409)
+            return Response({"ok": True}, 200)
+        if "link.from" in req.query:
+            # POST /new/path?link.from=/old/path — hard link (the FUSE Link
+            # flow, `weed/mount/weedfs_link.go:53`; counter semantics from
+            # `weed/filer/filerstore_hardlink.go`)
+            try:
+                link = self.filer.create_hard_link(req.query["link.from"], path)
+            except FilerError as e:
+                return Response({"error": str(e)}, 409)
+            return Response(
+                {"ok": True, "nlink": link.hard_link_counter}, 201
+            )
+        if req.query.get("meta.entry") == "true":
+            # raw metadata restore (fs.meta.load): entry dict incl. chunks
+            try:
+                entry = Entry.from_dict(req.json())
+                entry.full_path = path
+                freed = self.filer.create_entry(entry, signatures=signatures)
+                self._reclaim_chunks(freed)
+            except (FilerError, KeyError, ValueError) as e:
+                return Response({"error": str(e)}, 409)
+            return Response({"name": entry.name}, 201)
+        if path.endswith("/") or req.query.get("mkdir") == "true":
+            e = Entry(full_path=path, is_directory=True,
+                      attributes=Attributes(mode=0o755))
+            self.filer.create_entry(e, signatures=signatures)
+            return Response({"name": e.name}, 201)
+        part = req.multipart_file()
+        if part is not None:
+            filename, mime, data = part
+        else:
+            data = req.body
+            mime = req.headers.get("Content-Type", "")
+            filename = path.rsplit("/", 1)[-1]
+        # fs.configure per-path rules (filer_conf.go): longest prefix wins;
+        # explicit query params still override the rule's defaults. The
+        # /etc/ config area is EXEMPT — a broad read-only rule must never
+        # brick the very file that removes it.
+        rule = {} if path.startswith("/etc/") else (
+            self.filer_conf.match(path) or {})
+        if rule.get("read_only"):
+            return Response(
+                {"error": f"{rule.get('location_prefix')} is read-only"
+                          " (fs.configure)"}, 403)
+        rule_ttl = rule.get("ttl") or ""
+        if rule_ttl:
+            try:  # a malformed persisted rule must not 500 a whole subtree
+                TTL.parse(rule_ttl)
+            except (ValueError, KeyError):
+                log.warning("fs.configure rule %s has invalid ttl %r;"
+                            " ignoring it", rule.get("location_prefix"),
+                            rule_ttl)
+                rule_ttl = ""
+        ttl = req.query.get("ttl") or rule_ttl
+        collection = (req.query.get("collection") or rule.get("collection")
+                      or self.collection)
+        replication = (req.query.get("replication")
+                       or rule.get("replication")
+                       or self.default_replication)
+
+        entry = Entry(full_path=path)
+        entry.attributes.mime = mime
+        entry.attributes.file_size = len(data)
+        entry.attributes.ttl_sec = TTL.parse(ttl).minutes() * 60
+        entry.attributes.mtime = time.time()
+        # /etc/seaweedfs/ config files are ALWAYS inlined: their
+        # loaders (filer.conf hot-reload) read entry.content, and a
+        # config silently chunked past 2KB would parse as empty —
+        # rules vanishing without a trace
+        if (len(data) <= SMALL_CONTENT_LIMIT
+                or (path.startswith("/etc/seaweedfs/")
+                    and len(data) <= 4 * 1024 * 1024)):
+            entry.content = data
+            entry.attributes.md5 = self.hash_service.submit(data).md5_hex()
+        else:
+            chunks, md5_hex = self._upload_chunks(
+                data, ttl, collection, replication, mime=mime, filename=filename
+            )
+            entry.chunks = maybe_manifestize(self._save_manifest_blob, chunks)
+            entry.attributes.md5 = md5_hex
+        old_entry = self.filer.find_entry(path)
+        try:
+            freed = self.filer.create_entry(entry, signatures=signatures)
+        except FilerError as e:
+            return Response({"error": str(e)}, 409)
+        if old_entry is not None and old_entry.hard_link_id:
+            # hardlinked target: surviving links still reference the shared
+            # chunks — reclaim only what the detach actually freed
+            self._reclaim_chunks(freed)
+        elif old_entry is not None and old_entry.chunks:
+            self._reclaim_chunks(old_entry.chunks)  # overwritten version's blobs
+        return Response(
+            {"name": entry.name, "size": len(data), "md5": entry.attributes.md5},
+            201,
+        )
+
+    def _reclaim_chunks(self, chunks) -> None:
+        for c in chunks:
+            try:
+                if c.is_chunk_manifest:
+                    for inner in resolve_chunk_manifest(self._fetch_chunk, [c]):
+                        if not self._dedup_managed(inner):
+                            self.client.delete(inner.file_id)
+                    self.client.delete(c.file_id)  # manifests are never shared
+                    continue
+                if self._dedup_managed(c):
+                    continue
+                self.client.delete(c.file_id)
+            except Exception:
+                pass
+
+    def _dedup_managed(self, chunk: FileChunk) -> bool:
+        """True when the chunk's blob is owned by the dedup index — other
+        entries may reference the same fid, so delete/overwrite must not
+        reclaim it. Consults the MD5-keyed shadow entry ("m<md5>-<len>",
+        written next to every SW128 primary) because chunk metadata
+        carries only the MD5 ETag; legacy md5-primary keys (pre-SW128
+        indexes) still match via the bare-key fallback."""
+        if not self.dedup or not chunk.etag:
+            return False
+        for key in (f"m{chunk.etag}-{chunk.size:x}",
+                    f"{chunk.etag}-{chunk.size:x}"):
+            rec = self.dedup_index.lookup(key)
+            if rec is None:
+                continue
+            if rec.get("fid") == chunk.file_id:
+                return True
+            # racing first-uploads of the same content can leave the
+            # shadow pointing at the loser's fid while the primary (the
+            # fid dup-hits actually hand out) holds the winner's — follow
+            # the shadow's primary pointer so the winner stays protected
+            primary = rec.get("p")
+            if primary:
+                prec = self.dedup_index.lookup(primary)
+                if prec is not None and prec.get("fid") == chunk.file_id:
+                    return True
+        return False
+
+    def _do_read(self, req: Request, head: bool) -> Response:
+        path = normalize(urllib.parse.unquote(req.path))
+        entry = self.filer.find_entry(path)
+        if entry is None:
+            return Response({"error": f"{path} not found"}, 404)
+        if req.query.get("metadata") == "true":
+            return Response(entry.to_dict())
+        if entry.is_directory:
+            if req.headers.get("X-Sw-S3"):
+                # S3-front relay: object keys never resolve to listings —
+                # the gateway translates this into NoSuchKey
+                return Response({"error": f"{path} is a directory"}, 404)
+            return self._list_dir(req, entry)
+        if (
+            entry.attributes.ttl_sec > 0
+            and entry.attributes.mtime + entry.attributes.ttl_sec < time.time()
+        ):
+            self.filer.delete_entry(path)  # expired: reap lazily
+            return Response({"error": f"{path} expired"}, 404)
+        etag = entry.attributes.md5 or str(entry.attributes.mtime)
+        headers = {
+            "ETag": f'"{etag}"',
+            "Accept-Ranges": "bytes",
+            "Last-Modified": time.strftime(
+                "%a, %d %b %Y %H:%M:%S GMT", time.gmtime(entry.attributes.mtime)
+            ),
+        }
+        if entry.attributes.mime:
+            headers["Content-Type"] = entry.attributes.mime
+        if req.headers.get("If-None-Match") == f'"{etag}"':
+            return Response(b"", 304, headers)
+        size = entry.size()
+        start, end = 0, size - 1
+        status = 200
+        rng = req.headers.get("Range")
+        if rng and rng.startswith("bytes=") and "," not in rng:
+            spec = rng[6:]
+            s, _, e = spec.partition("-")
+            try:
+                start = int(s) if s else max(0, size - int(e))
+                end = int(e) if e and s else size - 1
+            except ValueError:
+                # RFC 7233: unintelligible specs are ignored (full entity)
+                start, end = 0, size - 1
+            else:
+                end = min(end, size - 1)
+                if start > end:
+                    return Response(
+                        b"", 416, {"Content-Range": f"bytes */{size}"})
+                status = 206
+                headers["Content-Range"] = f"bytes {start}-{end}/{size}"
+        if head:
+            headers["X-File-Size"] = str(size)
+            headers["Content-Length"] = str(size)
+            return Response(b"", 200 if status == 200 else status, headers)
+        body = self._read_range(entry, start, end - start + 1)
+        return Response(body, status, headers)
+
+    def _read_range(self, entry: Entry, offset: int, size: int) -> bytes:
+        """Visible-interval resolution + ranged chunk fetches
+        (`filer/stream.go:153` StreamContent)."""
+        if entry.content:
+            return entry.content[offset : offset + size]
+        chunks = self._resolved_chunks(entry)
+        by_fid = {c.file_id: c for c in chunks}
+        views = view_from_chunks(chunks, offset, size)
+        buf = bytearray(size)
+        for view in views:
+            chunk = by_fid.get(view.file_id)
+            if chunk is not None and (chunk.cipher_key or chunk.is_compressed):
+                # transformed chunks can't be range-read on the volume
+                # server; fetch whole via the tiered cache, decode, slice
+                # (`filer/stream.go` fetchChunkRange → ReaderCache)
+                piece = self._fetch_whole_chunk(chunk)[
+                    view.offset_in_chunk : view.offset_in_chunk + view.size
+                ]
+            else:
+                rng = (
+                    f"bytes={view.offset_in_chunk}-"
+                    f"{view.offset_in_chunk + view.size - 1}"
+                )
+                piece = self.client.fetch(view.file_id, range_header=rng)
+            dst = view.view_offset - offset
+            buf[dst : dst + len(piece)] = piece
+        return bytes(buf)
+
+    def _fetch_whole_chunk(self, chunk: FileChunk) -> bytes:
+        """Whole-chunk fetch + decrypt + decompress. Decoded ciphertext is
+        cached in memory only — the disk tiers must never hold plaintext of
+        encrypted chunks (the reference's ReaderCache is mem-only too)."""
+        cached = (
+            self.chunk_cache.mem.get(chunk.file_id) if chunk.cipher_key
+            else self.chunk_cache.get_chunk(chunk.file_id)
+        )
+        if cached is not None:
+            return cached
+        raw = self.client.fetch(chunk.file_id)
+        if chunk.cipher_key:
+            raw = cipher_util.decrypt(raw, base64.b64decode(chunk.cipher_key))
+        if chunk.is_compressed:
+            raw = decompress_data(raw)
+        if chunk.cipher_key:
+            self.chunk_cache.mem.set(chunk.file_id, raw)
+        else:
+            self.chunk_cache.set_chunk(chunk.file_id, raw)
+        return raw
+
+    def _list_dir(self, req: Request, entry: Entry) -> Response:
+        limit = int(req.query.get("limit", 1024))
+        last = req.query.get("lastFileName", "")
+        entries = self.filer.list_entries(entry.full_path, last, False, limit)
+        accept = (req.headers.get("Accept") or "")
+        if "text/html" in accept and "application/json" not in accept:
+            # browsers get the directory browser (`weed/server/filer_ui`);
+            # API clients keep the JSON listing. Attribute values go
+            # through quoteattr (escape() leaves double quotes — an XSS
+            # hole via filenames) and hrefs are percent-encoded (names
+            # with %/#/? would link to the wrong resource otherwise).
+            def _href(p: str) -> str:
+                return _qa(urllib.parse.quote(p))
+
+            rows = []
+            if entry.full_path != "/":
+                rows.append(f"<tr><td><a href={_href(entry.parent)}>..</a>"
+                            "</td><td></td><td></td></tr>")
+            for e in entries:
+                name = _esc(e.name) + ("/" if e.is_directory else "")
+                size = "" if e.is_directory else str(e.size())
+                mtime = time.strftime(
+                    "%Y-%m-%d %H:%M", time.localtime(e.attributes.mtime))
+                rows.append(f"<tr><td><a href={_href(e.full_path)}>{name}"
+                            f'</a></td><td align="right">{size}</td>'
+                            f"<td>{mtime}</td></tr>")
+            more = ""
+            if len(entries) == limit:
+                next_url = (f"{urllib.parse.quote(entry.full_path)}"
+                            f"?lastFileName="
+                            f"{urllib.parse.quote_plus(entries[-1].name)}"
+                            f"&limit={limit}")
+                more = f"<p><a href={_qa(next_url)}>more…</a></p>"
+            html = (
+                "<html><head><title>seaweedfs-tpu filer"
+                f" {_esc(entry.full_path)}</title></head><body>"
+                f"<h3>{_esc(entry.full_path)}</h3>"
+                '<table cellpadding="4">'
+                "<tr><th align=\"left\">name</th>"
+                "<th align=\"right\">size</th>"
+                "<th align=\"left\">modified</th></tr>"
+                + "".join(rows) + f"</table>{more}</body></html>"
+            )
+            return Response(html.encode(),
+                            content_type="text/html; charset=utf-8")
+        return Response(
+            {
+                "Path": entry.full_path,
+                "Entries": [
+                    {
+                        "FullPath": e.full_path,
+                        "IsDirectory": e.is_directory,
+                        "FileSize": e.size(),
+                        "Mtime": e.attributes.mtime,
+                        "Mime": e.attributes.mime,
+                        "Md5": e.attributes.md5,
+                    }
+                    for e in entries
+                ],
+                "LastFileName": entries[-1].name if entries else "",
+                "ShouldDisplayLoadMore": len(entries) == limit,
+            }
+        )
+
+    def _do_delete(self, req: Request) -> Response:
+        path = normalize(urllib.parse.unquote(req.path))
+        rule = {} if path.startswith("/etc/") else (
+            self.filer_conf.match(path) or {})
+        if rule.get("read_only"):
+            return Response(
+                {"error": f"{rule.get('location_prefix')} is read-only"
+                          " (fs.configure)"}, 403)
+        recursive = req.query.get("recursive") == "true"
+        try:
+            chunks = self.filer.delete_entry(
+                path, recursive=recursive,
+                signatures=self._parse_signatures(req),
+            )
+        except FilerError as e:
+            return Response({"error": str(e)}, 409)
+        self._reclaim_chunks(chunks)
+        return Response(b"", 204)

@@ -2,19 +2,22 @@
 
 The port's copy of the core of `seaweedfs_tpu/server/httpd.py`, on
 http.server.ThreadingHTTPServer: the `route` decorator, `Request`,
-`Response`, and the client helpers `http_request`, `get_json`,
-`post_json` and `peer_url`.
+`Response`, the client helpers `http_request`, `get_json`,
+`post_json` and `peer_url`, and `PooledHTTP`, the keep-alive client of
+the filer's data-plane hops.
 
 Not ported: request metrics, the debug and profiler endpoints, QoS,
-trace propagation, TLS, the IP guard, unix-socket listeners and the
-pooled client.
+trace propagation, TLS, the IP guard and unix-socket listeners.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
 import re
+import socket
 import threading
+import weakref
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -234,3 +237,80 @@ def post_json(url: str, payload: dict | None = None,
     if status >= 400:
         raise IOError(f"POST {url} -> {status}: {data}")
     return data
+
+
+class PooledHTTP:
+    """Thread-local keep-alive connections per endpoint.
+
+    urllib opens (and tears down) a TCP connection per call, so hot
+    small-request paths (the filer's assigns, chunk uploads and chunk
+    fetches) would measure connection setup instead of the server. The
+    reference's Go clients all reuse connections; this is the equivalent
+    for the data-plane hot paths. Plain HTTP only: the port has no TLS."""
+
+    def __init__(self, timeout: float = DEFAULT_TIMEOUT) -> None:
+        self._tl = threading.local()
+        self.timeout = timeout
+        # weak: a dead handler thread's conns must not be pinned forever —
+        # GC of its thread-local dict lets the sockets finalize
+        self._all = weakref.WeakSet()
+        self._all_mu = threading.Lock()
+
+    def request(
+        self,
+        method: str,
+        url: str,
+        body: bytes | None = None,
+        headers: dict | None = None,
+        idempotent: bool = False,
+    ) -> tuple[int, dict, bytes]:
+        u = urllib.parse.urlsplit(url)
+        key = f"{u.scheme}://{u.netloc}"
+        pool = getattr(self._tl, "conns", None)
+        if pool is None:
+            pool = self._tl.conns = {}
+        path = u.path + (f"?{u.query}" if u.query else "")
+        last: Exception | None = None
+        # stale-socket retry only when a re-send cannot duplicate a side
+        # effect: GET/HEAD always; writes only when the caller declares
+        # them idempotent (fid-addressed chunk uploads are)
+        attempts = (0, 1) if method in ("GET", "HEAD") or idempotent else (0,)
+        for _ in attempts:
+            conn = pool.get(key)
+            if conn is None:
+                conn = http.client.HTTPConnection(u.netloc, timeout=self.timeout)
+                pool[key] = conn
+                with self._all_mu:
+                    self._all.add(conn)
+            try:
+                if conn.sock is None:
+                    conn.connect()
+                    # headers and body go out as separate writes; without
+                    # TCP_NODELAY Nagle + delayed ACK adds ~40ms per request
+                    conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                conn.request(method, path, body=body, headers=headers or {})
+                resp = conn.getresponse()
+                data = resp.read()
+                return resp.status, dict(resp.headers), data
+            except (http.client.HTTPException, OSError) as e:
+                last = e
+                conn.close()
+                pool.pop(key, None)
+                with self._all_mu:
+                    self._all.discard(conn)
+        raise last  # type: ignore[misc]
+
+    def close(self) -> None:
+        """Close every connection this pool ever opened, across threads
+        (worker threads exit without closing their thread-locals)."""
+        with self._all_mu:
+            conns = list(self._all)
+            self._all = weakref.WeakSet()
+        for conn in conns:
+            try:
+                conn.close()
+            except Exception:
+                pass
+        pool = getattr(self._tl, "conns", None)
+        if pool:
+            pool.clear()

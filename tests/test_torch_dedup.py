@@ -405,7 +405,7 @@ def _ref_server():
 
 def _port_server(filer=None):
     f = filer or Filer(filerstore.MemoryStore())
-    srv = FilerServer(f, _Client(), device="cpu", **DEDUP_KW)
+    srv = FilerServer(filer=f, client=_Client(), device="cpu", dedup=True, **DEDUP_KW)
     if filer is None:
         _pin_seed(f, Entry)
     return srv
@@ -525,7 +525,7 @@ def test_filer_server_needs_a_device(monkeypatch):
     f = Filer()
     try:
         with pytest.raises(RuntimeError):
-            FilerServer(f, _Client())
-        assert FilerServer(f, _Client(), device="cpu").device.type == "cpu"
+            FilerServer(filer=f, client=_Client())
+        assert FilerServer(filer=f, client=_Client(), device="cpu").device.type == "cpu"
     finally:
         f.close()
