@@ -5,7 +5,7 @@
                           [--chunked-mib MIB] [--cdc-uploads N] [--stream-mib MIB]
                           [--dedup-gib GIB] [--online-mib MIB] [--cluster-mib MIB]
                           [--mesh-volumes N] [--mesh-mib MIB] [--filer-files N]
-                          [--filer-large-mib MIB]
+                          [--filer-large-mib MIB] [--scrub-files N] [--scrub-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -41,7 +41,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               device time of kernel and copies, the device's idle share
   5. cols     a small volume at 1 MiB / 64 KiB blocks through the schedule's
               column-split jobs, byte-identical to a CPU plain encode
-  6. upload   --upload-blobs (1,048,576) seeded 4096-byte blobs submitted to
+  6. upload   --upload-blobs (524,288) seeded 4096-byte blobs submitted to
               HashService(device=cuda) from 16 threads, each waiting for its
               blob's result before the next, as the filer does (BASELINE.md
               config 3); every MD5 and CRC equal to hashlib and the host CRC
@@ -129,7 +129,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               made, no blob hashed on the host or failed, no per-chunk
               assign fallback; files/s, PUT and GET p50/p99, large-upload
               GB/s, hash batches by length, launches, the wall (limit 240 s)
- 13. entry    entry() on the card equal to the CPU codec
+ 13. scrub    the volume integrity plane: a port master and three volume
+              servers (racks r1, r1, r2) on the card, one process; --scrub-files
+              (4,096) seeded 4 KiB files through /dir/assign?replication=001
+              and POSTs from 8 waiting threads (each write fans out to the other
+              r1 server before it is acked), both replicas holding the same
+              needles; in process on the r2 server: --scrub-mib (1024) MiB of
+              4 KiB needles in one volume, 256 MiB of log-uniform needles
+              encoded in place (all 14 shards local), a 64 MiB ecOnline volume;
+              a clean `volume.scrub -dryRun` checking every live needle, with
+              crc32c_batch and gf256_matmul launched and 99 % of the 4 KiB
+              volumes' bytes through the batched kernel, then the same pass
+              under torch.profiler for the device's idle share; 16 needle flips on one
+              replica, a sealed shard flip, an online parity-row flip, a stale
+              .ec03.tmp and a needle on one replica only, found exactly (the
+              divergence by `detect`); `volume.scrub -apply`, the divergence
+              healed through /admin/scrub/sync, `ec.rebuild` of the deleted
+              shard equal to the original; the repaired needles, the synced one
+              and samples read back equal, digests equal, a second pass clean;
+              30 % of one replicated volume deleted, `volume.vacuum
+              -garbageThreshold 0.2`, both replicas down to their live records,
+              256 sampled GETs equal, a pass clean; one flush's CRCs against the
+              plain version and the host CRC; pass GB/s and needles/s by
+              kernel, launches, repair walls, vacuum wall and bytes reclaimed,
+              the kernels at (1024, 4096) and (10, 4096), the wall (limit 150 s)
+ 14. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -160,6 +184,7 @@ from seaweedfs_tpu_torch import native
 from seaweedfs_tpu_torch.entry import dryrun_multichip, entry
 from seaweedfs_tpu_torch.filer import Filer
 from seaweedfs_tpu_torch.filer.filerstore import MemoryStore
+from seaweedfs_tpu_torch.maintenance import scrub
 from seaweedfs_tpu_torch.ops import _build, cdc, gf256
 from seaweedfs_tpu_torch.ops.crc32c_kernel import crc32c_batch_kernel, crc32c_batch_torch
 from seaweedfs_tpu_torch.ops.hash_service import HashService
@@ -177,6 +202,7 @@ from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometr
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
 from seaweedfs_tpu_torch.storage.erasure_coding.online import PATHOLOGICAL_REASONS
 from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
+from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
 from seaweedfs_tpu_torch.storage.volume import Volume
 from seaweedfs_tpu_torch.util import cipher as cipher_util
 
@@ -459,7 +485,7 @@ def gf_path_matrices() -> dict:
         return gf256.decode_matrix(10, 4, tuple(s for s in range(14) if s not in lost), lost)
     return {"encode": gf256.parity_rows(10, 4), "rebuild": decode(REBUILD_LOST),
             "degraded": decode(DEGRADED_LOST[:1]), "online": gf256.parity_rows(10, 4),
-            "mesh": gf256.parity_rows(10, 4),
+            "mesh": gf256.parity_rows(10, 4), "scrub": gf256.parity_rows(10, 4),
             "hop1": np.ascontiguousarray(decode((0,))[:, :4]),
             "hop4": np.ascontiguousarray(decode((0, 4, 8, 12))[:, :4])}
 
@@ -1190,6 +1216,24 @@ def dedup_upload(segs: list, i: int) -> bytes:
     return src[shift:].tobytes() + src[:shift].tobytes()
 
 
+def device_time_by_event(prof) -> tuple[dict, dict]:
+    """A torch.profiler window's device events: microseconds and counts by
+    the event's name, cut to 60 characters (kernels' full names run to
+    hundreds)."""
+    from torch.autograd import DeviceType
+
+    device_us, events = {}, {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            t_us = getattr(e, "self_device_time_total", None)
+            if t_us is None:
+                t_us = e.self_cuda_time_total
+            name = e.key[:60]
+            device_us[name] = device_us.get(name, 0.0) + t_us
+            events[name] = events.get(name, 0) + e.count
+    return device_us, events
+
+
 def dedup_phase(dev: torch.device, n_uploads: int, seed: int) -> dict:
     """BASELINE config 4 through the port's FilerServer._upload_chunks_cdc
     on the card: n_uploads uploads of 64 MiB that alternate four seeded
@@ -1202,7 +1246,6 @@ def dedup_phase(dev: torch.device, n_uploads: int, seed: int) -> dict:
     miss's ETag against hashlib, sampled span keys against SW128 of the span
     alone, every exact repeat fully deduped, every shifted repeat at least
     90 % of its bytes."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for data, want in SW128_GOLDENS.items():
@@ -1306,15 +1349,7 @@ def dedup_phase(dev: torch.device, n_uploads: int, seed: int) -> dict:
                     server._upload_chunks_cdc(data, "", "", "")
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t
-            device_us, events = {}, {}
-            for e in prof.key_averages():
-                if getattr(e, "device_type", None) == DeviceType.CUDA:
-                    t_us = getattr(e, "self_device_time_total", None)
-                    if t_us is None:
-                        t_us = e.self_cuda_time_total
-                    name = e.key[:60]  # kernels' full names run to hundreds of characters
-                    device_us[name] = device_us.get(name, 0.0) + t_us
-                    events[name] = events.get(name, 0) + e.count
+            device_us, events = device_time_by_event(prof)
             gear_seen = sum(n for k, n in events.items() if "gear_hash_kernel" in k)
             if gear_seen:
                 break
@@ -1890,8 +1925,12 @@ def cluster_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
                 out = run_command(env, f"ec.rebuild -volumeId {vid}"
                                        f" -collection {CLUSTER_COLLECTION}{flags}")
                 m = PIPELINED_LINE.search(out)
-                check(f"rebuilt shards {shards}" in out and m is not None and m.group(1),
-                      f"{what} {vid}: {out}")
+                if not (f"rebuilt shards {shards}" in out and m is not None and m.group(1)):
+                    now = decoder.REPAIR.snapshot()
+                    check(False, f"{what} {vid}: {out}; since the round began: " + str(
+                        {k: {r: n - before[k].get(r, 0) for r, n in now[k].items()
+                             if n != before[k].get(r, 0)}
+                         for k in ("restarts", "fallbacks", "stream_chunks")}))
                 n_hops, rb, tot = int(m.group(2)), int(m.group(3)), int(m.group(4))
                 check(tot == (n_hops - 1) * len(shards) * shard_sizes[vid]
                       and rb == len(shards) * shard_sizes[vid],
@@ -2329,6 +2368,426 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
         cuts=FILER_CUTS, cryptography_installed=cipher_util.available())
 
 
+# --- phase 14: the volume integrity plane -------------------------------------------
+SCRUB_RACKS = ("r1", "r1", "r2")  # replication 001 pairs the two r1 servers
+SCRUB_THREADS = 8  # client threads assigning and POSTing replicated files
+SCRUB_FILE = 4096
+SCRUB_FLIPS = 16  # needle byte flips on one replica
+SCRUB_SEALED_BYTES = 256 * MIB  # log-uniform needles, all 14 shards local
+SCRUB_ONLINE_BYTES = 64 * MIB
+SCRUB_VIDS = {"bulk": 101, "sealed": 102, "online": 103}
+SCRUB_SHARD = 5  # the sealed volume's flipped shard
+SCRUB_SAMPLE = 1024  # replicated files read back after the repairs
+SCRUB_VACUUM_SHARE = 0.3  # needles of one replicated volume deleted before the vacuum
+SCRUB_WALL_LIMIT_S = 150
+SCRUB_SHAPES = {"crc32c_batch": (1024, SCRUB_FILE), "gf256_matmul": ("scrub", (10, 4096))}
+SCRUB_CUTS = ("1 GiB of 4 KiB needles in one volume of the 30 GB volume limit",
+              "4,096 replicated 4 KiB files of config 3's 1M blobs: three servers, the master"
+              " and 8 clients share one process and one GIL (32,768 took the phase 294-310 s"
+              " and 8,192 165 s, past its 150 s limit)",
+              "one sealed volume of 256 MiB and one online volume of 64 MiB")
+
+
+def flip_byte(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def scrub_counters(servers: list) -> dict:
+    """The servers' scrub counters summed: bytes and seconds by kernel."""
+    out = {"bytes": {}, "seconds": {}}
+    for vs in servers:
+        for key in out:
+            for k, v in vs.scrubber.counters[key].items():
+                out[key][k] = out[key].get(k, 0) + v
+    return out
+
+
+def scrub_needle_equal(a, b, nid: int) -> bool:
+    """Two replicas hold the same needle: every field but the append stamp
+    and last_modified, which come from each server's own clock."""
+    x, y = a.read_needle(nid), b.read_needle(nid)
+    return (x.cookie, x.id, x.size, x.data, x.flags, x.name, x.mime, x.checksum) == \
+        (y.cookie, y.id, y.size, y.data, y.flags, y.name, y.mime, y.checksum)
+
+
+def scrub_phase(dev: torch.device, n_files: int, bulk_bytes: int, md5_ops_per_block: int,
+                seed: int) -> dict:
+    """The volume integrity plane on the card: a port MasterServer (pulse
+    1 s) and three VolumeServers (racks r1, r1, r2; scrubbers unthrottled,
+    no scrub loop) on cuda, one process. n_files seeded 4 KiB files go
+    through /dir/assign?replication=001 and POSTs from 8 waiting threads
+    (each write fans out to the other r1 server before it is acked); the
+    replicas hold the same needles. In process, on r2's server: bulk_bytes
+    of 4 KiB needles in one volume, 256 MiB of log-uniform needles encoded
+    in place (all 14 shards local) and a 64 MiB ecOnline volume. A clean
+    `volume.scrub -dryRun` (counted: crc32c_batch and gf256_matmul must
+    launch, 99 % of the 4 KiB volumes' bytes batched), then once more
+    under torch.profiler for the device's idle share; seeded damage (16
+    needle flips on one replica, a sealed shard flip, an online parity-row
+    flip, a stale .ec03.tmp, a needle on one replica only) found exactly;
+    `volume.scrub -apply`, `detect` with plan and apply for the
+    divergence, `ec.rebuild` of the deleted shard; every read, the shard
+    and the digests checked, a second pass clean. Then 30 % of one
+    replicated volume deleted over HTTP, `volume.vacuum -garbageThreshold
+    0.2`, both replicas shrunk to their live records, a pass clean."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-scrub-", dir=REPO / "build")
+    master = MasterServer(port=0, pulse_seconds=1)
+    master.start()
+    servers = []
+    res = {}
+    try:
+        for i, rack in enumerate(SCRUB_RACKS):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url, rack=rack,
+                              pulse_seconds=PULSE_S, scrub_rate_mb=0, device=dev)
+            vs.start()
+            servers.append(vs)
+        check(all(vs.device.type == "cuda" and vs.scrubber.device.type == "cuda"
+                  for vs in servers), "a scrub-phase server or scrubber is not on cuda")
+        ids = [vs.node_id for vs in servers]
+        env = TimedEnv(master.url)
+        check(run_command(env, "lock") == "lock acquired", "lock")
+        run_command(env, "volume.vacuum.disable")  # the shell's vacuum below, not the pulse's
+        zero_launches()
+
+        # 1. replicated ingest from 8 waiting threads
+        raw = np.random.default_rng([seed, 16]).bytes(n_files * SCRUB_FILE)
+        files = [None] * n_files  # (fid, url)
+        lat = [[] for _ in range(SCRUB_THREADS)]
+        errors = []
+
+        def ingest(t: int) -> None:
+            m = Client(master.url)
+            conns = {}
+            try:
+                for i in range(t, n_files, SCRUB_THREADS):
+                    t0 = time.perf_counter()
+                    status, out = m.request("GET", "/dir/assign?replication=001")
+                    if status != 200:
+                        errors.append(f"assign -> {status}: {out[:200]!r}")
+                        return
+                    a = json.loads(out)
+                    c = conns.get(a["url"]) or conns.setdefault(
+                        a["url"], Client(f"http://{a['url']}"))
+                    status, out = c.request("POST", f"/{a['fid']}",
+                                            raw[i * SCRUB_FILE : (i + 1) * SCRUB_FILE], OCTET)
+                    if status != 201:
+                        errors.append(f"POST {a['fid']} -> {status}: {out[:200]!r}")
+                        return
+                    lat[t].append(time.perf_counter() - t0)
+                    files[i] = (a["fid"], a["url"])
+            finally:
+                m.close()
+                for c in conns.values():
+                    c.close()
+
+        threads = [threading.Thread(target=ingest, args=(t,)) for t in range(SCRUB_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        ingest_s = time.perf_counter() - t0
+        check(not errors and all(files), f"scrub ingest: {errors[:3]}")
+        rvids = sorted({int(f.split(",")[0]) for f, _ in files})
+        for vid in rvids:
+            a, b = (vs.store.get_volume(vid) for vs in servers[:2])
+            check(a is not None and b is not None, f"volume {vid} is not on both r1 servers")
+            keys = [k for k, _, _ in a.nm.ascending_visit()]
+            check(keys == [k for k, _, _ in b.nm.ascending_visit()]
+                  and a.needle_map_digest() == b.needle_map_digest()
+                  and all(scrub_needle_equal(a, b, k) for k in keys),
+                  f"replicas of volume {vid} differ")
+        res.update(files=n_files, file_bytes=SCRUB_FILE, threads=SCRUB_THREADS,
+                   replicated_volumes=len(rvids), ingest_s=ingest_s,
+                   files_per_s=n_files / ingest_s,
+                   **{f"put_{k}": v for k, v in _pcts([x for t in lat for x in t]).items()})
+
+        # 2. in process on r2's server: the 4 KiB volume, the sealed volume
+        # and the online volume
+        s2 = servers[2]
+        admin = Client(s2.url)
+        for name, vid in SCRUB_VIDS.items():
+            admin.json("/admin/allocate_volume",
+                       {"volume": vid, **({"ecOnline": True} if name == "online" else {})})
+        t0 = time.perf_counter()
+        bulk = np.random.default_rng([seed, 17]).bytes(bulk_bytes)
+        n_bulk = bulk_bytes // SCRUB_FILE
+        cookie = 0x5C5C5C5C
+        for i in range(n_bulk):
+            s2.store.write(SCRUB_VIDS["bulk"], Needle(
+                cookie=cookie, id=i + 1, data=bulk[i * SCRUB_FILE : (i + 1) * SCRUB_FILE]))
+        bulk_write_s = time.perf_counter() - t0
+        rng = np.random.default_rng([seed, 18])
+        logu = {}
+        for vid_name, nbytes in (("sealed", SCRUB_SEALED_BYTES), ("online", SCRUB_ONLINE_BYTES)):
+            pool, used, nid = rng.bytes(nbytes), 0, 0
+            v = s2.store.get_volume(SCRUB_VIDS[vid_name])
+            while used < nbytes:
+                size = min(int(np.exp(rng.uniform(np.log(1024), np.log(4 * MIB)))),
+                           nbytes - used)
+                nid += 1
+                s2.store.write(SCRUB_VIDS[vid_name],
+                               Needle(cookie=cookie, id=nid, data=pool[used : used + size]))
+                logu[(vid_name, nid)] = (used, size)
+                used += size
+                if v.online_ec is not None:
+                    v.online_ec.pump()
+            logu[vid_name] = pool
+        won = s2.store.get_volume(SCRUB_VIDS["online"]).online_ec
+        won.pump(force=True)
+        check(won.active and won.watermark >= 4 * won.stripe,
+              f"the online volume's writer: active {won.active}, watermark {won.watermark}")
+        admin.json("/admin/ec/generate", {"volume": SCRUB_VIDS["sealed"]})
+        admin.json("/admin/ec/mount", {"volume": SCRUB_VIDS["sealed"]})
+        ev = s2.store.get_ec_volume(SCRUB_VIDS["sealed"])
+        check(ev is not None and ev.shard_ids() == list(range(14)), "the sealed volume's shards")
+        shard_path = ev.data_base + geometry.to_ext(SCRUB_SHARD)
+        shard_copy = os.path.join(root, "shard.orig")
+        shutil.copyfile(shard_path, shard_copy)
+        live = sum(1 for vs in servers for loc in vs.store.locations
+                   for v in loc.volumes.values() for _ in v.nm.ascending_visit())
+        # the 4 KiB needles: bulk and the replicated files on both replicas
+        bytes_4k = SCRUB_FILE * (n_bulk + 2 * n_files)
+        res.update(bulk_needles=n_bulk, bulk_bytes=bulk_bytes, bulk_write_s=bulk_write_s,
+                   sealed_bytes=SCRUB_SEALED_BYTES, online_bytes=SCRUB_ONLINE_BYTES,
+                   live_needles=live)
+
+        # 3. the clean pass, counted
+        before = read_launches()
+        base = scrub_counters(servers)
+        t0 = time.perf_counter()
+        out = run_command(env, "volume.scrub -dryRun")
+        pass_s = time.perf_counter() - t0
+        after = read_launches()
+        pass_launches = {k: after[k] - before[k] for k in ("crc32c_batch", "gf256_matmul")}
+        check(out.endswith("scrub: clean — no silent damage found"),
+              f"the clean pass found damage: {out[-400:]}")
+        checked = sum(vs.scrubber.stats["needles_checked"] for vs in servers)
+        check(checked == live, f"the clean pass checked {checked} needles, not {live}")
+        counters = scrub_counters(servers)
+        by_kernel = {k: counters["bytes"][k] - base["bytes"].get(k, 0) for k in counters["bytes"]}
+        secs = {k: counters["seconds"][k] - base["seconds"].get(k, 0.0)
+                for k in counters["seconds"]}
+        check(by_kernel["batched"] >= 0.99 * bytes_4k,
+              f"{by_kernel['batched']} of the 4 KiB volumes' {bytes_4k} bytes batched")
+        for name, n in pass_launches.items():
+            check(n > 0, f"the clean scrub pass launched no {name} kernel")
+        pass_bytes = sum(by_kernel.values())
+        res.update(
+            pass_s=pass_s, pass_bytes=pass_bytes, pass_gbps=pass_bytes / pass_s / 1e9,
+            pass_needles_per_s=checked / pass_s, pass_launches=pass_launches,
+            pass_bytes_by_kernel=by_kernel, pass_seconds_by_kernel=secs,
+            pass_gbps_by_kernel={k: by_kernel[k] / secs[k] / 1e9 if secs[k] else None
+                                 for k in by_kernel},
+            batched_share_of_4k=by_kernel["batched"] / bytes_4k,
+            stripes_checked=sum(vs.scrubber.stats["stripes_checked"] for vs in servers),
+            codec_calls=sum(vs.scrubber.counters["codec_calls"] for vs in servers))
+
+        # the same clean pass again under torch.profiler, for the device's
+        # busy share (the counted pass above runs unprofiled). The profiler
+        # may drop events on the card's host: the busy time seen is also
+        # scaled by the window's crc32c_batch launches over the events seen
+        before = read_launches()["crc32c_batch"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run_command(env, "volume.scrub -dryRun")
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        check(out.endswith("no silent damage found"), f"the profiled pass: {out[-400:]}")
+        made = read_launches()["crc32c_batch"] - before
+        device_us, events = device_time_by_event(prof)
+        seen = sum(n for k, n in events.items() if "crc32c_batch_kernel" in k)
+        busy_s = sum(device_us.values()) / 1e6
+        busy_scaled_s = busy_s * made / seen if seen else None
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+        res["profiled_pass"] = dict(
+            seconds=prof_s, device_busy_s=busy_s, device_idle_share=1 - busy_s / prof_s,
+            device_busy_scaled_s=busy_scaled_s,
+            device_idle_share_scaled=1 - busy_scaled_s / prof_s if seen else None,
+            crc_launches=made, crc_events=seen,
+            device_ms_by_event={k: v / 1e3 for k, v in top},
+            events_by_event={k: events[k] for k, _ in top})
+
+        # 4. seeded damage, found exactly, repaired
+        s0v = {vid: servers[0].store.get_volume(vid) for vid in rvids}
+        pick = np.random.default_rng([seed, 19])
+        flips = []
+        for i in sorted(pick.choice(n_files, SCRUB_FLIPS, replace=False).tolist()):
+            vid = int(files[i][0].split(",")[0])
+            nid, _ = file_id.parse_key_hash_with_delta(files[i][0].split(",")[1])
+            off, _ = s0v[vid].nm.get(nid)
+            flip_byte(s0v[vid].base_name + ".dat", off + 16 + 4 + int(pick.integers(0, SCRUB_FILE)))
+            flips.append((i, vid, nid))
+        flip_byte(shard_path, 100)
+        flip_byte(won.volume.base_name + geometry.to_ext(10), 10)  # parity row 0
+        tmp = os.path.join(s2.store.locations[0].directory, "999.ec03.tmp")
+        with open(tmp, "wb") as f:
+            f.write(b"\0" * 4096)
+        os.utime(tmp, (time.time() - 7200,) * 2)
+        lonely_vid = flips[0][1]
+        lonely = np.random.default_rng([seed, 20]).bytes(SCRUB_FILE)
+        lonely_fid = f"{lonely_vid},{file_id.format_needle_id_cookie(1 << 40, 77)}"
+        c0 = Client(servers[0].url)
+        status, out = c0.request("POST", f"/{lonely_fid}?type=replicate", lonely, OCTET)
+        check(status == 201, f"the one-replica write -> {status}: {out[:200]!r}")
+        found = []
+        for vs in servers:
+            c = Client(vs.url)
+            found += [(f["kind"], f["volume_id"], f["node"], f.get("needle"), f.get("shard"))
+                      for f in c.json("/admin/scrub/run", {})["findings"]]
+            c.close()
+        want = sorted([("corrupt_needle", vid, ids[0], nid, None) for _, vid, nid in flips]
+                      + [("corrupt_shard", SCRUB_VIDS["sealed"], ids[2], None, SCRUB_SHARD),
+                         ("parity_mismatch", SCRUB_VIDS["online"], ids[2], None, None)])
+        check(sorted(found, key=str) == sorted(want, key=str),
+              f"scrub findings {sorted(found, key=str)[:20]} != the injected {want[:20]}")
+        check(not os.path.exists(tmp) and s2.scrubber.stats["tmp_removed"] == 1,
+              "the stale .ec03.tmp was not swept")
+        for vs in servers:
+            vs.heartbeat_once()
+        tasks = scrub.detect(master)
+        div = [f for t in tasks for f in t.params["findings"] if f["kind"] == "replica_divergence"]
+        check([(f["volume_id"], f["node"], f["source_node"]) for f in div]
+              == [(lonely_vid, ids[1], ids[0])], f"detect's divergence: {div}")
+        env.seconds.clear()
+        t0 = time.perf_counter()
+        out = run_command(env, "volume.scrub -apply")
+        apply_s = time.perf_counter() - t0
+        check(f"repaired {SCRUB_FLIPS + 2} finding(s):" in out and "FAILED" not in out,
+              f"volume.scrub -apply: {out[-600:]}")
+        for vs in servers:
+            vs.heartbeat_once()
+        tasks = scrub.detect(master)
+        fs = [f for t in tasks for f in t.params["findings"]]
+        check([f["kind"] for f in fs] == ["replica_divergence"], f"detect after the repairs: {fs}")
+        t0 = time.perf_counter()
+        synced = scrub.apply_scrub_repairs(env, scrub.plan_scrub_repairs(env, fs))
+        sync_s = time.perf_counter() - t0
+        check(synced == [f"volume {lonely_vid}: re-synced from {ids[0]} (+1 needles, -0 stale)"],
+              f"the divergence heal: {synced}")
+        t0 = time.perf_counter()
+        out = run_command(env, f"ec.rebuild -volumeId {SCRUB_VIDS['sealed']}")
+        rebuild_s = time.perf_counter() - t0
+        check(same_file(shard_path, shard_copy), f"the rebuilt shard {SCRUB_SHARD} != the original")
+        c1 = Client(servers[1].url)
+        for c in (c0, c1):
+            for i, vid, nid in flips:
+                status, body = c.request("GET", f"/{files[i][0]}")
+                check(status == 200 and body == raw[i * SCRUB_FILE : (i + 1) * SCRUB_FILE],
+                      f"repaired needle {files[i][0]} reads wrong")
+            status, body = c.request("GET", f"/{lonely_fid}")
+            check(status == 200 and body == lonely, "the one-replica needle after the sync")
+        for i in sorted(pick.choice(n_files, SCRUB_SAMPLE, replace=False).tolist()):
+            status, _, body = http_request("GET", f"http://{files[i][1]}/{files[i][0]}")
+            check(status == 200 and body == raw[i * SCRUB_FILE : (i + 1) * SCRUB_FILE],
+                  f"GET {files[i][0]} reads wrong")
+        s2c = Client(s2.url)
+        for i in pick.choice(n_bulk, 256, replace=False).tolist():
+            status, body = s2c.request(
+                "GET", f"/{SCRUB_VIDS['bulk']},{file_id.format_needle_id_cookie(i + 1, cookie)}")
+            check(status == 200 and body == bulk[i * SCRUB_FILE : (i + 1) * SCRUB_FILE],
+                  f"bulk needle {i + 1} reads wrong")
+        for (name, nid), (off, size) in list((k, v) for k, v in logu.items()
+                                              if isinstance(k, tuple))[:: 8]:
+            status, body = s2c.request(
+                "GET", f"/{SCRUB_VIDS[name]},{file_id.format_needle_id_cookie(nid, cookie)}")
+            check(status == 200 and body == logu[name][off : off + size],
+                  f"{name} needle {nid} reads wrong")
+        for c in (admin, c0, c1, s2c):
+            c.close()
+        for vid in rvids:
+            check(servers[0].store.get_volume(vid).needle_map_digest()
+                  == servers[1].store.get_volume(vid).needle_map_digest(),
+                  f"volume {vid}: the replicas' digests differ after the repairs")
+        out = run_command(env, "volume.scrub -dryRun")
+        check(out.endswith("no silent damage found"), f"the pass after the repairs: {out[-400:]}")
+        res.update(
+            flips=SCRUB_FLIPS, findings=len(found), findings_exact=True, tmp_swept=True,
+            apply_s=apply_s, sync_s=sync_s, ec_rebuild_s=rebuild_s,
+            repair_walls_s={"corrupt_needle": env.seconds.get("scrub/repair_needle", 0.0),
+                            "corrupt_shard": env.seconds.get("ec/delete_shards", 0.0),
+                            "parity_mismatch": env.seconds.get("ec/online/rebuild", 0.0),
+                            "replica_divergence": sync_s},
+            shard_restored=True, digests_agree=True, clean_after_repairs=True)
+
+        # 5. vacuum: 30 % of one replicated volume deleted over HTTP
+        vvid = max(rvids, key=lambda v: servers[0].store.get_volume(v).file_count())
+        mine = [(i, f, u) for i, (f, u) in enumerate(files) if int(f.split(",")[0]) == vvid]
+        gone = sorted(pick.choice(len(mine), int(SCRUB_VACUUM_SHARE * len(mine)),
+                                  replace=False).tolist())
+        for j in gone:
+            _, f, u = mine[j]
+            status, _, out = http_request("DELETE", f"http://{u}/{f}")
+            check(status == 202, f"DELETE {f} -> {status}: {out[:200]!r}")
+        vols = [vs.store.get_volume(vvid) for vs in servers[:2]]
+        pre = [v.size() for v in vols]
+        for vs in servers:
+            vs.heartbeat_once()
+        t0 = time.perf_counter()
+        out = run_command(env, "volume.vacuum -garbageThreshold 0.2")
+        vacuum_s = time.perf_counter() - t0
+        check(out == f"vacuumed: {vvid}@{ids[0]}, {vvid}@{ids[1]}", f"volume.vacuum: {out}")
+        for v in vols:
+            want_size = SUPER_BLOCK_SIZE + sum(get_actual_size(sz, v.version())
+                                               for _, _, sz in v.nm.ascending_visit())
+            check(v.size() == want_size and v.deleted_count() == 0,
+                  f"volume {vvid} after the vacuum: {v.size()} bytes, not {want_size}")
+        check(vols[0].needle_map_digest() == vols[1].needle_map_digest(),
+              "the replicas' digests differ after the vacuum")
+        gone_set = set(gone)
+        kept = [j for j in range(len(mine)) if j not in gone_set]
+        for j in pick.choice(len(kept), min(256, len(kept)), replace=False).tolist():
+            i, f, u = mine[kept[j]]
+            status, _, body = http_request("GET", f"http://{u}/{f}")
+            check(status == 200 and body == raw[i * SCRUB_FILE : (i + 1) * SCRUB_FILE],
+                  f"GET {f} after the vacuum reads wrong")
+        for j in gone[:16]:
+            check(http_request("GET", f"http://{mine[j][2]}/{mine[j][1]}")[0] == 404,
+                  "a deleted needle reads after the vacuum")
+        out = run_command(env, "volume.scrub -dryRun")
+        check(out.endswith("no silent damage found"), f"the pass after the vacuum: {out[-400:]}")
+        run_command(env, "volume.vacuum.enable")
+        res.update(vacuum_volume=vvid, vacuum_deleted=len(gone), vacuum_s=vacuum_s,
+                   vacuum_reclaimed_bytes=[p - v.size() for p, v in zip(pre, vols)],
+                   clean_after_vacuum=True)
+        launches = read_launches()
+        res["launches"] = {k: launches[k] for k in ("crc32c_batch", "gf256_matmul")}
+
+        # one flush of the 4 KiB volume on the card: kernel, plain, host CRC
+        blocks = torch.from_numpy(np.frombuffer(bulk[: 1024 * SCRUB_FILE], np.uint8)
+                                  .reshape(1024, SCRUB_FILE).copy()).to(dev)
+        got = u32(crc32c_batch_kernel(blocks)).cpu().numpy()
+        plain = u32(crc32c_batch_torch(blocks)).cpu().numpy()
+        host = np.array([crc.crc32c(bulk[i * SCRUB_FILE : (i + 1) * SCRUB_FILE])
+                         for i in range(1024)])
+        check(np.array_equal(got, plain) and np.array_equal(got, host),
+              "one scrub flush's CRCs: kernel, plain version and host CRC disagree")
+        res["flush_crc_max_abs_err"] = int(np.abs(got.astype(np.int64) - plain).max())
+    finally:
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    n, length = SCRUB_SHAPES["crc32c_batch"]
+    res["crc_kernel"] = hash_shape_times(dev, seed, HASH_WRAPPERS, md5_ops_per_block,
+                                         shapes=((n, length),), gear=False)["crc32c_batch"]
+    res["gf_kernel"] = gf256_shape_times(dev, seed, gf256_matmul,
+                                         shapes=(SCRUB_SHAPES["gf256_matmul"],))
+    for row in res["crc_kernel"] + res["gf_kernel"]:
+        row["path"] = "scrub"
+    wall = time.perf_counter() - t_phase
+    res.update(wall_s=wall, wall_limit_s=SCRUB_WALL_LIMIT_S,
+               over_wall_limit=wall > SCRUB_WALL_LIMIT_S, cuts=SCRUB_CUTS)
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -2356,7 +2815,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--volume-mib", type=int, default=1024)
-    ap.add_argument("--upload-blobs", type=int, default=1 << 20)
+    ap.add_argument("--upload-blobs", type=int, default=1 << 19)
     ap.add_argument("--chunked-mib", type=int, default=1024)
     ap.add_argument("--cdc-uploads", type=int, default=64)
     ap.add_argument("--stream-mib", type=int, default=1024)
@@ -2367,6 +2826,8 @@ def main() -> int:
     ap.add_argument("--mesh-mib", type=int, default=4)
     ap.add_argument("--filer-files", type=int, default=32768)
     ap.add_argument("--filer-large-mib", type=int, default=256)
+    ap.add_argument("--scrub-files", type=int, default=4096)
+    ap.add_argument("--scrub-mib", type=int, default=1024)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2480,6 +2941,16 @@ def main() -> int:
     timed["gf256_matmul"]["shapes"].append(ms["kernel"])
     for name in ("crc32c_batch", "md5_batch"):
         timed[name]["shapes"].extend(ms["hash_kernels"][name] + fl["hash_kernels"][name])
+
+    # the volume integrity plane (replication, scrub, repairs, vacuum); its own count
+    sc = scrub_phase(dev, args.scrub_files, args.scrub_mib * MIB, md5_block["ops"], args.seed)
+    emit("scrub", **sc)
+    for name in ("gf256_matmul", "crc32c_batch"):
+        launches[name] += sc["launches"][name]
+    timed["gf256_matmul"]["shapes"].extend(sc["gf_kernel"])
+    timed["crc32c_batch"]["shapes"].extend(sc["crc_kernel"])
+    timed["crc32c_batch"]["max_abs_err"] = max(timed["crc32c_batch"]["max_abs_err"],
+                                               sc["flush_crc_max_abs_err"])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

@@ -219,11 +219,21 @@ def http_request(
         return e.code, dict(e.headers), e.read()
 
 
+class HTTPStatusError(IOError):
+    """A JSON call answered with an error status: `status` and the
+    decoded error body `data`, for callers that route on its `error`."""
+
+    def __init__(self, message: str, status: int, data) -> None:
+        super().__init__(message)
+        self.status = status
+        self.data = data if isinstance(data, dict) else {}
+
+
 def get_json(url: str, timeout: float = DEFAULT_TIMEOUT) -> dict:
     status, _, body = http_request("GET", url, timeout=timeout)
     data = json.loads(body) if body else {}
     if status >= 400:
-        raise IOError(f"GET {url} -> {status}: {data}")
+        raise HTTPStatusError(f"GET {url} -> {status}: {data}", status, data)
     return data
 
 
@@ -235,7 +245,7 @@ def post_json(url: str, payload: dict | None = None,
     )
     data = json.loads(out) if out else {}
     if status >= 400:
-        raise IOError(f"POST {url} -> {status}: {data}")
+        raise HTTPStatusError(f"POST {url} -> {status}: {data}", status, data)
     return data
 
 

@@ -1,20 +1,24 @@
-"""Master server: assign/lookup HTTP API, heartbeat ingest and growth.
+"""Master server: assign/lookup HTTP API, heartbeat ingest, growth and vacuum.
 
 The port's copy of the core of `seaweedfs_tpu/server/master.py` (after
 `weed/server/master_server.go`, `master_server_handlers.go:36,110`,
-`master_grpc_server.go:62`): the topology, the file-key sequencer, the
-default replication, the `-ec.online` collections, volume growth with
-optimistic registration, a pulse loop that expires dead nodes, and the
+`master_grpc_server.go:62`, `topology_vacuum.go:216`): the topology, the
+file-key sequencer, the default replication, the `-ec.online` collections,
+volume growth with optimistic registration, a pulse loop that expires dead
+nodes and asks volume servers to compact volumes whose garbage crosses
+`garbage_threshold` (unless `/vol/vacuum/disable` turned it off), and the
 routes `POST /heartbeat`, `/dir/assign`, `/dir/lookup`, `GET
 /dir/ec_lookup`, `/dir/status`, `/cluster/status`, `/cluster/ps`, `POST
-/cluster/lock`, `/cluster/unlock` and `GET /col/list`.
+/cluster/lock`, `/cluster/unlock`, `GET /col/list`, `POST /col/delete`,
+`GET /vol/vacuum` and `POST /vol/vacuum/{enable,disable}`.
 
 The master is host code and holds no device. One master is the leader:
 there is no raft, so the sequence lease is not needed.
 
 Not ported: raft HA and the `/raft/*` routes, the native fastlane front
-door, JWT (`security`), maintenance, vacuum, telemetry, metrics, heat,
-`/ui`, `/cluster/register` and `/cluster/telemetry`.
+door, JWT (`security`), the maintenance daemon (so only the
+`vacuum_enabled` gate decides the pulse's vacuum), telemetry, metrics,
+heat, `/ui`, `/cluster/register` and `/cluster/telemetry`.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ class MasterServer:
         meta_dir: str | None = None,
         ec_online: str = "",
         ec_online_block: int | None = None,
+        garbage_threshold: float = 0.3,
     ) -> None:
         seq = MemorySequencer(f"{meta_dir}/sequence.json" if meta_dir else None)
         self.topo = Topology(
@@ -49,6 +54,8 @@ class MasterServer:
             sequencer=seq,
         )
         self.default_replication = default_replication
+        self.garbage_threshold = garbage_threshold
+        self.vacuum_enabled = True
         # -ec.online policy: collections whose volumes stream-encode
         # RS(10,4) parity on ingest instead of replica fan-out
         # (comma-separated names; "*" = every collection incl. default)
@@ -86,6 +93,29 @@ class MasterServer:
     def _pulse_loop(self) -> None:
         while not self._stop.wait(self.topo.pulse_seconds):
             self.topo.expire_dead_nodes()
+            try:
+                self._vacuum_check()
+            except Exception:
+                pass
+
+    # --- vacuum ----------------------------------------------------------------
+    def _vacuum_check(self) -> None:
+        """Ask volume servers to compact garbage-heavy volumes
+        (`topology_vacuum.go:216`)."""
+        if not self.vacuum_enabled:
+            return
+        self._vacuum_round()
+
+    def _vacuum_round(self) -> None:
+        for node, vid, _ in self.topo.vacuum_candidates(self.garbage_threshold):
+            try:
+                post_json(
+                    peer_url(node.url) + "/admin/vacuum",
+                    {"volume": vid},
+                    timeout=120,
+                )
+            except Exception:
+                pass
 
     def _is_leader(self) -> bool:
         return True  # one master, no raft
@@ -331,3 +361,52 @@ class MasterServer:
                     {"name": k, "volumeCount": c} for k, c in sorted(cols.items())
                 ]}
             )
+
+        @svc.route("POST", r"/col/delete")
+        def col_delete(req: Request) -> Response:
+            """Drop every volume of a collection on every server
+            (`master_server_handlers_admin.go collectionDeleteHandler`)."""
+            name = req.query.get("collection", "")
+            if not name:
+                try:
+                    name = req.json().get("collection", "")
+                except ValueError:
+                    pass
+            if not name:
+                # an empty name would match every default-collection volume —
+                # refuse, like the reference's 'collection not found'
+                return Response({"error": "collection name required"}, 400)
+            deleted = 0
+            for node in self.topo.all_nodes():
+                for vid, v in list(node.volumes.items()):
+                    if v.collection == name:
+                        try:
+                            post_json(
+                                peer_url(node.url) + "/admin/delete_volume",
+                                {"volume": vid}, timeout=30,
+                            )
+                            deleted += 1
+                        except Exception:
+                            pass
+            return Response({"ok": True, "deleted": deleted})
+
+        @svc.route("POST", r"/vol/vacuum/disable")
+        def vacuum_disable(req: Request) -> Response:
+            self.vacuum_enabled = False
+            return Response({"ok": True, "vacuum": "disabled"})
+
+        @svc.route("POST", r"/vol/vacuum/enable")
+        def vacuum_enable(req: Request) -> Response:
+            self.vacuum_enabled = True
+            return Response({"ok": True, "vacuum": "enabled"})
+
+        @svc.route("GET", r"/vol/vacuum")
+        def vol_vacuum(req: Request) -> Response:
+            threshold = float(req.query.get("garbageThreshold", self.garbage_threshold))
+            old = self.garbage_threshold
+            self.garbage_threshold = threshold
+            try:
+                self._vacuum_check()
+            finally:
+                self.garbage_threshold = old
+            return Response({"ok": True})

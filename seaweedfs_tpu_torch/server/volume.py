@@ -1,15 +1,22 @@
-"""Volume server, EC surface: the port's partial copy of
-`seaweedfs_tpu/server/volume.py`.
+"""Volume server: HTTP data plane, admin plane, integrity scrub plane and
+heartbeat loop — the port's copy of `seaweedfs_tpu/server/volume.py`.
 
 Reference: `weed/server/volume_server_handlers_read.go:45` /
-`_write.go:18` (GET/POST/DELETE /<vid>,<fid>), `volume_grpc_erasure_coding.go`
-(EC verbs — JSON admin endpoints here), `volume_grpc_client_to_master.go:50`
+`_write.go:18` (GET/POST/DELETE /<vid>,<fid>), `store_replicate.go:26`
+(synchronous replica fan-out), `volume_grpc_erasure_coding.go` (EC verbs —
+JSON admin endpoints here), `volume_grpc_client_to_master.go:50`
 (heartbeat).
 
-Routes: the needle routes (GET/HEAD/POST/PUT/DELETE on `FID_RE`), `/status`,
-`/admin/allocate_volume` (with `ecOnline` and `ecOnlineBlock`),
-`/admin/volume/readonly`, the copy stream `/admin/volume/raw`, and the EC
-verbs `/admin/ec/{generate,mount,unmount,rebuild,online/rebuild,
+Routes: the needle routes (GET/HEAD/POST/PUT/DELETE on `FID_RE`; a write
+or delete to a volume whose placement asks for replicas fans out to the
+other holders the master's `/dir/lookup` names, all or nothing, before it
+is acknowledged), `/status`, `/admin/allocate_volume` (with `ecOnline` and
+`ecOnlineBlock`), `/admin/delete_volume`, `/admin/vacuum`,
+`/admin/volume/{readonly,configure_replication,files,raw,copy,mount,
+unmount,needle_blob,write_needle_blob,needles}`, `/admin/fsck`,
+`/admin/leave`, the scrub plane `/admin/scrub/{status,run,resolve,needle,
+repair_needle,sync}` over a `VolumeScrubber` on the server's device, and
+the EC verbs `/admin/ec/{generate,mount,unmount,rebuild,online/rebuild,
 delete_volume,to_volume,shard,copy,delete_shards}` that the shell's
 `ec.*` commands drive. Every mounted EC volume gets a remote shard
 fetcher: the master's `/dir/ec_lookup` (cached 10 s), then
@@ -34,15 +41,18 @@ its own shards on the mounted `EcVolume`'s codec; a codec failure is a
 
 The server has one device, `cuda` unless the caller passes `device="cpu"`
 (with neither nor CUDA, construction raises): the online writers'
-parity, degraded reads, every hop's partial sum, and `/admin/ec/rebuild`
-run there.
+parity, degraded reads, every hop's partial sum, `/admin/ec/rebuild` and
+the scrubber's bulk CRCs and parity checks run there. `scrub_interval`
+(`-scrub.interval`, 0 = no loop) and `scrub_rate_mb` (`-scrub.rateMB`, 0 =
+unthrottled) pace the scrubber; a kernel or codec failure in a pass is a
+500 `codec_failed` from `/admin/scrub/run` and is kept on
+`/admin/scrub/status`.
 
-Not ported: the native fastlane, JWT, peer replication (a write to a
-volume whose placement needs replicas is refused), EXIF and image
-resizing, scrub (and with it the rebuild tmp-file guard), tiering, vacuum
-and the volume copy verbs, `/query`, metrics, traces, events, the fault
-points but `repair.partial_fetch`, and the retry policy of the copy stream
-(a failed range fails the copy).
+Not ported: the native fastlane, JWT, EXIF and image resizing, tiering
+and its backends, `/admin/tail`, `/ui`, `/query`, metrics, traces,
+events, telemetry, the fault points but `repair.partial_fetch` and
+`volume.replicate.fanout`, and the retry policy of the copy stream (a
+failed range fails the copy).
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ import urllib.parse
 
 import numpy as np
 
+from ..maintenance.scrub import ScrubCodecFailed, VolumeScrubber
 from ..ops.rs_kernel import RSCodec, resolve_device
 from ..storage import crc as crc_mod
 from ..storage.erasure_coding import decoder as ec_decoder
@@ -69,9 +80,9 @@ from ..storage.erasure_coding.ec_volume import (
 )
 from ..storage.file_id import parse_key_hash_with_delta
 from ..storage.needle import Needle
-from ..storage.store import Store
+from ..storage.store import Store, _attach_online_ec
 from ..storage.super_block import SUPER_BLOCK_SIZE
-from ..storage.types import TTL
+from ..storage.types import TTL, ReplicaPlacement
 from ..storage.volume import NotFound, VolumeError, volume_file_name
 from ..util import faults
 from ..util.retry import READ_POLICY
@@ -80,6 +91,9 @@ from .httpd import HTTPService, Request, Response, get_json, http_request, peer_
 FID_RE = r"/(\d+),([0-9a-fA-F_]+)(?:\.[^/]*)?"
 _SAFE_EXT_RE = re.compile(r"\.(dat|idx|vif|ecx|ecj|ec\d\d)")
 
+# the fan-out seam fails replica pushes (the client's write is not acked
+# and it retries with a fresh assignment); scoped by the server's identity
+_FP_REPLICATE = faults.register("volume.replicate.fanout")
 # pipelined-rebuild hop seam: an `error` here kills one node's partial-sum
 # stage mid-chain — the orchestrator's retry ladder must restart the chain
 # minus this hop or fall back to classic whole-shard pulls
@@ -123,6 +137,8 @@ class VolumeServer:
         rack: str = "",
         pulse_seconds: float = 5,
         max_volume_count: int = 100,
+        scrub_interval: float = 0.0,
+        scrub_rate_mb: float = 8.0,
         device=None,
     ) -> None:
         self.device = resolve_device(device)
@@ -161,6 +177,14 @@ class VolumeServer:
         # N-chunk rebuild costs ~(H + N) chunk-times instead of H x N.
         self._partial_streams: dict[str, dict] = {}
         self._stream_lock = threading.Lock()
+        # background integrity scrubber (maintenance/scrub.py), built at
+        # start on this server's device: -scrub.interval 0 disables the
+        # loop; /admin/scrub/run still works
+        self.scrubber: VolumeScrubber | None = None
+        self.scrub_interval = float(scrub_interval)
+        self.scrub_rate_mb = float(scrub_rate_mb)
+        self._scrub_thread: threading.Thread | None = None
+        self._leaving = False  # volume.server.leave: up, but no heartbeats
         self._routes()
 
     def start(self) -> None:
@@ -176,6 +200,14 @@ class VolumeServer:
             loc.max_volume_count = self.max_volume_count
             for ev in loc.ec_volumes.values():
                 self._attach_shard_fetcher(ev)
+        self.scrubber = VolumeScrubber(
+            self.store, node_id=self.node_id, rate_mb=self.scrub_rate_mb,
+            active_tmp_paths=self._active_rebuild_tmps,
+        )
+        if self.scrub_interval > 0:
+            self._scrub_thread = threading.Thread(
+                target=self._scrub_loop, name="volume-scrub", daemon=True)
+            self._scrub_thread.start()
         self.heartbeat_once()
         self._pulse = threading.Thread(
             target=self._pulse_loop, name="volume-pulse", daemon=True
@@ -188,6 +220,9 @@ class VolumeServer:
         if self._pulse is not None:
             self._pulse.join()
             self._pulse = None
+        if self._scrub_thread is not None:
+            self._scrub_thread.join()
+            self._scrub_thread = None
         with self._partial_lock:  # orphaned rebuild tmp files die with us
             for state in self._partial_rebuilds.values():
                 state["writers"].abort()
@@ -239,7 +274,30 @@ class VolumeServer:
                 swept = self._sweep_streams_locked()
             for st in swept:
                 self._teardown_stream(st)
+            if self._leaving:
+                continue  # volume.server.leave: stay up, stop heartbeating
             self.heartbeat_once()
+
+    def _scrub_loop(self) -> None:
+        while not self._stop.wait(self.scrub_interval):
+            try:
+                found = self.scrubber.scrub_pass()
+            except ScrubCodecFailed:
+                continue  # kept on the scrubber: /admin/scrub/status shows it
+            if found:
+                # the master learns about fresh damage on the next beat
+                # anyway; beating now shortens time-to-heal
+                self.heartbeat_once()
+
+    def _active_rebuild_tmps(self) -> set[str]:
+        """Tmp shard paths belonging to IN-FLIGHT pipelined rebuilds —
+        the scrubber's tmp-litter GC must never sweep these, any age."""
+        with self._partial_lock:
+            return {
+                p
+                for state in self._partial_rebuilds.values()
+                for p in state["writers"].tmp_paths.values()
+            }
 
     def heartbeat_once(self) -> None:
         """One heartbeat POST to the master (none without a master_url)."""
@@ -253,6 +311,12 @@ class VolumeServer:
         hb["data_center"] = self.data_center
         hb["rack"] = self.rack
         hb["max_volume_count"] = self.max_volume_count
+        if self.scrubber is not None:
+            # unresolved scrub findings ride the beat (capped: repairs
+            # resolve findings as they land, the rest ride later beats),
+            # and the volumes a pass holds, so the master's vacuum waits
+            hb["scrub_findings"] = self.scrubber.unresolved()[:64]
+            hb["scrub_active"] = self.scrubber.active_volumes()
         body = json.dumps(hb).encode()
         rotation = [u for u in self.master_urls if u != self.master_url]
         for _ in range(len(self.master_urls) + 1):
@@ -513,6 +577,56 @@ class VolumeServer:
                 swept.append(self._partial_streams.pop(sid))
         return swept
 
+    # --- replication --------------------------------------------------------------
+    def _replicate(
+        self,
+        method: str,
+        vid: int,
+        fid: str,
+        body: bytes,
+        headers: dict,
+        extra_query: dict | None = None,
+    ) -> None:
+        """Fan out to the other replica locations (`store_replicate.go:26`).
+        All-or-nothing: any replica failure raises VolumeError, so the
+        client's write is not acknowledged and it can retry with a fresh
+        assignment. The original request's ttl/headers are forwarded so
+        replicas store identical needles. Each push retries transient
+        failures under READ_POLICY (fid-addressed, so a re-send cannot
+        duplicate) before the verdict."""
+        me = self.node_id
+        _FP_REPLICATE.hit(key=me)
+        try:
+            info = get_json(f"{self.master_url}/dir/lookup?volumeId={vid}", timeout=5)
+        except Exception as e:
+            raise VolumeError(f"replicate lookup failed: {e}")
+        qs = "type=replicate"
+        for k, v in (extra_query or {}).items():
+            qs += f"&{k}={urllib.parse.quote(str(v))}"
+        for loc in info.get("locations", []):
+            target = loc["url"]
+            if target == me:
+                continue
+
+            def push(target=target):
+                status, _, out = http_request(
+                    method,
+                    peer_url(target) + f"/{vid},{fid}?{qs}",
+                    body=body,
+                    headers={k: v for k, v in headers.items() if v},
+                    timeout=READ_POLICY.deadline,
+                )
+                if status >= 500:  # transient server-side: worth a retry
+                    raise IOError(f"replica {target} -> {status}")
+                return status, out
+
+            try:
+                status, out = READ_POLICY.call(push)
+            except (IOError, OSError) as e:
+                raise VolumeError(f"replica write to {target} failed: {e}")
+            if status >= 400:
+                raise VolumeError(f"replica write to {target} failed: {out[:200]!r}")
+
     def _pull_file(
         self, source: str, vid: int, collection: str, ext: str, dest: str,
         chunk: int = 16 * 1024 * 1024,
@@ -586,28 +700,81 @@ class VolumeServer:
         @svc.route("POST", r"/admin/allocate_volume")
         def allocate(req: Request) -> Response:
             p = req.json()
-            ec_online = bool(p.get("ecOnline", False))
-            replication = p.get("replication", "000")
-            if not ec_online and sum(int(c) for c in replication[:3]) > 0:
-                return Response(
-                    {"error": "peer replication is not ported"}, 400)
             self.store.add_volume(
                 int(p["volume"]),
                 p.get("collection", ""),
-                replication,
+                p.get("replication", "000"),
                 p.get("ttl", ""),
-                ec_online=ec_online,
+                ec_online=bool(p.get("ecOnline", False)),
                 ec_online_block=(
                     int(p["ecOnlineBlock"]) if p.get("ecOnlineBlock") else None
                 ),
             )
             return Response({"ok": True})
 
+        @svc.route("POST", r"/admin/delete_volume")
+        def delete_volume(req: Request) -> Response:
+            self.store.delete_volume(int(req.json()["volume"]))
+            self.heartbeat_once()  # master forgets this replica promptly
+            return Response({"ok": True})
+
+        @svc.route("POST", r"/admin/vacuum")
+        def vacuum(req: Request) -> Response:
+            vid = int(req.json()["volume"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            garbage = v.garbage_level()
+            v.compact()
+            v.commit_compact()
+            self.heartbeat_once()
+            return Response({"ok": True, "garbage_was": garbage})
+
         @svc.route("POST", r"/admin/volume/readonly")
         def readonly(req: Request) -> Response:
             p = req.json()
             self.store.mark_readonly(int(p["volume"]), bool(p.get("readonly", True)))
             return Response({"ok": True})
+
+        @svc.route("POST", r"/admin/volume/configure_replication")
+        def configure_replication(req: Request) -> Response:
+            p = req.json()
+            vid = int(p["volume"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            try:
+                rp = ReplicaPlacement.parse(str(p["replication"]))
+            except (ValueError, KeyError) as e:
+                return Response({"error": str(e)}, 400)
+            v.configure_replication(rp)
+            return Response({"ok": True, "replication": str(rp)})
+
+        @svc.route("POST", r"/admin/leave")
+        def leave(req: Request) -> Response:
+            # stop heartbeating; the master expires this node
+            # (`command_volume_server_leave.go` VolumeServerLeave rpc)
+            self._leaving = True
+            return Response({"ok": True})
+
+        # --- volume copy / move plane (volume_grpc_copy.go) ---
+        @svc.route("GET", r"/admin/volume/files")
+        def volume_files(req: Request) -> Response:
+            """List a volume's files + sizes so a receiver can pull them."""
+            vid = int(req.query["volume"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            out = {}
+            for ext in (".dat", ".idx", ".vif"):
+                path = v.base_name + ext
+                if os.path.exists(path):
+                    out[ext] = os.path.getsize(path)
+            return Response(
+                {"collection": v.collection, "files": out,
+                 "version": v.version(),
+                 "last_append_at_ns": v.last_append_at_ns}
+            )
 
         @svc.route("GET", r"/admin/volume/raw")
         def volume_raw(req: Request) -> Response:
@@ -642,6 +809,298 @@ class VolumeServer:
                 data, content_type="application/octet-stream",
                 headers={"X-Total-Size": str(total)},
             )
+
+        @svc.route("POST", r"/admin/volume/copy")
+        def volume_copy(req: Request) -> Response:
+            """Pull a volume's .dat/.idx from another volume server and mount
+            it locally (`volume_grpc_copy.go VolumeCopy` — receiver-driven).
+            A live online-EC volume arrives as .dat/.idx/.vif only, so the
+            pulled .vif's unsealed ec_online policy re-arms the striper
+            here: parity re-encoded from byte 0 of the durable .dat on this
+            server's device."""
+            p = req.json()
+            vid = int(p["volume"])
+            source = p["source"].rstrip("/")
+            if self.store.has_volume(vid):
+                return Response({"error": f"volume {vid} already here"}, 409)
+            meta = get_json(f"{source}/admin/volume/files?volume={vid}", timeout=30)
+            collection = meta.get("collection", "")
+            loc = self.store._pick_location()
+            base = volume_file_name(loc.directory, collection, vid)
+            for ext in meta["files"]:
+                self._pull_file(source, vid, collection, ext, base + ext)
+            v = self.store.mount_volume(vid, collection)
+            rearmed_rows = None
+            try:
+                _attach_online_ec(v)  # no-op unless the .vif demands it
+                if v.online_ec is not None:
+                    rearmed_rows = v.online_ec.rearm()
+            except Exception:
+                # parity re-arm failed: the volume still serves off the
+                # .dat and heartbeats without ec_online, so the layout
+                # re-demands its real replica count and repair owns it
+                if v.online_ec is not None:
+                    v.online_ec.close()
+                    v.online_ec = None
+            self.heartbeat_once()
+            out = {"ok": True, "volume": vid, "size": v.size(),
+                   "last_append_at_ns": v.last_append_at_ns}
+            if rearmed_rows is not None:
+                out["ec_online_rearmed_rows"] = rearmed_rows
+            return Response(out)
+
+        @svc.route("POST", r"/admin/volume/mount")
+        def volume_mount(req: Request) -> Response:
+            p = req.json()
+            v = self.store.mount_volume(int(p["volume"]), p.get("collection", ""))
+            self.heartbeat_once()
+            return Response({"ok": True, "size": v.size()})
+
+        @svc.route("POST", r"/admin/volume/unmount")
+        def volume_unmount(req: Request) -> Response:
+            self.store.unmount_volume(int(req.json()["volume"]))
+            self.heartbeat_once()
+            return Response({"ok": True})
+
+        @svc.route("GET", r"/admin/volume/needle_blob")
+        def needle_blob(req: Request) -> Response:
+            """Raw on-disk needle record (`ReadNeedleBlob`)."""
+            vid = int(req.query["volume"])
+            offset = int(req.query["offset"])
+            size = int(req.query["size"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            return Response(
+                v.read_needle_blob(offset, size),
+                content_type="application/octet-stream",
+            )
+
+        @svc.route("POST", r"/admin/volume/write_needle_blob")
+        def write_needle_blob(req: Request) -> Response:
+            """Append a needle copied raw from a replica (`WriteNeedleBlob` —
+            volume.check.disk repair path). Body = the on-disk record."""
+            vid = int(req.query["volume"])
+            size = int(req.query["size"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            n = Needle.from_bytes(req.body, size, v.version())
+            v.write_needle(n)
+            return Response({"ok": True, "id": n.id})
+
+        @svc.route("GET", r"/admin/volume/needles")
+        def volume_needles(req: Request) -> Response:
+            """Live needle ids+sizes from the index — replica diffing for
+            volume.check.disk and the scrub sync."""
+            vid = int(req.query["volume"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            needles = [
+                {"id": key, "offset": off, "size": sz}
+                for key, off, sz in v.nm.ascending_visit()
+            ]
+            return Response({"volume": vid, "needles": needles})
+
+        @svc.route("GET", r"/admin/fsck")
+        def fsck(req: Request) -> Response:
+            """Walk the index and CRC-verify every live needle
+            (`volume_checking.go` + shell volume.fsck)."""
+            vid = int(req.query["volume"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            checked, errors = 0, []
+            for key, off, sz in v.nm.ascending_visit():
+                try:
+                    v.read_needle(key)
+                    checked += 1
+                except Exception as e:
+                    errors.append({"id": key, "error": str(e)})
+            return Response(
+                {"volume": vid, "checked": checked, "errors": errors,
+                 "ok": not errors}
+            )
+
+        # --- integrity scrub plane (maintenance/scrub.py) -----------------
+        @svc.route("GET", r"/admin/scrub/status")
+        def scrub_status(req: Request) -> Response:
+            if self.scrubber is None:
+                return Response({"error": "scrubber not started"}, 503)
+            out = self.scrubber.status()
+            out["interval"] = self.scrub_interval
+            return Response(out)
+
+        @svc.route("POST", r"/admin/scrub/run")
+        def scrub_run(req: Request) -> Response:
+            """One synchronous, throttled scrub pass (whole store, or one
+            volume) — the volume.scrub verb's entry. Detection only:
+            repairs route through volume.scrub -apply. A kernel or codec
+            failure is a 500 `codec_failed` naming this server."""
+            if self.scrubber is None:
+                return Response({"error": "scrubber not started"}, 503)
+            try:
+                p = req.json()
+            except ValueError:
+                p = {}
+            vid = int(p["volume"]) if p.get("volume") is not None else None
+            try:
+                found = self.scrubber.scrub_pass(volume_id=vid)
+            except ScrubCodecFailed as e:
+                return Response({"error": "codec_failed", "server": self.node_id,
+                                 "detail": str(e)[:200]}, 500)
+            if found:
+                self.heartbeat_once()  # the master learns immediately
+            return Response({
+                "ok": True,
+                "findings": [f.to_dict() for f in found],
+                "stats": dict(self.scrubber.stats),
+            })
+
+        @svc.route("POST", r"/admin/scrub/resolve")
+        def scrub_resolve(req: Request) -> Response:
+            """Drop findings a just-applied repair addressed (the shard and
+            parity heals call it), so the heartbeat stops re-advertising
+            healed damage. The next pass re-verifies."""
+            if self.scrubber is None:
+                return Response({"error": "scrubber not started"}, 503)
+            p = req.json()
+            kind = p.get("kind")
+            dropped = self.scrubber.resolve(
+                kind=kind,
+                volume=int(p["volume"]) if p.get("volume") is not None
+                else None,
+                needle=int(p["needle"]) if p.get("needle") is not None
+                else None,
+            )
+            if kind in self.scrubber.counters["repairs"]:
+                self.scrubber.count_repair(kind)
+            if dropped:
+                self.heartbeat_once()
+            return Response({"ok": True, "resolved": dropped})
+
+        @svc.route("GET", r"/admin/scrub/needle")
+        def scrub_needle(req: Request) -> Response:
+            """One needle's record, read through the full verifying path
+            (CRC + degraded-read ladder) and re-serialized canonically —
+            the verified-good source side of a corrupt-needle repair."""
+            vid = int(req.query["volume"])
+            needle_id = int(req.query["needle"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            try:
+                n = v.read_needle(needle_id)
+            except NotFound:
+                return Response({"error": "needle not found"}, 404)
+            except Exception as e:
+                # this holder can't prove the needle either: not a source
+                return Response({"error": f"unverifiable: {e}"}, 409)
+            return Response(
+                n.to_bytes(v.version()),
+                content_type="application/octet-stream",
+            )
+
+        @svc.route("POST", r"/admin/scrub/repair_needle")
+        def scrub_repair_needle(req: Request) -> Response:
+            """Heal one corrupt needle in place: re-append a verified
+            copy (from `source`'s /admin/scrub/needle, or reconstructed
+            locally through the degraded-read ladder when this volume
+            has EC redundancy). The needle map then points at the clean
+            record; the corrupt bytes become vacuumable garbage."""
+            p = req.json()
+            vid = int(p["volume"])
+            needle_id = int(p["needle"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            source = (p.get("source") or "").rstrip("/")
+            try:
+                if source:
+                    status, _, blob = http_request(
+                        "GET",
+                        f"{source}/admin/scrub/needle?volume={vid}"
+                        f"&needle={needle_id}",
+                        timeout=60,
+                    )
+                    if status != 200:
+                        return Response(
+                            {"error": f"source -> {status}"}, 502)
+                    n = Needle.from_bytes(blob, version=v.version())
+                else:
+                    # local redundancy: read_needle's degraded ladder
+                    # reconstructs from online/sealed EC parity
+                    n = v.read_needle(needle_id)
+            except Exception as e:
+                return Response(
+                    {"error": f"no verified copy: {e}"}, 409)
+            if n.id != needle_id:
+                return Response({"error": "source returned wrong needle"},
+                                409)
+            v.write_needle(n)
+            if self.scrubber is not None:
+                self.scrubber.resolve(kind="corrupt_needle", volume=vid,
+                                      needle=needle_id)
+                self.scrubber.count_repair("corrupt_needle")
+            self.heartbeat_once()  # digest/finding state changed
+            return Response({"ok": True, "needle": f"{needle_id:x}",
+                             "source": source or "local-reconstruction"})
+
+        @svc.route("POST", r"/admin/scrub/sync")
+        def scrub_sync(req: Request) -> Response:
+            """Anti-entropy re-sync of THIS holder's replica from a
+            digest-majority source: pull the source's live needle list,
+            append verified copies of needles we miss, tombstone needles
+            the majority deleted. Needle-level — no whole-volume copy."""
+            p = req.json()
+            vid = int(p["volume"])
+            source = p["source"].rstrip("/")
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            listing = get_json(
+                f"{source}/admin/volume/needles?volume={vid}", timeout=300)
+            theirs = {int(n["id"]): n for n in listing.get("needles", [])}
+            mine = {key for key, _off, _sz in v.nm.ascending_visit()}
+            if not theirs and mine:
+                # an empty source would tombstone the whole replica:
+                # refuse (fix_replication/human territory)
+                return Response(
+                    {"error": "source reports no live needles; refusing"
+                              " to mass-delete this replica"}, 409)
+            copied, deleted, failed = 0, 0, 0
+            for nid, meta in theirs.items():
+                if nid in mine:
+                    continue
+                status, _, blob = http_request(
+                    "GET",
+                    f"{source}/admin/volume/needle_blob?volume={vid}"
+                    f"&offset={meta['offset']}&size={meta['size']}",
+                    timeout=60,
+                )
+                if status != 200:
+                    failed += 1
+                    continue
+                try:  # from_bytes CRC-verifies: never sync damage in
+                    n = Needle.from_bytes(
+                        blob, size=meta["size"], version=v.version())
+                    v.write_needle(n)
+                    copied += 1
+                except Exception:
+                    failed += 1
+            for nid in mine - set(theirs):
+                # the majority tombstoned it; a diverged replica that
+                # missed the delete must not resurrect it on failover
+                v.delete_needle(Needle(id=nid))
+                deleted += 1
+            if self.scrubber is not None:
+                self.scrubber.resolve(kind="replica_divergence",
+                                      volume=vid)
+                self.scrubber.count_repair("replica_divergence")
+            self.heartbeat_once()  # fresh digest -> divergence clears
+            return Response({"ok": True, "copied": copied,
+                             "deleted": deleted, "failed": failed})
 
         # --- EC verbs (volume_grpc_erasure_coding.go) ---
         @svc.route("POST", r"/admin/ec/generate")
@@ -1339,14 +1798,6 @@ class VolumeServer:
         key, cookie = parse_key_hash_with_delta(req.match.group(2))
         return vid, key, cookie
 
-    def _needs_replicas(self, vid: int) -> bool:
-        """A classic volume whose placement asks for copies elsewhere: the
-        port cannot fan a write out, so it refuses the write."""
-        v = self.store.get_volume(vid)
-        if v is None or (v.online_ec is not None and v.online_ec.active):
-            return False
-        return v.super_block.replica_placement.copy_count() > 1
-
     def _do_read(self, req: Request, head: bool) -> Response:
         try:
             vid, key, cookie = self._parse_fid(req)
@@ -1400,13 +1851,12 @@ class VolumeServer:
         except ValueError as e:
             return Response({"error": str(e)}, 400)
         is_replicate = req.query.get("type") == "replicate"
-        if not is_replicate and self._needs_replicas(vid):
-            return Response({"error": "peer replication is not ported"}, 500)
+        body = req.body
         part = req.multipart_file()
         if part is not None:
             filename, mime, data = part
         else:
-            data = req.body
+            data = body
             filename = req.headers.get("X-File-Name", "")
             mime = req.headers.get("Content-Type", "")
             if mime in ("application/json", "application/x-www-form-urlencoded"):
@@ -1428,14 +1878,36 @@ class VolumeServer:
             self.store.write(vid, n, check_cookie=not is_replicate)
         except VolumeError as e:
             return Response({"error": str(e)}, 500)
-        v = self.store.get_volume(vid)
-        if not is_replicate and v is not None and v.online_ec is not None \
-                and v.online_ec.active:
-            # parity-only durability: the ack rides on local .dat
-            # durability + the streamed parity emit
-            v.online_ec.pump()
-        if v is not None and v.size() >= self.volume_size_limit:
-            self.heartbeat_once()  # tell the master it's full
+        if not is_replicate:
+            v = self.store.get_volume(vid)
+            if v is not None and v.online_ec is not None \
+                    and v.online_ec.active:
+                # parity-only durability: the ack rides on local .dat
+                # durability + the streamed parity emit — no replica
+                # fan-out (write amplification 1.4x instead of 2.0x)
+                v.online_ec.pump()
+                if v.size() >= self.volume_size_limit:
+                    self.heartbeat_once()
+                return Response(
+                    {"name": filename, "size": len(data), "eTag": n.etag()},
+                    201,
+                )
+            rp = v.super_block.replica_placement if v else None
+            if rp and rp.copy_count() > 1:
+                try:
+                    extra = {"ttl": ttl_s} if ttl_s else {}
+                    self._replicate(
+                        "POST", vid, req.match.group(2), body,
+                        {
+                            "Content-Type": req.headers.get("Content-Type", ""),
+                            "X-File-Name": req.headers.get("X-File-Name", ""),
+                        },
+                        extra_query=extra,
+                    )
+                except VolumeError as e:
+                    return Response({"error": str(e)}, 500)
+            if v and v.size() >= self.volume_size_limit:
+                self.heartbeat_once()  # tell the master it's full
         return Response(
             {"name": filename, "size": len(data), "eTag": n.etag()}, 201
         )
@@ -1446,15 +1918,22 @@ class VolumeServer:
         except ValueError as e:
             return Response({"error": str(e)}, 400)
         is_replicate = req.query.get("type") == "replicate"
-        if not is_replicate and self._needs_replicas(vid):
-            return Response({"error": "peer replication is not ported"}, 500)
         n = Needle(cookie=cookie, id=key)
         try:
             freed = self.store.delete(vid, n)
         except VolumeError as e:
             return Response({"error": str(e)}, 500)
-        v = self.store.get_volume(vid)
-        if not is_replicate and v is not None and v.online_ec is not None \
-                and v.online_ec.active:
-            v.online_ec.pump()  # the tombstone append rides the stripe
+        if not is_replicate:
+            v = self.store.get_volume(vid)
+            if v is not None and v.online_ec is not None \
+                    and v.online_ec.active:
+                v.online_ec.pump()  # the tombstone append rides the stripe
+            else:
+                rp = v.super_block.replica_placement if v else None
+                if rp and rp.copy_count() > 1:
+                    try:
+                        self._replicate(
+                            "DELETE", vid, req.match.group(2), b"", {})
+                    except VolumeError as e:
+                        return Response({"error": str(e)}, 500)
         return Response({"size": freed}, 202)

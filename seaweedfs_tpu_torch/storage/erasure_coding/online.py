@@ -85,6 +85,12 @@ _JOURNAL_MAGIC = 0x53574550  # "SWEP"
 _JOURNAL_REC = struct.Struct("<IQQI")
 
 
+class ParityCodecFailed(RuntimeError):
+    """`scrub_sample`'s parity recompute raised in the codec (the kernel
+    or its copies): the scrub pass must fail, not read it as a clean or an
+    unreadable volume."""
+
+
 class OnlineEcWriter:
     """Streams one live Volume's appends through the RS encoder,
     emitting parity shards incrementally. See module docstring. The codec
@@ -414,7 +420,8 @@ class OnlineEcWriter:
         """Recompute-and-compare a sampled column slice of up to
         `max_rows` durable stripe rows; a slice mismatch escalates to the
         full-width row before it is reported. Returns (bytes_verified,
-        mismatching row indices)."""
+        mismatching row indices); a codec failure raises
+        ParityCodecFailed."""
         with self._lock:
             if not self._parity_fds or self.sealed:
                 return 0, []
@@ -449,7 +456,11 @@ class OnlineEcWriter:
                     checked += cost
                     if not parity:
                         break  # torn/short: parity_health's finding
-                    expect = self.codec.encode(np.stack(data))
+                    try:
+                        expect = self.codec.encode(np.stack(data))
+                    except Exception as e:
+                        raise ParityCodecFailed(
+                            f"parity recompute of row {row}: {e}") from e
                     ok = all(
                         np.array_equal(expect[p], blk)
                         for p, blk in parity.items()

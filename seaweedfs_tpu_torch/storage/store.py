@@ -250,6 +250,16 @@ class Store:
                     return v
         raise VolumeError(f"no local .dat for volume {vid}")
 
+    def unmount_volume(self, vid: int) -> None:
+        """Close + forget, keeping files on disk (`VolumeUnmount`)."""
+        with self._lock:
+            for loc in self.locations:
+                v = loc.volumes.pop(vid, None)
+                if v is not None:
+                    v.close()
+                    return
+        raise VolumeError(f"volume {vid} not found")
+
     # --- EC shard hosting -----------------------------------------------------
     def mount_ec_volume(self, vid: int, collection: str = "") -> EcVolume:
         for loc in self.locations:

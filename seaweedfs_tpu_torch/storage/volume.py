@@ -17,7 +17,7 @@ The port's copy of `seaweedfs_tpu/storage/volume.py` (after
   - incremental backup: binary search needles by AppendAtNs
 
 Not ported: remote tiering (a volume whose `.vif` lists a remote file
-does not open), replication reconfiguration, the native fastlane hook,
+does not open), the native fastlane hook,
 fault points, events and metrics. Thread-safety: one writer lock; reads use positional os.pread.
 """
 
@@ -394,6 +394,13 @@ class Volume:
 
     def read_needle_blob(self, offset: int, size: int) -> bytes:
         return self._dat.read_at(get_actual_size(size, self.version()), offset)
+
+    def configure_replication(self, rp: ReplicaPlacement) -> None:
+        """Rewrite the superblock's replica-placement byte in place
+        (`volume_super_block.go` + shell volume.configure.replication)."""
+        with self._write_lock:
+            self.super_block.replica_placement = rp
+            self._dat.write_at(self.super_block.to_bytes()[:8], 0)
 
     # --- vacuum --------------------------------------------------------------
     def compact(self) -> None:

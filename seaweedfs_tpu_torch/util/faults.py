@@ -1,11 +1,12 @@
 """Named fault points: inject errors and latency at the port's seams.
 
 The port's copy of the part of `seaweedfs_tpu/util/faults.py` that the
-pipelined rebuild plane's seam and the filer's chunk relay need:
+pipelined rebuild plane's seam, the filer's chunk relay and the volume
+server's replica fan-out need:
 `FaultInjected`, `FaultSpec`, `FaultPoint.draw` / `hit`, `act` for the
 `error` and `latency` modes, `register`, `point`, `arm`, `disarm` and
 `disarm_all`. Tests arm a point to kill one hop of a rebuild chain
-mid-run, or to fail a filer's chunk read.
+mid-run, to fail a filer's chunk read, or to fail a replica push.
 
 `ALL_POINTS` is the closed set of seam names the port registers;
 `register()` rejects anything else, so a typo'd seam cannot silently never
@@ -35,6 +36,8 @@ ALL_POINTS = (
     "repair.partial_fetch",   # pipelined-rebuild partial-sum hop (/admin/ec/
                               # partial*): error = a chain hop dies mid-rebuild
     "filer.chunk.read",       # filer -> volume chunk relay (WeedClient.fetch)
+    "volume.replicate.fanout",  # a replicated write's push to the other
+                                # holders: error = the write is not acked
 )
 
 MODES = ("error", "latency")

@@ -6,13 +6,18 @@ pump, then all 14 shards and the .ecx after the seal. Tolerance 0.
 
 Both packages stamp needles with `time.time_ns()`; each package's needle
 module gets its own copy of one deterministic clock, so the two .dat files
-are equal byte for byte.
+are equal byte for byte. Both writers age a partial row on
+`time.monotonic()` (the 2 s `flush_age`): each package's online module
+gets the same fixed monotonic clock, so a slow run (a loaded test worker)
+cannot trickle-flush one writer's tail row and not the other's; a test
+that wants the flush passes `now=` itself.
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import time
 import types
 
 import numpy as np
@@ -20,6 +25,7 @@ import pytest
 
 from seaweedfs_tpu.ops.rs_kernel import RSCodec as RefCodec
 from seaweedfs_tpu.storage import needle as ref_needle_mod
+from seaweedfs_tpu.storage.erasure_coding import online as ref_online_mod
 from seaweedfs_tpu.storage.erasure_coding import encoder as ref_encoder
 from seaweedfs_tpu.storage.erasure_coding.online import (
     PATHOLOGICAL_REASONS as REF_PATHOLOGICAL,
@@ -47,11 +53,15 @@ SEALED_FILES = (".dat", ".idx", ".vif", ".ecx") + tuple(
 
 @pytest.fixture
 def clock(monkeypatch):
-    """The same deterministic time_ns sequence for each package's needles."""
+    """The same deterministic time_ns sequence for each package's needles,
+    and one fixed monotonic clock for each package's writers."""
     for mod in (needle_mod, ref_needle_mod):
         ticks = itertools.count(1_700_000_000_000_000_000, 1_000)
         monkeypatch.setattr(mod, "time", types.SimpleNamespace(
             time_ns=lambda t=ticks: next(t)))
+    for mod in (online, ref_online_mod):
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+            monotonic=lambda: 1000.0, perf_counter=time.perf_counter))
 
 
 class Twin:

@@ -171,8 +171,16 @@ def test_ec_balance_moves_equal_reference(seed):
 
 def test_run_command_help_unknown_and_lock():
     env = CommandEnv("http://127.0.0.1:1")
+    volume_verbs = [
+        "volume.balance", "volume.check.disk", "volume.configure.replication",
+        "volume.copy", "volume.delete", "volume.delete.empty",
+        "volume.fix.replication", "volume.fsck", "volume.mark", "volume.mount",
+        "volume.move", "volume.scrub", "volume.server.evacuate",
+        "volume.server.leave", "volume.unmount", "volume.vacuum",
+        "volume.vacuum.disable", "volume.vacuum.enable"]
     assert run_command(env, "help").split() == sorted(
-        ["ec.balance", "ec.decode", "ec.encode", "ec.rebuild", "lock", "unlock"])
+        ["ec.balance", "ec.decode", "ec.encode", "ec.rebuild", "lock", "unlock"]
+        + volume_verbs)
     assert "rebuild" in run_command(env, "help ec.rebuild")
     assert run_command(env, "") == ""
     with pytest.raises(ShellError, match="unknown command"):

@@ -482,8 +482,15 @@ def test_volume_server_online_ec_flow(server, tmp_path):
 def test_volume_server_online_rebuild_and_refusals(server):
     vs, d = server
     u = vs.url
-    assert http_request("POST", f"{u}/admin/allocate_volume", b'{"volume": 2, "replication": "001"}',
-                        {"Content-Type": "application/json"})[0] == 400
+    # a replicated volume is allocated; with no master to name its other
+    # holder, a write to it fails (the fan-out is all or nothing)
+    assert http_request("POST", f"{u}/admin/allocate_volume", b'{"volume": 3, "replication": "001"}',
+                        {"Content-Type": "application/json"})[0] == 200
+    assert str(vs.store.get_volume(3).super_block.replica_placement) == "001"
+    status, _, out = http_request("POST", f"{u}/3,{file_id.format_needle_id_cookie(1, 5)}", b"x")
+    assert status == 500 and b"replicate lookup failed" in out
+    post_json(u + "/admin/delete_volume", {"volume": 3})
+    assert vs.store.get_volume(3) is None
     post_json(u + "/admin/allocate_volume", {"volume": 2, "ecOnline": True,
                                              "ecOnlineBlock": BLOCK})
     rng = np.random.default_rng(2)
