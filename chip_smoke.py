@@ -6,6 +6,7 @@
                           [--dedup-gib GIB] [--online-mib MIB] [--cluster-mib MIB]
                           [--mesh-volumes N] [--mesh-mib MIB] [--filer-files N]
                           [--filer-large-mib MIB] [--scrub-files N] [--scrub-mib MIB]
+                          [--maint-mib MIB] [--maint-files N]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -153,7 +154,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               plain version and the host CRC; pass GB/s and needles/s by
               kernel, launches, repair walls, vacuum wall and bytes reclaimed,
               the kernels at (1024, 4096) and (10, 4096), the wall (limit 150 s)
- 14. entry    entry() on the card equal to the CPU codec
+ 14. maintenance  the maintenance daemon healing with no shell command: a
+              port master (`maintenance=True`, scans every 1 s, garbage
+              threshold 0.3) and four volume servers (racks r1, r1, r2, r2;
+              scrub loop every 3 s) on the card, one process; with the daemon
+              paused while the shell holds the lock, --maint-mib (256) MiB of
+              log-uniform needles in one volume `ec.encode`d over the four,
+              and --maint-files (2,048) seeded 4 KiB files through
+              /dir/assign?replication=001 from 8 waiting threads; then at
+              once 40 % of the files deleted, one needle byte flipped on one
+              replica, data shard 3 lost (unmounted, removed, the rest
+              remounted), and the daemon enabled: within 90 s a completed
+              ec_rebuild, scrub and vacuum of every replicated volume and no
+              failed task; the rebuilt shard equal to the lost one and to the
+              plain version on the card, the re-copied needle equal to the
+              good replica's, every replica shrunk, gf256_matmul and
+              crc32c_batch launched in the heal window, a clean
+              `volume.scrub -dryRun`, every file read back, one flush's CRCs
+              equal to the plain version's; the time to heal of each kind,
+              scans, tasks by type and state, the rebuild mode `auto` chose,
+              launches, the card's name and power limit, the wall (limit 150 s)
+ 15. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -2194,16 +2215,6 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
         gen_s = time.perf_counter() - t0
         errors = []
 
-        def run_threads(fn, n: int) -> float:
-            threads = [threading.Thread(target=fn, args=(t,)) for t in range(n)]
-            t0 = time.perf_counter()
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join()
-            check(not errors, f"filer phase: {errors[:3]}")
-            return time.perf_counter() - t0
-
         def small_path(t: int, i: int) -> str:
             return f"/small/t{t:02d}/f{i:06d}"
 
@@ -2227,6 +2238,7 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
                 c.close()
 
         small_s = run_threads(put_small, FILER_THREADS)
+        check(not errors, f"filer phase: {errors[:3]}")
         # 2. large uploads from 4 threads, then one overwritten and one deleted
         large_s = [0.0] * FILER_LARGE
 
@@ -2246,6 +2258,7 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
                 c.close()
 
         large_wall = run_threads(put_large, FILER_LARGE)
+        check(not errors, f"filer phase: {errors[:3]}")
         freed = [c.file_id for k in (0, 1) for c in filer.filer.find_entry(f"/large/{k}").chunks]
         t0 = time.perf_counter()
         put_large(FILER_LARGE, "/large/0", large[FILER_LARGE])
@@ -2414,6 +2427,58 @@ def scrub_needle_equal(a, b, nid: int) -> bool:
         (y.cookie, y.id, y.size, y.data, y.flags, y.name, y.mime, y.checksum)
 
 
+def run_threads(fn, n: int) -> float:
+    """fn(t) on n threads at once; the wall until the last one ends."""
+    threads = [threading.Thread(target=fn, args=(t,)) for t in range(n)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return time.perf_counter() - t0
+
+
+def replicated_ingest(master_url: str, raw: bytes, file_bytes: int, threads: int) -> dict:
+    """len(raw) // file_bytes files through /dir/assign?replication=001 and a
+    POST each, from `threads` threads that each wait for their 201 (each
+    write fans out to its replica before it is acked). Returns the files
+    [(fid, url)], the wall and the PUT latency percentiles."""
+    n_files = len(raw) // file_bytes
+    files = [None] * n_files
+    lat = [[] for _ in range(threads)]
+    errors = []
+
+    def ingest(t: int) -> None:
+        m = Client(master_url)
+        conns = {}
+        try:
+            for i in range(t, n_files, threads):
+                t0 = time.perf_counter()
+                status, out = m.request("GET", "/dir/assign?replication=001")
+                if status != 200:
+                    errors.append(f"assign -> {status}: {out[:200]!r}")
+                    return
+                a = json.loads(out)
+                c = conns.get(a["url"]) or conns.setdefault(
+                    a["url"], Client(f"http://{a['url']}"))
+                status, out = c.request("POST", f"/{a['fid']}",
+                                        raw[i * file_bytes : (i + 1) * file_bytes], OCTET)
+                if status != 201:
+                    errors.append(f"POST {a['fid']} -> {status}: {out[:200]!r}")
+                    return
+                lat[t].append(time.perf_counter() - t0)
+                files[i] = (a["fid"], a["url"])
+        finally:
+            m.close()
+            for c in conns.values():
+                c.close()
+
+    ingest_s = run_threads(ingest, threads)
+    check(not errors and all(files), f"replicated ingest: {errors[:3]}")
+    return dict(files=files, ingest_s=ingest_s,
+                **{f"put_{k}": v for k, v in _pcts([x for t in lat for x in t]).items()})
+
+
 def scrub_phase(dev: torch.device, n_files: int, bulk_bytes: int, md5_ops_per_block: int,
                 seed: int) -> dict:
     """The volume integrity plane on the card: a port MasterServer (pulse
@@ -2458,43 +2523,8 @@ def scrub_phase(dev: torch.device, n_files: int, bulk_bytes: int, md5_ops_per_bl
 
         # 1. replicated ingest from 8 waiting threads
         raw = np.random.default_rng([seed, 16]).bytes(n_files * SCRUB_FILE)
-        files = [None] * n_files  # (fid, url)
-        lat = [[] for _ in range(SCRUB_THREADS)]
-        errors = []
-
-        def ingest(t: int) -> None:
-            m = Client(master.url)
-            conns = {}
-            try:
-                for i in range(t, n_files, SCRUB_THREADS):
-                    t0 = time.perf_counter()
-                    status, out = m.request("GET", "/dir/assign?replication=001")
-                    if status != 200:
-                        errors.append(f"assign -> {status}: {out[:200]!r}")
-                        return
-                    a = json.loads(out)
-                    c = conns.get(a["url"]) or conns.setdefault(
-                        a["url"], Client(f"http://{a['url']}"))
-                    status, out = c.request("POST", f"/{a['fid']}",
-                                            raw[i * SCRUB_FILE : (i + 1) * SCRUB_FILE], OCTET)
-                    if status != 201:
-                        errors.append(f"POST {a['fid']} -> {status}: {out[:200]!r}")
-                        return
-                    lat[t].append(time.perf_counter() - t0)
-                    files[i] = (a["fid"], a["url"])
-            finally:
-                m.close()
-                for c in conns.values():
-                    c.close()
-
-        threads = [threading.Thread(target=ingest, args=(t,)) for t in range(SCRUB_THREADS)]
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        ingest_s = time.perf_counter() - t0
-        check(not errors and all(files), f"scrub ingest: {errors[:3]}")
+        ing = replicated_ingest(master.url, raw, SCRUB_FILE, SCRUB_THREADS)
+        files = ing.pop("files")  # (fid, url)
         rvids = sorted({int(f.split(",")[0]) for f, _ in files})
         for vid in rvids:
             a, b = (vs.store.get_volume(vid) for vs in servers[:2])
@@ -2505,9 +2535,8 @@ def scrub_phase(dev: torch.device, n_files: int, bulk_bytes: int, md5_ops_per_bl
                   and all(scrub_needle_equal(a, b, k) for k in keys),
                   f"replicas of volume {vid} differ")
         res.update(files=n_files, file_bytes=SCRUB_FILE, threads=SCRUB_THREADS,
-                   replicated_volumes=len(rvids), ingest_s=ingest_s,
-                   files_per_s=n_files / ingest_s,
-                   **{f"put_{k}": v for k, v in _pcts([x for t in lat for x in t]).items()})
+                   replicated_volumes=len(rvids), files_per_s=n_files / ing["ingest_s"],
+                   **ing)
 
         # 2. in process on r2's server: the 4 KiB volume, the sealed volume
         # and the online volume
@@ -2788,6 +2817,330 @@ def scrub_phase(dev: torch.device, n_files: int, bulk_bytes: int, md5_ops_per_bl
     return res
 
 
+MAINT_RACKS = ("r1", "r1", "r2", "r2")  # replication 001 pairs servers of a rack
+MAINT_THREADS = 8  # client threads assigning and POSTing replicated files
+MAINT_FILE = 4096
+# the replicated volumes, allocated before the ingest so each server holds
+# two and the daemon's balance detector (spread > 2) stays quiet
+MAINT_REPLICATED = {1: (0, 1), 2: (0, 1), 3: (2, 3), 4: (2, 3)}
+MAINT_EC_VID = 9  # the log-uniform volume, written in process on server 0
+MAINT_SHARD = 3  # the data shard lost
+MAINT_GARBAGE_THRESHOLD = 0.3  # the master's (`-garbageThreshold`, the reference default)
+MAINT_DELETE_SHARE = 0.4  # of the replicated files: past the garbage threshold
+MAINT_SCRUB_S = 3.0  # each server's scrub loop
+MAINT_SCAN_S = 1.0  # the daemon's scan interval
+MAINT_DEADLINE_S = 90
+MAINT_WALL_LIMIT_S = 150
+MAINT_CUTS = ("256 MiB of log-uniform needles in one EC volume of the 30 GB volume limit",
+              "2,048 replicated 4 KiB files in 4 volumes: four servers, the master, the"
+              " daemon and 8 clients share one process and one GIL, inside the phase's"
+              " 150 s")
+
+
+def maintenance_phase(dev: torch.device, ec_bytes: int, n_files: int, seed: int) -> dict:
+    """The maintenance daemon heals with no shell command: a port master
+    (pulse 1 s, `maintenance=True`, scan interval 1 s, garbage threshold
+    0.3) and four VolumeServers on cuda (racks r1, r1, r2, r2; scrub loop
+    every 3 s, unthrottled), one process. Set-up, with the daemon paused
+    (POST /maintenance/disable: the shell holds the admin lock) and the
+    pulse's own vacuum round off (/vol/vacuum/disable): `ec_bytes`
+    of log-uniform needles written in process into one volume on server 0,
+    `lock`, `ec.encode` (14 shards over the four servers), `unlock`;
+    `n_files` seeded 4 KiB files through /dir/assign?replication=001 from 8
+    waiting threads into four volumes allocated two a server. Damage at
+    once: 40 % of the files deleted, one byte flipped in one needle body of
+    one replica's .dat, data shard 3 unmounted, its file removed and the
+    rest remounted. Then POST /maintenance/enable, and nothing else acts:
+    within 90 s /debug/maintenance must show a completed ec_rebuild,
+    scrub and vacuum (every replicated volume) and no failed task. Checks:
+    the rebuilt shard equal to the removed one and to gf_matmul_torch on
+    the card over 10 survivors, the re-copied needle equal to the good
+    replica's, every replica's .dat shrunk, gf256_matmul and crc32c_batch
+    launched in the heal window, a clean `volume.scrub -dryRun` after the
+    heal, every file read back (the deleted ones 404), one flush's CRCs
+    equal to the plain version's. Reports the time to heal of each kind
+    from its damage, the scans, the tasks by type and state, the mode
+    `auto` chose, the launches and the card's name and power limit."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-maint-", dir=REPO / "build")
+    master = MasterServer(port=0, pulse_seconds=1, maintenance=True,
+                          maintenance_interval=MAINT_SCAN_S,
+                          garbage_threshold=MAINT_GARBAGE_THRESHOLD)
+    master.start()
+    servers = []
+    res = {}
+    try:
+        mc = Client(master.url)
+        mc.json("/maintenance/disable", {})  # paused while the shell sets up
+        # a paused daemon hands vacuum back to the pulse: keep the pulse out,
+        # so every vacuum below is the daemon's
+        mc.json("/vol/vacuum/disable", {})
+        for i, rack in enumerate(MAINT_RACKS):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url, port=0, rack=rack,
+                              pulse_seconds=PULSE_S, scrub_interval=MAINT_SCRUB_S,
+                              scrub_rate_mb=0, device=dev)
+            vs.start()
+            servers.append(vs)
+        check(all(vs.device.type == dev.type and vs.scrubber.device.type == dev.type
+                  for vs in servers), "a maintenance-phase server or scrubber is off the card")
+        ids = [vs.node_id for vs in servers]
+
+        # 1. the EC volume: log-uniform needles in process, then ec.encode
+        s0 = servers[0]
+        Client(s0.url).json("/admin/allocate_volume", {"volume": MAINT_EC_VID})
+        rng = np.random.default_rng([seed, 21])
+        pool, used, nid, cookie = rng.bytes(ec_bytes), 0, 0, 0x6D61696E
+        ec_needles = []
+        while used < ec_bytes:
+            size = min(int(np.exp(rng.uniform(np.log(1024), np.log(4 * MIB)))), ec_bytes - used)
+            nid += 1
+            s0.store.write(MAINT_EC_VID, Needle(cookie=cookie, id=nid,
+                                                data=pool[used : used + size]))
+            ec_needles.append((nid, used, size))
+            used += size
+        s0.heartbeat_once()
+        env = CommandEnv(master.url)
+        check(run_command(env, "lock") == "lock acquired", "lock")
+        out = run_command(env, f"ec.encode -volumeId {MAINT_EC_VID}")
+        check("shards spread" in out, f"ec.encode: {out[-300:]}")
+        check(run_command(env, "unlock") == "lock released", "unlock")  # the last shell command
+
+        # 2. replicated ingest into volumes allocated two a server
+        for vid, pair in MAINT_REPLICATED.items():
+            for i in pair:
+                Client(servers[i].url).json("/admin/allocate_volume",
+                                            {"volume": vid, "replication": "001"})
+        for vs in servers:
+            vs.heartbeat_once()
+        raw = np.random.default_rng([seed, 22]).bytes(n_files * MAINT_FILE)
+        ing = replicated_ingest(master.url, raw, MAINT_FILE, MAINT_THREADS)
+        files = ing.pop("files")  # (fid, url)
+        check({int(f.split(",")[0]) for f, _ in files} <= set(MAINT_REPLICATED),
+              "an assign grew a volume past the four allocated")
+        res.update(ec_bytes=ec_bytes, ec_needles=len(ec_needles), files=n_files,
+                   files_per_s=n_files / ing["ingest_s"], **ing)
+        for vs in servers:
+            vs.heartbeat_once()
+        st = json.loads(mc.request("GET", "/debug/maintenance")[1])
+        check(st["configured"] and not st["enabled"] and not st["history"],
+              f"the daemon acted while paused: {st.get('history')}")
+
+        # 3. damage, all at once
+        pick = np.random.default_rng([seed, 23])
+        gone = set(pick.choice(n_files, int(MAINT_DELETE_SHARE * n_files),
+                               replace=False).tolist())
+        gone_list = sorted(gone)
+
+        def delete(t: int) -> None:
+            conns = {}
+            try:
+                for j in gone_list[t::MAINT_THREADS]:
+                    f, u = files[j]
+                    c = conns.get(u) or conns.setdefault(u, Client(f"http://{u}"))
+                    status, out = c.request("DELETE", f"/{f}")
+                    if status != 202:
+                        errors.append(f"DELETE {f} -> {status}: {out[:200]!r}")
+                        return
+            finally:
+                for c in conns.values():
+                    c.close()
+
+        errors = []
+        delete_s = run_threads(delete, MAINT_THREADS)
+        check(not errors, f"maintenance deletes: {errors[:3]}")
+        t_deleted = time.time()
+        pre_size = {(vid, i): servers[i].store.get_volume(vid).size()
+                    for vid, pair in MAINT_REPLICATED.items() for i in pair}
+        kept = [i for i in range(n_files) if i not in gone]
+        victim_file = kept[int(pick.integers(0, len(kept)))]
+        fid, url = files[victim_file]
+        fvid = int(fid.split(",")[0])
+        fnid, _ = file_id.parse_key_hash_with_delta(fid.split(",")[1])
+        bad_i, good_i = MAINT_REPLICATED[fvid]
+        bad_v = servers[bad_i].store.get_volume(fvid)
+        off, _ = bad_v.nm.get(fnid)
+        flip_byte(bad_v.base_name + ".dat", off + 16 + 4 + int(pick.integers(0, MAINT_FILE)))
+        t_flipped = time.time()
+        holder = next(vs for vs in servers if vs.store.get_ec_volume(MAINT_EC_VID) is not None
+                      and MAINT_SHARD in vs.store.get_ec_volume(MAINT_EC_VID).shard_ids())
+        shard_path = holder.store.get_ec_volume(MAINT_EC_VID).data_base + \
+            geometry.to_ext(MAINT_SHARD)
+        shard_copy = os.path.join(root, "shard.orig")
+        shutil.copyfile(shard_path, shard_copy)
+        hc = Client(holder.url)
+        hc.json("/admin/ec/unmount", {"volume": MAINT_EC_VID})
+        os.remove(shard_path)
+        hc.json("/admin/ec/mount", {"volume": MAINT_EC_VID})  # the other shards; it heartbeats
+        t_lost = time.time()
+        res.update(deleted=len(gone), delete_s=delete_s, corrupt_volume=fvid,
+                   corrupt_node=ids[bad_i], lost_shard=MAINT_SHARD, shard_holder=holder.node_id)
+
+        # 4. the daemon alone heals
+        repair0 = decoder.REPAIR.snapshot()
+        zero_launches()
+        t_enabled = time.time()
+        mc.json("/maintenance/enable", {"dryRun": False})
+        # the volumes past the threshold (each, at full size): the vacuum's work
+        want_vacuum = {vid for vid, pair in MAINT_REPLICATED.items()
+                       if servers[pair[0]].store.get_volume(vid).garbage_level()
+                       > MAINT_GARBAGE_THRESHOLD}
+        check(want_vacuum, "no replicated volume crossed the garbage threshold")
+
+        def heals(h: dict) -> bool:
+            """A completed task that repaired this phase's damage: the
+            rebuild that wrote the lost shard, the scrub task that carried
+            the corrupt needle's finding, a vacuum (other scrub tasks, such
+            as a divergence seen while replicas compact, do not count)."""
+            t = h["task"]
+            if t["type"] == "ec_rebuild":
+                return any("rebuilt shards" in a for a in h.get("applied", []))
+            if t["type"] == "scrub":
+                return any(f["kind"] == "corrupt_needle" and f.get("needle") == fnid
+                           for f in t["params"].get("findings", []))
+            return t["type"] == "vacuum"
+
+        def heal_state(st: dict) -> tuple[dict, list]:
+            ended = {}
+            for h in st["history"]:
+                if h["state"] == "completed" and heals(h):
+                    t = h["task"]
+                    ended.setdefault((t["type"], t["volume_id"]),
+                                     (h["started"] + h["duration_ms"] / 1e3, h))
+            failed = [h for h in st["history"] if h["state"] == "failed"]
+            return ended, failed
+
+        deadline = t_enabled + MAINT_DEADLINE_S
+        while True:
+            st = json.loads(mc.request("GET", "/debug/maintenance")[1])
+            ended, failed = heal_state(st)
+            check(not failed, f"a maintenance task failed: {failed[:3]}")
+            present = {s for vs in servers
+                       for s in (vs.store.get_ec_volume(MAINT_EC_VID).shard_ids()
+                                 if vs.store.get_ec_volume(MAINT_EC_VID) else [])}
+            healed = (("ec_rebuild", MAINT_EC_VID) in ended and len(present) == 14
+                      and ("scrub", fvid) in ended
+                      and all(("vacuum", v) in ended for v in want_vacuum))
+            if healed:
+                break
+            check(time.time() < deadline,
+                  f"not healed within {MAINT_DEADLINE_S} s: completed {sorted(ended)},"
+                  f" shards {sorted(present)}, counts {st['counts']},"
+                  f" queued {st['scheduler']['queued'][:5]}")
+            time.sleep(0.25)
+        heal_window_s = time.time() - t_enabled
+        window = read_launches()
+        repair1 = decoder.REPAIR.snapshot()
+        st = json.loads(mc.request("GET", "/debug/maintenance")[1])
+        ended, failed = heal_state(st)
+        check(not failed, f"a maintenance task failed: {failed[:3]}")
+        mc.json("/maintenance/disable", {})  # the checks below take the admin lock
+        rebuild_entry = ended[("ec_rebuild", MAINT_EC_VID)][1]
+        applied = " ".join(rebuild_entry.get("applied", []))
+        mode = ("pipelined" if "(pipelined" in applied
+                else "classic" if "(classic)" in applied else None)
+        check(mode is not None, f"the ec_rebuild task applied nothing: {rebuild_entry}")
+        scrub_entry = ended[("scrub", fvid)][1]
+        check(scrub_entry.get("applied"), f"the scrub task applied nothing: {scrub_entry}")
+        for name in ("gf256_matmul", "crc32c_batch"):
+            check(window[name] > 0, f"the heal window launched no {name} kernel")
+        res.update(
+            heal_window_s=heal_window_s,
+            time_to_heal_s={
+                "ec_rebuild": ended[("ec_rebuild", MAINT_EC_VID)][0] - t_lost,
+                "scrub": ended[("scrub", fvid)][0] - t_flipped,
+                "vacuum_first": min(ended[("vacuum", v)][0] for v in want_vacuum) - t_deleted,
+                "vacuum_all": max(ended[("vacuum", v)][0] for v in want_vacuum) - t_deleted},
+            time_from_enable_s={
+                "ec_rebuild": ended[("ec_rebuild", MAINT_EC_VID)][0] - t_enabled,
+                "scrub": ended[("scrub", fvid)][0] - t_enabled,
+                "vacuum_all": max(ended[("vacuum", v)][0] for v in want_vacuum) - t_enabled},
+            task_ms={f"{k[0]}:{k[1]}": e[1]["duration_ms"] for k, e in sorted(ended.items())},
+            scans=st["scans"], tasks=st["counts"], seconds_by_type=st["seconds"],
+            failures=st["failures"], lazy_batch=st["lazy_batch"], events=st["events"],
+            rebuild_mode_auto_chose=mode, rebuild_applied=rebuild_entry.get("applied"),
+            repair_counters={k: {kk: repair1[k][kk] - repair0[k].get(kk, 0) for kk in repair1[k]}
+                             if isinstance(repair1[k], dict) else repair1[k] - repair0[k]
+                             for k in repair1},
+            launches={k: window[k] for k in ("gf256_matmul", "crc32c_batch")},
+            nvidia_smi=nvidia_smi())
+
+        # 5. what the heal left
+        ev = next(vs.store.get_ec_volume(MAINT_EC_VID) for vs in servers
+                  if vs.store.get_ec_volume(MAINT_EC_VID) is not None
+                  and MAINT_SHARD in vs.store.get_ec_volume(MAINT_EC_VID).shard_ids())
+        rebuilt = ev.data_base + geometry.to_ext(MAINT_SHARD)
+        check(same_file(rebuilt, shard_copy), "the rebuilt shard != the removed one")
+        paths = {}
+        for vs in servers:
+            e = vs.store.get_ec_volume(MAINT_EC_VID)
+            for s in (e.shard_ids() if e else []):
+                paths.setdefault(s, e.data_base + geometry.to_ext(s))
+        survivors = tuple(sorted(s for s in paths if s != MAINT_SHARD))[:10]
+        x = torch.stack([torch.from_numpy(np.fromfile(paths[s], np.uint8)) for s in survivors])
+        m = gf256.decode_matrix(10, 4, survivors, (MAINT_SHARD,))
+        plain = gf_matmul_torch(m, x.to(dev))[0].cpu().numpy()
+        del x
+        check(np.array_equal(plain, np.fromfile(rebuilt, np.uint8)),
+              "the rebuilt shard != gf_matmul_torch over 10 survivors on the card")
+        good_v = servers[good_i].store.get_volume(fvid)
+        bad_v = servers[bad_i].store.get_volume(fvid)
+        check(scrub_needle_equal(bad_v, good_v, fnid),
+              "the re-copied needle != the good replica's")
+        for vid in sorted(want_vacuum):
+            for i in MAINT_REPLICATED[vid]:
+                v = servers[i].store.get_volume(vid)
+                check(v.size() < pre_size[(vid, i)],
+                      f"volume {vid} on {ids[i]}: {v.size()} bytes, not below"
+                      f" {pre_size[(vid, i)]} after the vacuum")
+        res["reclaimed_bytes"] = {f"{vid}@s{i}": pre_size[(vid, i)]
+                                  - servers[i].store.get_volume(vid).size()
+                                  for vid in sorted(want_vacuum)
+                                  for i in MAINT_REPLICATED[vid]}
+        check(run_command(env, "lock") == "lock acquired", "lock after the heal")
+        out = run_command(env, "volume.scrub -dryRun")
+        check(out.endswith("scrub: clean — no silent damage found"),
+              f"the pass after the heal: {out[-400:]}")
+        run_command(env, "unlock")
+        conns = {}
+        for i, (f, u) in enumerate(files):
+            c = conns.get(u) or conns.setdefault(u, Client(f"http://{u}"))
+            status, body = c.request("GET", f"/{f}")
+            if i in gone:
+                check(status == 404, f"deleted {f} reads {status}")
+            else:
+                check(status == 200 and body == raw[i * MAINT_FILE : (i + 1) * MAINT_FILE],
+                      f"GET {f} after the heal reads wrong")
+        for c in conns.values():
+            c.close()
+        for nid, o, size in ec_needles[:: max(1, len(ec_needles) // 64)]:
+            status, _, body = http_request(
+                "GET", f"{servers[1].url}/{MAINT_EC_VID},"
+                       f"{file_id.format_needle_id_cookie(nid, cookie)}")
+            check(status == 200 and body == pool[o : o + size],
+                  f"EC needle {nid} after the heal reads wrong")
+        res.update(shard_restored=True, needle_restored=True, replicas_shrunk=True,
+                   clean_after_heal=True, files_read_back=n_files)
+
+        # one scrub flush of the files (1,024 of them) on the card: kernel
+        # against plain
+        n_flush = min(1024, n_files)
+        blocks = torch.from_numpy(np.frombuffer(raw[: n_flush * MAINT_FILE], np.uint8)
+                                  .reshape(n_flush, MAINT_FILE).copy()).to(dev)
+        got = u32(crc32c_batch_kernel(blocks)).cpu().numpy()
+        want = u32(crc32c_batch_torch(blocks)).cpu().numpy()
+        check(np.array_equal(got, want), "one flush's CRCs: kernel != plain version")
+        res["flush_crc_max_abs_err"] = int(np.abs(got.astype(np.int64) - want).max())
+    finally:
+        master.stop()  # the daemon's scan, worker and lease threads end first
+        for vs in servers:
+            vs.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    res.update(wall_s=wall, wall_limit_s=MAINT_WALL_LIMIT_S,
+               over_wall_limit=wall > MAINT_WALL_LIMIT_S, cuts=MAINT_CUTS)
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -2828,6 +3181,8 @@ def main() -> int:
     ap.add_argument("--filer-large-mib", type=int, default=256)
     ap.add_argument("--scrub-files", type=int, default=4096)
     ap.add_argument("--scrub-mib", type=int, default=1024)
+    ap.add_argument("--maint-mib", type=int, default=256)
+    ap.add_argument("--maint-files", type=int, default=2048)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2935,7 +3290,7 @@ def main() -> int:
     # the filer's HTTP path (BASELINE config 3 as the filer takes it); its own count
     fl = filer_phase(dev, args.filer_files, args.filer_large_mib * MIB, md5_block["ops"],
                      args.seed)
-    emit("filer", **fl)
+    emit("filer", switch_interval_s=sys.getswitchinterval(), **fl)
     for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
         launches[name] += ms["launches"][name] + fl["launches"][name]
     timed["gf256_matmul"]["shapes"].append(ms["kernel"])
@@ -2944,13 +3299,21 @@ def main() -> int:
 
     # the volume integrity plane (replication, scrub, repairs, vacuum); its own count
     sc = scrub_phase(dev, args.scrub_files, args.scrub_mib * MIB, md5_block["ops"], args.seed)
-    emit("scrub", **sc)
+    emit("scrub", switch_interval_s=sys.getswitchinterval(), **sc)
     for name in ("gf256_matmul", "crc32c_batch"):
         launches[name] += sc["launches"][name]
     timed["gf256_matmul"]["shapes"].extend(sc["gf_kernel"])
     timed["crc32c_batch"]["shapes"].extend(sc["crc_kernel"])
     timed["crc32c_batch"]["max_abs_err"] = max(timed["crc32c_batch"]["max_abs_err"],
                                                sc["flush_crc_max_abs_err"])
+
+    # the maintenance daemon's heals, no shell command after the damage; its own count
+    mt = maintenance_phase(dev, args.maint_mib * MIB, args.maint_files, args.seed)
+    emit("maintenance", switch_interval_s=sys.getswitchinterval(), **mt)
+    for name in ("gf256_matmul", "crc32c_batch"):
+        launches[name] += mt["launches"][name]
+    timed["crc32c_batch"]["max_abs_err"] = max(timed["crc32c_batch"]["max_abs_err"],
+                                               mt["flush_crc_max_abs_err"])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

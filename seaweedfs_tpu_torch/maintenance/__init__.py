@@ -1,16 +1,31 @@
-"""Maintenance: the integrity scrub plane.
+"""Autonomous maintenance: detect → plan → heal, and the integrity scrub
+plane.
 
-The port's copy of `seaweedfs_tpu/maintenance/`, `scrub.py` only: the
+The port's copy of `seaweedfs_tpu/maintenance/`: detectors
+(detectors.py) scan the master's live topology and emit typed
+RepairTasks, a bounded scheduler (scheduler.py) dedups, prioritizes and
+throttles them, and executors (executors.py) heal through the same
+plan/apply helpers the admin-shell repair verbs use. MaintenanceDaemon
+(daemon.py) runs the loop inside the port's master behind
+`maintenance=True` (off by default; `maintenance_dry_run=True` plans
+without executing) and serves /debug/maintenance. scrub.py holds the
 volume-side scrubber, the master-side `detect` of findings and replica
-divergence, and the repair routing the `volume.scrub` verb applies. Not
-ported yet: the maintenance daemon and its detectors, scheduler and
-executors (`daemon.py`, `detectors.py`, `scheduler.py`, `executors.py`).
+divergence, and the repair routing shared by the `scrub` task and the
+`volume.scrub` verb.
+
+The daemon is host code; the heals it starts run `gf256_matmul` and
+`crc32c_batch` on the volume servers' devices. Not ported: the JAX
+package's metric families, alert hook, events journal and trace spans
+(plain counters in `MaintenanceDaemon.status()` instead).
 """
 
+from .daemon import ALERT_SCANS, MaintenanceDaemon
+from .detectors import DETECTORS, TASK_TYPES, RepairTask, TaskSpec, scan
+from .executors import EXECUTORS, execute
+from .scheduler import RepairScheduler
 from .scrub import (
     EMPTY_NEEDLE_DIGEST,
     SCRUB_FINDING_KINDS,
-    RepairTask,
     ScrubCodecFailed,
     ScrubFinding,
     TokenBucket,
@@ -23,8 +38,10 @@ from .scrub import (
 )
 
 __all__ = [
-    "EMPTY_NEEDLE_DIGEST", "SCRUB_FINDING_KINDS", "RepairTask",
-    "ScrubCodecFailed", "ScrubFinding", "TokenBucket", "VolumeScrubber",
-    "apply_scrub_repairs", "describe_scrub_repairs", "detect",
-    "needle_set_digest", "plan_scrub_repairs",
+    "ALERT_SCANS", "DETECTORS", "EMPTY_NEEDLE_DIGEST", "EXECUTORS",
+    "MaintenanceDaemon", "RepairScheduler", "RepairTask",
+    "SCRUB_FINDING_KINDS", "ScrubCodecFailed", "ScrubFinding", "TASK_TYPES",
+    "TaskSpec", "TokenBucket", "VolumeScrubber", "apply_scrub_repairs",
+    "describe_scrub_repairs", "detect", "execute", "needle_set_digest",
+    "plan_scrub_repairs", "scan",
 ]

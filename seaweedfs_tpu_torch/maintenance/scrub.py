@@ -89,10 +89,6 @@ MAX_BATCH_BLOCK = 1 << 20
 SAMPLE_BYTES = 4096
 SAMPLE_ROWS = 4
 
-# the JAX maintenance registry's `scrub` task priority
-# (seaweedfs_tpu/maintenance/detectors.py TASK_TYPES)
-SCRUB_TASK_PRIORITY = 2
-
 
 class ScrubCodecFailed(RuntimeError):
     """The CRC kernel or the EC codec raised during a pass. Never read as
@@ -150,34 +146,6 @@ class ScrubFinding:
             detail=d.get("detail", ""),
             detected_at=float(d.get("detected_at", 0.0)) or time.time(),
         )
-
-
-@dataclass(frozen=True)
-class RepairTask:
-    """The master-side `scrub` task `detect` emits (the JAX maintenance
-    `RepairTask`, scrub's type only). `key` is the dedup identity."""
-
-    type: str
-    volume_id: int | None = None
-    collection: str = ""
-    node: str = ""
-    priority: int = SCRUB_TASK_PRIORITY
-    reason: str = ""
-    params: dict = field(default_factory=dict, compare=False, hash=False)
-
-    @property
-    def key(self) -> tuple:
-        if self.volume_id is not None:
-            return (self.type, self.volume_id)
-        return (self.type, self.node)
-
-    def to_dict(self) -> dict:
-        return {
-            "type": self.type, "volume_id": self.volume_id,
-            "collection": self.collection, "node": self.node,
-            "priority": self.priority, "reason": self.reason,
-            "params": dict(self.params),
-        }
 
 
 class TokenBucket:
@@ -738,10 +706,13 @@ class VolumeScrubber:
 
 
 # --- master side: detector ----------------------------------------------------
-def detect(master) -> list[RepairTask]:
-    """Fold each node's heartbeat-reported findings into per-volume
-    `scrub` tasks, and run the anti-entropy digest comparison across
-    replica holders (pure metadata — no data moves until a repair)."""
+def detect(master) -> list:
+    """The `scrub` maintenance detector: fold each node's
+    heartbeat-reported findings into per-volume repair tasks, and run
+    the anti-entropy digest comparison across replica holders (pure
+    metadata — no data moves until the executor repairs)."""
+    from .detectors import _task
+
     by_vol: dict[int, list[dict]] = {}
     node_of: dict[int, str] = {}
     for node in master.topo.all_nodes():
@@ -803,7 +774,7 @@ def detect(master) -> list[RepairTask]:
     tasks = []
     for vid, fs in sorted(by_vol.items()):
         kinds = sorted({f["kind"] for f in fs})
-        tasks.append(RepairTask(
+        tasks.append(_task(
             "scrub", volume_id=vid,
             collection=fs[0].get("collection", ""),
             node=node_of.get(vid, ""),

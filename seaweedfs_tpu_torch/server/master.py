@@ -10,15 +10,24 @@ nodes and asks volume servers to compact volumes whose garbage crosses
 routes `POST /heartbeat`, `/dir/assign`, `/dir/lookup`, `GET
 /dir/ec_lookup`, `/dir/status`, `/cluster/status`, `/cluster/ps`, `POST
 /cluster/lock`, `/cluster/unlock`, `GET /col/list`, `POST /col/delete`,
-`GET /vol/vacuum` and `POST /vol/vacuum/{enable,disable}`.
+`GET /vol/vacuum`, `POST /vol/vacuum/{enable,disable}` and `GET
+/vol/status`.
 
-The master is host code and holds no device. One master is the leader:
-there is no raft, so the sequence lease is not needed.
+The maintenance daemon (`maintenance/daemon.py`): `maintenance=True`
+starts it at boot (`maintenance_dry_run` plans without executing;
+`maintenance_interval` is its scan period, `repair_lazy_window` its
+ec_rebuild lazy window), `POST /maintenance/enable` starts or reconfigures
+it at runtime (`dryRun`, `rebuildMode`, `lazyWindow`), `POST
+/maintenance/disable` pauses it, `POST /maintenance/scan` forces a scan,
+and `GET /debug/maintenance` serves its status. While it is enabled,
+dry-run included, it owns vacuum and the pulse's vacuum round is skipped.
+
+The master and the daemon are host code and hold no device. One master
+is the leader: there is no raft, so the sequence lease is not needed.
 
 Not ported: raft HA and the `/raft/*` routes, the native fastlane front
-door, JWT (`security`), the maintenance daemon (so only the
-`vacuum_enabled` gate decides the pulse's vacuum), telemetry, metrics,
-heat, `/ui`, `/cluster/register` and `/cluster/telemetry`.
+door, JWT (`security`), telemetry, metrics, heat, `/ui`,
+`/cluster/register` and `/cluster/telemetry`.
 """
 
 from __future__ import annotations
@@ -46,6 +55,10 @@ class MasterServer:
         ec_online: str = "",
         ec_online_block: int | None = None,
         garbage_threshold: float = 0.3,
+        maintenance: bool = False,
+        maintenance_dry_run: bool = False,
+        maintenance_interval: float | None = None,
+        repair_lazy_window: float = 0.0,
     ) -> None:
         seq = MemorySequencer(f"{meta_dir}/sequence.json" if meta_dir else None)
         self.topo = Topology(
@@ -69,6 +82,17 @@ class MasterServer:
         self._pulse: threading.Thread | None = None
         # the admin shell's exclusive lock
         self._admin_lock: tuple[str, float] | None = None  # (holder, expiry)
+        # autonomous maintenance: off by default; `maintenance` starts the
+        # detect->plan->heal daemon at boot, `maintenance_dry_run` plans
+        # without executing
+        self.maintenance = None
+        self._maintenance_flag = maintenance
+        self._maintenance_dry_run = maintenance_dry_run
+        self._maintenance_interval = maintenance_interval
+        # defer single-shard ec_rebuild dispatch up to this many seconds
+        # so co-stripe losses fold into one multi-target chain pass
+        self._repair_lazy_window = float(repair_lazy_window)
+        self._maintenance_lock = threading.Lock()
         self._routes()
 
     # --- lifecycle -------------------------------------------------------------
@@ -78,9 +102,56 @@ class MasterServer:
             target=self._pulse_loop, name="master-pulse", daemon=True
         )
         self._pulse.start()
+        if self._maintenance_flag:
+            self._ensure_maintenance(dry_run=self._maintenance_dry_run)
+
+    def _ensure_maintenance(self, dry_run: bool | None = False,
+                            rebuild_mode: str | None = None,
+                            lazy_window: float | None = None):
+        """Create (or reconfigure) and start the maintenance daemon — the
+        `maintenance` option at boot, or `cluster.maintenance -enable` at
+        runtime. dry_run=None preserves the daemon's current mode: a bare
+        re-enable must not silently flip a dry-run daemon into mutating
+        mode (rebuild_mode=None and lazy_window=None likewise). Locked:
+        two racing /maintenance/enable requests must not each start (and
+        one leak) a daemon, and an enable racing stop() must not start a
+        daemon that outlives the master."""
+        with self._maintenance_lock:
+            if self._stop.is_set():
+                raise RuntimeError("master is stopping")
+            if self.maintenance is None:
+                from ..maintenance import MaintenanceDaemon
+
+                daemon = MaintenanceDaemon(
+                    self, interval=self._maintenance_interval,
+                    dry_run=bool(dry_run),
+                    rebuild_mode=rebuild_mode or "auto",
+                    lazy_window=(
+                        self._repair_lazy_window if lazy_window is None
+                        else float(lazy_window)
+                    ),
+                )
+                daemon.start()
+                self.maintenance = daemon
+            else:
+                if dry_run is not None:
+                    self.maintenance.dry_run = bool(dry_run)
+                if rebuild_mode is not None:
+                    self.maintenance.rebuild_mode = rebuild_mode
+                if lazy_window is not None:
+                    self.maintenance.scheduler.lazy_window = \
+                        float(lazy_window)
+                self.maintenance.enabled = True
+            return self.maintenance
 
     def stop(self) -> None:  # idempotent: fixtures may stop twice
         self._stop.set()
+        # under the same lock as _ensure_maintenance: an in-flight enable
+        # must either finish first (and be stopped here) or observe _stop
+        with self._maintenance_lock:
+            if self.maintenance is not None:
+                self.maintenance.stop()
+                self.maintenance = None
         if self._pulse is not None:
             self._pulse.join()
             self._pulse = None
@@ -103,6 +174,11 @@ class MasterServer:
         """Ask volume servers to compact garbage-heavy volumes
         (`topology_vacuum.go:216`)."""
         if not self.vacuum_enabled:
+            return
+        # the maintenance daemon owns vacuum while it is on (dry-run
+        # included: the pulse mutating would break "plans with zero
+        # mutations")
+        if self.maintenance is not None and self.maintenance.enabled:
             return
         self._vacuum_round()
 
@@ -389,6 +465,96 @@ class MasterServer:
                         except Exception:
                             pass
             return Response({"ok": True, "deleted": deleted})
+
+        @svc.route("GET", r"/vol/status")
+        def vol_status(req: Request) -> Response:
+            out = {}
+            for node in self.topo.all_nodes():
+                out[node.id] = {
+                    str(vid): {
+                        "size": v.size,
+                        "file_count": v.file_count,
+                        "delete_count": v.delete_count,
+                        "garbage": v.deleted_byte_count,
+                    }
+                    for vid, v in node.volumes.items()
+                }
+            return Response({"Volumes": out})
+
+        # --- autonomous maintenance plane (maintenance/daemon.py) ---
+        @svc.route("GET", r"/debug/maintenance")
+        def debug_maintenance(req: Request) -> Response:
+            if self.maintenance is None:
+                return Response({"configured": False, "enabled": False})
+            out = self.maintenance.status()
+            out["configured"] = True
+            return Response(out)
+
+        @svc.route("POST", r"/maintenance/enable")
+        def maintenance_enable(req: Request) -> Response:
+            try:
+                p = req.json()
+            except ValueError:
+                p = {}
+            # an absent dryRun key preserves the running daemon's mode —
+            # only an explicit true/false flips it (a bare re-enable must
+            # not silently turn a plan-only daemon into a mutating one)
+            dry = p.get("dryRun")
+            mode = p.get("rebuildMode")
+            if mode is not None and mode not in ("auto", "classic",
+                                                 "pipelined"):
+                return Response(
+                    {"error": f"rebuildMode {mode!r} not"
+                     f" auto|classic|pipelined"}, 400)
+            lazy = p.get("lazyWindow")
+            if lazy is not None:
+                try:
+                    lazy = float(lazy)
+                except (TypeError, ValueError):
+                    return Response(
+                        {"error": f"lazyWindow {lazy!r} not a number"},
+                        400)
+                if not (0.0 <= lazy < 3600.0) or lazy != lazy:
+                    return Response(
+                        {"error": f"lazyWindow {lazy} not in [0, 3600)"},
+                        400)
+            d = self._ensure_maintenance(
+                dry_run=None if dry is None else bool(dry),
+                rebuild_mode=mode, lazy_window=lazy,
+            )
+            return Response({
+                "ok": True, "enabled": True, "dry_run": d.dry_run,
+                "interval": d.interval, "rebuild_mode": d.rebuild_mode,
+                "lazy_window": d.scheduler.lazy_window,
+            })
+
+        @svc.route("POST", r"/maintenance/disable")
+        def maintenance_disable(req: Request) -> Response:
+            if self.maintenance is not None:
+                self.maintenance.enabled = False
+            return Response({"ok": True, "enabled": False})
+
+        @svc.route("POST", r"/maintenance/scan")
+        def maintenance_scan(req: Request) -> Response:
+            """Force a scan now (`cluster.maintenance -now [task]`)."""
+            if self.maintenance is None:
+                return Response({"error": "maintenance not configured"}, 400)
+            try:
+                p = req.json()
+            except ValueError:
+                p = {}
+            task = p.get("task")
+            if task is not None:
+                from ..maintenance import TASK_TYPES
+
+                if task not in TASK_TYPES:
+                    return Response(
+                        {"error": f"unknown task type {task!r}"
+                         f" (known: {sorted(TASK_TYPES)})"}, 400)
+            offered = self.maintenance.scan_now(
+                None if task is None else (task,)
+            )
+            return Response({"ok": True, "offered": offered})
 
         @svc.route("POST", r"/vol/vacuum/disable")
         def vacuum_disable(req: Request) -> Response:

@@ -48,11 +48,14 @@ unthrottled) pace the scrubber; a kernel or codec failure in a pass is a
 500 `codec_failed` from `/admin/scrub/run` and is kept on
 `/admin/scrub/status`.
 
-Not ported: the native fastlane, JWT, EXIF and image resizing, tiering
-and its backends, `/admin/tail`, `/ui`, `/query`, metrics, traces,
-events, telemetry, the fault points but `repair.partial_fetch` and
-`volume.replicate.fanout`, and the retry policy of the copy stream (a
-failed range fails the copy).
+JPEG uploads are rewritten upright when their EXIF orientation is not
+1, and `GET ?width=&height=&mode=` resizes images (`images/`, Pillow on
+the host).
+
+Not ported: the native fastlane, JWT, tiering and its backends,
+`/admin/tail`, `/ui`, `/query`, metrics, traces, events, telemetry, the
+fault points but `repair.partial_fetch` and `volume.replicate.fanout`,
+and the retry policy of the copy stream (a failed range fails the copy).
 """
 
 from __future__ import annotations
@@ -1818,6 +1821,28 @@ class VolumeServer:
         if n.is_compressed():
             headers["Content-Encoding"] = "gzip"
         data = n.data
+        # on-read resize/crop hook (`volume_server_handlers_read.go:310-370`)
+        if not n.is_compressed() and (
+            "width" in req.query or "height" in req.query
+        ):
+            from ..images import RESIZABLE_MIME, resized
+
+            guessed = mime
+            if guessed == "application/octet-stream" and n.has_name() and n.name:
+                ext = n.name.decode("utf-8", "replace").rsplit(".", 1)[-1].lower()
+                guessed = {"jpg": "image/jpeg", "jpeg": "image/jpeg",
+                           "png": "image/png", "gif": "image/gif",
+                           "webp": "image/webp"}.get(ext, guessed)
+            if guessed in RESIZABLE_MIME:
+                def _int(qk):
+                    try:
+                        return int(req.query.get(qk, "") or 0) or None
+                    except ValueError:
+                        return None
+
+                data = resized(data, guessed, _int("width"), _int("height"),
+                               req.query.get("mode", ""))
+                mime = guessed
         rng = req.headers.get("Range")
         status = 200
         if rng and rng.startswith("bytes=") and "," not in rng:
@@ -1861,6 +1886,16 @@ class VolumeServer:
             mime = req.headers.get("Content-Type", "")
             if mime in ("application/json", "application/x-www-form-urlencoded"):
                 mime = ""
+        # EXIF orientation fix on upload (`needle.go:101-106`: .jpg only;
+        # a replica stores the bytes its primary was sent)
+        is_jpg = (
+            mime == "image/jpeg"
+            or filename.lower().endswith((".jpg", ".jpeg"))
+        )
+        if is_jpg and not is_replicate:
+            from ..images import fix_jpg_orientation
+
+            data = fix_jpg_orientation(data)
         n = Needle(cookie=cookie, id=key, data=data)
         if filename:
             n.name = filename.encode()

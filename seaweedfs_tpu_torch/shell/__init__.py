@@ -2,10 +2,12 @@
 driven over master/volume RPC; here over their HTTP admin APIs).
 
 The port's copy of `seaweedfs_tpu/shell/` with the commands of
-`commands_cluster` (`lock`, `unlock`), `commands_ec` (`ec.encode`,
-`ec.decode`, `ec.rebuild`, `ec.balance`) and `commands_volume` (every
-`volume.*` verb but the tier verbs). Not ported: the other command files
-(`commands_{fs,maintenance,remote,s3}.py`) and the rest of
+`commands_cluster` (`lock`, `unlock`, `cluster.ps`, `collection.list`,
+`collection.delete`, `volume.list`, `volume.status`, `cluster.scrub`),
+`commands_ec` (`ec.encode`, `ec.decode`, `ec.rebuild`, `ec.balance`),
+`commands_maintenance` (`cluster.maintenance`) and `commands_volume`
+(every `volume.*` verb but the tier verbs). Not ported: the other
+command files (`commands_{fs,remote,s3}.py`) and the rest of
 `commands_cluster.py`.
 
 Usage:
@@ -21,6 +23,7 @@ from .registry import COMMANDS, run_command
 # command modules register themselves on import
 from . import commands_cluster  # noqa: E402,F401
 from . import commands_ec  # noqa: E402,F401
+from . import commands_maintenance  # noqa: E402,F401
 from . import commands_volume  # noqa: E402,F401
 
 __all__ = ["CommandEnv", "ShellError", "COMMANDS", "run_command"]

@@ -1,13 +1,28 @@
-"""lock/unlock (reference `weed/shell/command_lock_unlock.go`).
+"""cluster.*, lock/unlock, collection.*, volume.list/status (reference
+`weed/shell/command_cluster_ps.go`, `command_lock_unlock.go`,
+`command_collection_*.go`, `command_volume_list.go`).
 
-The port's copy of `lock` and `unlock` from
-`seaweedfs_tpu/shell/commands_cluster.py`; the file's other commands
-(`cluster.*`, `collection.*`) are not ported."""
+The port's copy of `lock`, `unlock`, `cluster.ps`, `collection.list`,
+`collection.delete`, `volume.list`, `volume.status` and `cluster.scrub`
+from `seaweedfs_tpu/shell/commands_cluster.py`, over routes the port's
+master (`/cluster/ps`, `/col/list`, `/col/delete`, `/dir/status`) and
+volume servers (`/admin/scrub/status`) serve. The port's master lists no
+filer or broker in `/cluster/ps` (`/cluster/register` is not ported), so
+`cluster.ps` ends with a line that says so where the JAX verb would list
+them.
+Not ported: the file's other commands (`cluster.check`, `cluster.top`,
+`cluster.trace`, `cluster.profile`, `cluster.why`, `cluster.heat`,
+`cluster.faults` and the rest), which read routes the port does not
+serve.
+"""
 
 from __future__ import annotations
 
-from .env import CommandEnv
-from .registry import command
+import json
+import time
+
+from .env import CommandEnv, ShellError
+from .registry import command, parse_flags
 
 
 @command("lock", "acquire the exclusive admin lock on the master")
@@ -20,3 +35,134 @@ def cmd_lock(env: CommandEnv, args: list[str]) -> str:
 def cmd_unlock(env: CommandEnv, args: list[str]) -> str:
     env.release_lock()
     return "lock released"
+
+
+CLUSTER_PS_UNLISTED = (
+    "filers, brokers: none listed (the port's master does not serve"
+    " /cluster/register, where they announce themselves)")
+
+
+@command("cluster.ps", "list cluster processes (masters, volume servers, filers)")
+def cmd_cluster_ps(env: CommandEnv, args: list[str]) -> str:
+    info = env.get(f"{env.master_url}/cluster/ps")
+    lines = []
+    for m in info.get("masters", []):
+        lines.append(f"master {m['address']}" + (" leader" if m.get("isLeader") else ""))
+    for v in info.get("volumeServers", []):
+        lines.append(f"volumeServer {v['address']} dc={v['dataCenter']} rack={v['rack']}")
+    for f in info.get("filers", []):
+        lines.append(f"filer {f['address']}")
+    for b in info.get("brokers", []):
+        lines.append(f"broker {b['address']}")
+    if not info.get("filers") and not info.get("brokers"):
+        # the port's master keeps no registry of them: say so, list none
+        lines.append(CLUSTER_PS_UNLISTED)
+    return "\n".join(lines)
+
+
+def _fmt_gb(n: float) -> str:
+    return f"{n / 1024**3:.1f}GB"
+
+
+@command("collection.list", "list collections")
+def cmd_collection_list(env: CommandEnv, args: list[str]) -> str:
+    info = env.get(f"{env.master_url}/col/list")
+    return "\n".join(
+        f"collection {c['name'] or '(default)'}: {c['volumeCount']} volumes"
+        for c in info["collections"]
+    )
+
+
+@command("collection.delete", "-collection <name> — delete all its volumes",
+         needs_lock=True)
+def cmd_collection_delete(env: CommandEnv, args: list[str]) -> str:
+    flags = parse_flags(args)
+    name = flags.get("collection", flags.get("", ""))
+    out = env.post(f"{env.master_url}/col/delete?collection={name}")
+    return f"deleted {out['deleted']} volumes of collection {name!r}"
+
+
+@command("volume.list", "list volumes per server (ref command_volume_list.go)")
+def cmd_volume_list(env: CommandEnv, args: list[str]) -> str:
+    lines = []
+    for sv in env.servers():
+        lines.append(
+            f"{sv.id} dc={sv.dc} rack={sv.rack} "
+            f"volumes={len(sv.volumes)}/{sv.max_volume_count}"
+        )
+        for vid, v in sorted(sv.volumes.items()):
+            rp = v.get("replica_placement", 0)
+            lines.append(
+                f"  volume {vid} collection={v.get('collection', '') or '(default)'} "
+                f"size={v.get('size', 0)} files={v.get('file_count', 0)} "
+                f"deleted={v.get('delete_count', 0)} rp={rp:03d} "
+                f"{'readonly' if v.get('read_only') else 'writable'}"
+            )
+        for vid, shards in sorted(sv.ec_shards.items()):
+            lines.append(f"  ec volume {vid} shards={shards}")
+    return "\n".join(lines)
+
+
+@command("volume.status", "-volumeId <n> — show one volume's replicas + stats")
+def cmd_volume_status(env: CommandEnv, args: list[str]) -> str:
+    flags = parse_flags(args)
+    vid = int(flags.get("volumeId", flags.get("", 0)))
+    out = []
+    for sv in env.servers():
+        if vid in sv.volumes:
+            out.append(json.dumps({"server": sv.id, **sv.volumes[vid]}))
+    return "\n".join(out) if out else f"volume {vid} not found"
+
+
+@command("cluster.scrub",
+         "— integrity-scrub status across every volume server"
+         " (/admin/scrub/status): bytes verified, scrub GB/s per kernel,"
+         " unresolved findings, throttle budget")
+def cmd_cluster_scrub(env: CommandEnv, args: list[str]) -> str:
+    statuses: dict[str, dict] = {}
+    for sv in env.servers():
+        try:
+            statuses[sv.id] = env.get(
+                f"{sv.http}/admin/scrub/status", timeout=10)
+        except Exception as e:
+            statuses[sv.id] = {"error": str(e)}
+    if not statuses:
+        raise ShellError("no volume servers in the topology")
+    lines = [f"integrity scrub across {len(statuses)} volume server(s):"]
+    total_findings = 0
+    now = time.time()
+    for node, st in sorted(statuses.items()):
+        if "error" in st:
+            lines.append(f"  {node}: UNREACHABLE ({st['error']})")
+            continue
+        s = st.get("stats", {})
+        gbps = (s.get("bytes_scanned", 0) / max(s.get("seconds", 0.0), 1e-9)
+                / 1e9) if s.get("bytes_scanned") else 0.0
+        last = s.get("last_pass_at", 0.0)
+        age = f"{now - last:.0f}s ago" if last else "never"
+        interval = st.get("interval", 0)
+        lines.append(
+            f"  {node}: {s.get('passes', 0)} pass(es) (last {age},"
+            + (f" every {interval:g}s" if interval else " loop off")
+            + f"), {s.get('needles_checked', 0)} needles +"
+            f" {s.get('stripes_checked', 0)} stripe samples,"
+            f" {_fmt_gb(s.get('bytes_scanned', 0))} verified"
+            f" @ {gbps:.2f} GB/s,"
+            f" budget {st.get('rate_bytes_per_sec', 0) / 1e6:.0f} MB/s"
+            f" ({s.get('throttle_waits', 0)} throttle waits),"
+            f" {s.get('tmp_removed', 0)} tmp swept"
+        )
+        unresolved = st.get("unresolved", [])
+        total_findings += len(unresolved)
+        for f in unresolved:
+            lines.append(
+                f"    finding: volume {f.get('volume_id')}"
+                f" [{f.get('kind')}] {f.get('detail', '')}"
+            )
+    lines.append(
+        "no unresolved findings — cluster integrity clean"
+        if total_findings == 0
+        else f"{total_findings} unresolved finding(s) — the maintenance"
+             f" scrub task routes each to its heal"
+    )
+    return "\n".join(lines)

@@ -14,11 +14,6 @@ from __future__ import annotations
 from collections import Counter
 from types import SimpleNamespace
 
-from ..maintenance.scrub import (
-    apply_scrub_repairs,
-    describe_scrub_repairs,
-    plan_scrub_repairs,
-)
 from ..server.httpd import http_request
 from .env import CommandEnv, ServerView, ShellError
 from .registry import command, dry_run_flag, parse_flags, render_plan
@@ -161,6 +156,13 @@ def cmd_volume_vacuum(env: CommandEnv, args: list[str]) -> str:
          " shard -> ec_rebuild / parity re-arm / replica re-sync)",
          needs_lock=True)
 def cmd_volume_scrub(env: CommandEnv, args: list[str]) -> str:
+    # imported here: the maintenance package's executors import this module
+    from ..maintenance.scrub import (
+        apply_scrub_repairs,
+        describe_scrub_repairs,
+        plan_scrub_repairs,
+    )
+
     flags = parse_flags(args)
     vid = int(flags["volumeId"]) if "volumeId" in flags else None
     node = flags.get("node")

@@ -178,13 +178,17 @@ def test_run_command_help_unknown_and_lock():
         "volume.move", "volume.scrub", "volume.server.evacuate",
         "volume.server.leave", "volume.unmount", "volume.vacuum",
         "volume.vacuum.disable", "volume.vacuum.enable"]
+    cluster_verbs = [
+        "cluster.maintenance", "cluster.ps", "cluster.scrub",
+        "collection.delete", "collection.list", "volume.list",
+        "volume.status"]
     assert run_command(env, "help").split() == sorted(
         ["ec.balance", "ec.decode", "ec.encode", "ec.rebuild", "lock", "unlock"]
-        + volume_verbs)
+        + volume_verbs + cluster_verbs)
     assert "rebuild" in run_command(env, "help ec.rebuild")
     assert run_command(env, "") == ""
     with pytest.raises(ShellError, match="unknown command"):
-        run_command(env, "volume.list")
+        run_command(env, "cluster.check")
     for verb in ("ec.encode -collection x", "ec.decode -volumeId 1",
                  "ec.rebuild -volumeId 1", "ec.balance"):
         with pytest.raises(ShellError, match="admin lock"):
