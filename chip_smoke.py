@@ -6,7 +6,7 @@
                           [--dedup-gib GIB] [--online-mib MIB] [--cluster-mib MIB]
                           [--mesh-volumes N] [--mesh-mib MIB] [--filer-files N]
                           [--filer-large-mib MIB] [--scrub-files N] [--scrub-mib MIB]
-                          [--maint-mib MIB] [--maint-files N]
+                          [--maint-mib MIB] [--maint-files N] [--filer-dedup-uploads N]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -42,7 +42,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               device time of kernel and copies, the device's idle share
   5. cols     a small volume at 1 MiB / 64 KiB blocks through the schedule's
               column-split jobs, byte-identical to a CPU plain encode
-  6. upload   --upload-blobs (524,288) seeded 4096-byte blobs submitted to
+  6. upload   --upload-blobs (262,144) seeded 4096-byte blobs submitted to
               HashService(device=cuda) from 16 threads, each waiting for its
               blob's result before the next, as the filer does (BASELINE.md
               config 3); every MD5 and CRC equal to hashlib and the host CRC
@@ -118,7 +118,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               launches, and each device's launch timed beside its byte bound
  12. filer    BASELINE config 3 as the filer takes it: a port master (pulse
               1 s), two volume servers and a FilerServer on the card, one
-              process; --filer-files (32,768) seeded 4 KiB files PUT from 16
+              process; --filer-files (16,384) seeded 4 KiB files PUT from 16
               threads, each waiting for its response (one chunk, one assign,
               one needle POST, one ETag through the filer's hash service);
               4 uploads of --filer-large-mib (256) MiB from 4 threads (64
@@ -174,7 +174,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               equal to the plain version's; the time to heal of each kind,
               scans, tasks by type and state, the rebuild mode `auto` chose,
               launches, the card's name and power limit, the wall (limit 150 s)
- 15. entry    entry() on the card equal to the CPU codec
+ 15. filer_dedup  BASELINE config 4 as an operator runs it: a port master
+              (pulse 1 s), two volume servers and a FilerServer(dedup=True)
+              on a leveldb store on the card, one process;
+              --filer-dedup-uploads (32) PUTs of 64 MiB of bench.py's stream
+              (2 GiB) from 4 threads each waiting for its 201, every md5
+              against hashlib, gear_hash launched over them; every file's
+              ?metadata=true, the uploads of segments 0 and 1 deleted, and the
+              bytes to reclaim counted from that metadata; `fs.dedup.gc`
+              through the shell's filer handle dropping exactly those fids
+              and bytes with no error, each fid then 404, every survivor read
+              back equal, a second gc dropping none, a deleted upload PUT again
+              uploading anew; a MetaSubscriber on /__meta__/events seeing a
+              create a PUT and a delete a DELETE; `cluster.ps` listing the
+              filer; the filer restarted on its store dedup'ing a survivor's
+              re-PUT with no miss; `fs.verify /`; PUT GB/s and p50/p99, the gc
+              wall split, the restart wall, launches, the wall (limit 150 s)
+ 16. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -188,6 +204,7 @@ import hashlib
 import http.client
 import itertools
 import json
+import logging
 import os
 import re
 import shutil
@@ -214,7 +231,7 @@ from seaweedfs_tpu_torch.ops.rs_cuda import gf256_matmul, gf_matmul_torch
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.parallel import make_mesh, sharded_crc32c, sharded_encode, sharded_md5
 from seaweedfs_tpu_torch.server.filer import FilerServer
-from seaweedfs_tpu_torch.server.httpd import http_request
+from seaweedfs_tpu_torch.server.httpd import get_json, http_request
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from seaweedfs_tpu_torch.shell import CommandEnv, commands_ec, run_command
@@ -251,6 +268,26 @@ GF_SHAPES = (
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+class RecordLog(logging.Handler):
+    """Keeps the messages a logger emits at WARNING or above while the
+    `with` block runs (a failed check names them)."""
+
+    def __init__(self, logger: logging.Logger) -> None:
+        super().__init__(logging.WARNING)
+        self.logger = logger
+        self.records: list[str] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.records.append(record.getMessage())
+
+    def __enter__(self) -> "RecordLog":
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1942,23 +1979,32 @@ def cluster_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
             t0 = time.perf_counter()
             total = at_rebuilder = 0
             hops = []
-            for vid, shards in shards_of.items():
-                out = run_command(env, f"ec.rebuild -volumeId {vid}"
-                                       f" -collection {CLUSTER_COLLECTION}{flags}")
-                m = PIPELINED_LINE.search(out)
-                if not (f"rebuilt shards {shards}" in out and m is not None and m.group(1)):
-                    now = decoder.REPAIR.snapshot()
-                    check(False, f"{what} {vid}: {out}; since the round began: " + str(
-                        {k: {r: n - before[k].get(r, 0) for r, n in now[k].items()
-                             if n != before[k].get(r, 0)}
-                         for k in ("restarts", "fallbacks", "stream_chunks")}))
-                n_hops, rb, tot = int(m.group(2)), int(m.group(3)), int(m.group(4))
-                check(tot == (n_hops - 1) * len(shards) * shard_sizes[vid]
-                      and rb == len(shards) * shard_sizes[vid],
-                      f"{what} {vid}: {tot} B on wire, {rb} at the rebuilder, {n_hops} hops")
-                hops.append(n_hops)
-                total += tot
-                at_rebuilder += rb
+
+            def since_round() -> str:
+                now = decoder.REPAIR.snapshot()
+                return "; since the round began: " + str(
+                    {k: {r: n - before[k].get(r, 0) for r, n in now[k].items()
+                         if n != before[k].get(r, 0)}
+                     for k in ("restarts", "fallbacks", "stream_chunks")}
+                ) + f"; chain restarts logged: {restart_log.records}"
+
+            restart_log = RecordLog(commands_ec.log)
+            with restart_log:
+                for vid, shards in shards_of.items():
+                    restart_log.records.clear()
+                    out = run_command(env, f"ec.rebuild -volumeId {vid}"
+                                           f" -collection {CLUSTER_COLLECTION}{flags}")
+                    m = PIPELINED_LINE.search(out)
+                    check(f"rebuilt shards {shards}" in out and m is not None and m.group(1),
+                          f"{what} {vid}: {out}" + since_round())
+                    n_hops, rb, tot = int(m.group(2)), int(m.group(3)), int(m.group(4))
+                    check(tot == (n_hops - 1) * len(shards) * shard_sizes[vid]
+                          and rb == len(shards) * shard_sizes[vid],
+                          f"{what} {vid}: {tot} B on wire, {rb} at the rebuilder, {n_hops} hops"
+                          + since_round())
+                    hops.append(n_hops)
+                    total += tot
+                    at_rebuilder += rb
             wall = time.perf_counter() - t0
             launches = gf256_matmul.launches - n0
             after = decoder.REPAIR.snapshot()
@@ -2150,8 +2196,9 @@ FILER_RANGED = 256
 FILER_SMALL_GETS = 1024
 FILER_WALL_LIMIT_S = 240
 OCTET = {"Content-Type": "application/octet-stream"}  # never compressed
-FILER_CUTS = ("32,768 of config 3's 1M blobs: five roles and the clients share one process"
-              " and one GIL (65,536 took the phase past its 240 s limit)", "no manifest: 1,000 chunks of 4 MiB is 4 GiB (manifests are"
+FILER_CUTS = ("16,384 of config 3's 1M blobs: five roles and the clients share one process"
+              " and one GIL (65,536 took the phase past its 240 s limit; 32,768 was cut to"
+              " make room for the filer_dedup phase)", "no manifest: 1,000 chunks of 4 MiB is 4 GiB (manifests are"
               " held on the CPU)", "no compression or cipher: seeded random bytes")
 
 
@@ -3141,6 +3188,274 @@ def maintenance_phase(dev: torch.device, ec_bytes: int, n_files: int, seed: int)
     return res
 
 
+# --- phase 15: the filer's dedup over HTTP, its reclaim and its client ------------------
+FD_THREADS = 4  # client threads; thread t PUTs the uploads built from segment t
+FD_GONE = (0, 1)  # uploads built from these segments are deleted before the gc
+FD_RECENT_S = 1.1  # past dedup_gc's 1 s recently-referenced window
+FD_WALL_LIMIT_S = 150
+FD_GC_LINE = re.compile(r"scanned (\d+) index entries, dropped (\d+) \((\d+) bytes freed,"
+                        r" (\d+) errors\)")
+FD_CUTS = ("--filer-dedup-uploads (32) uploads of 64 MiB (2 GiB) of bench.py's 100 GB"
+           " shifted-repeat stream, to fit the phase's 150 s",
+           "a master, two volume servers, the filer on one leveldb store and 4 clients in"
+           " one process")
+
+
+def dedup_segment(i: int) -> int:
+    """The base segment of upload i of bench.py's stream (dedup_upload)."""
+    return (i // 2) % 4 if i % 2 == 0 else (i // 3) % 4
+
+
+def filer_dedup_phase(dev: torch.device, n_uploads: int, seed: int) -> dict:
+    """BASELINE config 4 as an operator runs it, in this process: a port
+    MasterServer (pulse 1 s), two VolumeServers and a FilerServer(dedup=True)
+    on a leveldb store (the upstream filer's default embedded store), all on
+    the card. n_uploads PUTs of 64 MiB built by dedup_upload from four seeded
+    segments, from 4 threads that each wait for their 201 (thread t PUTs the
+    uploads of segment t, so no two uploads of one content race), every
+    body cut by gear_hash on the card; a MetaSubscriber on /__meta__/events
+    counts the creates and deletes. Then every file's ?metadata=true, the
+    uploads of segments 0 and 1 deleted, and the bytes to reclaim counted
+    from that metadata alone: the fids only deleted files referenced.
+    `fs.dedup.gc` through the port shell's filer handle must drop exactly
+    those, each then 404 on its volume server, with no error; every
+    survivor reads back equal; a second gc drops nothing; a deleted upload
+    PUT again uploads chunks anew; a filer restarted on the same store dedups
+    a survivor PUT again with no miss; `fs.verify /` passes and `cluster.ps`
+    lists the filer. Checks also: every PUT's md5 against hashlib, the first
+    upload's chunks at the plain cut rule's boundaries, gear_hash launched
+    over the PUTs and equal to its plain version on the first segment."""
+    from seaweedfs_tpu_torch.filer.meta_aggregator import MetaSubscriber
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-filer-dedup-", dir=REPO / "build")
+    store = os.path.join(root, "filer.leveldb")
+    master = MasterServer(port=0, pulse_seconds=1)
+    master.start()
+    servers, filer, sub = [], None, None
+    res = {}
+
+    def start_filer() -> FilerServer:
+        f = FilerServer(master.url, port=0, device=dev, dedup=True, store_kind="leveldb",
+                        store_path=store)
+        f.start()
+        return f
+
+    try:
+        for i in range(2):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url,
+                              pulse_seconds=PULSE_S, device=dev)
+            vs.start()
+            servers.append(vs)
+        filer = start_filer()
+        check(filer.device.type == "cuda" and filer.dedup
+              and all(vs.device.type == "cuda" for vs in servers), "a filer role is not on cuda")
+        rng = np.random.default_rng([seed, 7])  # the dedup phase's segments
+        segs = [rng.integers(0, 256, DEDUP_SEGMENT, dtype=np.uint8) for _ in range(4)]
+        paths = [f"/dedup/u{i:03d}" for i in range(n_uploads)]
+        events = []
+        sub = MetaSubscriber(filer.url, events.append, path_prefix="/dedup/", poll_wait=1.0)
+        sub.start()
+
+        # 1. the PUTs, gear_hash counted over them alone
+        errors = []
+        put_lat = []
+        idx = filer.dedup_index
+
+        def put(t: int) -> None:
+            c = Client(filer.url)
+            try:
+                for i in [j for j in range(n_uploads) if dedup_segment(j) == t]:
+                    data = dedup_upload(segs, i)
+                    t0 = time.perf_counter()
+                    status, out = c.request("PUT", paths[i], data, OCTET)
+                    put_lat.append(time.perf_counter() - t0)
+                    if status != 201 or json.loads(out)["md5"] != hashlib.md5(data).hexdigest():
+                        errors.append(f"PUT {paths[i]} -> {status}: {out[:200]!r}")
+                        return
+            except BaseException as e:  # re-raised on the main thread
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        zero_launches()
+        put_wall = run_threads(put, FD_THREADS)
+        t_last_put = time.monotonic()
+        launches = read_launches()
+        check(not errors, f"filer_dedup PUTs: {errors[:3]}")
+        check(launches["gear_hash"] > 0, "the filer's dedup PUTs launched no gear_hash kernel")
+        stored = n_uploads * DEDUP_SEGMENT
+        res.update(uploads=n_uploads, upload_bytes=DEDUP_SEGMENT, threads=FD_THREADS,
+                   put_wall_s=put_wall, put_gbps=stored / put_wall / 1e9,
+                   **{f"put_{k}": v for k, v in _pcts(put_lat).items()},
+                   index_hits=idx.hits, index_misses=idx.misses,
+                   bytes_saved=idx.bytes_saved, byte_share_saved=idx.bytes_saved / stored,
+                   launches=launches)
+
+        # 2. every file's metadata, then the deletes
+        c = Client(filer.url)
+        meta = {}
+        for p in paths:
+            status, out = c.request("GET", f"{p}?metadata=true")
+            check(status == 200, f"{p}?metadata=true -> {status}")
+            meta[p] = json.loads(out)
+        ends = [ch["offset"] + ch["size"] for ch in meta[paths[0]]["chunks"]]
+        plain = cdc.cut_points(plain_candidates(dev, segs[0], DEDUP["avg_bits"]),
+                               DEDUP_SEGMENT, DEDUP["min_size"], DEDUP["max_size"])
+        check(ends == plain, "the first upload's chunks are not at the plain cut rule's cuts")
+        gone = [p for i, p in enumerate(paths) if dedup_segment(i) in FD_GONE]
+        kept = [i for i, p in enumerate(paths) if p not in gone]
+        t0 = time.perf_counter()
+        for p in gone:
+            status, _ = c.request("DELETE", p)
+            check(status == 204, f"DELETE {p} -> {status}")
+        delete_s = time.perf_counter() - t0
+        c.close()
+
+        # 3. the reclaim expected, from the metadata alone
+        live = {ch["file_id"] for p in paths if p not in gone for ch in meta[p]["chunks"]}
+        expect = {ch["file_id"]: ch["size"] for p in gone for ch in meta[p]["chunks"]
+                  if ch["file_id"] not in live}
+        check(bool(expect), "the deletes left nothing to reclaim")
+
+        # 4. fs.dedup.gc through the shell's filer handle, its calls timed
+        split = {"index_remove": 0.0, "blob_delete": 0.0}
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    split[name] += time.perf_counter() - t
+            return run
+
+        time.sleep(max(0.0, FD_RECENT_S - (time.monotonic() - t_last_put)))
+        env = CommandEnv(master.url, filer.url)
+        idx.remove = timed("index_remove", idx.remove)
+        filer.client.delete = timed("blob_delete", filer.client.delete)
+        t0 = time.perf_counter()
+        out = run_command(env, "fs.dedup.gc")
+        gc_s = time.perf_counter() - t0
+        del idx.remove, filer.client.delete
+        m = FD_GC_LINE.fullmatch(out)
+        check(m is not None, f"fs.dedup.gc answered {out!r}")
+        scanned, dropped, freed, gc_errors = map(int, m.groups())
+        check((dropped, freed, gc_errors) == (len(expect), sum(expect.values()), 0),
+              f"gc dropped {dropped} fids, {freed} bytes, {gc_errors} errors; expected"
+              f" {len(expect)} fids, {sum(expect.values())} bytes, 0 errors")
+        res.update(deleted=len(gone), delete_s=delete_s, gc_s=gc_s, gc_scanned=scanned,
+                   gc_dropped=dropped, gc_bytes_freed=freed, gc_errors=gc_errors,
+                   gc_split_s=dict(split, walk_and_rest=gc_s - sum(split.values())),
+                   expected_fids=len(expect), expected_bytes=sum(expect.values()))
+
+        # every dropped fid 404 on its volume server; every survivor equal
+        urls, conns = {}, {}
+        for fid in expect:
+            vid = fid.split(",")[0]
+            if vid not in urls:
+                urls[vid] = get_json(f"{master.url}/dir/lookup?volumeId={vid}")[
+                    "locations"][0]["url"]
+            u = urls[vid]
+            conn = conns.get(u) or conns.setdefault(u, Client(f"http://{u}"))
+            status, _ = conn.request("GET", f"/{fid}")
+            check(status == 404, f"dropped fid {fid} reads {status}")
+        for conn in conns.values():
+            conn.close()
+        bad = []
+
+        def read_back(t: int) -> None:
+            conn = Client(filer.url)
+            try:
+                for i in kept[t::FD_THREADS]:
+                    status, body = conn.request("GET", paths[i])
+                    if status != 200 or body != dedup_upload(segs, i):
+                        bad.append(f"{paths[i]} -> {status}")
+            except BaseException as e:
+                bad.append(repr(e))
+            finally:
+                conn.close()
+
+        res["survivors_read_s"] = run_threads(read_back, FD_THREADS)
+        check(not bad, f"survivors read back wrong: {bad[:3]}")
+        out = run_command(env, "fs.dedup.gc")
+        m = FD_GC_LINE.fullmatch(out)
+        check(m is not None and int(m.group(2)) == 0 and int(m.group(4)) == 0,
+              f"the second gc: {out!r}")
+
+        # a deleted upload PUT again uploads anew
+        c = Client(filer.url)
+        i = paths.index(gone[0])
+        misses = idx.misses
+        status, _ = c.request("PUT", gone[0], dedup_upload(segs, i), OCTET)
+        check(status == 201 and idx.misses > misses, "the deleted upload PUT again did not miss")
+        status, body = c.request("GET", gone[0])
+        check(status == 200 and body == dedup_upload(segs, i), "the re-PUT reads back wrong")
+        c.close()
+        res["reput_misses"] = idx.misses - misses
+
+        # the subscriber: a create a PUT, a delete a DELETE
+        sub.stop()
+        sub._thread.join(timeout=15)
+        sub.drain()
+        files = set(paths)
+
+        def path(ev, side):
+            return (ev.get(side) or {}).get("full_path")
+
+        creates = sum(1 for e in events if path(e, "new_entry") in files and not e["old_entry"])
+        deletes = sum(1 for e in events if path(e, "old_entry") in files and not e["new_entry"])
+        check((creates, deletes) == (n_uploads + 1, len(gone)),
+              f"the subscriber saw {creates} creates and {deletes} deletes")
+        ps = run_command(env, "cluster.ps")
+        check(f"filer {filer.url}" in ps.splitlines(), f"cluster.ps lists no filer: {ps!r}")
+        res.update(events=len(events), creates_seen=creates, deletes_seen=deletes,
+                   cluster_ps_lists_filer=True)
+
+        # 5. the filer restarted on its store: a survivor PUT again dedups fully
+        t0 = time.perf_counter()
+        filer.stop()
+        filer = start_filer()
+        restart_s = time.perf_counter() - t0
+        i = kept[0]
+        c = Client(filer.url)
+        status, _ = c.request("PUT", "/dedup/again", dedup_upload(segs, i), OCTET)
+        check(status == 201, f"PUT after the restart -> {status}")
+        check(filer.dedup_index.misses == 0 and filer.dedup_index.hits > 0,
+              f"the restarted filer missed {filer.dedup_index.misses} chunks of a stored upload")
+        status, body = c.request("GET", "/dedup/again")
+        check(status == 200 and body == dedup_upload(segs, i), "the restarted PUT reads back wrong")
+        c.close()
+        env = CommandEnv(master.url, filer.url)
+        t0 = time.perf_counter()
+        verify = run_command(env, "fs.verify /").splitlines()
+        verify_s = time.perf_counter() - t0
+        check(verify[-1].endswith(" ok, 0 broken") and len(verify) == 1,
+              f"fs.verify /: {verify[-3:]}")
+        res.update(restart_s=restart_s, restart_hits=filer.dedup_index.hits, restart_misses=0,
+                   verify=verify[-1], verify_s=verify_s)
+
+        # gear_hash on the card against its plain version, after the count
+        x = torch.from_numpy(segs[0]).to(dev)
+        got = cdc.gear_hash_kernel(x)
+        want = cdc.gear_hashes_torch(x)
+        check(torch.equal(got, want), "gear_hash != plain on the first segment")
+        res["gear_max_abs_err"] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    finally:
+        if sub is not None:
+            sub.stop()
+        if filer is not None:
+            filer.stop()
+        master.stop()
+        for vs in servers:
+            vs.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    res.update(wall_s=wall, wall_limit_s=FD_WALL_LIMIT_S, over_wall_limit=wall > FD_WALL_LIMIT_S,
+               cuts=FD_CUTS)
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -3168,7 +3483,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--volume-mib", type=int, default=1024)
-    ap.add_argument("--upload-blobs", type=int, default=1 << 19)
+    ap.add_argument("--upload-blobs", type=int, default=1 << 18)
     ap.add_argument("--chunked-mib", type=int, default=1024)
     ap.add_argument("--cdc-uploads", type=int, default=64)
     ap.add_argument("--stream-mib", type=int, default=1024)
@@ -3177,12 +3492,13 @@ def main() -> int:
     ap.add_argument("--cluster-mib", type=int, default=1024)
     ap.add_argument("--mesh-volumes", type=int, default=32)
     ap.add_argument("--mesh-mib", type=int, default=4)
-    ap.add_argument("--filer-files", type=int, default=32768)
+    ap.add_argument("--filer-files", type=int, default=16384)
     ap.add_argument("--filer-large-mib", type=int, default=256)
     ap.add_argument("--scrub-files", type=int, default=4096)
     ap.add_argument("--scrub-mib", type=int, default=1024)
     ap.add_argument("--maint-mib", type=int, default=256)
     ap.add_argument("--maint-files", type=int, default=2048)
+    ap.add_argument("--filer-dedup-uploads", type=int, default=32)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -3314,6 +3630,13 @@ def main() -> int:
         launches[name] += mt["launches"][name]
     timed["crc32c_batch"]["max_abs_err"] = max(timed["crc32c_batch"]["max_abs_err"],
                                                mt["flush_crc_max_abs_err"])
+
+    # the filer's dedup over HTTP with its reclaim (config 4 as operated); its own count
+    fd = filer_dedup_phase(dev, args.filer_dedup_uploads, args.seed)
+    emit("filer_dedup", nvidia_smi=nvidia_smi(), **fd)
+    launches["gear_hash"] += fd["launches"]["gear_hash"]
+    timed["gear_hash"]["max_abs_err"] = max(timed["gear_hash"]["max_abs_err"],
+                                            fd["gear_max_abs_err"])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

@@ -16,9 +16,13 @@ caches hot keys. Index state is nothing but store entries, so a store the
 JAX package's filer wrote dedups in the port once `copy_store` has copied
 its entries over.
 
-Deduplicated chunks are shared between entries; dedup is disabled when the
-filer runs ciphered (per-chunk random AES keys make equal plaintexts
-distinct). Space reclamation (`dedup_gc`) is not ported yet.
+Deduplicated chunks are shared between entries — deleting one entry does
+not reclaim their blobs: the filer's reclaim path skips any fid the index
+still maps (`FilerServer._reclaim_chunks`). Space is reclaimed by
+`fs.dedup.gc` (shell) / POST `/__dedup__/gc` (`FilerServer.dedup_gc`),
+which walks the namespace and deletes the blobs and index entries no entry
+references. Dedup is disabled when the filer runs ciphered (per-chunk
+random AES keys make equal plaintexts distinct).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """FilerStore SPI + built-in stores (reference: `weed/filer/filerstore.go:21-44`).
 
-The port's copy of `seaweedfs_tpu/filer/filerstore.py` with its two
-built-in stores: an in-memory store and an embedded SQL store (sqlite3,
-mirroring the abstract_sql pattern that backs the reference's
-mysql/postgres/sqlite stores). The JAX package's other backends (lsm,
-leveldb, etcd, redis, mysql, postgres) are not ported yet.
+The port's copy of `seaweedfs_tpu/filer/filerstore.py`: an in-memory
+store and an embedded SQL store (sqlite3, mirroring the abstract_sql
+pattern that backs the reference's mysql/postgres/sqlite stores) built in,
+and `make_store` over every kind of the JAX one (`lsm.py`, `kvstore.py`,
+`etcd.py`, `stores_gated.py`).
 """
 
 from __future__ import annotations
@@ -228,12 +228,42 @@ class SqliteStore(FilerStore):
 
 
 def make_store(kind: str, path: str | None = None) -> FilerStore:
-    """The store a filer runs on: "memory" or "sqlite" (needs a path). The
-    JAX package's other kinds are not ported and raise."""
+    """The store a filer runs on: "memory", "sqlite", "lsm" or "leveldb"
+    (each of the last three needs a path), "etcd" (path: the endpoint), or
+    "redis", "mysql" and "postgres", which raise unless their driver
+    imports."""
     if kind == "memory":
         return MemoryStore()
     if kind == "sqlite":
         if not path:
             raise ValueError("sqlite store needs a path")
         return SqliteStore(path)
-    raise ValueError(f"filer store {kind!r} is not ported (memory, sqlite)")
+    if kind == "lsm":
+        if not path:
+            raise ValueError("lsm store needs a directory path")
+        from .lsm import LsmStore
+
+        return LsmStore(path)
+    if kind == "leveldb":
+        if not path:
+            raise ValueError("leveldb store needs a directory path")
+        from .kvstore import LocalKVStore
+
+        return LocalKVStore(path)
+    if kind == "redis":
+        from .stores_gated import RedisStore
+
+        return RedisStore()
+    if kind == "etcd":
+        from .etcd import EtcdStore
+
+        return EtcdStore(path) if path else EtcdStore()
+    if kind == "mysql":
+        from .stores_gated import MysqlStore
+
+        return MysqlStore()
+    if kind == "postgres":
+        from .stores_gated import PostgresStore
+
+        return PostgresStore()
+    raise ValueError(f"unknown filer store {kind!r}")

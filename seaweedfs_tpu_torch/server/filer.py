@@ -33,20 +33,31 @@ host hash. With `dedup=True` uploads take the content-defined dedup path
 The server's device is cuda unless the caller passes `device="cpu"`; with
 neither it raises. `filer=` and `client=` (keyword-only) inject a `Filer`
 and a client with `WeedClient`'s `upload` / `upload_to` / `assign_batch` /
-`fetch` / `delete` in place of the store and master client.
+`fetch` / `delete` / `lookup` in place of the store and master client;
+`notification_queue=` (anything with `send_message(key, message)`) is the
+filer's external event bus, and `peers=` the other filers of its lock ring.
 
-Not ported (ROADMAP #10c): the native fastlane front door (`_fl_*`),
-remote storage mounts, `/__dlm__/*`, the `/__meta__/` event, notify,
-change-volume and merge routes, `/cluster/register`, qos admission and
-usage accounting, metrics and telemetry, `dedup_gc` and `/__dedup__/*`,
-JWT security, the stores other than memory and sqlite, and
-`filer/filer_client.py`.
+Control routes: `/__meta__/events` (the long-poll metadata feed a
+`filer/meta_aggregator.MetaSubscriber` reads), `/__meta__/notify`,
+`/__meta__/change_volume_id` and `/__meta__/merge_volumes` (the `fs.meta.*`
+and `fs.merge.volumes` rewrites), `/__dedup__/stats` and `/__dedup__/gc`
+(`dedup_gc`, the dedup index's reclaim), and `/__dlm__/{lock,unlock,status}`
+(the distributed lock manager of `cluster/`, keys placed on the filers of
+`lock_ring`). `start()` announces the filer to the master
+(`/cluster/register`, then every 5 s, sweeping expired locks).
+
+Not ported: the native fastlane front door (`_fl_*`, ROADMAP 10a-3),
+remote storage mounts (`/__remote__/*`, 10d-3), and qos admission, usage
+accounting, metrics, telemetry and JWT security (10d-4). The registration
+beat carries no telemetry frame and charges no fastlane qos usage.
 """
 
 from __future__ import annotations
 
 import base64
+import copy
 import hashlib
+import json
 import logging
 import os
 import threading
@@ -55,8 +66,9 @@ import urllib.parse
 from xml.sax.saxutils import escape as _esc
 from xml.sax.saxutils import quoteattr as _qa
 
+from ..cluster import DistributedLockManager, LockedError, LockRing
 from ..filer import Attributes, Entry, FileChunk, Filer
-from ..filer.dedup import DedupIndex
+from ..filer.dedup import DEDUP_DIR, DedupIndex
 from ..filer.filechunks import maybe_manifestize, resolve_chunk_manifest, view_from_chunks
 from ..filer.filer import FilerError, normalize
 from ..filer.filer_conf import FILER_CONF_PATH, FilerConf
@@ -69,7 +81,7 @@ from ..storage.types import TTL
 from ..util import cipher as cipher_util
 from ..util.chunk_cache import TieredChunkCache
 from ..util.compression import decompress_data, maybe_compress_data
-from .httpd import HTTPService, Request, Response
+from .httpd import HTTPService, Request, Response, http_request, peer_url
 
 SMALL_CONTENT_LIMIT = 2 * 1024  # inline small files in the entry
 
@@ -98,6 +110,8 @@ class FilerServer:
         *,
         filer: Filer | None = None,
         client=None,
+        notification_queue=None,
+        peers: list[str] | None = None,
     ) -> None:
         self.device = resolve_device(device)
         # -encryptVolumeData / compression defaults (`weed/command/filer.go`)
@@ -112,6 +126,8 @@ class FilerServer:
                 raise ValueError("FilerServer needs a master_url or a client")
             client = WeedClient(master_url)
         self.filer = filer if filer is not None else Filer(make_store(store_kind, store_path))
+        if notification_queue is not None:
+            self.filer.notification_queue = notification_queue
         self.client = client
         self.chunk_size = chunk_size_mb * 1024 * 1024
         self.default_replication = default_replication
@@ -134,7 +150,7 @@ class FilerServer:
             self.dedup_avg_bits = dedup_avg_bits
             self.dedup_min = dedup_min
             self.dedup_max = dedup_max
-            # gc-vs-upload coordination (the JAX package's dedup_gc): hits
+            # gc-vs-upload coordination (see dedup_gc): hits
             # record the fid under this lock; gc condemns keys under the
             # same lock, so every hit either lands before the gc decision
             # (gc skips the fid) or sees the key condemned (upload treats
@@ -143,6 +159,12 @@ class FilerServer:
             self._dedup_recent: dict[str, float] = {}
             self._dedup_condemned: set[str] = set()
         self.chunk_cache = TieredChunkCache(disk_dir=chunk_cache_dir)
+        # distributed lock manager hosted on the filer group (weed/cluster)
+        self.lock_ring = LockRing()
+        self.dlm = DistributedLockManager()
+        self._static_peers = list(peers or [])
+        self._register_stop = threading.Event()
+        self._register_thread: threading.Thread | None = None
         # per-path storage rules (`weed/filer/filer_conf.go`): loaded from
         # /etc/seaweedfs/filer.conf, hot-reloaded via the meta-log
         conf_entry = self.filer.find_entry(FILER_CONF_PATH)
@@ -171,8 +193,40 @@ class FilerServer:
         # the flusher thread must run, or submit_many hashes on the host
         self.hash_service.start()
         self.service.start()
+        self.dlm.host = self.url
+        self.lock_ring.set_servers(self._static_peers + [self.url])
+        self._register_once()
+        self._register_thread = threading.Thread(
+            target=self._register_loop, daemon=True)
+        self._register_thread.start()
+
+    def _register_once(self) -> None:
+        """Announce to the master's cluster membership (`cluster.go` rides
+        KeepConnected; here the equivalent periodic POST). A master that is
+        not up yet is retried by the loop. The JAX beat also carries a
+        telemetry frame (10d-4) and reads a fastlane shard from the answer
+        (10a-3); neither is ported."""
+        master_url = getattr(self.client, "master_url", "")
+        if not master_url:
+            return
+        try:
+            http_request(
+                "POST", master_url + "/cluster/register",
+                body=json.dumps({"type": "filer", "address": self.url}).encode(),
+                headers={"Content-Type": "application/json"}, timeout=5,
+            )
+        except OSError as e:
+            log.debug("filer registration with %s failed: %s", master_url, e)
+
+    def _register_loop(self) -> None:
+        while not self._register_stop.wait(5.0):
+            self._register_once()
+            self.dlm.sweep()
 
     def stop(self) -> None:
+        self._register_stop.set()
+        if self._register_thread is not None:
+            self._register_thread.join(timeout=10)
         self.service.stop()
         self.hash_service.stop()
         close = getattr(self.client, "close", None)
@@ -374,8 +428,8 @@ class FilerServer:
                     with self._dedup_mu:
                         self._dedup_condemned.discard(key)
                         self._dedup_recent[out["fid"]] = time.monotonic()
-                    # shadow entry keyed by the chunk's MD5: lets the JAX
-                    # package's _dedup_managed answer "is this fid
+                    # shadow entry keyed by the chunk's MD5: lets
+                    # _dedup_managed answer "is this fid
                     # index-owned?" from chunk metadata alone. Shadow FIRST:
                     # its lifetime must cover the primary's, or a crash
                     # window would leave a primary whose blob
@@ -414,6 +468,224 @@ class FilerServer:
     def _routes(self) -> None:
         svc = self.service
         path_re = r"(/.*)"
+
+        # metadata subscription (must register before the catch-all
+        # namespace): long-poll equivalent of gRPC SubscribeMetadata
+        # (`weed/server/filer_grpc_server_sub_meta.go`)
+        @svc.route("GET", r"/__meta__/events")
+        def meta_events(req: Request) -> Response:
+            since = int(req.query.get("since_ns", 0))
+            limit = int(req.query.get("limit", 1024))
+            wait = float(req.query.get("wait", 0))
+            batch = self.filer.event_payloads_since(since, limit, wait=min(wait, 30.0))
+            events = [json.loads(p) for _, p in batch]
+            next_ts = batch[-1][0] if batch else since
+            return Response(
+                {"events": events, "next_ts_ns": next_ts,
+                 "signature": self.filer.signature}
+            )
+
+        @svc.route("GET", r"/__dedup__/stats")
+        def dedup_stats(req: Request) -> Response:
+            if not self.dedup:
+                return Response({"enabled": False})
+            out = self.dedup_index.stats()
+            out["enabled"] = True
+            return Response(out)
+
+        @svc.route("POST", r"/__dedup__/gc")
+        def dedup_gc(req: Request) -> Response:
+            if not self.dedup:
+                return Response({"error": "dedup not enabled"}, 400)
+            return Response(self.dedup_gc())
+
+        # --- distributed lock manager (weed/cluster/lock_manager) ---
+        @svc.route("POST", r"/__dlm__/lock")
+        def dlm_lock(req: Request) -> Response:
+            p = req.json()
+            key = p["key"]
+            target = self.lock_ring.server_for(key)
+            if target and target != self.url:
+                return Response({"moved_to": target}, 307)
+            try:
+                token, expires = self.dlm.lock(
+                    key, p.get("owner", "?"), float(p.get("ttl_sec", 30)),
+                    token=p.get("token", ""),
+                )
+            except LockedError as e:
+                return Response({"error": str(e), "owner": e.owner}, 409)
+            return Response(
+                {"ok": True, "token": token, "expires_at": expires}
+            )
+
+        @svc.route("POST", r"/__dlm__/unlock")
+        def dlm_unlock(req: Request) -> Response:
+            p = req.json()
+            key = p["key"]
+            target = self.lock_ring.server_for(key)
+            if target and target != self.url:
+                return Response({"moved_to": target}, 307)
+            try:
+                self.dlm.unlock(key, p.get("token", ""))
+            except LockedError as e:
+                return Response({"error": str(e), "owner": e.owner}, 409)
+            return Response({"ok": True})
+
+        @svc.route("GET", r"/__dlm__/status")
+        def dlm_status(req: Request) -> Response:
+            return Response({
+                "ring": self.lock_ring.servers(),
+                "host": self.url,
+            })
+
+        @svc.route("POST", r"/__meta__/notify")
+        def meta_notify(req: Request) -> Response:
+            # `command_fs_meta_notify.go`: recursively (re)send every
+            # entry under a directory to the notification queue so a
+            # downstream replicator can bootstrap from existing data
+            p = req.json()
+            root = normalize(p.get("directory", "/"))
+            if self.filer.notification_queue is None:
+                return Response({"error": "no notification queue"
+                                          " configured"}, 400)
+            sent = 0
+
+            def walk(d: str) -> None:
+                nonlocal sent
+                for e in self.filer.list_entries(d, limit=1 << 31):
+                    self.filer.notification_queue.send_message(
+                        e.full_path,
+                        {"directory": d, "old_entry": None,
+                         "new_entry": e.to_dict(),
+                         "ts_ns": time.time_ns(), "signatures": []},
+                    )
+                    sent += 1
+                    if e.is_directory:
+                        walk(e.full_path)
+
+            walk(root)
+            return Response({"sent": sent})
+
+        @svc.route("POST", r"/__meta__/change_volume_id")
+        def meta_change_volume_id(req: Request) -> Response:
+            # `command_fs_meta_change_volume_id.go`: after volumes are
+            # relocated/renumbered (e.g. cross-cluster copies), rewrite
+            # the volume id inside chunk fids under a directory. The
+            # blobs themselves moved — freed-chunk reclaim must not run.
+            p = req.json()
+            root = normalize(p.get("directory", "/"))
+            mapping = {str(k): str(v)
+                       for k, v in (p.get("mapping") or {}).items()}
+            if not mapping:
+                return Response({"error": "empty volume id mapping"}, 400)
+            changed = 0
+
+            def rewrite(chunks) -> bool:
+                hit = False
+                for c in chunks:
+                    vid, _, rest = c.file_id.partition(",")
+                    if vid in mapping:
+                        c.file_id = f"{mapping[vid]},{rest}"
+                        hit = True
+                return hit
+
+            def walk(d: str) -> None:
+                nonlocal changed
+                for e in self.filer.list_entries(d, limit=1 << 31):
+                    if e.is_directory:
+                        walk(e.full_path)
+                        continue
+                    if rewrite(e.chunks):
+                        self.filer.create_entry(e)  # freed fids ignored
+                        changed += 1
+
+            walk(root)
+            return Response({"changed": changed})
+
+        @svc.route("POST", r"/__meta__/merge_volumes")
+        def meta_merge_volumes(req: Request) -> Response:
+            # `command_fs_merge_volumes.go`: move chunks out of volume
+            # `from_vid` into `to_vid` (needle key/cookie preserved, so
+            # existing fids only change their volume part) and rewrite
+            # the metadata; dry-run unless apply. Old blobs are deleted
+            # after their entry is updated.
+            p = req.json()
+            root = normalize(p.get("directory", "/"))
+            from_vid = str(p.get("from_vid", ""))
+            to_vid = str(p.get("to_vid", ""))
+            apply = bool(p.get("apply"))
+            if not from_vid or not to_vid or from_vid == to_vid:
+                return Response(
+                    {"error": "need distinct from_vid and to_vid"}, 400)
+            try:
+                targets = self.client.lookup(int(to_vid))
+            except (IOError, ValueError) as e:
+                return Response({"error": f"target volume: {e}"}, 400)
+            target = targets[0]
+            moved = planned = 0
+            skipped: list[str] = []
+            manifest_skipped = 0
+
+            def migrate(entry) -> bool:
+                nonlocal moved, planned
+                changed = False
+                old_chunks = []
+                for c in entry.chunks:
+                    vid, _, rest = c.file_id.partition(",")
+                    if vid != from_vid:
+                        continue
+                    planned += 1
+                    if not apply:
+                        continue
+                    new_fid = f"{to_vid},{rest}"
+                    try:
+                        # key collision in the target volume would clobber
+                        # a foreign needle (a same-key/other-cookie needle
+                        # HEADs 404 but still fails the overwrite check
+                        # below — caught the same way)
+                        st, _, _ = http_request(
+                            "HEAD", f"{peer_url(target)}/{new_fid}")
+                        if st == 200:
+                            skipped.append(c.file_id)
+                            continue
+                        data = self.client.fetch(c.file_id)
+                        self.client.upload_to(new_fid, target, data)
+                    except IOError:
+                        skipped.append(c.file_id)
+                        continue
+                    old_chunks.append(copy.copy(c))
+                    c.file_id = new_fid
+                    changed = True
+                    moved += 1
+                if changed:
+                    self.filer.create_entry(entry)  # moved, not freed
+                    # reclaim via the shared path: dedup-managed blobs
+                    # (shared with other entries / the dedup index) are
+                    # kept, everything else is deleted
+                    self._reclaim_chunks(old_chunks)
+                return changed
+
+            def walk(d: str) -> None:
+                nonlocal manifest_skipped
+                for e in self.filer.list_entries(d, limit=1 << 31):
+                    if e.is_directory:
+                        walk(e.full_path)
+                        continue
+                    if any(c.is_chunk_manifest for c in e.chunks):
+                        # inner manifest fids may live in from_vid too;
+                        # migrating them means rewriting manifest blobs —
+                        # report instead of claiming a full drain
+                        manifest_skipped += 1
+                        continue
+                    if any(c.file_id.startswith(from_vid + ",")
+                           for c in e.chunks):
+                        migrate(e)
+
+            walk(root)
+            return Response({"planned": planned, "moved": moved,
+                             "skipped": skipped,
+                             "manifest_entries_skipped": manifest_skipped,
+                             "applied": apply})
 
         @svc.route("GET", r"/__meta__/info")
         def meta_info(req: Request) -> Response:
@@ -597,7 +869,8 @@ class FilerServer:
     def _dedup_managed(self, chunk: FileChunk) -> bool:
         """True when the chunk's blob is owned by the dedup index — other
         entries may reference the same fid, so delete/overwrite must not
-        reclaim it. Consults the MD5-keyed shadow entry ("m<md5>-<len>",
+        reclaim it (`dedup_gc` does, once nothing references it).
+        Consults the MD5-keyed shadow entry ("m<md5>-<len>",
         written next to every SW128 primary) because chunk metadata
         carries only the MD5 ETag; legacy md5-primary keys (pre-SW128
         indexes) still match via the bare-key fallback."""
@@ -620,6 +893,101 @@ class FilerServer:
                 if prec is not None and prec.get("fid") == chunk.file_id:
                     return True
         return False
+
+    def dedup_gc(self) -> dict:
+        """Walk the namespace, then drop every index entry (and delete its
+        blob) that no live entry references. Concurrency-safe against
+        in-flight dedup'd uploads: a lookup-hit records its fid in
+        `_dedup_recent` under `_dedup_mu` before the entry exists, and the
+        gc decision runs under the same lock — so a hit either precedes the
+        decision (gc skips the fid as recently referenced) or follows the
+        key's condemnation (the upload sees `_dedup_condemned` and
+        re-uploads instead). Order per dropped key: the index entry first,
+        then its shadow, then the blob."""
+        gc_start = time.monotonic()
+        referenced: set[str] = set()
+
+        def walk(p: str) -> None:
+            for e in self.filer.list_entries(p, limit=1 << 31):
+                if e.is_directory:
+                    if e.full_path != DEDUP_DIR:
+                        walk(e.full_path)
+                    continue
+                chunks = e.chunks
+                if any(c.is_chunk_manifest for c in chunks):
+                    # a manifest we cannot resolve hides data fids — any
+                    # error here must abort the gc, not shrink the pin set
+                    chunks = self._resolved_chunks(e)
+                for c in chunks:
+                    referenced.add(c.file_id)
+
+        try:
+            walk("/")
+        except Exception as e:
+            return {"error": f"namespace walk failed, gc aborted: {e}",
+                    "scanned": 0, "dropped": 0, "bytes_freed": 0, "errors": 1}
+        scanned = dropped = freed = errors = 0
+        for key, rec in list(self.dedup_index.iter_records()):
+            scanned += 1
+            fid = rec.get("fid", "")
+            if not fid or fid in referenced:
+                continue
+            # Shadow entries ("m<md5>-<len>") must OUTLIVE their primary —
+            # a shadow removed while the primary still hands out the fid
+            # would let overwrite-reclaim delete a shared blob. They are
+            # only swept here once their primary is gone (crash orphans).
+            is_shadow = key.startswith("m") and len(key) > 33
+            if is_shadow:
+                primary = rec.get("p", "")
+                if primary and self.dedup_index.lookup(primary) is not None:
+                    continue  # primary alive: the pair drops together below
+                try:
+                    self.dedup_index.remove(key)
+                except Exception:
+                    errors += 1
+                continue
+            with self._dedup_mu:
+                # referenced (or re-inserted) since the walk began: keep
+                ts = self._dedup_recent.get(fid)
+                if ts is not None and ts >= gc_start - 1.0:
+                    continue
+                self._dedup_condemned.add(key)
+            try:
+                # index entry first: if this fails the blob merely leaks and
+                # a later gc retries; the reverse order would leave the index
+                # handing out a deleted fid (silent data loss)
+                self.dedup_index.remove(key)
+            except Exception:
+                errors += 1
+                continue
+            # the paired shadow goes with its primary (etag recorded at
+            # insert); failure just leaves an orphan the next gc sweeps
+            etag = rec.get("etag", "")
+            if etag:
+                try:
+                    self.dedup_index.remove(
+                        f"m{etag}-{key.rsplit('-', 1)[1]}")
+                except Exception:
+                    pass
+            try:
+                self.client.delete(fid)
+            except Exception:
+                errors += 1  # blob leaked; index is already consistent
+                continue
+            dropped += 1
+            try:
+                freed += int(key.rsplit("-", 1)[1], 16)
+            except (IndexError, ValueError):
+                pass
+        with self._dedup_mu:  # prune the recency map so it stays bounded
+            cutoff = time.monotonic() - 600.0
+            self._dedup_recent = {
+                f: t for f, t in self._dedup_recent.items() if t > cutoff
+            }
+        return {
+            "scanned": scanned, "dropped": dropped,
+            "bytes_freed": freed, "errors": errors,
+        }
 
     def _do_read(self, req: Request, head: bool) -> Response:
         path = normalize(urllib.parse.unquote(req.path))

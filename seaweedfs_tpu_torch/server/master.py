@@ -9,7 +9,8 @@ nodes and asks volume servers to compact volumes whose garbage crosses
 `garbage_threshold` (unless `/vol/vacuum/disable` turned it off), and the
 routes `POST /heartbeat`, `/dir/assign`, `/dir/lookup`, `GET
 /dir/ec_lookup`, `/dir/status`, `/cluster/status`, `/cluster/ps`, `POST
-/cluster/lock`, `/cluster/unlock`, `GET /col/list`, `POST /col/delete`,
+/cluster/register`, `GET /cluster/leader`, `POST /cluster/lock`,
+`/cluster/unlock`, `GET /col/list`, `POST /col/delete`,
 `GET /vol/vacuum`, `POST /vol/vacuum/{enable,disable}` and `GET
 /vol/status`.
 
@@ -25,9 +26,14 @@ dry-run included, it owns vacuum and the pulse's vacuum round is skipped.
 The master and the daemon are host code and hold no device. One master
 is the leader: there is no raft, so the sequence lease is not needed.
 
+Filers and brokers announce themselves through `/cluster/register` (the
+member registry `_members`, first-seen order deciding each group's
+leader); `/cluster/ps` lists the live ones and `/cluster/leader` names a
+group's leader. The registration carries no telemetry frame here.
+
 Not ported: raft HA and the `/raft/*` routes, the native fastlane front
-door, JWT (`security`), telemetry, metrics, heat, `/ui`,
-`/cluster/register` and `/cluster/telemetry`.
+door, JWT (`security`), telemetry (`/cluster/telemetry`), metrics, heat
+and `/ui`.
 """
 
 from __future__ import annotations
@@ -82,6 +88,8 @@ class MasterServer:
         self._pulse: threading.Thread | None = None
         # the admin shell's exclusive lock
         self._admin_lock: tuple[str, float] | None = None  # (holder, expiry)
+        # filers and brokers by address, from /cluster/register
+        self._members: dict[str, dict] = {}
         # autonomous maintenance: off by default; `maintenance` starts the
         # detect->plan->heal daemon at boot, `maintenance_dry_run` plans
         # without executing
@@ -383,10 +391,56 @@ class MasterServer:
                  "MaxVolumeId": self.topo._max_volume_id}
             )
 
+        @svc.route("POST", r"/cluster/register")
+        def cluster_register(req: Request) -> Response:
+            """Filers/brokers announce themselves (the reference rides this on
+            the KeepConnected stream, `weed/cluster/cluster.go`)."""
+            p = req.json()
+            prev = self._members.get(p["address"])
+            self._members[p["address"]] = {
+                "type": p.get("type", "filer"),
+                "address": p["address"],
+                "last_seen": time.time(),
+                # first-seen decides group leadership (`cluster.go` — the
+                # longest-lived member leads its group)
+                "created_ts": prev["created_ts"] if prev else time.time(),
+            }
+            # answer with the member's position among its live peer group
+            # (ordered by first-seen, like group leadership)
+            now = time.time()
+            ptype = p.get("type", "filer")
+            peers = sorted(
+                (m for m in self._members.values()
+                 if m["type"] == ptype and now - m["last_seen"] < 30),
+                key=lambda m: (m["created_ts"], m["address"]),
+            )
+            addrs = [m["address"] for m in peers]
+            out = {"ok": True, "leader": self.url, "gateways": len(addrs)}
+            if p["address"] in addrs:
+                out["ordinal"] = addrs.index(p["address"])
+            return Response(out)
+
+        @svc.route("GET", r"/cluster/leader")
+        def cluster_leader(req: Request) -> Response:
+            kind = req.query.get("type", "filer")
+            now = time.time()
+            live = [
+                m for m in self._members.values()
+                if m["type"] == kind
+                and now - m["last_seen"] < 3 * max(self.topo.pulse_seconds, 5)
+            ]
+            if not live:
+                return Response({"error": f"no live {kind} members"}, 404)
+            leader = min(live, key=lambda m: (m["created_ts"], m["address"]))
+            return Response({"leader": leader["address"], "type": kind})
+
         @svc.route("GET", r"/cluster/ps")
         def cluster_ps(req: Request) -> Response:
-            # filers and brokers announce themselves through
-            # /cluster/register, which is not ported: none is listed
+            now = time.time()
+            members = [
+                m for m in self._members.values()
+                if now - m["last_seen"] < 3 * max(self.topo.pulse_seconds, 5)
+            ]
             return Response(
                 {
                     "masters": [{"address": self.url, "isLeader": True}],
@@ -395,8 +449,8 @@ class MasterServer:
                          "rack": n.rack_name()}
                         for n in self.topo.all_nodes()
                     ],
-                    "filers": [],
-                    "brokers": [],
+                    "filers": [m for m in members if m["type"] == "filer"],
+                    "brokers": [m for m in members if m["type"] == "broker"],
                 }
             )
 

@@ -509,48 +509,64 @@ class VolumeServer:
             item = state["queue"].get()
             if item is None:
                 return
-            seq, offset, size, payload = item
-            if state["error"] is not None:
-                continue  # drain-and-discard: the session already failed
-            url = url_base + f"&seq={seq}&offset={offset}&size={size}"
-
-            def fwd():
-                return http_request(
-                    "POST", url, payload,
-                    headers={"X-Repair-Crc": str(crc_mod.crc32c(payload))},
-                    timeout=READ_POLICY.deadline,
-                )
-
             try:
-                status, _, out = READ_POLICY.call(fwd)
-            except (IOError, OSError) as e:
-                state["error"] = {
-                    "error": "hop_unreachable",
-                    "failed_hop_server": nxt.get("server", ""),
-                    "chunk": seq, "detail": str(e)[:200],
-                }
-                continue
-            except Exception as e:  # never die with chunks enqueued
-                state["error"] = {
-                    "error": "hop_failed",
-                    "failed_hop_server": nxt.get("server", ""),
-                    "chunk": seq, "detail": str(e)[:200],
-                }
-                continue
-            if status != 200:
-                downstream = _error_of(out)
-                downstream.setdefault("error", f"hop -> {status}")
-                downstream.setdefault(
-                    "failed_hop_server", nxt.get("server", ""))
-                downstream.setdefault("chunk", seq)
-                state["error"] = downstream
-                continue
-            state["forwarded"] += 1
-            ec_decoder.REPAIR.inc("stream_chunks", "forwarded")
+                self._forward_one(state, nxt, url_base, item)
+            finally:
+                state["drained"] += 1  # progress the close's drain wait reads
+
+    def _forward_one(self, state: dict, nxt: dict, url_base: str,
+                     item: tuple) -> None:
+        """Ship one queued chunk downstream, or record why it failed."""
+        seq, offset, size, payload = item
+        if state["error"] is not None:
+            return  # drain-and-discard: the session already failed
+        url = url_base + f"&seq={seq}&offset={offset}&size={size}"
+
+        def fwd():
+            return http_request(
+                "POST", url, payload,
+                headers={"X-Repair-Crc": str(crc_mod.crc32c(payload))},
+                timeout=READ_POLICY.deadline,
+            )
+
+        try:
+            status, _, out = READ_POLICY.call(fwd)
+        except (IOError, OSError) as e:
+            state["error"] = {
+                "error": "hop_unreachable",
+                "failed_hop_server": nxt.get("server", ""),
+                "chunk": seq, "detail": str(e)[:200],
+            }
+            return
+        except Exception as e:  # never die with chunks enqueued
+            state["error"] = {
+                "error": "hop_failed",
+                "failed_hop_server": nxt.get("server", ""),
+                "chunk": seq, "detail": str(e)[:200],
+            }
+            return
+        if status != 200:
+            downstream = _error_of(out)
+            downstream.setdefault("error", f"hop -> {status}")
+            downstream.setdefault(
+                "failed_hop_server", nxt.get("server", ""))
+            downstream.setdefault("chunk", seq)
+            state["error"] = downstream
+            return
+        state["forwarded"] += 1
+        ec_decoder.REPAIR.inc("stream_chunks", "forwarded")
 
     def _teardown_stream(self, state: dict) -> None:
         """Stop a session's forwarder (sentinel + join). Caller already
-        removed it from _partial_streams."""
+        removed it from _partial_streams.
+
+        The join waits for the queue to drain for as long as the forwarder
+        keeps shipping: each chunk gets the stall budget, the same bound a
+        handler's enqueue has. A slow but healthy downstream therefore
+        finishes its chunks before the close cascades past this hop. A
+        forwarder that ships nothing for a whole budget marks the session
+        failed (stream_stall), so the close never answers ok with chunks
+        still queued here."""
         q, t = state.get("queue"), state.get("thread")
         if q is not None:
             try:
@@ -565,8 +581,22 @@ class VolumeServer:
                     q.put(None, timeout=5.0)
                 except queue.Full:
                     pass
-        if t is not None:
-            t.join(timeout=10.0)
+        if t is None:
+            return
+        budget = state.get("stall_timeout", STREAM_STALL_TIMEOUT)
+        seen = state["drained"]
+        while True:
+            t.join(timeout=budget)
+            if not t.is_alive():
+                return
+            if state["drained"] == seen:
+                break
+            seen = state["drained"]
+        ec_decoder.REPAIR.inc("stream_chunks", "stalled")
+        state["error"] = state["error"] or {
+            "error": "stream_stall",
+            "failed_hop_server": state["downstream"][0].get("server", ""),
+            "chunk": -1}
 
     def _sweep_streams_locked(self) -> list[dict]:
         """Drop sessions past the idle age (a dead orchestrator never
@@ -1588,7 +1618,7 @@ class VolumeServer:
                 "window": max(1, int(p.get("window", STREAM_WINDOW))),
                 "stall_timeout": float(
                     p.get("stall_timeout", STREAM_STALL_TIMEOUT)),
-                "received": 0, "read": 0, "forwarded": 0,
+                "received": 0, "read": 0, "forwarded": 0, "drained": 0,
                 "error": None, "touched": time.time(),
                 "queue": None, "thread": None,
             }

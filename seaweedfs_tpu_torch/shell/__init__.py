@@ -5,14 +5,14 @@ The port's copy of `seaweedfs_tpu/shell/` with the commands of
 `commands_cluster` (`lock`, `unlock`, `cluster.ps`, `collection.list`,
 `collection.delete`, `volume.list`, `volume.status`, `cluster.scrub`),
 `commands_ec` (`ec.encode`, `ec.decode`, `ec.rebuild`, `ec.balance`),
-`commands_maintenance` (`cluster.maintenance`) and `commands_volume`
-(every `volume.*` verb but the tier verbs). Not ported: the other
-command files (`commands_{fs,remote,s3}.py`) and the rest of
-`commands_cluster.py`.
+`commands_fs` (every `fs.*` verb, over a filer), `commands_maintenance`
+(`cluster.maintenance`) and `commands_volume` (every `volume.*` verb but
+the tier verbs). Not ported: the other command files
+(`commands_{remote,s3}.py`) and the rest of `commands_cluster.py`.
 
 Usage:
     from seaweedfs_tpu_torch.shell import CommandEnv, run_command
-    env = CommandEnv(master_url)
+    env = CommandEnv(master_url)  # or CommandEnv(master_url, filer_url)
     print(run_command(env, "lock"))
     print(run_command(env, "ec.encode -collection photos"))
 """
@@ -23,6 +23,7 @@ from .registry import COMMANDS, run_command
 # command modules register themselves on import
 from . import commands_cluster  # noqa: E402,F401
 from . import commands_ec  # noqa: E402,F401
+from . import commands_fs  # noqa: E402,F401
 from . import commands_maintenance  # noqa: E402,F401
 from . import commands_volume  # noqa: E402,F401
 

@@ -6,10 +6,8 @@ The port's copy of `lock`, `unlock`, `cluster.ps`, `collection.list`,
 `collection.delete`, `volume.list`, `volume.status` and `cluster.scrub`
 from `seaweedfs_tpu/shell/commands_cluster.py`, over routes the port's
 master (`/cluster/ps`, `/col/list`, `/col/delete`, `/dir/status`) and
-volume servers (`/admin/scrub/status`) serve. The port's master lists no
-filer or broker in `/cluster/ps` (`/cluster/register` is not ported), so
-`cluster.ps` ends with a line that says so where the JAX verb would list
-them.
+volume servers (`/admin/scrub/status`) serve. `cluster.ps` lists the
+filers and brokers that registered with the master (`/cluster/register`).
 Not ported: the file's other commands (`cluster.check`, `cluster.top`,
 `cluster.trace`, `cluster.profile`, `cluster.why`, `cluster.heat`,
 `cluster.faults` and the rest), which read routes the port does not
@@ -37,11 +35,6 @@ def cmd_unlock(env: CommandEnv, args: list[str]) -> str:
     return "lock released"
 
 
-CLUSTER_PS_UNLISTED = (
-    "filers, brokers: none listed (the port's master does not serve"
-    " /cluster/register, where they announce themselves)")
-
-
 @command("cluster.ps", "list cluster processes (masters, volume servers, filers)")
 def cmd_cluster_ps(env: CommandEnv, args: list[str]) -> str:
     info = env.get(f"{env.master_url}/cluster/ps")
@@ -54,9 +47,6 @@ def cmd_cluster_ps(env: CommandEnv, args: list[str]) -> str:
         lines.append(f"filer {f['address']}")
     for b in info.get("brokers", []):
         lines.append(f"broker {b['address']}")
-    if not info.get("filers") and not info.get("brokers"):
-        # the port's master keeps no registry of them: say so, list none
-        lines.append(CLUSTER_PS_UNLISTED)
     return "\n".join(lines)
 
 

@@ -21,11 +21,14 @@ One difference from the JAX package: a hop whose codec fails answers
 `codec_failed`, and the orchestrator raises `ShellError` naming the hop
 instead of restarting the chain or falling back to classic, so a kernel
 fault never turns into a quiet classic repair. Repair metrics, traces and
-events are not ported; the plane counts into `decoder.REPAIR`."""
+events are not ported; the plane counts into `decoder.REPAIR`, and a chain
+restart (the JAX `chain_restart` event) is a warning on this module's
+logger with its reason, node, chunk and detail."""
 
 from __future__ import annotations
 
 import json
+import logging
 import time
 import urllib.parse
 import uuid
@@ -35,6 +38,8 @@ from ..storage.erasure_coding import decoder as ec_decoder
 from ..storage.erasure_coding.ec_volume import TRANSPORT_ERRORS
 from .env import CommandEnv, ServerView, ShellError
 from .registry import command, dry_run_flag, parse_flags, render_plan
+
+log = logging.getLogger(__name__)
 
 TOTAL_SHARDS = 14
 DATA_SHARDS = 10
@@ -441,6 +446,9 @@ def apply_rebuild_pipelined(
                     if e.reason in ec_decoder.REPAIR_RESTART_REASONS \
                     else "hop_failed"
                 ec_decoder.REPAIR.inc("restarts", reason)
+                log.warning("ec.rebuild volume %s: chain restart (%s) at node %r,"
+                            " chunk %s: %s", plan["volume"], reason, e.server,
+                            e.chunk, e.detail[:200])
                 restarts += 1
                 if reason in strikes:
                     strikes[reason] += 1

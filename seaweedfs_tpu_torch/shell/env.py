@@ -2,13 +2,14 @@
 (reference `weed/shell/command_env.go` CommandEnv).
 
 The port's copy of `seaweedfs_tpu/shell/env.py` over the port's
-`server/httpd.py` client helpers. The filer handle (`filer_url`, `cwd`,
-`require_filer`, `filer_read`) is left out: no ported command reads a
-filer."""
+`server/httpd.py` client helpers, with the filer handle the `fs.*` verbs
+read (`filer_url`, `cwd`, `require_filer`, which finds a registered filer
+through the master's `/cluster/ps` when none was given, and
+`filer_read`)."""
 
 from __future__ import annotations
 
-from ..server.httpd import get_json, post_json
+from ..server.httpd import get_json, http_request, post_json
 
 
 class ShellError(Exception):
@@ -40,10 +41,14 @@ class ServerView:
 
 
 class CommandEnv:
-    def __init__(self, master_url: str, holder: str = "shell") -> None:
+    def __init__(
+        self, master_url: str, filer_url: str = "", holder: str = "shell"
+    ) -> None:
         self.master_url = master_url.rstrip("/")
+        self.filer_url = filer_url.rstrip("/") if filer_url else ""
         self.holder = holder
         self.locked = False
+        self.cwd = "/"  # fs.cd / fs.pwd working directory
 
     # --- cluster topology -----------------------------------------------------
     def topology(self) -> dict:
@@ -86,3 +91,24 @@ class CommandEnv:
         self.post(f"{self.master_url}/cluster/unlock",
                   {"holder": self.holder}, timeout=timeout)
         self.locked = False
+
+    def require_filer(self) -> str:
+        if not self.filer_url:
+            # auto-discover from cluster membership (filers register with
+            # the master — weed/cluster)
+            try:
+                ps = self.get(f"{self.master_url}/cluster/ps")
+                filers = ps.get("filers") or []
+                if filers:
+                    self.filer_url = filers[0]["address"]
+            except Exception:
+                pass
+        if not self.filer_url:
+            raise ShellError("this command needs a filer (pass filer_url)")
+        return self.filer_url
+
+    def filer_read(self, path: str, query: str = "") -> tuple[int, dict, bytes]:
+        url = f"{self.require_filer()}{path}"
+        if query:
+            url += f"?{query}"
+        return http_request("GET", url, timeout=60)

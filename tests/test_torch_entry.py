@@ -64,6 +64,55 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path):
         EcVolume(str(tmp_path), "", 1)
 
 
+NEW_IN_FILER_SLICE = [
+    "seaweedfs_tpu_torch/cluster/__init__.py",
+    "seaweedfs_tpu_torch/filer/kvstore.py",
+    "seaweedfs_tpu_torch/filer/lsm.py",
+    "seaweedfs_tpu_torch/filer/etcd.py",
+    "seaweedfs_tpu_torch/filer/stores_gated.py",
+    "seaweedfs_tpu_torch/filer/filer_client.py",
+    "seaweedfs_tpu_torch/filer/meta_aggregator.py",
+    "seaweedfs_tpu_torch/shell/commands_fs.py",
+]
+
+
+@pytest.mark.parametrize("rel", NEW_IN_FILER_SLICE)
+def test_filer_slice_modules_are_scanned_and_import_alone(rel):
+    """Each module of the filer slice is in the import scan above and
+    imports with neither `jax` nor `seaweedfs_tpu` loaded by it."""
+    import importlib
+    import subprocess
+    import sys
+
+    assert REPO / rel in PORT_FILES
+    mod = rel[:-3].replace("/", ".").removesuffix(".__init__")
+    code = (f"import sys, importlib; importlib.import_module({mod!r}); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'seaweedfs_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    importlib.import_module(mod)
+
+
+@pytest.mark.parametrize("kind", ["memory", "leveldb", "lsm"])
+def test_filer_server_without_device_raises(kind, monkeypatch, tmp_path):
+    """The filer and its new routes run on the device they were given; with
+    none and no CUDA the server refuses, whatever its store."""
+    from seaweedfs_tpu_torch.server.filer import FilerServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / kind) if kind != "memory" else None
+    with pytest.raises(RuntimeError):
+        FilerServer("http://127.0.0.1:1", store_kind=kind, store_path=path, dedup=True)
+    srv = FilerServer("http://127.0.0.1:1", store_kind=kind, store_path=path,
+                      dedup=True, device="cpu")
+    try:
+        assert srv.device.type == "cpu" and srv.dedup_index is not None
+    finally:
+        srv.filer.close()
+
+
 def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):

@@ -17,7 +17,11 @@ plans equal the real run's and mutate nothing; an operator's admin lock
 defers the daemon; evacuation pre-copies off a stale node; a codec
 failure fails the task with its reason; `cluster.maintenance` renders a
 status dict as the JAX verb does. Tolerance: byte equality. Every wait
-has a deadline.
+has a deadline. The replica-loss and vacuum cases allocate their volumes
+evenly before any write (`allocate_evenly`), so the balance detector stays
+quiet and moves no volume under them; the vacuum case also reads the
+surviving needle from every holder a fresh lookup names once the daemon
+is idle.
 """
 
 from __future__ import annotations
@@ -685,6 +689,27 @@ def done(master, type_, state="completed") -> list:
             if h["task"]["type"] == type_ and h["state"] == state]
 
 
+def allocate_evenly(master, servers, holders: dict, **params) -> None:
+    """Allocate volumes `{vid: [server index, ...]}` before any assign, so
+    the assigns write into them and grow none. Spread evenly, the volume
+    counts stay within the balance detector's slack, and no balance task
+    moves a volume while a test reads it (the chip phase's "two a server")."""
+    for vid, idx in holders.items():
+        for i in idx:
+            post_json(f"{servers[i].url}/admin/allocate_volume",
+                      {"volume": vid, **params})
+    for vs in servers:
+        vs.heartbeat_once()
+    layout = {sv.id: sorted(sv.volumes) for sv in CommandEnv(master.url).servers()}
+    assert sorted(v for vids in layout.values() for v in vids) == sorted(
+        v for v, idx in holders.items() for _ in idx), layout
+
+
+def daemon_idle(master) -> bool:
+    """No task queued or in flight."""
+    return get_json(f"{master.url}/debug/maintenance")["queue_depths"] == {}
+
+
 def lose_a_replica(master, env, **params):
     write_blobs(master.url, 4, replication="010", **params)
     replicas = {vid: h for vid, h in env.volume_replicas().items() if len(h) == 2}
@@ -695,6 +720,10 @@ def lose_a_replica(master, env, **params):
 
 def test_replica_loss_detected_and_healed(cluster):
     master, servers, env = cluster
+    # one 010 volume on each pair of racks: two a server, so the balance
+    # detector stays quiet through the loss and the heal
+    allocate_evenly(master, servers, {1: [0, 1], 2: [1, 2], 3: [2, 0]},
+                    replication="010")
     vid = lose_a_replica(master, env)
     assert master.topo.under_replicated_volumes()
     post_json(f"{master.url}/maintenance/enable")
@@ -715,6 +744,7 @@ def test_replica_loss_detected_and_healed(cluster):
     assert "fix_replication" not in st["failures"]
     assert st["events"]["task_dispatched"] >= 1
     assert "fix_replication" in st["queue_depths"] or st["queue_depths"] == {}
+    assert not done(master, "balance") and "balance" not in st["counts"]
 
 
 def test_ec_shard_loss_detected_and_healed(cluster, tmp_path):
@@ -779,6 +809,9 @@ def test_codec_failure_fails_the_rebuild_task(cluster, tmp_path, monkeypatch):
 
 def test_vacuum_candidate_detected_and_compacted(cluster):
     master, servers, env = cluster
+    # one volume a server: the balance detector stays quiet, so no balance
+    # task moves the vacuumed volume between the lookup and the GET
+    allocate_evenly(master, servers, {1: [0], 2: [1], 3: [2]})
     post_json(f"{master.url}/maintenance/enable")  # owns vacuum now
     blobs = write_blobs(master.url, 12, size=800)
     vid = int(fid_of(next(iter(blobs))).split(",")[0])
@@ -799,6 +832,14 @@ def test_vacuum_candidate_detected_and_compacted(cluster):
     locs = get_json(f"{master.url}/dir/lookup?volumeId={vid}")
     status, _, body = http_request("GET", f"http://{locs['locations'][0]['url']}/{fid}")
     assert status == 200 and body == blobs[in_vol[-1]]
+    # with the daemon idle, every holder a fresh lookup names serves it
+    wait_until(lambda: daemon_idle(master), msg="daemon idle")
+    assert not done(master, "balance")
+    locs = get_json(f"{master.url}/dir/lookup?volumeId={vid}")["locations"]
+    assert len(locs) == 1
+    for loc in locs:
+        status, _, body = http_request("GET", f"http://{loc['url']}/{fid}")
+        assert status == 200 and body == blobs[in_vol[-1]], loc
 
 
 def test_corrupt_needle_found_by_scrub_is_healed(cluster):

@@ -452,6 +452,35 @@ def test_stream_stall_escalates_typed(clusters, tmp_path):
     assert decoder.REPAIR.snapshot()["stream_chunks"]["stalled"] > stalled0
 
 
+def test_slow_drain_closes_without_restart(clusters, tmp_path):
+    """A writer that lands each chunk slowly (2.5 s) but never stalls past
+    the stall budget: the close waits for every hop's queue to drain, so the
+    stream commits whole with no chain restart and the rebuilder receives
+    exactly one stacked partial. Before the drain wait, a hop's close gave
+    up on its forwarder after a fixed 10 s and cascaded while chunks were
+    still queued: the writer's frontier fell short and the chain
+    restarted."""
+    master, servers, env = clusters(4)
+    vid, _, obase = encode_with_oracle(master, servers, env, tmp_path, seed=9)
+    lost = lose(env, vid, [0, 4])
+    pplan = commands_ec.plan_rebuild_pipelined(env, vid, "")
+    assert len(pplan["chain"]) >= 3
+    start = post_json(f"{pplan['rebuilder_url']}/admin/ec/partial/start",
+                      {"volume": vid, "targets": pplan["missing"]})
+    shard_size = int(start["shard_size"])
+    chunk = -(-shard_size // 6)
+    # the writer's open passes; each of its 6 chunks takes 2.5 s to land
+    faults.arm(POINT, "latency", ms=2500.0, key=pplan["chain"][-1]["server"], after=1)
+    rebuilt, stats = commands_ec.apply_rebuild_pipelined(env, pplan, chunk=chunk,
+                                                         stream=True)
+    faults.disarm_all()
+    assert sorted(rebuilt) == lost and stats["restarts"] == 0
+    assert stats["bytes_on_wire_rebuilder"] == len(lost) * shard_size
+    assert stats["bytes_on_wire_total"] == (stats["hops"] - 1) * len(lost) * shard_size
+    assert assert_equal_oracle(servers, vid, obase) == list(range(14))
+    assert no_tmp_left(servers)
+
+
 def open_terminal_session(env, vid, session):
     pplan = commands_ec.plan_rebuild_pipelined(env, vid, "")
     rb = pplan["rebuilder_url"]

@@ -182,9 +182,14 @@ def test_run_command_help_unknown_and_lock():
         "cluster.maintenance", "cluster.ps", "cluster.scrub",
         "collection.delete", "collection.list", "volume.list",
         "volume.status"]
+    fs_verbs = [
+        "fs.cat", "fs.cd", "fs.configure", "fs.dedup.gc", "fs.du", "fs.log.purge",
+        "fs.ls", "fs.merge.volumes", "fs.meta.cat", "fs.meta.changeVolumeId",
+        "fs.meta.load", "fs.meta.notify", "fs.meta.save", "fs.mkdir", "fs.mv",
+        "fs.pwd", "fs.rm", "fs.tree", "fs.verify"]
     assert run_command(env, "help").split() == sorted(
         ["ec.balance", "ec.decode", "ec.encode", "ec.rebuild", "lock", "unlock"]
-        + volume_verbs + cluster_verbs)
+        + volume_verbs + cluster_verbs + fs_verbs)
     assert "rebuild" in run_command(env, "help ec.rebuild")
     assert run_command(env, "") == ""
     with pytest.raises(ShellError, match="unknown command"):
