@@ -7,6 +7,8 @@
                           [--mesh-volumes N] [--mesh-mib MIB] [--filer-files N]
                           [--filer-large-mib MIB] [--scrub-files N] [--scrub-mib MIB]
                           [--maint-mib MIB] [--maint-files N] [--filer-dedup-uploads N]
+                          [--s3-objects N] [--s3-seconds S] [--s3-clients N]
+                          [--s3-multipart-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -190,7 +192,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               filer; the filer restarted on its store dedup'ing a survivor's
               re-PUT with no miss; `fs.verify /`; PUT GB/s and p50/p99, the gc
               wall split, the restart wall, launches, the wall (limit 150 s)
- 16. entry    entry() on the card equal to the CPU codec
+ 16. s3       warp's mixed S3 benchmark (`make benchmark` against `weed server
+              -s3`) against the port: a port master (pulse 1 s), two volume
+              servers and a FilerServer (4 MiB chunks) on the card, the admin
+              identity written by the shell's `s3.configure`, an S3Server and an
+              IamServer, one process; --s3-objects (256) seeded 10 MiB objects
+              PUT from --s3-clients (20) signed clients, then --s3-seconds (60)
+              of GET 45 % / STAT 30 % / PUT 15 % / DELETE 10 % drawn from the
+              seed (a DELETE takes its key out of the live set first, a PUT adds
+              a fresh key) under torch.profiler's CUDA activity for the device's
+              idle share; the deleted keys 404 NoSuchKey; one --s3-multipart-mib
+              (64) MiB upload in 8 parts, read back whole and by a Range across a
+              part edge; IAM CreateUser, CreateAccessKey and PutUserPolicy, the
+              new key answering once the gateway reloads (within 5 s), an unknown
+              key 403 InvalidAccessKeyId; every ETag against hashlib, every GET
+              body and HEAD against its PUT, no 5xx, md5_batch and crc32c_batch
+              launched; obj/s, MiB/s and p50/p99 by operation, prepopulation and
+              multipart GB/s, the reload time, launches, the wall (limit 150 s)
+ 17. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -213,6 +232,8 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
+import urllib.parse
 from pathlib import Path
 
 import numpy as np
@@ -707,8 +728,7 @@ def hash_kernel_phase(dev: torch.device, seed: int, md5_ops_per_block: int) -> d
             agree("gear_hash", cdc.gear_hash_kernel(y), cdc.gear_hashes_torch(y), "offset 1")
 
     out = hash_shape_times(dev, seed, HASH_WRAPPERS, md5_ops_per_block)
-    chain_ms = {f"{n}x{length}": _pad_len(length) // 64 * 64 * MD5_CHAIN_DEPS
-                * MD5_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3 for n, length in HASH_SHAPES}
+    chain_ms = {f"{n}x{length}": md5_chain_ms(length) for n, length in HASH_SHAPES}
     # a hash kernel's row carries the upload path's shape (its launches are
     # nearly all there) and every shape under "shapes"
     for name, rows in out.items():
@@ -762,7 +782,7 @@ def hash_shape_times(dev: torch.device, seed: int, wrappers: dict,
         else:  # the plain MD5 loops over blocks in Python: minutes at 4 MiB
             host = x0[:2].cpu().numpy()
             check(all(got[i].cpu().numpy().tobytes() == hashlib.md5(host[i].tobytes()).digest()
-                      for i in range(2)), f"md5_batch kernel != hashlib at ({n}, {length})")
+                      for i in range(len(host))), f"md5_batch kernel != hashlib at ({n}, {length})")
         b_ms, b_by = hash_bound_ms(per + 16 * n, md5_ops_per_block * n * blocks)
         out["md5_batch"].append(dict(
             shape=[n, length],
@@ -2207,6 +2227,73 @@ def _pcts(lat: list) -> dict:
     return dict(p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)))
 
 
+def timed_batches(svc: HashService, batches: list) -> None:
+    """Record (blobs, length, seconds) of every batch svc's flusher hashes;
+    `del svc._batch_hash` undoes it."""
+    real = svc._batch_hash
+
+    def timed(items, length):
+        t0 = time.perf_counter()
+        out = real(items, length)
+        batches.append((len(items), length, time.perf_counter() - t0))
+        return out
+
+    svc._batch_hash = timed
+
+
+def batch_buckets(batches: list) -> dict:
+    """The hash batches by blob length: count, blobs, sizes, mean time."""
+    buckets = {}
+    for length in sorted({b[1] for b in batches}):
+        sizes = np.array([n for n, ln, _ in batches if ln == length])
+        secs = np.array([s for _, ln, s in batches if ln == length])
+        buckets[str(length)] = dict(batches=len(sizes), blobs=int(sizes.sum()),
+                                    mean_batch=float(sizes.mean()),
+                                    batch_p50=float(np.percentile(sizes, 50)),
+                                    batch_max=int(sizes.max()),
+                                    batch_hash_mean_ms=float(secs.mean() * 1e3))
+    return buckets
+
+
+def md5_chain_ms(length: int) -> float:
+    """MD5's chain model: the least time of one blob of `length` bytes,
+    whose blocks the card must hash one after another."""
+    return _pad_len(length) // 64 * 64 * MD5_CHAIN_DEPS * MD5_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+
+
+def path_hash_times(dev: torch.device, seed: int, md5_ops_per_block: int, batches: list,
+                    lengths, path: str) -> dict:
+    """The hash kernels timed at a path's commonest batch of each length,
+    after its launches were counted. Each MD5 row past 4096 bytes also
+    carries `chain_ms`, MD5's chain model for one blob (its byte bound is
+    no yardstick for a long serial chain), and `host_ms`, hashlib's MD5 of
+    the same number of blobs of that length one after another on one host
+    core (the median of 3)."""
+    shapes = []
+    for length in sorted(set(lengths)):
+        sizes = [n for n, ln, _ in batches if ln == length]
+        if sizes:
+            shapes.append((int(np.bincount(sizes).argmax()), length))
+    rows = hash_shape_times(dev, seed, HASH_WRAPPERS, md5_ops_per_block,
+                            shapes=tuple(shapes), gear=False)
+    for shape_rows in rows.values():
+        for r in shape_rows:
+            r["path"] = path
+    rng = np.random.default_rng([seed, 23])
+    for r in rows["md5_batch"]:
+        n, length = r["shape"]
+        if length > 4096:
+            blobs = [rng.bytes(length) for _ in range(n)]
+            host = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for b in blobs:
+                    hashlib.md5(b).digest()
+                host.append((time.perf_counter() - t0) * 1e3)
+            r.update(chain_ms=md5_chain_ms(length), host_ms=float(np.median(host)))
+    return rows
+
+
 def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_block: int,
                 seed: int) -> dict:
     """BASELINE config 3 as the filer takes it: a port MasterServer (pulse
@@ -2239,15 +2326,7 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
         svc = filer.hash_service
         check(filer.device.type == "cuda" and svc.device.type == "cuda"
               and all(vs.device.type == "cuda" for vs in servers), "a filer role is not on cuda")
-        real_batch_hash = svc._batch_hash
-
-        def timed_batch_hash(items, length):
-            t0 = time.perf_counter()
-            out = real_batch_hash(items, length)
-            batches.append((len(items), length, time.perf_counter() - t0))
-            return out
-
-        svc._batch_hash = timed_batch_hash
+        timed_batches(svc, batches)
         t0 = time.perf_counter()
         per = [n_files // FILER_THREADS + (t < n_files % FILER_THREADS)
                for t in range(FILER_THREADS)]
@@ -2386,26 +2465,9 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
         master.stop()
         shutil.rmtree(root, ignore_errors=True)
     wall = time.perf_counter() - t_phase
-    buckets = {}
-    for length in sorted({b[1] for b in batches}):
-        sizes = np.array([n for n, ln, _ in batches if ln == length])
-        secs = np.array([s for _, ln, s in batches if ln == length])
-        buckets[str(length)] = dict(batches=len(sizes), blobs=int(sizes.sum()),
-                                    mean_batch=float(sizes.mean()),
-                                    batch_p50=float(np.percentile(sizes, 50)),
-                                    batch_max=int(sizes.max()),
-                                    batch_hash_mean_ms=float(secs.mean() * 1e3))
-    # the kernels at the commonest batch of each length, after the count
-    shapes = []
-    for length in sorted({FILER_SMALL, filer.chunk_size}):
-        sizes = [n for n, ln, _ in batches if ln == length]
-        if sizes:
-            shapes.append((int(np.bincount(sizes).argmax()), length))
-    hash_rows = hash_shape_times(dev, seed, HASH_WRAPPERS, md5_ops_per_block,
-                                 shapes=tuple(shapes), gear=False)
-    for rows in hash_rows.values():
-        for r in rows:
-            r["path"] = "filer"
+    buckets = batch_buckets(batches)
+    hash_rows = path_hash_times(dev, seed, md5_ops_per_block, batches,
+                                (FILER_SMALL, filer.chunk_size), "filer")
     small_lat = [x for lat in put_lat for x in lat]
     return dict(
         files=n_files, file_bytes=FILER_SMALL, threads=FILER_THREADS, in_flight_per_thread=1,
@@ -3456,6 +3518,421 @@ def filer_dedup_phase(dev: torch.device, n_uploads: int, seed: int) -> dict:
     return res
 
 
+# --- phase 16: the S3 gateway and IAM over the port's filer ------------------------------
+S3_BUCKET = "warp-benchmark-bucket"  # warp's default bucket
+S3_OBJECT = 10 * MIB  # warp mixed's object size (BASELINE.md: 279.85 MiB/s GET at 27.99 obj/s)
+S3_MIX = (("GET", 0.45), ("STAT", 0.30), ("PUT", 0.15), ("DELETE", 0.10))  # warp mixed
+S3_POOL = 32  # distinct seeded bodies the PUTs draw from
+S3_PARTS = 8  # multipart parts
+S3_DELETED_GETS = 32  # GETs of deleted keys after the mixed window
+S3_RELOAD_LIMIT_S = 5.0
+S3_WALL_LIMIT_S = 150
+S3_ADMIN = ("warpAdminKey", "warpAdminSecret")
+S3_CLIENT_TIMEOUT_S = 30  # the gateway's own filer hop's timeout
+# an op in flight this long prints every thread's stack, once, and fails
+# the phase, as does any op that took longer (no op of a passing run on
+# the card has taken 2 s)
+S3_STALL_S = 12
+S3_CUTS = ("--s3-objects (256) prepopulated objects (2.5 GiB) of warp mixed's 10 MiB: the"
+           " stored set two volume servers hold in one process",
+           "--s3-seconds (60) of mixed traffic in place of warp's 5 minutes",
+           "object bodies drawn from 32 seeded 10 MiB bodies (the filer does not dedup, so"
+           " every PUT writes and hashes all its bytes)",
+           "the 20 clients, the gateway, IAM, filer, master and two volume servers share one"
+           " process and one GIL: the figures are a floor for the gateway")
+
+
+class SignedConn:
+    """One warp client: a keep-alive connection to the gateway (warp's Go
+    client reuses its connections), each request signed by the port's
+    S3Client. Nothing is re-sent: a failed request is a failed op."""
+
+    def __init__(self, url: str, creds: tuple[str, str]) -> None:
+        from seaweedfs_tpu_torch.s3api import S3Client
+
+        self.signer = S3Client(url, *creds)
+        host, port = url.split("//", 1)[1].split(":")
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=S3_CLIENT_TIMEOUT_S)
+
+    def request(self, method: str, path: str, body: bytes = b"") -> tuple[int, dict, bytes]:
+        path = urllib.parse.quote(path, safe="/-_.~")
+        headers = self.signer._signed_headers(method, path, [], body)
+        self.conn.request(method, path, body=body or None, headers=headers)
+        resp = self.conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def thread_stacks() -> str:
+    """Every thread's Python stack, by name."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    return "".join(f"--- {names.get(ident)}\n" + "".join(traceback.format_stack(frame))
+                   for ident, frame in sys._current_frames().items())
+
+
+def s3_phase(dev: torch.device, n_objects: int, seconds: float, clients: int,
+             multipart_bytes: int, md5_ops_per_block: int, seed: int) -> dict:
+    """warp's mixed S3 benchmark (`make benchmark` against `weed server -s3`,
+    BASELINE.md) against the port, in this process: a port MasterServer
+    (pulse 1 s), two VolumeServers and a FilerServer (4 MiB chunks) on the
+    card, the admin identity written into the filer by the port shell's
+    `s3.configure`, a port S3Server that loads it and a port IamServer.
+    n_objects seeded 10 MiB objects PUT from `clients` signed clients; then
+    `seconds` of GET 45 % / STAT 30 % / PUT 15 % / DELETE 10 % drawn from
+    the seed by the same clients, a DELETE taking its key out of the shared
+    live set first and a PUT adding a fresh key after its answer, so no
+    client asks for a key it knows to be gone, with the device's busy time
+    under torch.profiler. Then the deleted keys GET 404 NoSuchKey; one
+    multipart upload of multipart_bytes in 8 parts, completed, read back
+    whole and by a Range across a part edge; IAM: CreateUser,
+    CreateAccessKey and PutUserPolicy signed by the admin, the new key
+    answering 200 once the gateway has reloaded /etc/iam/identity.json
+    (within 5 s), an unknown key 403 InvalidAccessKeyId. Checks: every PUT's
+    ETag is hashlib's MD5 of its body, every GET's body is that body byte
+    for byte (so has that MD5) with that ETag, every HEAD's ETag and
+    Content-Length match, the multipart ETag is the MD5 of the part digests
+    with -8, no 5xx or unexpected status and no retry (one request an op),
+    no op in flight past 12 s (every thread's stack is printed first),
+    md5_batch and crc32c_batch launched in the phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from seaweedfs_tpu_torch.iamapi import IamServer
+    from seaweedfs_tpu_torch.s3api import S3Client, S3Server
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-s3-", dir=REPO / "build")
+    master = MasterServer(port=0, pulse_seconds=1)
+    master.start()
+    servers, filer, s3, iam = [], None, None, None
+    batches = []  # (blobs, length, seconds) of every batch the filer's flusher hashed
+    res = {}
+    try:
+        for i in range(2):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url,
+                              pulse_seconds=PULSE_S, device=dev)
+            vs.start()
+            servers.append(vs)
+        filer = FilerServer(master.url, port=0, device=dev)
+        filer.start()
+        svc = filer.hash_service
+        check(filer.device.type == "cuda" and svc.device.type == "cuda"
+              and all(vs.device.type == "cuda" for vs in servers), "an s3 role is not on cuda")
+        timed_batches(svc, batches)
+        env = CommandEnv(master.url, filer.url)
+        out = run_command(env, f"s3.configure -user warp-admin -access_key {S3_ADMIN[0]}"
+                               f" -secret_key {S3_ADMIN[1]} -actions Admin")
+        check(out.startswith("configured identity 'warp-admin'"), f"s3.configure: {out}")
+        s3 = S3Server(filer.url, port=0)
+        s3.start()
+        iam = IamServer(filer.url, port=0)
+        iam.start()
+        admin = S3Client(s3.url, *S3_ADMIN)
+        admin.create_bucket(S3_BUCKET)
+
+        t0 = time.perf_counter()
+        pool = [np.random.default_rng([seed, 17, i]).bytes(S3_OBJECT) for i in range(S3_POOL)]
+        pool_md5 = [hashlib.md5(b).hexdigest() for b in pool]
+        gen_s = time.perf_counter() - t0
+        live_keys, live_pos, live = [], {}, {}  # key -> pool index
+        in_use: dict[str, int] = {}
+        lock = threading.Lock()
+        errors = []
+
+        def add_live(key: str, idx: int) -> None:
+            with lock:
+                live[key] = idx
+                live_pos[key] = len(live_keys)
+                live_keys.append(key)
+
+        def take(rng, for_delete: bool) -> str | None:
+            """A random live key: leased for a read, or taken out of the
+            live set for a delete (never one a reader holds)."""
+            with lock:
+                for _ in range(8):
+                    if not live_keys:
+                        return None
+                    key = live_keys[int(rng.integers(len(live_keys)))]
+                    if not for_delete:
+                        in_use[key] = in_use.get(key, 0) + 1
+                        return key
+                    if not in_use.get(key):
+                        last = live_keys.pop()
+                        if last != key:
+                            live_keys[live_pos[key]] = last
+                            live_pos[last] = live_pos[key]
+                        del live_pos[key]
+                        return key
+                return None
+
+        def release(key: str) -> None:
+            with lock:
+                in_use[key] -= 1
+
+        def put(c, key: str, idx: int) -> tuple[int, float]:
+            t0 = time.perf_counter()
+            status, headers, body = c.request("PUT", f"/{S3_BUCKET}/{key}", body=pool[idx])
+            lat = time.perf_counter() - t0
+            if status != 200 or headers.get("ETag") != f'"{pool_md5[idx]}"':
+                errors.append(f"PUT {key} -> {status} {headers.get('ETag')}: {body[:200]!r}")
+            return status, lat
+
+        # 1. prepopulation
+        statuses: dict[int, int] = {}
+
+        def count(status: int) -> None:
+            with lock:
+                statuses[status] = statuses.get(status, 0) + 1
+
+        prepop_lat = []
+
+        def prepopulate(t: int) -> None:
+            c = SignedConn(s3.url, S3_ADMIN)
+            try:
+                for i in range(t, n_objects, clients):
+                    status, dt = put(c, f"obj/{i:06d}", i % S3_POOL)
+                    prepop_lat.append(dt)
+                    count(status)
+                    if status == 200:
+                        add_live(f"obj/{i:06d}", i % S3_POOL)
+            except BaseException as e:  # re-raised on the main thread
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        zero_launches()
+        prepop_s = run_threads(prepopulate, clients)
+        check(not errors, f"s3 prepopulation: {errors[:3]}")
+        check(max(prepop_lat) <= S3_STALL_S,
+              f"s3 prepopulation: a PUT took {max(prepop_lat):.3f} s, past {S3_STALL_S} s")
+        prepop_launches = read_launches()
+
+        # 2. warp mixed
+        ops = [name for name, _ in S3_MIX]
+        probs = [p for _, p in S3_MIX]
+        lat = {op: [] for op in ops}
+        moved = [dict.fromkeys(ops, 0) for _ in range(clients)]  # bytes by client and op
+        deleted = []
+        counter = itertools.count()
+        deadline = [0.0]
+        inflight: dict[int, tuple[float, str]] = {}  # client -> (start, op)
+        stall = []
+        window_done = threading.Event()
+
+        def watchdog() -> None:
+            while not window_done.wait(1.0) and not stall:
+                now = time.perf_counter()
+                slow = [(op, now - t0) for t0, op in list(inflight.values())
+                        if now - t0 > S3_STALL_S]
+                if slow:
+                    stall.append(slow)
+                    print(f"s3: ops in flight past {S3_STALL_S} s {slow}; every thread:\n"
+                          + thread_stacks(), file=sys.stderr, flush=True)
+
+        def mixed(t: int) -> None:
+            rng = np.random.default_rng([seed, 18, t])
+            c = SignedConn(s3.url, S3_ADMIN)
+            op, t_op = "", 0.0
+            try:
+                while time.perf_counter() < deadline[0]:
+                    op = ops[int(rng.choice(len(ops), p=probs))]
+                    t_op = time.perf_counter()
+                    inflight[t] = (t_op, op)
+                    if op == "PUT":
+                        n = next(counter)
+                        key, idx = f"new/{t:02d}/{n:06d}", int(rng.integers(S3_POOL))
+                        status, dt = put(c, key, idx)
+                        if status == 200:
+                            add_live(key, idx)
+                            moved[t][op] += S3_OBJECT
+                    else:
+                        key = take(rng, for_delete=op == "DELETE")
+                        if key is None:
+                            continue
+                        idx = live.get(key)
+                        t0 = time.perf_counter()
+                        if op == "GET":
+                            status, headers, body = c.request("GET", f"/{S3_BUCKET}/{key}")
+                            dt = time.perf_counter() - t0
+                            ok = (status == 200 and headers.get("ETag") == f'"{pool_md5[idx]}"'
+                                  and body == pool[idx])
+                            moved[t][op] += len(body)
+                        elif op == "STAT":
+                            status, headers, body = c.request("HEAD", f"/{S3_BUCKET}/{key}")
+                            dt = time.perf_counter() - t0
+                            ok = (status == 200 and headers.get("ETag") == f'"{pool_md5[idx]}"'
+                                  and headers.get("Content-Length") == str(S3_OBJECT))
+                        else:
+                            status, headers, body = c.request("DELETE", f"/{S3_BUCKET}/{key}")
+                            dt = time.perf_counter() - t0
+                            ok = status == 204
+                            if ok:
+                                deleted.append(key)
+                        if op != "DELETE":
+                            release(key)
+                        if not ok:
+                            errors.append(f"{op} {key} -> {status} {headers.get('ETag')}"
+                                          f" {headers.get('Content-Length')}: {body[:200]!r}")
+                    count(status)
+                    lat[op].append(dt)
+            except BaseException as e:
+                errors.append(f"{op} after {time.perf_counter() - t_op:.3f} s: {e!r}")
+            finally:
+                inflight.pop(t, None)
+                c.close()
+
+        before = read_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            deadline[0] = time.perf_counter() + seconds
+            dog = threading.Thread(target=watchdog, daemon=True)
+            dog.start()
+            window = run_threads(mixed, clients)
+            window_done.set()
+            torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in read_launches().items()}
+        check(not errors, f"s3 mixed: {len(errors)} failed ops: {errors[:3]}"
+                          + (" (the threads' stacks are on stderr)" if stall else ""))
+        check(not [s for s in statuses if s >= 500], f"s3 answered 5xx: {statuses}")
+        slowest = max((max(v) for v in lat.values() if v), default=0.0)
+        check(not stall and slowest <= S3_STALL_S,
+              f"s3 mixed: an op took {slowest:.3f} s or was in flight past {S3_STALL_S} s:"
+              f" {stall} (the threads' stacks are on stderr)")
+        device_us, events = device_time_by_event(prof)
+        seen = {name: sum(n for k, n in events.items() if f"{name}_kernel" in k)
+                for name in ("md5_batch", "crc32c_batch")}
+        busy_s = sum(device_us.values()) / 1e6
+        kernel_us = {name: sum(v for k, v in device_us.items() if f"{name}_kernel" in k)
+                     for name in seen}
+        # the profiler may drop events on the card's host: each kernel's
+        # time seen is also scaled by its launches over the events seen
+        scaled_s = busy_s + sum(kernel_us[n] / 1e6 * (made[n] / seen[n] - 1)
+                                for n in seen if seen[n])
+        total_ops = sum(len(v) for v in lat.values())
+        moved = {op: sum(m[op] for m in moved) for op in ops}
+        per_op = {op: dict(ops=len(lat[op]), obj_per_s=len(lat[op]) / window,
+                           mib_per_s=moved[op] / window / MIB,
+                           **(_pcts(lat[op]) if lat[op] else {}),
+                           max_ms=max(lat[op], default=0.0) * 1e3)
+                  for op in ops}
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+        res.update(
+            objects=n_objects, object_bytes=S3_OBJECT, clients=clients, mix=dict(S3_MIX),
+            generate_s=gen_s, prepopulate_s=prepop_s,
+            prepopulate_gbps=n_objects * S3_OBJECT / prepop_s / 1e9,
+            prepopulate_launches=prepop_launches,
+            window_s=window, seconds_asked=seconds, ops=total_ops,
+            obj_per_s=total_ops / window, mib_per_s=sum(moved.values()) / window / MIB,
+            errors=len(errors), statuses={str(k): v for k, v in sorted(statuses.items())},
+            stalled_ops=stall[0] if stall else [], stall_limit_s=S3_STALL_S,
+            prepopulate_max_ms=max(prepop_lat) * 1e3,
+            per_op=per_op, live_after=len(live_keys), window_launches=made,
+            profiled=dict(device_busy_s=busy_s, device_idle_share=1 - busy_s / window,
+                          device_busy_scaled_s=scaled_s,
+                          device_idle_share_scaled=1 - scaled_s / window,
+                          kernel_events=seen, kernel_launches=made,
+                          kernel_ms={k: v / 1e3 for k, v in kernel_us.items()},
+                          device_ms_by_event={k: v / 1e3 for k, v in top},
+                          events_by_event={k: events[k] for k, _ in top}))
+
+        # 3. deleted keys answer 404 NoSuchKey
+        check(deleted, "the mixed window deleted nothing")
+        for key in deleted[:S3_DELETED_GETS]:
+            status, _, body = admin.request("GET", f"/{S3_BUCKET}/{key}")
+            check(status == 404 and b"<Code>NoSuchKey</Code>" in body,
+                  f"GET of the deleted {key} -> {status}: {body[:200]!r}")
+
+        # 4. one multipart upload: 8 parts, completed, read back
+        part = multipart_bytes // S3_PARTS
+        data = np.random.default_rng([seed, 19]).bytes(part * S3_PARTS)
+        pieces = [data[i * part : (i + 1) * part] for i in range(S3_PARTS)]
+        key = "multipart/object.bin"
+        t0 = time.perf_counter()
+        upload_id = admin.create_multipart(S3_BUCKET, key)
+        etags = [admin.upload_part(S3_BUCKET, key, upload_id, i + 1, p)
+                 for i, p in enumerate(pieces)]
+        etag = admin.complete_multipart(S3_BUCKET, key, upload_id,
+                                        [(i + 1, e) for i, e in enumerate(etags)])
+        mp_s = time.perf_counter() - t0
+        check(etags == [hashlib.md5(p).hexdigest() for p in pieces],
+              "a part's ETag is not hashlib's MD5 of the part")
+        want = hashlib.md5(b"".join(hashlib.md5(p).digest() for p in pieces)).hexdigest()
+        check(etag == f"{want}-{S3_PARTS}", f"multipart ETag {etag} != {want}-{S3_PARTS}")
+        t0 = time.perf_counter()
+        got = admin.get_object(S3_BUCKET, key)
+        mp_get_s = time.perf_counter() - t0
+        check(got == data, "the multipart object read back differs")
+        lo, hi = part - 4096, part + 4095
+        status, headers, body = admin.request("GET", f"/{S3_BUCKET}/{key}",
+                                              headers={"Range": f"bytes={lo}-{hi}"})
+        check(status == 206 and body == data[lo : hi + 1]
+              and headers.get("Content-Range") == f"bytes {lo}-{hi}/{len(data)}",
+              f"ranged GET across the part edge -> {status} {headers.get('Content-Range')}")
+        res.update(multipart_bytes=len(data), multipart_parts=S3_PARTS, multipart_s=mp_s,
+                   multipart_gbps=len(data) / mp_s / 1e9,
+                   multipart_get_gbps=len(data) / mp_get_s / 1e9,
+                   multipart_etag=etag, part_etags=etags)
+
+        # 5. IAM: a user and key made through the IamServer, taken live
+        def iam_call(action: str, **params) -> str:
+            body = urllib.parse.urlencode({"Action": action, **params}).encode()
+            client = S3Client(iam.url, *S3_ADMIN, service="iam")
+            status, _, out = client.request(
+                "POST", "/", body=body,
+                headers={"Content-Type": "application/x-www-form-urlencoded"})
+            check(status == 200, f"IAM {action} -> {status}: {out[:300]!r}")
+            return out.decode()
+
+        iam_call("CreateUser", UserName="warp-reader")
+        out = iam_call("CreateAccessKey", UserName="warp-reader")
+        new_key = (re.search(r"<AccessKeyId>([^<]+)</AccessKeyId>", out).group(1),
+                   re.search(r"<SecretAccessKey>([^<]+)</SecretAccessKey>", out).group(1))
+        iam_call("PutUserPolicy", UserName="warp-reader", PolicyName="read",
+                 PolicyDocument=json.dumps({"Version": "2012-10-17", "Statement": [{
+                     "Effect": "Allow", "Action": ["s3:GetObject"],
+                     "Resource": [f"arn:aws:s3:::{S3_BUCKET}/*"]}]}))
+        t0 = time.perf_counter()
+        reader = S3Client(s3.url, *new_key)
+        while True:
+            status, _, body = reader.request("GET", f"/{S3_BUCKET}/{key}")
+            reload_s = time.perf_counter() - t0
+            if status == 200 or reload_s > S3_RELOAD_LIMIT_S:
+                break
+            time.sleep(0.005)
+        check(status == 200 and body == data,
+              f"the new key -> {status} after {reload_s:.3f} s (limit {S3_RELOAD_LIMIT_S} s)")
+        status, _, body = S3Client(s3.url, "AKIDUNKNOWN0000000000", "x").request(
+            "GET", f"/{S3_BUCKET}/{key}")
+        check(status == 403 and b"<Code>InvalidAccessKeyId</Code>" in body,
+              f"an unknown key -> {status}: {body[:200]!r}")
+        launches = read_launches()
+        for name in ("crc32c_batch", "md5_batch"):
+            check(launches[name] > 0, f"the s3 phase launched no {name} kernel")
+        check(svc.failed_blobs == 0, "the hash service failed a batch")
+        del svc._batch_hash
+        res.update(iam_reload_ms=reload_s * 1e3, iam_reload_limit_s=S3_RELOAD_LIMIT_S,
+                   unknown_key=403, launches=launches, batch_blobs=svc.batch_blobs,
+                   host_blobs=svc.host_blobs, hash_buckets=batch_buckets(batches))
+    finally:
+        for server in (iam, s3, filer):
+            if server is not None:
+                server.stop()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    # the kernels at the commonest batch of the chunk lengths an object makes
+    res["hash_kernels"] = path_hash_times(
+        dev, seed, md5_ops_per_block, batches,
+        (FILER_CHUNK, S3_OBJECT % FILER_CHUNK or FILER_CHUNK), "s3")
+    res.update(wall_s=wall, wall_limit_s=S3_WALL_LIMIT_S, over_wall_limit=wall > S3_WALL_LIMIT_S,
+               cuts=S3_CUTS, reference="BASELINE.md warp mixed: 61.79 obj/s, 369.74 MiB/s over"
+               " 5 min, upstream Go on an unspecified host",
+               note="clients and servers share one process and one GIL: a floor for the gateway")
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -3499,6 +3976,10 @@ def main() -> int:
     ap.add_argument("--maint-mib", type=int, default=256)
     ap.add_argument("--maint-files", type=int, default=2048)
     ap.add_argument("--filer-dedup-uploads", type=int, default=32)
+    ap.add_argument("--s3-objects", type=int, default=256)
+    ap.add_argument("--s3-seconds", type=float, default=60.0)
+    ap.add_argument("--s3-clients", type=int, default=20)
+    ap.add_argument("--s3-multipart-mib", type=int, default=64)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -3637,6 +4118,14 @@ def main() -> int:
     launches["gear_hash"] += fd["launches"]["gear_hash"]
     timed["gear_hash"]["max_abs_err"] = max(timed["gear_hash"]["max_abs_err"],
                                             fd["gear_max_abs_err"])
+
+    # the S3 gateway, IAM and warp's mixed load over the filer; its own count
+    s3 = s3_phase(dev, args.s3_objects, args.s3_seconds, args.s3_clients,
+                  args.s3_multipart_mib * MIB, md5_block["ops"], args.seed)
+    emit("s3", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **s3)
+    for name in ("crc32c_batch", "md5_batch"):
+        launches[name] += s3["launches"][name]
+        timed[name]["shapes"].extend(s3["hash_kernels"][name])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

@@ -1,8 +1,9 @@
 """Minimal threaded HTTP service kit (routing + JSON + multipart).
 
 The port's copy of the core of `seaweedfs_tpu/server/httpd.py`, on
-http.server.ThreadingHTTPServer: the `route` decorator, `Request`,
-`Response`, the client helpers `http_request`, `get_json`,
+http.server.ThreadingHTTPServer: the `route` decorator, `Request` (with
+`multipart_file` and `multipart_form`, the S3 POST-policy upload's
+parser), `Response`, the client helpers `http_request`, `get_json`,
 `post_json` and `peer_url`, and `PooledHTTP`, the keep-alive client of
 the filer's data-plane hops. The first `HTTPService.start` of a process
 sets the GIL switch interval to 0.5 ms (`SEAWEEDFS_TPU_SWITCH_INTERVAL`;
@@ -81,6 +82,38 @@ class Request:
             return fm.group(1), (cm.group(1).strip() if cm else ""), data
         return None
 
+    def multipart_form(self) -> tuple[dict, tuple[str, str, bytes] | None]:
+        """Parse a multipart/form-data body -> ({field: value}, file_part)
+        where file_part is (filename, content_type, data) for the part named
+        "file" (or any part carrying a filename). Browser-POST uploads
+        (S3 post-policy) arrive this way."""
+        ctype = self.headers.get("Content-Type", "")
+        m = re.search(r'boundary="?([^";]+)"?', ctype)
+        fields: dict = {}
+        if "multipart/form-data" not in ctype or not m:
+            return fields, None
+        boundary = m.group(1).encode()
+        file_part = None
+        for part in self.body.split(b"--" + boundary):
+            if b"\r\n\r\n" not in part:
+                continue
+            head, _, data = part.partition(b"\r\n\r\n")
+            if data.endswith(b"\r\n"):
+                data = data[:-2]
+            head_s = head.decode("utf-8", "replace")
+            nm = re.search(r'name="([^"]*)"', head_s)
+            if nm is None:
+                continue
+            fm = re.search(r'filename="([^"]*)"', head_s)
+            if fm is not None:
+                cm = re.search(r"Content-Type:\s*([^\r\n]+)", head_s, re.I)
+                file_part = (
+                    fm.group(1), (cm.group(1).strip() if cm else ""), data
+                )
+            else:
+                fields[nm.group(1)] = data.decode("utf-8", "replace")
+        return fields, file_part
+
 
 class Response:
     def __init__(
@@ -102,6 +135,15 @@ class Response:
             self.body = body or b""
             if content_type:
                 self.headers.setdefault("Content-Type", content_type)
+
+
+class _Server(ThreadingHTTPServer):
+    # socketserver listens with a backlog of 5. Clients that open a
+    # connection a request (urllib, the gateways' filer hops) overflow it
+    # under a few dozen concurrent requests, and each dropped SYN waits out
+    # a retransmit of 1, 3, 7, 15 or 31 s, past a 30 s client timeout.
+    # The kernel caps the value at net.core.somaxconn.
+    request_queue_size = 1024
 
 
 class HTTPService:
@@ -192,8 +234,9 @@ class HTTPService:
                 service._dispatch(self)
 
             do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _handle
+            do_OPTIONS = _handle  # the S3 gateway's CORS preflight
 
-        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
+        self._httpd = _Server((self.host, self.port), Handler)
         self._httpd.daemon_threads = True
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
@@ -269,6 +312,11 @@ def post_json(url: str, payload: dict | None = None,
     return data
 
 
+# what a write to, or a read from, a keep-alive socket the peer closed
+# while it sat idle raises (RemoteDisconnected is a ConnectionResetError)
+_IDLE_CLOSED = (ConnectionResetError, BrokenPipeError, ConnectionAbortedError)
+
+
 class PooledHTTP:
     """Thread-local keep-alive connections per endpoint.
 
@@ -300,18 +348,21 @@ class PooledHTTP:
         if pool is None:
             pool = self._tl.conns = {}
         path = u.path + (f"?{u.query}" if u.query else "")
-        last: Exception | None = None
-        # stale-socket retry only when a re-send cannot duplicate a side
-        # effect: GET/HEAD always; writes only when the caller declares
-        # them idempotent (fid-addressed chunk uploads are)
-        attempts = (0, 1) if method in ("GET", "HEAD") or idempotent else (0,)
-        for _ in attempts:
+        # a re-send only when a re-send cannot duplicate a side effect
+        # (GET/HEAD always; writes only when the caller declares them
+        # idempotent: fid-addressed chunk uploads are), and only for a
+        # reused keep-alive socket the peer closed while it sat idle, seen
+        # before any answer. A timeout is never re-sent: the peer is slow,
+        # not gone, and a second wait would hide the stall from the caller.
+        may_resend = method in ("GET", "HEAD") or idempotent
+        for _ in (0, 1):  # the second try is on a new socket: it never re-sends
             conn = pool.get(key)
             if conn is None:
                 conn = http.client.HTTPConnection(u.netloc, timeout=self.timeout)
                 pool[key] = conn
                 with self._all_mu:
                     self._all.add(conn)
+            reused, answered = conn.sock is not None, False
             try:
                 if conn.sock is None:
                     conn.connect()
@@ -320,15 +371,18 @@ class PooledHTTP:
                     conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 conn.request(method, path, body=body, headers=headers or {})
                 resp = conn.getresponse()
+                answered = True
                 data = resp.read()
                 return resp.status, dict(resp.headers), data
             except (http.client.HTTPException, OSError) as e:
-                last = e
                 conn.close()
                 pool.pop(key, None)
                 with self._all_mu:
                     self._all.discard(conn)
-        raise last  # type: ignore[misc]
+                if not (may_resend and reused and not answered
+                        and isinstance(e, _IDLE_CLOSED)):
+                    raise
+        raise AssertionError("unreachable")
 
     def close(self) -> None:
         """Close every connection this pool ever opened, across threads

@@ -6,9 +6,9 @@ The port's copy of `seaweedfs_tpu/shell/` with the commands of
 `collection.delete`, `volume.list`, `volume.status`, `cluster.scrub`),
 `commands_ec` (`ec.encode`, `ec.decode`, `ec.rebuild`, `ec.balance`),
 `commands_fs` (every `fs.*` verb, over a filer), `commands_maintenance`
-(`cluster.maintenance`) and `commands_volume` (every `volume.*` verb but
-the tier verbs). Not ported: the other command files
-(`commands_{remote,s3}.py`) and the rest of `commands_cluster.py`.
+(`cluster.maintenance`), `commands_s3` (every `s3.*` verb, over a filer)
+and `commands_volume` (every `volume.*` verb but the tier verbs). Not
+ported: `commands_remote.py` and the rest of `commands_cluster.py`.
 
 Usage:
     from seaweedfs_tpu_torch.shell import CommandEnv, run_command
@@ -25,6 +25,7 @@ from . import commands_cluster  # noqa: E402,F401
 from . import commands_ec  # noqa: E402,F401
 from . import commands_fs  # noqa: E402,F401
 from . import commands_maintenance  # noqa: E402,F401
+from . import commands_s3  # noqa: E402,F401
 from . import commands_volume  # noqa: E402,F401
 
 __all__ = ["CommandEnv", "ShellError", "COMMANDS", "run_command"]

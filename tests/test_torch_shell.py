@@ -187,9 +187,12 @@ def test_run_command_help_unknown_and_lock():
         "fs.ls", "fs.merge.volumes", "fs.meta.cat", "fs.meta.changeVolumeId",
         "fs.meta.load", "fs.meta.notify", "fs.meta.save", "fs.mkdir", "fs.mv",
         "fs.pwd", "fs.rm", "fs.tree", "fs.verify"]
+    s3_verbs = [
+        "s3.bucket.create", "s3.bucket.delete", "s3.bucket.list", "s3.bucket.quota",
+        "s3.bucket.quota.enforce", "s3.circuitbreaker", "s3.clean.uploads", "s3.configure"]
     assert run_command(env, "help").split() == sorted(
         ["ec.balance", "ec.decode", "ec.encode", "ec.rebuild", "lock", "unlock"]
-        + volume_verbs + cluster_verbs + fs_verbs)
+        + volume_verbs + cluster_verbs + fs_verbs + s3_verbs)
     assert "rebuild" in run_command(env, "help ec.rebuild")
     assert run_command(env, "") == ""
     with pytest.raises(ShellError, match="unknown command"):

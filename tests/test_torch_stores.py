@@ -127,6 +127,9 @@ def _ops(filer, pkg: Pkg, seed: int) -> dict:
         for last, inclusive in [("", False), (sorted(names)[3], False),
                                 (sorted(names)[3], True), ("zz", False)]
     ]
+    # the meta log's 2 s flusher may or may not have written /topics by
+    # now: flushed here, both sides list it
+    filer.log_buffer.flush()
     out["root"] = [e.name for e in filer.list_entries("/", limit=10)]
     if has_kv:
         store = filer.store
