@@ -8,7 +8,7 @@
                           [--filer-large-mib MIB] [--scrub-files N] [--scrub-mib MIB]
                           [--maint-mib MIB] [--maint-files N] [--filer-dedup-uploads N]
                           [--s3-objects N] [--s3-seconds S] [--s3-clients N]
-                          [--s3-multipart-mib MIB]
+                          [--s3-multipart-mib MIB] [--tier-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -209,7 +209,35 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               body and HEAD against its PUT, no 5xx, md5_batch and crc32c_batch
               launched; obj/s, MiB/s and p50/p99 by operation, prepopulation and
               multipart GB/s, the reload time, launches, the wall (limit 150 s)
- 17. entry    entry() on the card equal to the CPU codec
+ 17. volume_side  the volume side: a port master and two volume servers (racks r1,
+              r2; runtime fault arming on) on the card, one process, and a child
+              process at 5-byte offsets (SEAWEEDFS_TPU_OFFSET_BYTES=5, fixed at its
+              import). (a) --tier-mib (1024) MiB of seeded needles in one volume
+              (log-uniform 1 KiB-4 MiB, then a quarter of 4 KiB needles, which the
+              scrubber checks through crc32c_batch), `volume.tier.configure -kind
+              local` and `volume.tier.upload` (the .dat gone), 256 GETs equal, a
+              scrub pass through the backend verifying every live byte with no
+              finding, one flush's CRCs against the plain version and the host,
+              `/admin/tail` at the middle needle equal to the .dat from its offset,
+              `volume.tier.download` (SHA-256 as before, a clean pass), `backup`
+              into a fresh directory (full, then cut at the middle needle and
+              caught up over `/admin/tail`) with the source's .dat and .idx SHA-256;
+              (b) through `cluster.faults`: `corrupt` on volume.write.dat for 16
+              firings keyed to server A under 2,048 4 KiB files at replication 010
+              from 8 waiting threads, exactly those 16 found by a pass on A,
+              `volume.scrub -apply` healing them, every file equal from both
+              holders; a 64 MiB online volume's parity torn once, parity_health()
+              >= 1, `/admin/ec/online/rebuild` (rearm through gf256_matmul) to 0
+              with every parity row equal to the plain version, sealed, 4 data
+              shards lost, 64 degraded GETs equal, rebuilt; shard reads failing at
+              rate 0.25 (4 firings, within what RS(10,4) rebuilds), 256 GETs equal
+              and rebuilt through the codec; (c) the child's encode, rebuild of 4
+              shards, 256 degraded reads and decode, its 14 shards equal to a
+              4-byte encode of the same .dat here and its 17-byte .ecx to the
+              4-byte entries; tier upload, remote scrub, tail and download GB/s,
+              the phase's launches, the kernels at (1024, 4096) and (1, 10, 1 MiB),
+              the wall (limit 120 s)
+ 18. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -219,8 +247,10 @@ Exits non-zero, printing no result, when CUDA is not available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import http.client
+import io
 import itertools
 import json
 import logging
@@ -240,6 +270,7 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch import native
+from seaweedfs_tpu_torch.command import fix, volume_tools
 from seaweedfs_tpu_torch.entry import dryrun_multichip, entry
 from seaweedfs_tpu_torch.filer import Filer
 from seaweedfs_tpu_torch.filer.filerstore import MemoryStore
@@ -264,6 +295,7 @@ from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
 from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
 from seaweedfs_tpu_torch.storage.volume import Volume
 from seaweedfs_tpu_torch.util import cipher as cipher_util
+from seaweedfs_tpu_torch.util import faults
 
 REPO = Path(__file__).resolve().parent
 MIB = 1024 * 1024
@@ -2547,8 +2579,9 @@ def run_threads(fn, n: int) -> float:
     return time.perf_counter() - t0
 
 
-def replicated_ingest(master_url: str, raw: bytes, file_bytes: int, threads: int) -> dict:
-    """len(raw) // file_bytes files through /dir/assign?replication=001 and a
+def replicated_ingest(master_url: str, raw: bytes, file_bytes: int, threads: int,
+                      replication: str = "001") -> dict:
+    """len(raw) // file_bytes files through /dir/assign?replication= and a
     POST each, from `threads` threads that each wait for their 201 (each
     write fans out to its replica before it is acked). Returns the files
     [(fid, url)], the wall and the PUT latency percentiles."""
@@ -2563,7 +2596,7 @@ def replicated_ingest(master_url: str, raw: bytes, file_bytes: int, threads: int
         try:
             for i in range(t, n_files, threads):
                 t0 = time.perf_counter()
-                status, out = m.request("GET", "/dir/assign?replication=001")
+                status, out = m.request("GET", f"/dir/assign?replication={replication}")
                 if status != 200:
                     errors.append(f"assign -> {status}: {out[:200]!r}")
                     return
@@ -3933,6 +3966,533 @@ def s3_phase(dev: torch.device, n_objects: int, seconds: float, clients: int,
     return res
 
 
+# --- phase 17: the volume side (tiering, faults, 5-byte offsets) ------------------------
+VS_RACKS = ("r1", "r2")  # server A, server B
+VS_TIER_VID = 301
+VS_ONLINE_VID = 999  # past the ids the master grows
+VS_SMALL = 4096  # the tiered volume's last quarter: 4 KiB needles
+VS_SAMPLE = 256  # GETs of the tiered volume, and of the sealed volume under shard faults
+VS_FILES = 2048  # replicated 4 KiB files written under the corrupt fault
+VS_THREADS = 8
+VS_CORRUPT = 16  # corrupt-mode firings on server A's .dat writes
+VS_ONLINE_BYTES = 64 * MIB
+VS_TORN_TAIL = 2 * MIB  # the online volume's last needle, written with the tear armed
+VS_ONLINE_LOST = (0, 1, 2, 3)  # data shards lost before the degraded reads
+VS_DEGRADED = 64  # needles read degraded after the torn-parity heal
+VS_SHARD_FAULTS = 4  # shard-read errors at rate 0.25: one interval never loses more than RS(10,4) rebuilds
+VS_OFFSET5_BYTES = 256 * MIB
+VS_WALL_LIMIT_S = 120
+VS_SHAPES = {"crc32c_batch": (1024, VS_SMALL), "gf256_matmul": ("online", (1, 10, MIB))}
+VS_CUTS = ("the tiered volume: --tier-mib (1024) MiB of the 30 GB volume limit, its last quarter"
+           " 4 KiB needles: log-uniform needles differ in length and verify on the host, so"
+           " the 4 KiB quarter is what crc32c_batch checks",
+           "2,048 replicated 4 KiB files (replication 010 over racks r1 and r2): servers, master"
+           " and 8 clients share one process",
+           "one 64 MiB online volume; a 256 MiB volume at 5-byte offsets")
+
+
+def sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for piece in iter(lambda: f.read(64 * MIB), b""):
+            h.update(piece)
+    return h.hexdigest()
+
+
+def idx_entries(path: str, entry: int) -> list:
+    """(key, byte offset, size) of each 16- or 17-byte index entry."""
+    raw = np.fromfile(path, dtype=np.uint8).reshape(-1, entry)
+    units = raw[:, 8:12].copy().view(">u4").ravel().astype(np.uint64)
+    if entry == 17:
+        units += raw[:, 12].astype(np.uint64) << np.uint64(32)
+    keys = raw[:, :8].copy().view(">u8").ravel()
+    sizes = raw[:, entry - 4 :].copy().view(">i4").ravel()
+    return list(zip(keys.tolist(), (units * np.uint64(8)).tolist(), sizes.tolist()))
+
+
+def offset5_child(dev: torch.device, work: str, nbytes: int, seed: int) -> int:
+    """The EC main path at 5-byte offsets, in a process started with
+    SEAWEEDFS_TPU_OFFSET_BYTES=5 (fixed at import, as a build tag is): a
+    volume of `nbytes` from the seed, encode on the card, the rebuild of 4
+    lost shards, 256 degraded reads with 4 data shards gone and the decode.
+    Prints one JSON line with its launches and walls."""
+    from seaweedfs_tpu_torch.storage import types as types_mod
+
+    check(types_mod.NEEDLE_MAP_ENTRY_SIZE == 17, "the child is not at 5-byte offsets")
+    codec = RSCodec(device=dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    vol = write_volume(work, 1, nbytes, seed)
+    write_s = time.perf_counter() - t0
+    base = vol["base"]
+    t0 = time.perf_counter()
+    encoder.write_ec_files(base, codec=codec)
+    encode_s = time.perf_counter() - t0
+    for s in REBUILD_LOST:
+        os.replace(base + geometry.to_ext(s), base + geometry.to_ext(s) + ".orig")
+    t0 = time.perf_counter()
+    rebuilt = encoder.rebuild_ec_files(base, codec=codec)
+    rebuild_s = time.perf_counter() - t0
+    check(rebuilt == list(REBUILD_LOST), f"5-byte rebuild: {rebuilt}")
+    for s in REBUILD_LOST:
+        p = base + geometry.to_ext(s)
+        check(same_file(p, p + ".orig"), f"5-byte rebuilt shard {s} differs")
+        os.unlink(p + ".orig")
+    for s in DEGRADED_LOST:
+        os.replace(base + geometry.to_ext(s), base + geometry.to_ext(s) + ".orig")
+    ids = sorted(vol["needles"])
+    pick = np.random.default_rng([seed, 40]).choice(len(ids), min(DEGRADED_READS, len(ids)),
+                                                   replace=False)
+    n0 = gf256_matmul.launches
+    t0 = time.perf_counter()
+    with EcVolume(work, "", 1, codec=codec) as ev:
+        for i in pick:
+            cookie, off, size = vol["needles"][ids[i]]
+            check(ev.read_needle(ids[i], cookie=cookie).data == vol["pool"][off : off + size],
+                  f"5-byte degraded read of {ids[i]:x}")
+    degraded_s = time.perf_counter() - t0
+    degraded_launches = gf256_matmul.launches - n0
+    for s in DEGRADED_LOST:
+        os.replace(base + geometry.to_ext(s) + ".orig", base + geometry.to_ext(s))
+    size = decoder.find_dat_file_size(base, base)
+    t0 = time.perf_counter()
+    decoder.write_dat_file(os.path.join(work, "decoded"), size,
+                           [base + geometry.to_ext(i) for i in range(10)])
+    decode_s = time.perf_counter() - t0
+    launches = read_launches()["gf256_matmul"]
+    # the encode's batch against the plain version on the card
+    width = min(MIB, nbytes // 10)  # one encode batch row, 1 MiB at the real size
+    with open(base + ".dat", "rb") as f:
+        x = np.frombuffer(f.read(10 * width), np.uint8).reshape(1, 10, width)
+    xd = torch.from_numpy(x.copy()).to(dev)
+    parity = gf256.parity_rows(10, 4)
+    got, want = gf256_matmul(parity, xd), gf_matmul_torch(parity, xd[0])
+    check(torch.equal(got, want), "5-byte encode batch: kernel != plain")
+    print(json.dumps(dict(
+        launches=launches, degraded_launches=degraded_launches,
+        needles=len(ids), degraded_reads=len(pick), dat_bytes=os.path.getsize(base + ".dat"),
+        decoded_bytes=size, write_s=write_s, encode_s=encode_s, rebuild_s=rebuild_s,
+        degraded_s=degraded_s, decode_s=decode_s,
+        max_abs_err=int((got.int() - want.int()).abs().max()))), flush=True)
+    return 0
+
+
+def volume_side_phase(dev: torch.device, tier_bytes: int, md5_ops_per_block: int,
+                      seed: int) -> dict:
+    """The volume side on the card: a port MasterServer (pulse 1 s) and two
+    VolumeServers (racks r1 and r2, runtime fault arming on, scrubbers
+    unthrottled, no scrub loop) on cuda, one process, with a 5-byte-offset
+    child process alongside.
+    (a) tiering: `tier_bytes` of seeded needles in one volume on server A
+    (log-uniform 1 KiB-4 MiB, the main path's rule, then a quarter of 4 KiB
+    needles), marked readonly; `volume.tier.configure -kind local` and
+    `volume.tier.upload` move its .dat into a backend under build/; 256 GETs
+    equal; a scrub pass over the tiered volume verifies every live byte
+    through the backend with no finding and crc32c_batch launched;
+    `/admin/tail` at the middle needle returns the .dat from its offset;
+    `volume.tier.download` restores the .dat (SHA-256 as before) and a
+    second pass is clean; `backup` into a fresh directory (full over
+    /admin/volume/raw, then cut at the middle needle and caught up over
+    /admin/tail) leaves a .dat and .idx with the source's SHA-256.
+    (b) faults through `cluster.faults`: `corrupt` on volume.write.dat
+    for 16 firings keyed to server A; 2,048 4 KiB files with replication
+    010 from 8 waiting threads; a scrub pass on A finds exactly those 16
+    needles through crc32c_batch, `volume.scrub -apply` heals them from B,
+    a second pass is clean and every file reads equal from both holders.
+    A 64 MiB online volume's parity torn once (volume.ec.parity.write,
+    `torn`, count 1): parity_health() >= 1, the heal (`rearm` through
+    gf256_matmul) brings it to 0 with every parity row equal to the plain
+    version; sealed, its 4 data shards lost, 64 needles read degraded equal.
+    Those shards rebuilt, volume.ec.shard.read `error` at rate 0.25 for 4
+    firings: 256 GETs equal, the codec launched.
+    (c) the child's 5-byte EC path: its 14 shards equal a 4-byte encode of
+    the same .dat here, its 17-byte .ecx the 4-byte entries, its decoded
+    .dat the .dat."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-volume-side-", dir=REPO / "build")
+    # (c) starts first: the child reaches the card while (a) and (b) run
+    child_dir = os.path.join(root, "offset5")
+    os.makedirs(child_dir)
+    child = subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--offset5-child", child_dir,
+         "--seed", str(seed)],
+        env={**os.environ, "SEAWEEDFS_TPU_OFFSET_BYTES": "5"}, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    master = MasterServer(port=0, pulse_seconds=1, faults_spec="")
+    master.start()
+    servers = []
+    res = {}
+    try:
+        for i, rack in enumerate(VS_RACKS):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url, rack=rack,
+                              pulse_seconds=PULSE_S, scrub_rate_mb=0, device=dev,
+                              faults_spec="")
+            vs.start()
+            servers.append(vs)
+        check(all(vs.device.type == dev.type and vs.scrubber.device.type == dev.type
+                  for vs in servers), "a volume-side server or scrubber is off the card")
+        a, b = servers
+        ids = [vs.node_id for vs in servers]
+        env = TimedEnv(master.url)
+        check(run_command(env, "lock") == "lock acquired", "lock")
+        run_command(env, "volume.vacuum.disable")
+        ca = Client(a.url)
+        zero_launches()
+
+        # (a) 1. the tiered volume, written in process on A, then mounted
+        t0 = time.perf_counter()
+        rng = np.random.default_rng([seed, 30])
+        pool = memoryview(rng.bytes(tier_bytes))
+        plan = []  # (needle id, cookie, pool offset, size)
+        tdir = a.store.locations[0].directory
+        with Volume(tdir, "", VS_TIER_VID, device=dev) as v:
+            used, nid = 0, 0
+            while used < tier_bytes:
+                if used < tier_bytes * 3 // 4:
+                    size = min(int(np.exp(rng.uniform(np.log(1024), np.log(4 * MIB)))),
+                               tier_bytes * 3 // 4 - used)
+                else:
+                    size = min(VS_SMALL, tier_bytes - used)
+                nid += 1
+                cookie = int(rng.integers(0, 1 << 32))
+                v.write_needle(Needle(cookie=cookie, id=nid, data=pool[used : used + size]))
+                plan.append((nid, cookie, used, size))
+                used += size
+            mid = len(plan) // 2  # /admin/tail's and the backup's cut
+            mid_stamp = v.read_needle(plan[mid][0]).append_at_ns
+            mid_offset = v.nm.get(plan[mid][0])[0]
+        write_s = time.perf_counter() - t0
+        ca.json("/admin/volume/mount", {"volume": VS_TIER_VID})
+        tbase = os.path.join(tdir, str(VS_TIER_VID))
+        dat_bytes = os.path.getsize(tbase + ".dat")
+        dat_sha = sha256_file(tbase + ".dat")
+        idx_sha = sha256_file(tbase + ".idx")
+        run_command(env, f"volume.mark -volumeId {VS_TIER_VID} -node {ids[0]} -readonly")
+        check(a.store.get_volume(VS_TIER_VID).readonly, "the tiered volume is not readonly")
+        # 2. configure a local backend and tier the .dat into it
+        backend_root = os.path.join(root, "backend")
+        out = run_command(env, f"volume.tier.configure -backend cold -kind local "
+                               f"-root {backend_root}")
+        check(out.startswith("backend 'cold' (local) configured on: ")
+              and all(i in out for i in ids), out)
+        t0 = time.perf_counter()
+        out = run_command(env, f"volume.tier.upload -volumeId {VS_TIER_VID} -dest cold")
+        upload_s = time.perf_counter() - t0
+        check(out == f"volume {VS_TIER_VID} tiered to cold ({dat_bytes} bytes)", out)
+        check(not os.path.exists(tbase + ".dat"), "the tiered .dat is still local")
+        obj = os.path.join(backend_root, f"default_{VS_TIER_VID}.dat")
+        info = json.loads(run_command(env, f"volume.tier.info -volumeId {VS_TIER_VID}"))
+        check(info["remote"]["key"] == f"default_{VS_TIER_VID}.dat"
+              and info["remote"]["file_size"] == dat_bytes, f"tier info {info}")
+        # 3. 256 GETs over HTTP through the backend
+        pick = np.random.default_rng([seed, 31]).choice(len(plan), min(VS_SAMPLE, len(plan)),
+                                                        replace=False)
+        t0 = time.perf_counter()
+        for i in pick:
+            nid, cookie, off, size = plan[i]
+            status, body = ca.request(
+                "GET", f"/{VS_TIER_VID},{file_id.format_needle_id_cookie(nid, cookie)}")
+            check(status == 200 and body == pool[off : off + size],
+                  f"tiered GET of needle {nid} reads wrong")
+        tiered_get_s = time.perf_counter() - t0
+        # 4. a scrub pass over the tiered volume, through the backend
+        live_bytes = sum(p[3] for p in plan)
+
+        def scrub_pass(what: str) -> tuple[float, int, int]:
+            before = read_launches()["crc32c_batch"]
+            base_c = scrub_counters([a])
+            t0 = time.perf_counter()
+            out = ca.json("/admin/scrub/run", {"volume": VS_TIER_VID})
+            dt = time.perf_counter() - t0
+            check(out["findings"] == [], f"{what}: findings {out['findings'][:4]}")
+            c = scrub_counters([a])
+            verified = sum(c["bytes"].get(k, 0) - base_c["bytes"].get(k, 0)
+                           for k in ("batched", "scalar"))
+            check(verified == live_bytes, f"{what}: verified {verified} of {live_bytes} bytes")
+            made = read_launches()["crc32c_batch"] - before
+            check(made > 0, f"{what} launched no crc32c_batch kernel")
+            return dt, made, c["bytes"].get("batched", 0) - base_c["bytes"].get("batched", 0)
+
+        remote_scrub_s, remote_scrub_launches, remote_batched = scrub_pass("the tiered scrub")
+        # one flush of the 4 KiB quarter on the card: kernel, plain, host CRC
+        first_small = next(i for i, p in enumerate(plan) if p[2] >= tier_bytes * 3 // 4)
+        blobs = [pool[p[2] : p[2] + p[3]] for p in plan[first_small : first_small + 1024]]
+        check(len(blobs) == 1024 and all(len(x) == VS_SMALL for x in blobs), "the 4 KiB flush")
+        blocks = torch.from_numpy(np.frombuffer(b"".join(blobs), np.uint8)
+                                  .reshape(1024, VS_SMALL).copy()).to(dev)
+        got = u32(crc32c_batch_kernel(blocks)).cpu().numpy()
+        plain = u32(crc32c_batch_torch(blocks)).cpu().numpy()
+        host = np.array([crc.crc32c(x) for x in blobs])
+        check(np.array_equal(got, plain) and np.array_equal(got, host),
+              "the tiered flush's CRCs: kernel, plain version and host CRC disagree")
+        res["flush_crc_max_abs_err"] = int(np.abs(got.astype(np.int64) - plain).max())
+        # 5. /admin/tail at the middle needle
+        t0 = time.perf_counter()
+        status, tail = ca.request("GET", f"/admin/tail?volume={VS_TIER_VID}"
+                                         f"&since_ns={mid_stamp - 1}")
+        tail_s = time.perf_counter() - t0
+        with open(obj, "rb") as f:
+            f.seek(mid_offset)
+            want = f.read()
+        check(status == 200 and len(tail) == dat_bytes - mid_offset and tail == want,
+              f"/admin/tail from needle {mid}: {status}, {len(tail)} bytes")
+        del want
+        # 7. back to local disk: the same .dat, and a clean pass
+        t0 = time.perf_counter()
+        out = run_command(env, f"volume.tier.download -volumeId {VS_TIER_VID}")
+        download_s = time.perf_counter() - t0
+        check(out == f"volume {VS_TIER_VID} downloaded back to {ids[0]}", out)
+        check(sha256_file(tbase + ".dat") == dat_sha and not os.path.exists(obj),
+              "the downloaded .dat differs, or the object stayed")
+        local_scrub_s, _, _ = scrub_pass("the scrub after the download")
+        # 6. backup into a fresh directory, then caught up over /admin/tail
+        bdir = os.path.join(root, "backup")
+        bargs = ["-server", ids[0], "-volumeId", str(VS_TIER_VID), "-dir", bdir]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            volume_tools.run_backup(bargs)
+            backup_full_s = time.perf_counter() - t0
+        bbase = os.path.join(bdir, str(VS_TIER_VID))
+        os.truncate(bbase + ".dat", mid_offset)
+        with contextlib.redirect_stdout(printed):
+            fix.run(["-dir", bdir, "-volumeId", str(VS_TIER_VID)])
+            t0 = time.perf_counter()
+            volume_tools.run_backup(bargs)
+            backup_tail_s = time.perf_counter() - t0
+        check(f"+{dat_bytes - mid_offset} bytes" in printed.getvalue(),
+              f"the incremental backup: {printed.getvalue()[-300:]}")
+        check(sha256_file(bbase + ".dat") == dat_sha and sha256_file(bbase + ".idx") == idx_sha,
+              "the backup's .dat or .idx differs from the source's")
+        ca.json("/admin/delete_volume", {"volume": VS_TIER_VID})
+        shutil.rmtree(bdir)
+        gb = dat_bytes / 1e9
+        res.update(
+            tier_volume_bytes=dat_bytes, tier_needles=len(plan), tier_live_bytes=live_bytes,
+            tier_write_s=write_s, tier_upload_s=upload_s, tier_upload_gbps=gb / upload_s,
+            tiered_gets=len(pick), tiered_get_s=tiered_get_s,
+            remote_scrub_s=remote_scrub_s, remote_scrub_gbps=live_bytes / remote_scrub_s / 1e9,
+            remote_scrub_crc_launches=remote_scrub_launches,
+            remote_scrub_batched_bytes=remote_batched,
+            local_scrub_s=local_scrub_s, local_scrub_gbps=live_bytes / local_scrub_s / 1e9,
+            tail_bytes=len(tail), tail_s=tail_s, tail_gbps=len(tail) / tail_s / 1e9,
+            download_s=download_s, download_gbps=gb / download_s,
+            backup_full_s=backup_full_s, backup_full_gbps=gb / backup_full_s,
+            backup_tail_s=backup_tail_s, backup_sha256_equal=True)
+        del tail
+
+        # (b) 1-2. corrupt writes on A under replicated ingest
+        out = run_command(env, f"cluster.faults -arm volume.write.dat -mode corrupt "
+                               f"-count {VS_CORRUPT} -key {ids[0]}")
+        check(out == "armed volume.write.dat (corrupt) on 3/3 endpoint(s)", out)
+        raw = np.random.default_rng([seed, 32]).bytes(VS_FILES * VS_SMALL)
+        ing = replicated_ingest(master.url, raw, VS_SMALL, VS_THREADS, replication="010")
+        files = ing.pop("files")
+        fired = {p["point"]: p for p in get_json(f"{a.url}/debug/faults")["points"]}
+        check(fired["volume.write.dat"]["armed"] is None, "the corrupt fault is still armed")
+        out = run_command(env, "cluster.faults -disarmAll")
+        check(out == "disarmed all on 3/3 endpoint(s)", out)
+        rvids = sorted({int(f.split(",")[0]) for f, _ in files})
+        for vid in rvids:
+            check(all(vs.store.get_volume(vid) is not None for vs in servers),
+                  f"volume {vid} is not on both servers")
+        # 3. a pass on A finds exactly the 16
+        before = read_launches()["crc32c_batch"]
+        found = []
+        t0 = time.perf_counter()
+        for vid in rvids:
+            found += ca.json("/admin/scrub/run", {"volume": vid})["findings"]
+        corrupt_scrub_s = time.perf_counter() - t0
+        corrupt_launches = read_launches()["crc32c_batch"] - before
+        check(len(found) == VS_CORRUPT and {f["kind"] for f in found} == {"corrupt_needle"}
+              and {f["node"] for f in found} == {ids[0]},
+              f"the pass on A found {[(f['kind'], f['node']) for f in found][:20]}")
+        check(corrupt_launches > 0, "the corrupt-write pass launched no crc32c_batch kernel")
+        # 4. healed from B, a clean pass, every file equal from both holders
+        t0 = time.perf_counter()
+        out = run_command(env, "volume.scrub -apply")
+        heal_s = time.perf_counter() - t0
+        check(f"repaired {VS_CORRUPT} finding(s):" in out and "FAILED" not in out,
+              f"volume.scrub -apply: {out[-600:]}")
+        out = run_command(env, "volume.scrub -dryRun")
+        check(out.endswith("no silent damage found"), f"the pass after the heal: {out[-400:]}")
+        cb = Client(b.url)
+        for i, (f, _) in enumerate(files):
+            for c in (ca, cb):
+                status, body = c.request("GET", f"/{f}")
+                check(status == 200 and body == raw[i * VS_SMALL : (i + 1) * VS_SMALL],
+                      f"GET {f} reads wrong after the heal")
+        res.update(files=VS_FILES, file_bytes=VS_SMALL, threads=VS_THREADS,
+                   replicated_volumes=len(rvids), corrupt_fired=VS_CORRUPT,
+                   corrupt_found=len(found), corrupt_scrub_s=corrupt_scrub_s,
+                   corrupt_scrub_crc_launches=corrupt_launches, corrupt_heal_s=heal_s,
+                   **{f"ingest_{k}": v for k, v in ing.items()})
+
+        # 5. the online volume: a torn parity write, detected and healed
+        ca.json("/admin/allocate_volume", {"volume": VS_ONLINE_VID, "ecOnline": True})
+        ov = a.store.get_volume(VS_ONLINE_VID)
+        w = ov.online_ec
+        rng = np.random.default_rng([seed, 33])
+        opool = rng.bytes(VS_ONLINE_BYTES)
+        oplan, used, nid = [], 0, 0
+        while used < VS_ONLINE_BYTES:
+            if used < VS_ONLINE_BYTES - VS_TORN_TAIL:
+                size = min(int(np.exp(rng.uniform(np.log(1024), np.log(4 * MIB)))),
+                           VS_ONLINE_BYTES - VS_TORN_TAIL - used)
+            else:
+                # the last needle: its pump's parity write is torn, and no
+                # later write grows the shard back over the cut
+                size = VS_ONLINE_BYTES - used
+                w.pump(force=True)
+                out = run_command(env, "cluster.faults -arm volume.ec.parity.write -mode torn "
+                                       "-count 1")
+                check(out.startswith("armed volume.ec.parity.write (torn)"), out)
+            nid += 1
+            a.store.write(VS_ONLINE_VID, Needle(cookie=0x0E, id=nid, data=opool[used : used + size]))
+            w.pump()
+            oplan.append((nid, used, size))
+            used += size
+        w.pump(force=True)
+        check(faults.point("volume.ec.parity.write").spec is None, "the tear did not fire")
+        health = w.parity_health()
+        check(health >= 1, f"the torn parity write went unseen: parity_health {health}")
+        n0 = gf256_matmul.launches
+        t0 = time.perf_counter()
+        out = ca.json("/admin/ec/online/rebuild", {"volume": VS_ONLINE_VID})
+        rearm_s = time.perf_counter() - t0
+        rearm_launches = gf256_matmul.launches - n0
+        check(out["active"] and w.parity_health() == 0 and rearm_launches > 0,
+              f"the rearm: {out}, parity_health {w.parity_health()}, {rearm_launches} launches")
+        obase = ov.base_name
+        rows = w.watermark // w.stripe
+        check_parity_rows(dev, obase + ".dat", [obase + geometry.to_ext(10 + p) for p in range(4)],
+                          w.block, rows, "the rearmed online volume")
+        onedles = {n: ov.nm.get(n) for n, _, _ in oplan}
+        gen = ca.json("/admin/ec/generate", {"volume": VS_ONLINE_VID})
+        check(gen.get("online") is True, f"/admin/ec/generate answered {gen}")
+        odat = os.path.getsize(obase + ".dat")
+        shard_size = geometry.shard_file_size(odat, w.block, w.block)
+        ca.json("/admin/ec/delete_volume", {"volume": VS_ONLINE_VID})
+        for s in VS_ONLINE_LOST:
+            os.replace(obase + geometry.to_ext(s), obase + geometry.to_ext(s) + ".orig")
+        mounted = ca.json("/admin/ec/mount", {"volume": VS_ONLINE_VID})
+        check(mounted["shards"] == [s for s in range(14) if s not in VS_ONLINE_LOST],
+              f"remounted shards {mounted}")
+        on_lost = []
+        for n, off, size in oplan:
+            noff, nsize = onedles[n]
+            ivs = geometry.locate_data(w.block, w.block, 10 * shard_size, noff,
+                                       get_actual_size(nsize, 3))
+            if any(iv.to_shard_id_and_offset(w.block, w.block)[0] in VS_ONLINE_LOST
+                   for iv in ivs):
+                on_lost.append((n, off, size))
+        pick = rng.choice(len(on_lost), min(VS_DEGRADED, len(on_lost)), replace=False)
+        n0 = gf256_matmul.launches
+        for i in pick:
+            n, off, size = on_lost[i]
+            status, body = ca.request(
+                "GET", f"/{VS_ONLINE_VID},{file_id.format_needle_id_cookie(n, 0x0E)}")
+            check(status == 200 and body == opool[off : off + size],
+                  f"degraded GET of online needle {n} reads wrong")
+        degraded_launches = gf256_matmul.launches - n0
+        check(degraded_launches >= len(pick), "a degraded read did not reconstruct on the card")
+        reb = ca.json("/admin/ec/rebuild", {"volume": VS_ONLINE_VID})
+        check(reb["rebuilt"] == list(VS_ONLINE_LOST), f"rebuilt {reb}")
+        for s in VS_ONLINE_LOST:
+            p = obase + geometry.to_ext(s)
+            check(same_file(p, p + ".orig"), f"rebuilt shard {s} differs")
+        mounted = ca.json("/admin/ec/mount", {"volume": VS_ONLINE_VID})
+        check(mounted["shards"] == list(range(14)), f"remounted shards {mounted}")
+        res.update(online_bytes=VS_ONLINE_BYTES, online_needles=len(oplan),
+                   parity_health_after_tear=health, rearm_s=rearm_s, rearm_rows=out["rows"],
+                   rearm_launches=rearm_launches, parity_rows_equal_plain=rows,
+                   online_degraded_reads=len(pick), online_degraded_launches=degraded_launches)
+        # 6. shard-read errors on the sealed volume: reads rebuilt through the codec
+        out = run_command(env, f"cluster.faults -arm volume.ec.shard.read -mode error "
+                               f"-rate 0.25 -count {VS_SHARD_FAULTS}")
+        check(out.startswith("armed volume.ec.shard.read (error)"), out)
+        pick = rng.choice(len(oplan), VS_SAMPLE)  # the volume holds fewer needles
+        n0 = gf256_matmul.launches
+        t0 = time.perf_counter()
+        for i in pick:
+            n, off, size = oplan[i]
+            status, body = ca.request(
+                "GET", f"/{VS_ONLINE_VID},{file_id.format_needle_id_cookie(n, 0x0E)}")
+            check(status == 200 and body == opool[off : off + size],
+                  f"GET of sealed needle {n} under shard-read errors reads wrong")
+        shard_fault_s = time.perf_counter() - t0
+        shard_fault_launches = gf256_matmul.launches - n0
+        state = {p["point"]: p for p in get_json(f"{a.url}/debug/faults")["points"]}
+        run_command(env, "cluster.faults -disarmAll")
+        check(state["volume.ec.shard.read"]["armed"] is None,
+              "the shard-read fault did not fire all its count")
+        check(shard_fault_launches > 0, "no read under shard-read errors went through the codec")
+        res.update(shard_fault_gets=len(pick), shard_fault_s=shard_fault_s,
+                   shard_fault_firings=VS_SHARD_FAULTS,
+                   shard_fault_codec_launches=shard_fault_launches)
+        for c in (ca, cb):
+            c.close()
+        run_command(env, "volume.vacuum.enable")
+        run_command(env, "unlock")
+        launches = read_launches()
+
+        # (c) the child's 5-byte EC path against a 4-byte encode here
+        try:
+            stdout, stderr = child.communicate(timeout=max(1.0, VS_WALL_LIMIT_S
+                                                           - (time.perf_counter() - t_phase)))
+        except subprocess.TimeoutExpired:
+            child.kill()
+            stdout, stderr = child.communicate()
+        check(child.returncode == 0, f"the 5-byte child failed: {stderr[-2000:]}")
+        c5 = json.loads(stdout.strip().splitlines()[-1])
+        base5 = os.path.join(child_dir, "1")
+        d4 = os.path.join(root, "offset4")
+        os.makedirs(d4)
+        base4 = os.path.join(d4, "1")
+        shutil.copyfile(base5 + ".dat", base4 + ".dat")
+        with open(base4 + ".idx", "wb") as f:
+            for key, off, size in idx_entries(base5 + ".idx", 17):
+                f.write(key.to_bytes(8, "big") + (off // 8).to_bytes(4, "big")
+                        + (size & 0xFFFFFFFF).to_bytes(4, "big"))
+        encoder.write_sorted_file_from_idx(base4)
+        n0 = gf256_matmul.launches
+        encoder.write_ec_files(base4, codec=RSCodec(device=dev))
+        launches["gf256_matmul"] += gf256_matmul.launches - n0
+        for i in range(14):
+            check(sha256_file(base4 + geometry.to_ext(i)) == sha256_file(base5 + geometry.to_ext(i)),
+                  f"5-byte shard {i} != the 4-byte encode's")
+        e5, e4 = idx_entries(base5 + ".ecx", 17), idx_entries(base4 + ".ecx", 16)
+        check(os.path.getsize(base5 + ".ecx") == 17 * len(e5) and e5 == e4 and e5,
+              "the 17-byte .ecx entries != the 4-byte ones")
+        check(sha256_file(os.path.join(child_dir, "decoded.dat")) == sha256_file(base5 + ".dat"),
+              "the 5-byte decode differs from the .dat")
+        launches["gf256_matmul"] += c5["launches"]
+        check(c5["launches"] > 0 and c5["degraded_launches"] > 0,
+              f"the 5-byte path launched no gf256_matmul kernel: {c5}")
+        res["offset5"] = {**c5, "shards_equal_4byte": True, "ecx_entries": len(e5),
+                          "decoded_equal": True}
+        res["launches"] = {k: launches[k] for k in ("crc32c_batch", "gf256_matmul")}
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    n, length = VS_SHAPES["crc32c_batch"]
+    res["crc_kernel"] = hash_shape_times(dev, seed, HASH_WRAPPERS, md5_ops_per_block,
+                                         shapes=((n, length),), gear=False)["crc32c_batch"]
+    res["gf_kernel"] = gf256_shape_times(dev, seed, gf256_matmul,
+                                         shapes=(VS_SHAPES["gf256_matmul"],))
+    for row in res["crc_kernel"] + res["gf_kernel"]:
+        row["path"] = "volume_side"
+    wall = time.perf_counter() - t_phase
+    res.update(wall_s=wall, wall_limit_s=VS_WALL_LIMIT_S, over_wall_limit=wall > VS_WALL_LIMIT_S,
+               cuts=VS_CUTS, racks=list(VS_RACKS))
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -3980,11 +4540,17 @@ def main() -> int:
     ap.add_argument("--s3-seconds", type=float, default=60.0)
     ap.add_argument("--s3-clients", type=int, default=20)
     ap.add_argument("--s3-multipart-mib", type=int, default=64)
+    ap.add_argument("--tier-mib", type=int, default=1024)
+    ap.add_argument("--offset5-child", metavar="DIR",
+                    help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    if args.offset5_child:
+        return offset5_child(torch.device("cuda", 0), args.offset5_child, VS_OFFSET5_BYTES,
+                             args.seed)
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -4126,6 +4692,18 @@ def main() -> int:
     for name in ("crc32c_batch", "md5_batch"):
         launches[name] += s3["launches"][name]
         timed[name]["shapes"].extend(s3["hash_kernels"][name])
+
+    # the volume side: tiering, every fault mode, 5-byte offsets; its own count
+    vsd = volume_side_phase(dev, args.tier_mib * MIB, md5_block["ops"], args.seed)
+    emit("volume_side", nvidia_smi=nvidia_smi(), **vsd)
+    for name in ("gf256_matmul", "crc32c_batch"):
+        launches[name] += vsd["launches"][name]
+    timed["gf256_matmul"]["shapes"].extend(vsd["gf_kernel"])
+    timed["crc32c_batch"]["shapes"].extend(vsd["crc_kernel"])
+    timed["crc32c_batch"]["max_abs_err"] = max(timed["crc32c_batch"]["max_abs_err"],
+                                               vsd["flush_crc_max_abs_err"])
+    timed["gf256_matmul"]["max_abs_err"] = max(timed["gf256_matmul"]["max_abs_err"],
+                                               vsd["offset5"]["max_abs_err"])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

@@ -1,0 +1,5 @@
+"""Offline volume tools: `fix` (rebuild a .idx from its .dat) and
+`compact`, `export` and `backup` (`volume_tools.py`), each a `run*(args)`
+entry point taking the reference CLI's flags. The port's copy of those
+modules of `seaweedfs_tpu/command/`; the dispatcher (`main.py`) and the
+server verbs are not ported (ROADMAP 10d-4)."""

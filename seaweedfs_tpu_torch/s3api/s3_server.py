@@ -19,6 +19,7 @@ where each chunk's ETag goes through `md5_batch` and each needle's
 checksum through `crc32c_batch` (`ops/hash_service.py`). The gateway's own
 ETags (an object's MD5, a multipart upload's MD5 of its parts' MD5s) are
 `hashlib`, as in the reference, so they stay equal to its answers.
+`faults_spec` is the `-faults` flag (see `util/faults.opt_in`).
 
 Not ported: the native front (the engine relay, its per-bucket flags and
 upload registry, `url`'s engine branch), QoS admission, usage accounting,
@@ -43,6 +44,7 @@ from xml.sax.saxutils import escape
 from ..filer.filer_client import FilerClient
 from ..filer.meta_aggregator import MetaSubscriber
 from ..server.httpd import HTTPService, Request, Response
+from ..util import faults
 
 from . import policy as bucket_policy
 from .auth import (
@@ -96,7 +98,9 @@ class S3Server:
         port: int = 8333,
         config: dict | None = None,
         circuit_breaker: CircuitBreaker | None = None,
+        faults_spec: str | None = None,
     ) -> None:
+        faults.opt_in(faults_spec)  # the -faults flag
         self.fc = FilerClient(filer_url)
         self.iam = IdentityAccessManagement()
         if config:

@@ -46,6 +46,8 @@ and `fs.merge.volumes` rewrites), `/__dedup__/stats` and `/__dedup__/gc`
 `lock_ring`). `start()` announces the filer to the master
 (`/cluster/register`, then every 5 s, sweeping expired locks).
 
+`faults_spec` is the `-faults` flag (see `util/faults.opt_in`).
+
 Not ported: the native fastlane front door (`_fl_*`, ROADMAP 10a-3),
 remote storage mounts (`/__remote__/*`, 10d-3), and qos admission, usage
 accounting, metrics, telemetry and JWT security (10d-4). The registration
@@ -79,6 +81,7 @@ from ..ops.hash_service import HashService
 from ..ops.rs_kernel import resolve_device
 from ..storage.types import TTL
 from ..util import cipher as cipher_util
+from ..util import faults
 from ..util.chunk_cache import TieredChunkCache
 from ..util.compression import decompress_data, maybe_compress_data
 from .httpd import HTTPService, Request, Response, http_request, peer_url
@@ -107,6 +110,7 @@ class FilerServer:
         dedup_min: int = 16 * 1024,
         dedup_max: int = 512 * 1024,
         device=None,
+        faults_spec: str | None = None,
         *,
         filer: Filer | None = None,
         client=None,
@@ -114,6 +118,7 @@ class FilerServer:
         peers: list[str] | None = None,
     ) -> None:
         self.device = resolve_device(device)
+        faults.opt_in(faults_spec)  # the -faults flag
         # -encryptVolumeData / compression defaults (`weed/command/filer.go`)
         if cipher and not cipher_util.available():
             # fail at boot, not with a 500 on the first write

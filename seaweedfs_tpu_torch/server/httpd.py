@@ -9,8 +9,15 @@ the filer's data-plane hops. The first `HTTPService.start` of a process
 sets the GIL switch interval to 0.5 ms (`SEAWEEDFS_TPU_SWITCH_INTERVAL`;
 "0" keeps Python's 5 ms), as the JAX service does.
 
-Not ported: request metrics, the debug and profiler endpoints, QoS,
-trace propagation, TLS, the IP guard and unix-socket listeners.
+Every service serves `GET /debug/faults` (the process's fault points and
+their state) and `POST /debug/faults` (arm, disarm, disarm_all), registered
+first so a catch-all namespace (the filer, the S3 gateway) cannot shadow
+them. The POST answers 403 unless the process opted in
+(`faults.enable()`, a server built with `faults_spec`, or
+SEAWEEDFS_TPU_FAULTS=1).
+
+Not ported: request metrics, the other debug and the profiler endpoints,
+QoS, trace propagation, TLS, the IP guard and unix-socket listeners.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import urllib.parse
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
+
+from ..util import faults as faults_mod
 
 DEFAULT_TIMEOUT = 30.0  # seconds; no outbound call may hang a worker forever
 # peers are cluster-internal: never route them through an environment proxy
@@ -155,6 +164,7 @@ class HTTPService:
         self.routes: list[tuple[str, re.Pattern, Callable[[Request], Response]]] = []
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
+        _register_fault_routes(self)
 
     def route(self, method: str, pattern: str):
         compiled = re.compile(pattern)
@@ -254,6 +264,57 @@ class HTTPService:
     @property
     def url(self) -> str:
         return f"http://{self.host}:{self.port}"
+
+
+def _register_fault_routes(service: HTTPService) -> None:
+    @service.route("GET", r"/debug/faults")
+    def debug_faults_get(req: Request) -> Response:
+        snap = faults_mod.snapshot()
+        return Response({
+            "points": snap,
+            "declared": list(faults_mod.ALL_POINTS),
+            "armed": sum(1 for p in snap if p["armed"] is not None),
+        })
+
+    @service.route("POST", r"/debug/faults")
+    def debug_faults_post(req: Request) -> Response:
+        """Runtime fault arming for THIS process — the cluster.faults
+        verb fans this out across discovered nodes. Body:
+          {"action": "arm", "point": ..., "mode": ...,
+           "rate"/"ms"/"frac"/"count"/"key"/"after": ...}
+          {"action": "disarm", "point": ...}
+          {"action": "disarm_all"}"""
+        if not faults_mod.runtime_arming_enabled():
+            # a reachable port must not be enough to arm torn writes on a
+            # production server
+            return Response(
+                {"error": "fault injection disabled for this process"
+                          " (start with -faults or SEAWEEDFS_TPU_FAULTS=1)"},
+                403,
+            )
+        p = req.json()
+        action = p.get("action", "arm")
+        try:
+            if action == "arm":
+                spec = faults_mod.arm(
+                    p["point"], p["mode"],
+                    rate=p.get("rate", 1.0), ms=p.get("ms", 0.0),
+                    frac=p.get("frac", 0.5), count=p.get("count", -1),
+                    key=p.get("key", ""), after=p.get("after", 0),
+                )
+                return Response({"ok": True, "point": p["point"],
+                                 "armed": spec.to_dict()})
+            if action == "disarm":
+                return Response({
+                    "ok": True, "point": p["point"],
+                    "was_armed": faults_mod.disarm(p["point"]),
+                })
+            if action == "disarm_all":
+                return Response({"ok": True,
+                                 "disarmed": faults_mod.disarm_all()})
+        except (KeyError, ValueError) as e:
+            return Response({"error": str(e)}, 400)
+        return Response({"error": f"unknown action {action!r}"}, 400)
 
 
 def peer_url(hostport: str) -> str:

@@ -31,6 +31,11 @@ member registry `_members`, first-seen order deciding each group's
 leader); `/cluster/ps` lists the live ones and `/cluster/leader` names a
 group's leader. The registration carries no telemetry frame here.
 
+`faults_spec` is the `-faults` flag: "" opts the process into runtime
+fault arming (`POST /debug/faults`), a spec string also arms it
+(`faults.arm_from_spec`). `/dir/assign` and `/dir/lookup` pass the
+`master.assign` and `master.lookup` fault points.
+
 Not ported: raft HA and the `/raft/*` routes, the native fastlane front
 door, JWT (`security`), telemetry (`/cluster/telemetry`), metrics, heat
 and `/ui`.
@@ -46,7 +51,11 @@ from ..topology import Topology
 from ..topology.node import VolumeInfo
 from ..topology.sequence import MemorySequencer
 from ..topology.volume_layout import NoWritableVolume
+from ..util import faults
 from .httpd import HTTPService, Request, Response, peer_url, post_json
+
+_FP_ASSIGN = faults.register("master.assign")
+_FP_LOOKUP = faults.register("master.lookup")
 
 
 class MasterServer:
@@ -65,7 +74,9 @@ class MasterServer:
         maintenance_dry_run: bool = False,
         maintenance_interval: float | None = None,
         repair_lazy_window: float = 0.0,
+        faults_spec: str | None = None,
     ) -> None:
+        faults.opt_in(faults_spec)  # the -faults flag
         seq = MemorySequencer(f"{meta_dir}/sequence.json" if meta_dir else None)
         self.topo = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
@@ -281,6 +292,8 @@ class MasterServer:
             )
 
         def do_assign(req: Request) -> Response:
+            _FP_ASSIGN.hit()  # injected error -> 500 via _dispatch; the
+            # writer's retry/fresh-assignment path is what's under test
             count = int(req.query.get("count", 1))
             replication = req.query.get("replication") or self.default_replication
             collection = req.query.get("collection", "")
@@ -338,6 +351,7 @@ class MasterServer:
         svc.route("POST", r"/dir/assign")(do_assign)
 
         def do_lookup(req: Request) -> Response:
+            _FP_LOOKUP.hit()
             vid_s = req.query.get("volumeId", "")
             if "," in vid_s:
                 vid_s = vid_s.split(",")[0]

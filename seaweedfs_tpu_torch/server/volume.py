@@ -52,10 +52,21 @@ JPEG uploads are rewritten upright when their EXIF orientation is not
 1, and `GET ?width=&height=&mode=` resizes images (`images/`, Pillow on
 the host).
 
-Not ported: the native fastlane, JWT, tiering and its backends,
-`/admin/tail`, `/ui`, `/query`, metrics, traces, events, telemetry, the
-fault points but `repair.partial_fetch` and `volume.replicate.fanout`,
-and the retry policy of the copy stream (a failed range fails the copy).
+Tiering: `/admin/backend/configure` registers an object backend
+(`storage/backend.py`), `/admin/volume/tier_upload` moves a readonly
+volume's .dat into it (reads then proxy through the backend),
+`/admin/volume/tier_download` brings it back and
+`/admin/volume/tier_info` shows the `.vif`'s remote record.
+`/admin/tail?volume=&since_ns=` serves the .dat bytes of the needles
+appended after `since_ns` (the incremental `backup`), and `POST /query`
+filters one needle's JSON or CSV content (`query/`). The heartbeat passes
+the `volume.heartbeat.send` fault point (an injected error or partition
+drops the beat); `faults_spec` is the `-faults` flag
+(`util/faults.opt_in`).
+
+Not ported: the native fastlane, JWT (so `/query` checks no token, as
+the GET path checks none), `/ui`, metrics, traces, events, telemetry and
+the retry policy of the copy stream (a failed range fails the copy).
 """
 
 from __future__ import annotations
@@ -72,7 +83,9 @@ import numpy as np
 
 from ..maintenance.scrub import ScrubCodecFailed, VolumeScrubber
 from ..ops.rs_kernel import RSCodec, resolve_device
+from ..query import query_csv, query_json_lines
 from ..storage import crc as crc_mod
+from ..storage.backend import BackendError, configure_backend
 from ..storage.erasure_coding import decoder as ec_decoder
 from ..storage.erasure_coding import encoder as ec_encoder
 from ..storage.erasure_coding import geometry
@@ -88,12 +101,14 @@ from ..storage.super_block import SUPER_BLOCK_SIZE
 from ..storage.types import TTL, ReplicaPlacement
 from ..storage.volume import NotFound, VolumeError, volume_file_name
 from ..util import faults
+from ..util.compression import decompress_data
 from ..util.retry import READ_POLICY
 from .httpd import HTTPService, Request, Response, get_json, http_request, peer_url
 
 FID_RE = r"/(\d+),([0-9a-fA-F_]+)(?:\.[^/]*)?"
 _SAFE_EXT_RE = re.compile(r"\.(dat|idx|vif|ecx|ecj|ec\d\d)")
 
+_FP_HEARTBEAT = faults.register("volume.heartbeat.send")
 # the fan-out seam fails replica pushes (the client's write is not acked
 # and it retries with a fresh assignment); scoped by the server's identity
 _FP_REPLICATE = faults.register("volume.replicate.fanout")
@@ -143,8 +158,10 @@ class VolumeServer:
         scrub_interval: float = 0.0,
         scrub_rate_mb: float = 8.0,
         device=None,
+        faults_spec: str | None = None,
     ) -> None:
         self.device = resolve_device(device)
+        faults.opt_in(faults_spec)  # the -faults flag
         # -mserver may list several masters; heartbeats follow the raft
         # leader hint (`volume_grpc_client_to_master.go` re-dial on redirect)
         self.master_urls = [
@@ -310,6 +327,10 @@ class VolumeServer:
             self._heartbeat_locked()
 
     def _heartbeat_locked(self) -> None:
+        try:
+            _FP_HEARTBEAT.hit(key=self.node_id)
+        except (faults.FaultInjected, ConnectionError, OSError):
+            return  # partitioned from the master: the beat just vanishes
         hb = self.store.collect_heartbeat()
         hb["data_center"] = self.data_center
         hb["rack"] = self.rack
@@ -782,6 +803,101 @@ class VolumeServer:
                 return Response({"error": str(e)}, 400)
             v.configure_replication(rp)
             return Response({"ok": True, "replication": str(rp)})
+
+        # --- tiering (volume_grpc_tier_upload.go / _download.go) ---
+        @svc.route("POST", r"/admin/backend/configure")
+        def backend_configure(req: Request) -> Response:
+            p = req.json()
+            try:
+                configure_backend(p["id"], p["kind"], **p.get("options", {}))
+            except (BackendError, KeyError) as e:
+                return Response({"error": str(e)}, 400)
+            return Response({"ok": True})
+
+        @svc.route("POST", r"/admin/volume/tier_upload")
+        def tier_upload(req: Request) -> Response:
+            p = req.json()
+            vid = int(p["volume"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            try:
+                size = v.tier_to_remote(
+                    p["backend"], keep_local=bool(p.get("keepLocal", False))
+                )
+            except (VolumeError, BackendError) as e:
+                return Response({"error": str(e)}, 409)
+            return Response({"ok": True, "size": size})
+
+        @svc.route("POST", r"/admin/volume/tier_download")
+        def tier_download(req: Request) -> Response:
+            vid = int(req.json()["volume"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            try:
+                v.tier_to_local()
+            except (VolumeError, BackendError) as e:
+                return Response({"error": str(e)}, 409)
+            return Response({"ok": True})
+
+        @svc.route("GET", r"/admin/volume/tier_info")
+        def tier_info(req: Request) -> Response:
+            vid = int(req.query["volume"])
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            return Response({"volume": vid, "remote": v.tier_info()})
+
+        @svc.route("GET", r"/admin/tail")
+        def tail(req: Request) -> Response:
+            """The .dat bytes of the needles appended after since_ns
+            (`volume_backup.go:66`), read through the volume's file (a
+            tiered volume's through its backend)."""
+            vid = int(req.query["volume"])
+            since_ns = int(req.query.get("since_ns", 0))
+            v = self.store.get_volume(vid)
+            if v is None:
+                return Response({"error": f"volume {vid} not found"}, 404)
+            start = (
+                v.binary_search_by_append_at_ns(since_ns) if since_ns
+                else SUPER_BLOCK_SIZE
+            )
+            data = v._dat.read_at(v.size() - start, start)
+            return Response(data, content_type="application/octet-stream")
+
+        @svc.route("POST", r"/query")
+        def query(req: Request) -> Response:
+            """S3-Select-ish filtering of one needle's JSON or CSV content
+            (`volume_grpc_query.go:12`). No JWT check: the port's read path
+            has none (security is ROADMAP 10d-4)."""
+            p = req.json()
+            fid = p.get("fid", "")
+            try:
+                vid_s, _, rest = fid.partition(",")
+                vid = int(vid_s)
+                key, cookie = parse_key_hash_with_delta(rest)
+            except (ValueError, AttributeError):
+                return Response({"error": f"bad fid {fid!r}"}, 400)
+            try:
+                n = self.store.read(vid, key, cookie=cookie)
+            except (NotFound, VolumeError) as e:
+                return Response({"error": str(e)}, 404)
+            data = decompress_data(n.data) if n.is_compressed() else n.data
+            select, where = p.get("select"), p.get("where")
+            limit = int(p.get("limit", 0))
+            try:
+                if p.get("type", "json") == "csv":
+                    rows = query_csv(
+                        data, select, where,
+                        has_header=bool(p.get("header", True)),
+                        delimiter=p.get("delimiter", ","), limit=limit,
+                    )
+                else:
+                    rows = query_json_lines(data, select, where, limit=limit)
+            except ValueError as e:
+                return Response({"error": str(e)}, 400)
+            return Response({"rows": rows, "count": len(rows)})
 
         @svc.route("POST", r"/admin/leave")
         def leave(req: Request) -> Response:

@@ -8,10 +8,12 @@ from `seaweedfs_tpu/shell/commands_cluster.py`, over routes the port's
 master (`/cluster/ps`, `/col/list`, `/col/delete`, `/dir/status`) and
 volume servers (`/admin/scrub/status`) serve. `cluster.ps` lists the
 filers and brokers that registered with the master (`/cluster/register`).
+`cluster.faults` arms, disarms and lists fault injection over every
+discovered node's `/debug/faults` (the master, the volume servers of the
+topology, the registered filers, the shell's filer and `-include`d urls).
 Not ported: the file's other commands (`cluster.check`, `cluster.top`,
 `cluster.trace`, `cluster.profile`, `cluster.why`, `cluster.heat`,
-`cluster.faults` and the rest), which read routes the port does not
-serve.
+`cluster.qos` and the rest), which read routes the port does not serve.
 """
 
 from __future__ import annotations
@@ -155,4 +157,120 @@ def cmd_cluster_scrub(env: CommandEnv, args: list[str]) -> str:
         else f"{total_findings} unresolved finding(s) — the maintenance"
              f" scrub task routes each to its heal"
     )
+    return "\n".join(lines)
+
+
+def _discover_endpoints(env: CommandEnv, include: str = "") -> set[str]:
+    """Every /debug-capable node the shell can see: the master, each
+    volume server in the topology, registered filers, plus -include'd
+    urls (s3 gateways don't register with the master)."""
+    endpoints = {env.master_url}
+    for extra in include.split(","):
+        extra = extra.strip().rstrip("/")
+        if extra:
+            if not extra.startswith(("http://", "https://")):
+                extra = "http://" + extra
+            endpoints.add(extra)
+    try:
+        for sv in env.servers():
+            endpoints.add(sv.http)
+    except Exception:
+        pass
+    try:
+        ps = env.get(f"{env.master_url}/cluster/ps")
+        for f in ps.get("filers", []):
+            endpoints.add(f["address"])
+    except Exception:
+        pass
+    if env.filer_url:
+        endpoints.add(env.filer_url)
+    return endpoints
+
+
+@command("cluster.faults",
+         "[-list] | -arm <point> -mode <error|latency|torn|disk_full|"
+         "partition|corrupt> [-rate r] [-ms n] [-frac f] [-count n] [-key id]"
+         " | -disarm <point> | -disarmAll  [-node url] [-include url,url]"
+         " — arm/disarm/list fault injection across discovered nodes")
+def cmd_cluster_faults(env: CommandEnv, args: list[str]) -> str:
+    """The cluster-wide switchboard for util/faults.py: every discovered
+    /debug-capable endpoint (master, volume servers, filers, -include'd
+    gateways) gets the POST; -node scopes to one endpoint. Single-process
+    clusters share one registry — the listing dedups by fault state, and
+    arming once is arming everywhere in-process (use -key to scope a
+    seam to one server's identity there)."""
+    flags = parse_flags(args)
+    endpoints = _discover_endpoints(env, flags.get("include", ""))
+    if "node" in flags:
+        node = flags["node"].rstrip("/")
+        if not node.startswith(("http://", "https://")):
+            node = "http://" + node
+        endpoints = {node}
+
+    if "arm" in flags or "disarm" in flags or "disarmAll" in flags:
+        if "arm" in flags:
+            if "mode" not in flags:
+                raise ShellError("cluster.faults -arm needs -mode")
+            body = {"action": "arm", "point": flags["arm"],
+                    "mode": flags["mode"]}
+            try:
+                for k in ("rate", "ms", "frac"):
+                    if k in flags:
+                        body[k] = float(flags[k])
+                if "count" in flags:
+                    body["count"] = int(flags["count"])
+            except ValueError as e:
+                raise ShellError(f"bad numeric flag: {e}")
+            if "key" in flags:
+                body["key"] = flags["key"]
+            verb = f"armed {flags['arm']} ({flags['mode']})"
+        elif "disarm" in flags:
+            body = {"action": "disarm", "point": flags["disarm"]}
+            verb = f"disarmed {flags['disarm']}"
+        else:
+            body = {"action": "disarm_all"}
+            verb = "disarmed all"
+        ok, failed = [], []
+        for ep in sorted(endpoints):
+            try:
+                env.post(f"{ep}/debug/faults", body, timeout=10)
+                ok.append(ep)
+            except Exception as e:
+                failed.append(f"{ep} ({e})")
+        lines = [f"{verb} on {len(ok)}/{len(endpoints)} endpoint(s)"]
+        lines.extend(f"  failed: {f}" for f in failed)
+        if not ok:
+            raise ShellError("\n".join(lines))
+        return "\n".join(lines)
+
+    # default: -list — aggregate state, deduped across shared processes
+    seen: dict[tuple, set[str]] = {}
+    reached = 0
+    for ep in sorted(endpoints):
+        try:
+            out = env.get(f"{ep}/debug/faults", timeout=10)
+        except Exception:
+            continue
+        reached += 1
+        for p in out.get("points", []):
+            armed = p.get("armed")
+            key = (
+                p["point"], p.get("fired", 0),
+                tuple(sorted(armed.items())) if armed else None,
+            )
+            seen.setdefault(key, set()).add(ep)
+    if not reached:
+        raise ShellError("no /debug/faults endpoint reachable")
+    lines = [f"fault points across {reached} endpoint(s):"]
+    # sort key must not compare None with a tuple (a point armed on some
+    # endpoints and disarmed on others yields both shapes)
+    for (point, fired, armed), eps in sorted(
+        seen.items(), key=lambda kv: (kv[0][0], kv[0][1], kv[0][2] or ())
+    ):
+        state = "disarmed" if armed is None else \
+            " ".join(f"{k}={v}" for k, v in armed)
+        lines.append(f"  {point}: {state}, fired={fired}"
+                     f" [{len(eps)} endpoint(s)]")
+    if len(seen) == 0:
+        lines.append("  (no seams registered yet — servers not started?)")
     return "\n".join(lines)

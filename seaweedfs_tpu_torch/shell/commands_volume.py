@@ -3,14 +3,16 @@
 `command_volume_fsck.go`, `command_volume_check_disk.go`,
 `command_volume_server_evacuate.go`).
 
-The port's copy of `seaweedfs_tpu/shell/commands_volume.py`, every verb
-but the tier verbs (`volume.tier.{configure,upload,download,info,move}`:
-tiering is not ported). `volume.scrub` raises ShellError naming the
+The port's copy of `seaweedfs_tpu/shell/commands_volume.py`, every verb,
+the tier verbs (`volume.tier.{configure,upload,download,info,move}`, over
+the volume servers' `/admin/backend/configure` and
+`/admin/volume/tier_*`) included. `volume.scrub` raises ShellError naming the
 server when a pass fails on its CRC kernel or codec (`codec_failed`),
 where the JAX verb would note the failed pass and go on."""
 
 from __future__ import annotations
 
+import json
 from collections import Counter
 from types import SimpleNamespace
 
@@ -576,3 +578,78 @@ def cmd_volume_vacuum_disable(env: CommandEnv, args: list[str]) -> str:
 def cmd_volume_vacuum_enable(env: CommandEnv, args: list[str]) -> str:
     env.post(f"{env.master_url}/vol/vacuum/enable")
     return "automatic vacuum enabled"
+
+
+# --- tiering (`weed/shell/command_volume_tier_upload.go`, `_download.go`,
+# `_move.go`) -----------------------------------------------------------------
+def _server_holding(env: CommandEnv, vid: int, node: str | None) -> ServerView:
+    servers = env.servers()
+    if node:
+        return _find_server(servers, node)
+    for sv in servers:
+        if vid in sv.volumes:
+            return sv
+    raise ShellError(f"no server holds volume {vid}")
+
+
+@command("volume.tier.configure",
+         "-backend <id> -kind local|s3 [-root dir] [-bucket b] — register a "
+         "tier backend on every volume server", needs_lock=True)
+def cmd_volume_tier_configure(env: CommandEnv, args: list[str]) -> str:
+    flags = parse_flags(args)
+    backend = flags["backend"]
+    kind = flags.get("kind", "local")
+    options = {}
+    for k in ("root", "bucket", "region", "endpoint"):
+        if k in flags:
+            options[k] = flags[k]
+    done = []
+    for sv in env.servers():
+        env.post(f"{sv.http}/admin/backend/configure",
+                 {"id": backend, "kind": kind, "options": options})
+        done.append(sv.id)
+    return f"backend {backend!r} ({kind}) configured on: " + ", ".join(done)
+
+
+@command("volume.tier.upload",
+         "-volumeId <n> -dest <backend-id> [-node host:port] [-keepLocal] — "
+         "move a readonly volume's .dat into an object backend",
+         needs_lock=True)
+def cmd_volume_tier_upload(env: CommandEnv, args: list[str]) -> str:
+    flags = parse_flags(args)
+    vid = int(flags["volumeId"])
+    sv = _server_holding(env, vid, flags.get("node"))
+    env.post(f"{sv.http}/admin/volume/readonly", {"volume": vid, "readonly": True})
+    out = env.post(
+        f"{sv.http}/admin/volume/tier_upload",
+        {"volume": vid, "backend": flags["dest"],
+         "keepLocal": flags.get("keepLocal") == "true"},
+    )
+    return f"volume {vid} tiered to {flags['dest']} ({out['size']} bytes)"
+
+
+@command("volume.tier.download",
+         "-volumeId <n> [-node host:port] — bring a tiered volume's .dat "
+         "back to local disk", needs_lock=True)
+def cmd_volume_tier_download(env: CommandEnv, args: list[str]) -> str:
+    flags = parse_flags(args)
+    vid = int(flags["volumeId"])
+    sv = _server_holding(env, vid, flags.get("node"))
+    env.post(f"{sv.http}/admin/volume/tier_download", {"volume": vid})
+    return f"volume {vid} downloaded back to {sv.id}"
+
+
+@command("volume.tier.info", "-volumeId <n> [-node host:port]")
+def cmd_volume_tier_info(env: CommandEnv, args: list[str]) -> str:
+    flags = parse_flags(args)
+    vid = int(flags["volumeId"])
+    sv = _server_holding(env, vid, flags.get("node"))
+    out = env.get(f"{sv.http}/admin/volume/tier_info?volume={vid}")
+    return json.dumps(out, indent=2)
+
+
+@command("volume.tier.move",
+         "-volumeId <n> -dest <backend-id> [-keepLocal] — alias of "
+         "tier.upload after marking readonly", needs_lock=True)
+def cmd_volume_tier_move(env: CommandEnv, args: list[str]) -> str:
+    return cmd_volume_tier_upload(env, args)

@@ -11,10 +11,13 @@ GF-scaled partial per remote holder, then from 10 surviving shards, local
 first, then remote, through the codec's kernel: a degraded read), and
 deletion via .ecx tombstone + .ecj journal append.
 
-Not ported: fault points, events and metrics (the partial step keeps
-plain counters: `partial_served`, `partial_fallbacks` by reason). All file
-access uses positional os.pread/os.pwrite, so concurrent reads and
-read+delete are safe.
+A local shard read passes the `volume.ec.shard.read` fault point: an
+injected error there counts as a missing shard, so the read goes remote or
+is rebuilt through the codec; `corrupt` flips a byte of what was read.
+Not ported: events and metrics (the partial step keeps plain counters:
+`partial_served`, `partial_fallbacks` by reason). All file access uses
+positional os.pread/os.pwrite, so concurrent reads and read+delete are
+safe.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from seaweedfs_tpu_torch.storage.types import (
     size_to_u32,
 )
 from seaweedfs_tpu_torch.storage.volume import NotFound
+from seaweedfs_tpu_torch.util import faults
 
 from . import encoder
 from .geometry import (
@@ -50,6 +54,9 @@ from .geometry import (
     locate_data,
     to_ext,
 )
+
+
+_FP_SHARD_READ = faults.register("volume.ec.shard.read")
 
 
 class NeedleNotFound(NotFound):
@@ -196,11 +203,19 @@ class EcVolume:
     def _pread_shard(self, shard_id: int, off: int, size: int) -> bytes | None:
         """Full-length positional read, or None if the shard can't serve it
         (absent or truncated — both are 'missing' to the erasure code)."""
+        try:
+            _FP_SHARD_READ.hit(volume=self.volume_id)
+        except (faults.FaultInjected, OSError):
+            return None  # an injected local failure = a missing shard
         fd = self.shards.get(shard_id)
         if fd is None:
             return None
         data = os.pread(fd, size, off)
-        return data if len(data) == size else None
+        if len(data) != size:
+            return None
+        # `corrupt` mode: silent bit flip on the shard-read seam — the
+        # needle CRC (or the scrubber's parity recompute) must catch it
+        return _FP_SHARD_READ.mangle(data, volume=self.volume_id)
 
     def _fetch_remote(self, shard_id: int, off: int, size: int) -> bytes | None:
         """A shard range from another holder, or None when no holder

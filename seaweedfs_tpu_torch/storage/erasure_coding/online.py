@@ -37,10 +37,13 @@ Every row batch goes through one buffered path: a positional read of the
 .dat into pinned staging memory taken once from the codec, the codec's
 `encode_rows_async`, and a positional write of the parity. The JAX
 package's zero-copy mapped GFNI path and its threaded split probe are
-host GFNI and are not ported. Trace, metrics and event hooks and the
-fault-injection seam are not ported either; the raw counters (`stripes`,
-`encoded_bytes`, `encode_seconds`, `parity_bytes`, `fallbacks`,
-`journal_replays`) are kept.
+host GFNI and are not ported. Trace, metrics and event hooks are not
+ported either; the raw counters (`stripes`, `encoded_bytes`,
+`encode_seconds`, `parity_bytes`, `fallbacks`, `journal_replays`) are
+kept. The `volume.ec.parity.write` fault point fails a pump (`error`,
+`disk_full`: the writer degrades as on a real emit failure) or, in `torn`
+mode, chops the tail off parity shard 0 after a pump wrote rows, which only
+`parity_health()` notices and `rearm()` heals.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import numpy as np
 
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.storage import crc as crc_mod
+from seaweedfs_tpu_torch.util import faults
 
 from . import encoder as encoder_mod
 from .geometry import (
@@ -78,6 +82,9 @@ FALLBACK_REASONS = (
 # reasons that mean online EC is BROKEN for the volume; trickle_flush,
 # vacuum_reset and parity_rearm are expected operation
 PATHOLOGICAL_REASONS = ("backpressure", "encoder_error", "journal_io")
+
+# the parity-emit seam: error/disk_full fail a pump, torn tears shard 0
+_FP_PARITY = faults.register("volume.ec.parity.write")
 
 # .ecp journal: fixed 24-byte records, last valid record wins.
 # magic u32 | watermark u64 | partial u64 | crc32c u32 (over bytes 0..19)
@@ -329,7 +336,10 @@ class OnlineEcWriter:
             return 0
         rows_done = 0
         nrows = behind // self.stripe
+        vol = int(self.volume.id)
         try:
+            _FP_PARITY.hit(volume=vol)  # error/disk_full degrade like a
+            # real emit failure would
             batch_rows = max(1, encoder_mod.DEFAULT_BATCH_HOST // self.block)
             if nrows > max(16, 2 * batch_rows):
                 # deep backlog (journal replay, seal catch-up): overlap
@@ -369,6 +379,13 @@ class OnlineEcWriter:
             # broken JOURNAL already degraded itself (journal_io), and
             # _degrade keeps the first reason
             self._degrade("encoder_error")
+            return rows_done
+        if rows_done:
+            spec = _FP_PARITY.spec
+            if spec is not None and spec.mode == "torn":
+                spec = _FP_PARITY.draw(volume=vol)
+                if spec is not None:
+                    self._tear_parity(spec.frac)
         return rows_done
 
     def _tear_parity(self, frac: float) -> None:

@@ -23,9 +23,10 @@ Three implementations behind one interface:
   probed via mmap binary search, O(1) resident memory; deletes punch the
   size field in place.
 
-The port's copy of `seaweedfs_tpu/storage/needle_map.py`, for 4-byte
-offsets only (16-byte entries), like the port's `types.py`. Not ported:
-the fastlane engine's memory-only updates and the memory-footprint probe.
+The port's copy of `seaweedfs_tpu/storage/needle_map.py`, for 16-byte
+entries and, under SEAWEEDFS_TPU_OFFSET_BYTES=5, 17-byte ones. Not
+ported: the fastlane engine's memory-only updates and the memory-footprint
+probe.
 """
 
 from __future__ import annotations
@@ -39,16 +40,16 @@ import numpy as np
 from . import idx as idx_mod
 from .types import (
     NEEDLE_MAP_ENTRY_SIZE,
-    OFFSET_SIZE,
+    OFFSET_BYTES,
     TOMBSTONE_FILE_SIZE,
     offset_to_bytes,
     size_is_valid,
 )
 
-# entry layout: key[0:8] | offset units[8:12] | size (4B signed)
+# entry layout: key[0:8] | offset units[8:8+OFFSET_BYTES] | size (4B signed)
 _ENTRY = NEEDLE_MAP_ENTRY_SIZE
-_SZ_AT = 8 + OFFSET_SIZE
-_OFF_DTYPE = np.uint32
+_SZ_AT = 8 + OFFSET_BYTES
+_OFF_DTYPE = np.uint32 if OFFSET_BYTES == 4 else np.uint64
 
 
 @dataclass
@@ -133,12 +134,15 @@ class NeedleMap:
 
 def read_index_arrays(path: str):
     """Vectorized .idx parse -> (keys u64, offset units, sizes i32), one
-    numpy pass over the whole file of 16-byte entries."""
+    numpy pass over the whole file (16B entries; 17B in 5-byte-offset
+    mode, whose 5th offset byte holds bits 32-39)."""
     raw = np.fromfile(path, dtype=np.uint8)
     n = raw.size // _ENTRY
     a = raw[: n * _ENTRY].reshape(n, _ENTRY)
     keys = a[:, :8].copy().view(">u8").ravel().astype(np.uint64)
     offs = a[:, 8:12].copy().view(">u4").ravel().astype(_OFF_DTYPE)
+    if OFFSET_BYTES == 5:
+        offs = offs + (a[:, 12].astype(np.uint64) << np.uint64(32))
     sizes = (
         a[:, _SZ_AT : _SZ_AT + 4].copy().view(">i4").ravel().astype(np.int32)
     )
@@ -362,12 +366,14 @@ class SortedFileNeedleMap:
         )
         self.metrics = MapMetrics()
         # zero-copy key view straight over the mmap (O(1) resident memory —
-        # the design point of this map): each 16B row is two aligned
-        # big-endian u64s, so a strided view works
+        # the design point of this map): with 16B entries each row is two
+        # aligned big-endian u64s, so a strided view works; 17B entries
+        # (5-byte offsets) fall back to bisecting the mmap per lookup.
         self._keys = None
         if self._mm is not None and self._n:
             buf = np.frombuffer(self._mm, dtype=np.uint8)
-            self._keys = buf.reshape(self._n, _ENTRY).view(">u8")[:, 0]
+            if _ENTRY % 8 == 0:
+                self._keys = buf.reshape(self._n, _ENTRY).view(">u8")[:, 0]
             # metrics scan: chunked pass, nothing retained
             live = 0
             step = 1 << 16
@@ -398,7 +404,10 @@ class SortedFileNeedleMap:
             k, sz, of = k[live], sz[live], of[live]
             out = np.empty((k.size, _ENTRY), dtype=np.uint8)
             out[:, :8] = k.astype(">u8")[:, None].view(np.uint8)
-            out[:, 8:12] = of.astype(">u4")[:, None].view(np.uint8)
+            out[:, 8:12] = (of & np.uint64(0xFFFFFFFF) if OFFSET_BYTES == 5
+                            else of).astype(">u4")[:, None].view(np.uint8)
+            if OFFSET_BYTES == 5:
+                out[:, 12] = (of >> np.uint64(32)).astype(np.uint8)
             out[:, _SZ_AT : _SZ_AT + 4] = sz.astype(">i4")[:, None].view(
                 np.uint8
             )
@@ -411,7 +420,17 @@ class SortedFileNeedleMap:
     def _slot(self, key: int) -> int:
         if self._n == 0:
             return -1
-        i = int(np.searchsorted(self._keys, np.uint64(key)))
+        if self._keys is not None:
+            i = int(np.searchsorted(self._keys, np.uint64(key)))
+        else:  # 17B entries: plain bisect over the mapped file
+            lo, hi = 0, self._n
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if self._key_at(mid) < key:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            i = lo
         if i < self._n and self._key_at(i) == key:
             return i
         return -1

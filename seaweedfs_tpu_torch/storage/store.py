@@ -9,7 +9,9 @@ and assembles heartbeat messages (plain dicts) for the master.
 A store has one device, `cuda` unless the caller passes `device="cpu"`
 (with neither nor CUDA, construction raises before any volume is
 loaded). Every codec it makes, for an online-EC writer, an EC volume or
-a degraded read, runs there. Volume-state events are not ported.
+a degraded read, runs there. Each volume it opens gets the store's
+host:port as its `fault_key`, the spec key of its `volume.write.dat` seam.
+Volume-state events are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ class DiskLocation:
 
     directory: str
     device: object = None  # the store's resolved device
+    fault_key: str | None = None  # the store's host:port, the write seam's key
     max_volume_count: int = 0  # 0 = unlimited (auto)
     min_free_space_bytes: int = 0
     volumes: dict[int, Volume] = field(default_factory=dict)
@@ -56,6 +59,7 @@ class DiskLocation:
                                device=self.device)
                 except Exception:
                     continue  # unloadable volume: skip, like the reference logs+skips
+                v.fault_key = self.fault_key
                 try:
                     _attach_online_ec(v)
                 except Exception:
@@ -123,7 +127,7 @@ class Store:
         self.port = port
         self.public_url = public_url or f"{ip}:{port}"
         self.locations = [
-            DiskLocation(d, device=self.device,
+            DiskLocation(d, device=self.device, fault_key=f"{ip}:{port}",
                          min_free_space_bytes=min_free_space_bytes)
             for d in directories
         ]
@@ -177,6 +181,7 @@ class Store:
                 ttl=TTL.parse(ttl),
                 device=self.device,
             )
+            v.fault_key = loc.fault_key
             if ec_online:
                 try:
                     _attach_online_ec(v, block_size=ec_online_block,
@@ -246,6 +251,7 @@ class Store:
                 ):
                     v = Volume(loc.directory, collection, vid,
                                device=self.device)
+                    v.fault_key = loc.fault_key
                     loc.volumes[vid] = v
                     return v
         raise VolumeError(f"no local .dat for volume {vid}")

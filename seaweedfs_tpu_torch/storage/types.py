@@ -5,13 +5,18 @@ Mirrors the semantics of the reference implementation's type layer
 `needle_id_type.go`): 4-byte cookies, 8-byte needle ids, 4-byte sizes
 (signed, -1 == tombstone), and offsets counted in units of 8 bytes.
 
-The port's copy of `seaweedfs_tpu/storage/types.py`, with 4-byte offsets
-only (32GB volumes, `offset_4bytes.go:14-17`). Not ported: the JAX
-package's 5-byte offset variant (an import-time environment switch there).
+The port's copy of `seaweedfs_tpu/storage/types.py`. Offset width is the
+reference's build-tag choice made a process-wide environment switch, as in
+the JAX package: default 4 bytes (32GB volumes, `offset_4bytes.go:14-17`);
+set SEAWEEDFS_TPU_OFFSET_BYTES=5 before import for the 5-byte variant
+(`offset_5bytes.go:15`: 4 BE low bytes + 1 high byte, 8TB volumes, 17-byte
+.idx entries). Like a build tag it cannot change at runtime: every module
+snapshots these constants at import.
 """
 
 from __future__ import annotations
 
+import os as _os
 import struct
 from dataclasses import dataclass
 
@@ -19,15 +24,23 @@ from dataclasses import dataclass
 COOKIE_SIZE = 4
 NEEDLE_ID_SIZE = 8
 SIZE_SIZE = 4
-OFFSET_SIZE = 4
+OFFSET_BYTES = int(_os.environ.get("SEAWEEDFS_TPU_OFFSET_BYTES", "4"))
+if OFFSET_BYTES not in (4, 5):  # pragma: no cover - config error
+    raise ValueError("SEAWEEDFS_TPU_OFFSET_BYTES must be 4 or 5")
+OFFSET_SIZE = OFFSET_BYTES
 NEEDLE_HEADER_SIZE = COOKIE_SIZE + NEEDLE_ID_SIZE + SIZE_SIZE  # 16
-NEEDLE_MAP_ENTRY_SIZE = NEEDLE_ID_SIZE + OFFSET_SIZE + SIZE_SIZE  # 16
+NEEDLE_MAP_ENTRY_SIZE = NEEDLE_ID_SIZE + OFFSET_SIZE + SIZE_SIZE  # 16 or 17
 TIMESTAMP_SIZE = 8
 NEEDLE_PADDING_SIZE = 8
 NEEDLE_CHECKSUM_SIZE = 4
 DATA_SIZE_SIZE = 4
 
 TOMBSTONE_FILE_SIZE = -1  # Size(-1): deletion marker in .idx / .ecx
+NEEDLE_ID_EMPTY = 0
+
+# offsets in units of NEEDLE_PADDING_SIZE: 4 bytes => 32GB max volume,
+# 5 bytes => 8TB (reference `offset_5bytes.go:17`)
+MAX_POSSIBLE_VOLUME_SIZE = (1 << (8 * OFFSET_BYTES)) * NEEDLE_PADDING_SIZE
 
 
 # --- size semantics --------------------------------------------------------
@@ -75,14 +88,21 @@ def get_u16(b: bytes, off: int = 0) -> int:
 
 # --- offsets ---------------------------------------------------------------
 def offset_to_bytes(actual_offset: int) -> bytes:
-    """Serialize a byte offset (must be 8-byte aligned) as 4 BE bytes of
-    8-byte units."""
-    return put_u32(actual_offset // NEEDLE_PADDING_SIZE)
+    """Serialize a byte offset (must be 8-byte aligned) as OFFSET_SIZE bytes
+    of 8-byte units: 4 BE bytes, plus the high byte appended in 5-byte mode
+    (reference `offset_5bytes.go:19-26`)."""
+    units = actual_offset // NEEDLE_PADDING_SIZE
+    if OFFSET_BYTES == 4:
+        return put_u32(units)
+    return put_u32(units & 0xFFFFFFFF) + bytes([(units >> 32) & 0xFF])
 
 
 def offset_from_bytes(b: bytes, off: int = 0) -> int:
-    """Parse 4 BE bytes of 8-byte units into an actual byte offset."""
-    return get_u32(b, off) * NEEDLE_PADDING_SIZE
+    """Parse OFFSET_SIZE bytes of 8-byte units into an actual byte offset."""
+    units = get_u32(b, off)
+    if OFFSET_BYTES == 5:
+        units += b[off + 4] << 32
+    return units * NEEDLE_PADDING_SIZE
 
 
 # --- TTL -------------------------------------------------------------------
@@ -140,6 +160,7 @@ class TTL:
         return f"{self.count}{_TTL_UNITS[self.unit][0]}"
 
 
+EMPTY_TTL = TTL()
 
 # --- replica placement -----------------------------------------------------
 @dataclass(frozen=True)

@@ -15,10 +15,23 @@ The port's copy of `seaweedfs_tpu/storage/volume.py` (after
     with compaction-revision bump
   - integrity check on load: last idx entry's needle must verify against .dat
   - incremental backup: binary search needles by AppendAtNs
+  - tiering: a readonly volume's whole .dat moves to an object backend
+    (`tier_to_remote`); its `.vif` records where and reads proxy through
+    `RemoteFile`; `tier_to_local` brings it back
+  - fault points `volume.read.dat`, `volume.read.idx` and
+    `volume.write.dat` (`util/faults.py`). The write seam passes the
+    volume's `fault_key` (the owning server's host:port, which the port's
+    Store sets) as the spec key, so a keyed spec scopes to one server of an
+    in-process cluster; a volume outside a store passes none, as every JAX
+    volume does.
 
-Not ported: remote tiering (a volume whose `.vif` lists a remote file
-does not open), the native fastlane hook,
-fault points, events and metrics. Thread-safety: one writer lock; reads use positional os.pread.
+The .idx arithmetic (the integrity check's tail entry, vacuum's catch-up
+of entries past the compact snapshot) counts in NEEDLE_MAP_ENTRY_SIZE, so
+a 5-byte-offset volume reopens and keeps its late writes across a vacuum;
+the JAX package counts 16 bytes there (ROADMAP Queue 3).
+
+Not ported: the native fastlane hook, events and metrics.
+Thread-safety: one writer lock; reads use positional os.pread.
 """
 
 from __future__ import annotations
@@ -28,14 +41,16 @@ import os
 import threading
 import time
 
+from ..util import faults
 from . import crc as crc_mod
 from . import idx as idx_mod
-from .backend import DiskFile, get_backend
+from .backend import DiskFile, MmapFile, RemoteFile, get_backend
 from .needle import CURRENT_VERSION, Needle, get_actual_size
 from .needle_map import CompactNeedleMap, needle_set_digest
 from .super_block import SUPER_BLOCK_SIZE, SuperBlock
 from .types import (
     NEEDLE_HEADER_SIZE,
+    NEEDLE_MAP_ENTRY_SIZE,
     NEEDLE_PADDING_SIZE,
     TOMBSTONE_FILE_SIZE,
     TTL,
@@ -43,6 +58,14 @@ from .types import (
     get_u64,
     size_is_valid,
 )
+
+
+# data-plane fault points: disarmed these are one attribute check per
+# call; armed they inject at the exact seam the degraded-read machinery
+# below must survive
+_FP_READ_DAT = faults.register("volume.read.dat")
+_FP_READ_IDX = faults.register("volume.read.idx")
+_FP_WRITE_DAT = faults.register("volume.write.dat")
 
 
 class VolumeError(Exception):
@@ -87,21 +110,35 @@ class Volume:
         # against the post-swap (nm, dat) pair instead of failing spuriously
         self._compact_gen = 0
         self._digest_cache = None
+        # the write seam's spec key: the owning server's identity
+        self.fault_key: str | None = None
 
         tier = self._load_tier_info()
-        if tier is not None:  # the .dat lives in a remote backend
-            get_backend(tier["backend_id"])  # raises: tiering is not ported
         dat_path = self.base_name + ".dat"
-        is_new = not os.path.exists(dat_path)
-        if is_new:
-            self.super_block = SuperBlock(
-                version=version,
-                replica_placement=replica_placement or ReplicaPlacement(),
-                ttl=ttl or TTL(),
+        if tier is not None:
+            # `.vif` says the .dat lives in a remote backend
+            # (`volume_tier.go:14-79` LoadRemoteFile): proxy reads, readonly
+            self._dat: DiskFile | MmapFile | RemoteFile = RemoteFile(
+                get_backend(tier["backend_id"]), tier["key"],
+                int(tier["file_size"]),
             )
-            with open(dat_path, "wb") as f:
-                f.write(self.super_block.to_bytes())
-        self._dat = DiskFile(dat_path)
+            self.readonly = True
+            is_new = False
+        else:
+            is_new = not os.path.exists(dat_path)
+            if is_new:
+                self.super_block = SuperBlock(
+                    version=version,
+                    replica_placement=replica_placement or ReplicaPlacement(),
+                    ttl=ttl or TTL(),
+                )
+                with open(dat_path, "wb") as f:
+                    f.write(self.super_block.to_bytes())
+            if os.environ.get("SEAWEEDFS_TPU_MMAP_READS") == "1":
+                # memory_map backend option: zero-syscall page-cache reads
+                self._dat = MmapFile(dat_path)
+            else:
+                self._dat = DiskFile(dat_path)
         try:
             if not is_new:
                 header = self._dat.read_at(SUPER_BLOCK_SIZE, 0)
@@ -111,7 +148,7 @@ class Volume:
             self._dat.close()
             raise
         self._size = self._dat.file_size()
-        if not is_new:
+        if not is_new and tier is None:
             try:
                 self._check_idx_integrity()
                 self._load_last_append_at_ns()
@@ -135,8 +172,9 @@ class Volume:
         if size == 0:
             return
         with open(idx_path, "rb") as f:
-            f.seek(size - 16)
-            key, offset, esize = idx_mod.entry_from_bytes(f.read(16))
+            f.seek(size - NEEDLE_MAP_ENTRY_SIZE)
+            key, offset, esize = idx_mod.entry_from_bytes(
+                f.read(NEEDLE_MAP_ENTRY_SIZE))
         if offset == 0 or not size_is_valid(esize):
             return
         blob = self._dat.read_at(get_actual_size(esize, self.version()), offset)
@@ -253,11 +291,18 @@ class Volume:
             return offset, n.size
 
     def _append(self, n: Needle) -> int:
+        key = self.fault_key
+        _FP_WRITE_DAT.hit(key=key, volume=self.id)  # error/disk_full/latency
         offset = self._size
         if offset % NEEDLE_PADDING_SIZE != 0:
             offset += NEEDLE_PADDING_SIZE - offset % NEEDLE_PADDING_SIZE
         blob = n.to_bytes(self.version())
-        self._dat.write_at(blob, offset)
+        # torn-write injection: part of the record never reaches disk, but
+        # the in-memory tail advances as if it did — the state a crash
+        # mid-pwrite leaves, which degraded reads must survive
+        self._dat.write_at(
+            _FP_WRITE_DAT.mangle(blob, key=key, volume=self.id), offset
+        )
         self._size = offset + len(blob)
         return offset
 
@@ -279,8 +324,14 @@ class Volume:
 
     # --- read path -----------------------------------------------------------
     def _read_at(self, offset: int, size: int) -> Needle:
+        _FP_READ_DAT.hit(volume=self.id)  # needle-level seam: reconstruction
+        # reads (block-level, via online_ec/_dat) bypass it, so a rate=1.0
+        # error here still leaves the degraded path a way out
         total = get_actual_size(size, self.version())
         blob = self._dat.read_at(total, offset)
+        # `corrupt` mode: a silent bit flip on the read seam — the CRC
+        # check in Needle.from_bytes must trip it into the degraded path
+        blob = _FP_READ_DAT.mangle(blob, volume=self.id)
         if len(blob) < total:
             raise VolumeError(
                 f"volume {self.id}: short read {len(blob)} < {total} at {offset}"
@@ -383,6 +434,7 @@ class Volume:
                 raise NotFound("needle expired")
 
     def _read_needle_once(self, needle_id: int, cookie: int | None) -> Needle:
+        _FP_READ_IDX.hit(volume=self.id)
         nv = self.nm.get(needle_id)
         if nv is None or not size_is_valid(nv[1]):
             raise NotFound(f"needle {needle_id:x} not found")
@@ -415,7 +467,7 @@ class Volume:
             # how many .idx entries the snapshot covers, so the commit can
             # replay only what came after
             self._compact_idx_entries = (
-                os.path.getsize(self.base_name + ".idx") // 16
+                os.path.getsize(self.base_name + ".idx") // NEEDLE_MAP_ENTRY_SIZE
             )
         sb = SuperBlock(
             version=self.version(),
@@ -476,7 +528,7 @@ class Volume:
         if start is None:
             return
         with open(self.base_name + ".idx", "rb") as f:
-            f.seek(start * 16)
+            f.seek(start * NEEDLE_MAP_ENTRY_SIZE)
             tail = f.read()
         if not tail:
             return
@@ -535,7 +587,77 @@ class Volume:
         files = info.get("files") or []
         return files[0] if files else None
 
+    def _update_vif(self, files: list[dict]) -> None:
+        """Merge the remote-file record into the `.vif` (keeping what the
+        EC and online-EC paths wrote there), or drop it."""
+        vif = self.base_name + ".vif"
+        info = {}
+        if os.path.exists(vif):
+            try:
+                with open(vif) as f:
+                    info = json.load(f)
+            except (OSError, ValueError):
+                info = {}
+        info.setdefault("version", self.version())
+        if files:
+            info["files"] = files
+        else:
+            info.pop("files", None)
+        with open(vif, "w") as f:
+            json.dump(info, f)
+
+    def tier_to_remote(self, backend_id: str, keep_local: bool = False) -> int:
+        """Move the whole `.dat` into an object backend; `.vif` records where
+        and reads start proxying. Requires readonly (the reference refuses to
+        tier writable volumes). Returns the uploaded size."""
+        if not self.readonly:
+            raise VolumeError(f"volume {self.id} must be readonly to tier")
+        if isinstance(self._dat, RemoteFile):
+            raise VolumeError(f"volume {self.id} already tiered")
+        backend = get_backend(backend_id)
+        key = f"{self.collection or 'default'}_{self.id}.dat"
+        dat_path = self.base_name + ".dat"
+        with self._write_lock:
+            self._dat.sync()
+            size = backend.upload_file(dat_path, key)
+            self._update_vif([
+                {
+                    "backend_id": backend_id,
+                    "key": key,
+                    "file_size": size,
+                    "modified_ts": int(time.time()),
+                }
+            ])
+            self._dat.close()
+            self._dat = RemoteFile(backend, key, size)
+            if not keep_local:
+                os.remove(dat_path)
+        return size
+
+    def tier_to_local(self) -> None:
+        """Download the `.dat` back from the backend and drop the remote
+        record (`volume_grpc_tier_download.go`)."""
+        tier = self._load_tier_info()
+        if tier is None or not isinstance(self._dat, RemoteFile):
+            raise VolumeError(f"volume {self.id} is not tiered")
+        backend = get_backend(tier["backend_id"])
+        dat_path = self.base_name + ".dat"
+        with self._write_lock:
+            backend.download_file(tier["key"], dat_path)
+            self._dat = DiskFile(dat_path)
+            self._update_vif([])
+            backend.delete_file(tier["key"])
+
+    def tier_info(self) -> dict | None:
+        return self._load_tier_info()
+
     def destroy(self) -> None:
+        tier = self._load_tier_info()
+        if tier is not None:
+            try:
+                get_backend(tier["backend_id"]).delete_file(tier["key"])
+            except Exception:
+                pass
         # an UNSEALED online-EC volume owns its partial parity shards;
         # a sealed one's shards belong to the EC volume and stay
         drop_parity = (

@@ -95,6 +95,50 @@ def test_filer_slice_modules_are_scanned_and_import_alone(rel):
     importlib.import_module(mod)
 
 
+NEW_IN_VOLUME_SLICE = [
+    "seaweedfs_tpu_torch/command/__init__.py",
+    "seaweedfs_tpu_torch/command/fix.py",
+    "seaweedfs_tpu_torch/command/volume_tools.py",
+    "seaweedfs_tpu_torch/query/__init__.py",
+    "seaweedfs_tpu_torch/storage/backend.py",
+    "seaweedfs_tpu_torch/storage/types.py",
+    "seaweedfs_tpu_torch/storage/needle_map.py",
+    "seaweedfs_tpu_torch/storage/volume.py",
+    "seaweedfs_tpu_torch/util/faults.py",
+]
+
+
+@pytest.mark.parametrize("rel", NEW_IN_VOLUME_SLICE)
+def test_volume_slice_modules_are_scanned(rel):
+    """Each new or rewritten module of the volume slice is in the import
+    scan above and imports here."""
+    import importlib
+
+    assert REPO / rel in PORT_FILES
+    assert not [n for n in _imports(REPO / rel)
+                if n.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu")]
+    importlib.import_module(rel[:-3].replace("/", ".").removesuffix(".__init__"))
+
+
+def test_volume_slice_modules_import_alone():
+    """The volume slice's modules together import with neither `jax` nor
+    `seaweedfs_tpu` loaded by them, at both offset widths."""
+    import os
+    import subprocess
+    import sys
+
+    mods = [rel[:-3].replace("/", ".").removesuffix(".__init__")
+            for rel in NEW_IN_VOLUME_SLICE]
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'seaweedfs_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    for width in ("4", "5"):
+        env = {**os.environ, "SEAWEEDFS_TPU_OFFSET_BYTES": width}
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                             text=True, timeout=120, env=env)
+        assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("kind", ["memory", "leveldb", "lsm"])
 def test_filer_server_without_device_raises(kind, monkeypatch, tmp_path):
     """The filer and its new routes run on the device they were given; with

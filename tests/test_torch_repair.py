@@ -164,9 +164,9 @@ def test_fault_registry_sequence_equals_reference(seed):
         assert (port_p.spec is None) == (ref_p.spec is None)
     assert faults.disarm_all() == ref_faults.disarm_all()
     with pytest.raises(ValueError, match="undeclared"):
-        faults.register("volume.read.dat")
+        faults.register("volume.fastlane.drain")
     with pytest.raises(ValueError):
-        faults.arm(POINT, "torn")
+        faults.arm(POINT, "bogus")
 
 
 def test_repair_sets_equal_reference_and_counters():

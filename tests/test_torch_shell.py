@@ -176,10 +176,11 @@ def test_run_command_help_unknown_and_lock():
         "volume.copy", "volume.delete", "volume.delete.empty",
         "volume.fix.replication", "volume.fsck", "volume.mark", "volume.mount",
         "volume.move", "volume.scrub", "volume.server.evacuate",
-        "volume.server.leave", "volume.unmount", "volume.vacuum",
-        "volume.vacuum.disable", "volume.vacuum.enable"]
+        "volume.server.leave", "volume.tier.configure", "volume.tier.download",
+        "volume.tier.info", "volume.tier.move", "volume.tier.upload", "volume.unmount",
+        "volume.vacuum", "volume.vacuum.disable", "volume.vacuum.enable"]
     cluster_verbs = [
-        "cluster.maintenance", "cluster.ps", "cluster.scrub",
+        "cluster.faults", "cluster.maintenance", "cluster.ps", "cluster.scrub",
         "collection.delete", "collection.list", "volume.list",
         "volume.status"]
     fs_verbs = [
