@@ -9,6 +9,8 @@
                           [--maint-mib MIB] [--maint-files N] [--filer-dedup-uploads N]
                           [--s3-objects N] [--s3-seconds S] [--s3-clients N]
                           [--s3-multipart-mib MIB] [--tier-mib MIB]
+                          [--gw-dav-files N] [--gw-ftp-files N] [--gw-ftp-large-mib MIB]
+                          [--gw-mount-mib MIB] [--gw-small-files N] [--gw-remote-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -120,7 +122,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               launches, and each device's launch timed beside its byte bound
  12. filer    BASELINE config 3 as the filer takes it: a port master (pulse
               1 s), two volume servers and a FilerServer on the card, one
-              process; --filer-files (16,384) seeded 4 KiB files PUT from 16
+              process; --filer-files (8,192) seeded 4 KiB files PUT from 16
               threads, each waiting for its response (one chunk, one assign,
               one needle POST, one ETag through the filer's hash service);
               4 uploads of --filer-large-mib (256) MiB from 4 threads (64
@@ -134,7 +136,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               GB/s, hash batches by length, launches, the wall (limit 240 s)
  13. scrub    the volume integrity plane: a port master and three volume
               servers (racks r1, r1, r2) on the card, one process; --scrub-files
-              (4,096) seeded 4 KiB files through /dir/assign?replication=001
+              (2,048) seeded 4 KiB files through /dir/assign?replication=001
               and POSTs from 8 waiting threads (each write fans out to the other
               r1 server before it is acked), both replicas holding the same
               needles; in process on the r2 server: --scrub-mib (1024) MiB of
@@ -179,8 +181,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
  15. filer_dedup  BASELINE config 4 as an operator runs it: a port master
               (pulse 1 s), two volume servers and a FilerServer(dedup=True)
               on a leveldb store on the card, one process;
-              --filer-dedup-uploads (32) PUTs of 64 MiB of bench.py's stream
-              (2 GiB) from 4 threads each waiting for its 201, every md5
+              --filer-dedup-uploads (16) PUTs of 64 MiB of bench.py's stream
+              (1 GiB) from 4 threads each waiting for its 201, every md5
               against hashlib, gear_hash launched over them; every file's
               ?metadata=true, the uploads of segments 0 and 1 deleted, and the
               bytes to reclaim counted from that metadata; `fs.dedup.gc`
@@ -237,7 +239,30 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               4-byte entries; tier upload, remote scrub, tail and download GB/s,
               the phase's launches, the kernels at (1024, 4096) and (1, 10, 1 MiB),
               the wall (limit 120 s)
- 18. entry    entry() on the card equal to the CPU codec
+ 18. gateways the filer's other front doors and remote storage: a port master, two
+              volume servers and a FilerServer (4 MiB chunks, a local socket under
+              build/) on the card, a WebDavServer, an FtpServer and a WFS over the
+              filer's unix socket through VirtualFuseKernel, one process. (a) WebDAV:
+              --gw-dav-files (512) files (log-uniform 1 KiB-8 MiB, about 0.47 GB) PUT
+              from 8 keep-alive clients into 8 collections, PROPFIND Depth 1 listing
+              each with its size and a getetag equal to hashlib's MD5, every GET
+              equal, COPY then MOVE of a collection, a LOCK enforced (423 without the
+              token, 201 with it); (b) FTP: --gw-ftp-files (256) files of 1 MiB from
+              4 sessions and one of --gw-ftp-large-mib (256) MiB, RETR equal, SIZE and
+              LIST agreeing; (c) the mount: --gw-mount-mib (1024) MiB in 128 KiB
+              WRITEs, read back in 128 KiB READs and over HTTP with the same SHA-256,
+              1 MiB overwritten across the middle chunk edge, --gw-small-files (256)
+              files of 4 KiB, READDIR, a directory rename, an HTTP write seen through
+              the meta cache, `mount.configure -quotaMB 1` then ENOSPC; (d) remote:
+              --gw-remote-mib (512) MiB of objects (log-uniform 1 KiB-4 MiB) in two
+              buckets of a local remote, `remote.configure`, `remote.mount.buckets`
+              (stubs, no chunks), 64 read-through GETs, `remote.cache` (every md5
+              hashlib's), `remote.uncache` then a GET, 16 new objects through
+              `remote.meta.sync`, 64 WebDAV PUTs and a DELETE in a mounted bucket
+              written back by `filer.remote.sync -once`; no op past 12 s, md5_batch
+              and crc32c_batch launched; the rates, the phase's launches, the kernels
+              at its commonest chunk lengths, the wall (limit 150 s)
+ 19. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -248,6 +273,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ftplib
 import hashlib
 import http.client
 import io
@@ -265,16 +291,21 @@ import time
 import traceback
 import urllib.parse
 from pathlib import Path
+from xml.etree import ElementTree as ET
 
 import numpy as np
 import torch
 
 from seaweedfs_tpu_torch import native
 from seaweedfs_tpu_torch.command import fix, volume_tools
+from seaweedfs_tpu_torch.command.filer_sync import run_filer_remote_sync
 from seaweedfs_tpu_torch.entry import dryrun_multichip, entry
 from seaweedfs_tpu_torch.filer import Filer
 from seaweedfs_tpu_torch.filer.filerstore import MemoryStore
+from seaweedfs_tpu_torch.ftpd import FtpServer
 from seaweedfs_tpu_torch.maintenance import scrub
+from seaweedfs_tpu_torch.mount import WFS, VirtualFuseKernel, start_admin_service
+from seaweedfs_tpu_torch.mount import fuse_proto as fp
 from seaweedfs_tpu_torch.ops import _build, cdc, gf256
 from seaweedfs_tpu_torch.ops.crc32c_kernel import crc32c_batch_kernel, crc32c_batch_torch
 from seaweedfs_tpu_torch.ops.hash_service import HashService
@@ -282,10 +313,12 @@ from seaweedfs_tpu_torch.ops.md5_kernel import _pad_len, md5_batch_kernel, md5_b
 from seaweedfs_tpu_torch.ops.rs_cuda import gf256_matmul, gf_matmul_torch
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.parallel import make_mesh, sharded_crc32c, sharded_encode, sharded_md5
+from seaweedfs_tpu_torch.remote_storage import LocalRemoteStorage
 from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.server.httpd import get_json, http_request
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
+from seaweedfs_tpu_torch.server.webdav import WebDavServer
 from seaweedfs_tpu_torch.shell import CommandEnv, commands_ec, run_command
 from seaweedfs_tpu_torch.storage import crc, file_id
 from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometry
@@ -2248,9 +2281,9 @@ FILER_RANGED = 256
 FILER_SMALL_GETS = 1024
 FILER_WALL_LIMIT_S = 240
 OCTET = {"Content-Type": "application/octet-stream"}  # never compressed
-FILER_CUTS = ("16,384 of config 3's 1M blobs: five roles and the clients share one process"
+FILER_CUTS = ("8,192 of config 3's 1M blobs: five roles and the clients share one process"
               " and one GIL (65,536 took the phase past its 240 s limit; 32,768 was cut to"
-              " make room for the filer_dedup phase)", "no manifest: 1,000 chunks of 4 MiB is 4 GiB (manifests are"
+              " make room for the filer_dedup phase, 16,384 for the gateways phase)", "no manifest: 1,000 chunks of 4 MiB is 4 GiB (manifests are"
               " held on the CPU)", "no compression or cipher: seeded random bytes")
 
 
@@ -2536,9 +2569,10 @@ SCRUB_VACUUM_SHARE = 0.3  # needles of one replicated volume deleted before the 
 SCRUB_WALL_LIMIT_S = 150
 SCRUB_SHAPES = {"crc32c_batch": (1024, SCRUB_FILE), "gf256_matmul": ("scrub", (10, 4096))}
 SCRUB_CUTS = ("1 GiB of 4 KiB needles in one volume of the 30 GB volume limit",
-              "4,096 replicated 4 KiB files of config 3's 1M blobs: three servers, the master"
+              "2,048 replicated 4 KiB files of config 3's 1M blobs: three servers, the master"
               " and 8 clients share one process and one GIL (32,768 took the phase 294-310 s"
-              " and 8,192 165 s, past its 150 s limit)",
+              " and 8,192 165 s, past its 150 s limit; 4,096 until the gateways phase took"
+              " room in the run)",
               "one sealed volume of 256 MiB and one online volume of 64 MiB")
 
 
@@ -3290,8 +3324,9 @@ FD_RECENT_S = 1.1  # past dedup_gc's 1 s recently-referenced window
 FD_WALL_LIMIT_S = 150
 FD_GC_LINE = re.compile(r"scanned (\d+) index entries, dropped (\d+) \((\d+) bytes freed,"
                         r" (\d+) errors\)")
-FD_CUTS = ("--filer-dedup-uploads (32) uploads of 64 MiB (2 GiB) of bench.py's 100 GB"
-           " shifted-repeat stream, to fit the phase's 150 s",
+FD_CUTS = ("--filer-dedup-uploads (16) uploads of 64 MiB (1 GiB) of bench.py's 100 GB"
+           " shifted-repeat stream, to fit the phase's 150 s (32 until the gateways phase"
+           " took room in the run)",
            "a master, two volume servers, the filer on one leveldb store and 4 clients in"
            " one process")
 
@@ -4493,6 +4528,557 @@ def volume_side_phase(dev: torch.device, tier_bytes: int, md5_ops_per_block: int
     return res
 
 
+# --- phase 18: the filer's other front doors and remote storage --------------------------
+GW_DAV_DIRS = 8  # the shared drive's tree: the files spread over 8 collections
+GW_DAV_CLIENTS = 8
+GW_DAV_SIZES = (1024, 8 * MIB)  # log-uniform: some files span two 4 MiB chunks
+GW_FTP_SESSIONS = 4
+GW_FTP_FILE = MIB
+GW_FTP_CREDS = ("gateways", "gateways-secret")
+GW_MOUNT_IO = 128 * 1024  # the kernel's usual max_write, and the READ size
+GW_SMALL = 4096  # the untar's files
+GW_REMOTE_SIZES = (1024, 4 * MIB)  # log-uniform: a share of them 2 KiB or less (inline)
+GW_REMOTE_PER_DIR = 128  # remote.cache walks up to 1,024 entries a directory
+GW_READ_THROUGH = 64
+GW_REMOTE_NEW = 16
+GW_WRITE_BACK = 64
+GW_STALL_S = 12  # the s3 phase's per-op limit: a stall prints every stack and fails
+DAV_NS = {"D": "DAV:"}
+LOCK_INFO = (b'<?xml version="1.0"?><D:lockinfo xmlns:D="DAV:"><D:lockscope><D:exclusive/>'
+             b"</D:lockscope><D:locktype><D:write/></D:locktype></D:lockinfo>")
+GW_WALL_LIMIT_S = 150
+GW_CUTS = ("(a) --gw-dav-files (512) files, about 0.47 GB, and (d) --gw-remote-mib (512) MiB of"
+           " remote objects, half of 1,024 and 1 GiB, at which the phase took 117.5 s and the run"
+           " 922 s on an H100 80GB HBM3 at 700 W, past the run's 900 s (WebDAV PUTs and"
+           " remote.cache wait on one serial md5_batch chain a chunk, each of its own length)",
+           "(b) --gw-ftp-files (256) files of 1 MiB and one of --gw-ftp-large-mib (256) MiB",
+           "(c) one --gw-mount-mib (1024) MiB file and 256 files of 4 KiB through the mount",
+           "every server, gateway and client shares one process and one GIL")
+
+
+def log_uniform(rng: np.random.Generator, lo: int, hi: int, n: int) -> list[int]:
+    return [int(np.exp(rng.uniform(np.log(lo), np.log(hi)))) for _ in range(n)]
+
+
+class Watch:
+    """Every op of a phase timed; an op in flight past GW_STALL_S prints every
+    thread's stack to stderr, once, and `close()` fails the phase on it or
+    on any op that took longer."""
+
+    def __init__(self, phase: str) -> None:
+        self.phase = phase
+        self.inflight: dict[int, tuple[float, str]] = {}
+        self.stalled: list = []
+        self.slowest = (0.0, "")
+        self._mu = threading.Lock()  # slowest is read, compared and set by every client
+        self._done = threading.Event()
+        threading.Thread(target=self._watch, daemon=True).start()
+
+    def _watch(self) -> None:
+        while not self._done.wait(1.0) and not self.stalled:
+            now = time.perf_counter()
+            slow = [(what, now - t0) for t0, what in list(self.inflight.values())
+                    if now - t0 > GW_STALL_S]
+            if slow:
+                self.stalled.append(slow)
+                print(f"{self.phase}: ops in flight past {GW_STALL_S} s {slow}; every thread:\n"
+                      + thread_stacks(), file=sys.stderr, flush=True)
+
+    def __call__(self, what: str, fn, *args):
+        """(fn(*args), seconds)."""
+        key = threading.get_ident()
+        t0 = time.perf_counter()
+        self.inflight[key] = (t0, what)
+        try:
+            out = fn(*args)
+        finally:
+            del self.inflight[key]
+        dt = time.perf_counter() - t0
+        with self._mu:
+            if dt > self.slowest[0]:
+                self.slowest = (dt, what)
+        return out, dt
+
+    def stop(self) -> None:
+        self._done.set()
+
+    def close(self) -> None:
+        self.stop()
+        check(not self.stalled and self.slowest[0] <= GW_STALL_S,
+              f"{self.phase}: {self.slowest[1]} took {self.slowest[0]:.3f} s, or ops were in"
+              f" flight past {GW_STALL_S} s: {self.stalled} (the threads' stacks are on stderr)")
+
+
+def fan_out(fn, items: list, clients: int, errors: list) -> float:
+    """fn(client_index, item) over items from `clients` threads, each taking
+    every clients-th item and waiting for each answer; the wall."""
+    def work(t: int) -> None:
+        try:
+            for item in items[t::clients]:
+                fn(t, item)
+        except BaseException as e:  # re-raised on the main thread through check
+            errors.append(f"{type(e).__name__}: {e}")
+
+    return run_threads(work, clients)
+
+
+def gateways_phase(dev: torch.device, dav_files: int, ftp_files: int, ftp_large: int,
+                   mount_bytes: int, small_files: int, remote_bytes: int,
+                   md5_ops_per_block: int, seed: int) -> dict:
+    """The filer's other front doors and remote storage, in one process: a
+    port master (pulse 1 s), two volume servers and a FilerServer (4 MiB
+    chunks, dedup off, a local socket under build/) on the card; a
+    WebDavServer, an FtpServer with fixed credentials, and a WFS over the
+    filer's unix_url driven through VirtualFuseKernel. Bodies from `seed`.
+    (a) WebDAV as a shared drive or an rclone remote sees it: MKCOL a tree of
+    8 collections, PUT `dav_files` files (log-uniform 1 KiB-8 MiB) from 8
+    keep-alive clients, each waiting for its answer; PROPFIND Depth 1 lists
+    every file with its size and a getetag equal to hashlib's MD5; every GET
+    equal; COPY then MOVE a collection (equal at the new paths, gone from the
+    copy's); LOCK a file: a PUT without the token 423, with it 201, UNLOCK.
+    (b) FTP: `ftp_files` files of 1 MiB STORed from 4 sessions and one of
+    `ftp_large` bytes; RETR of each equal; SIZE and LIST agree.
+    (c) the mount as a backup job through `weed mount` sees it: one file of
+    `mount_bytes` in 128 KiB WRITEs, flushed and released; read back in 128
+    KiB READs and once over the filer's HTTP GET, both with the SHA-256 of
+    the bytes written; 1 MiB overwritten across the middle chunk edge and
+    flushed, read back latest; `small_files` files of 4 KiB created,
+    written, flushed and released, listed by READDIR; the directory
+    renamed; a file PUT over HTTP visible through the mount once the meta
+    cache sees its event; `mount.configure -quotaMB 1` over the admin socket
+    (below the usage), then a WRITE answers ENOSPC.
+    (d) remote storage as `remote.mount` of existing buckets sees it:
+    `remote_bytes` of objects (log-uniform 1 KiB-4 MiB) in two buckets of a
+    LocalRemoteStorage under build/; `remote.configure`,
+    `remote.mount.buckets`: a stub a object, no chunks; 64 read-through GETs
+    equal; `remote.cache` of the rest: every entry's md5 hashlib's; one
+    directory uncached, a GET caching it again, equal; 16 new objects
+    appearing after `remote.meta.sync`; 64 files PUT through WebDAV into a
+    mounted bucket and one object DELETEd, then `filer.remote.sync -once`
+    over a window from just before those writes: the remote holds the 64
+    equal and lacks the deleted one.
+    md5_batch and crc32c_batch launch in the phase; no op takes or stays in
+    flight past 12 s."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-gateways-", dir=REPO / "build")
+    sock = str(REPO / "build" / f"gateways-{os.getpid()}.sock")  # well under 108 bytes
+    master = MasterServer(port=0, pulse_seconds=1)
+    master.start()
+    servers, stops = [], []
+    batches = []  # (blobs, length, seconds) of every batch the filer's flusher hashed
+    res = {}
+    try:
+        for i in range(2):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url,
+                              pulse_seconds=PULSE_S, device=dev)
+            vs.start()
+            servers.append(vs)
+        filer = FilerServer(master.url, port=0, device=dev, local_socket=sock)
+        filer.start()
+        stops.append(filer.stop)
+        svc = filer.hash_service
+        check(filer.device.type == dev.type and svc.device.type == dev.type
+              and all(vs.device.type == dev.type for vs in servers),
+              "a gateways role is not on the card")
+        timed_batches(svc, batches)
+        dav = WebDavServer(filer.url, port=0)
+        dav.start()
+        stops.append(dav.stop)
+        ftp = FtpServer(filer.url, port=0, user=GW_FTP_CREDS[0], password=GW_FTP_CREDS[1])
+        ftp.start()
+        stops.append(ftp.stop)
+        env = CommandEnv(master.url, filer.url)
+        zero_launches()
+        watch = Watch("gateways")
+        stops.append(watch.stop)
+        errors: list = []
+
+        # (a) WebDAV
+        t0 = time.perf_counter()
+        rng = np.random.default_rng([seed, 31])
+        sizes = log_uniform(rng, *GW_DAV_SIZES, dav_files)
+        files = [(f"/dav/d{i % GW_DAV_DIRS}/f{i:05d}.bin", rng.bytes(n))
+                 for i, n in enumerate(sizes)]
+        bodies = dict(files)
+        md5s = {p: hashlib.md5(b).hexdigest() for p, b in files}
+        gen_s = time.perf_counter() - t0
+        c = Client(dav.url)
+        for d in ["/dav"] + [f"/dav/d{k}" for k in range(GW_DAV_DIRS)]:
+            check(c.request("MKCOL", d)[0] == 201, f"MKCOL {d}")
+        conns = [Client(dav.url) for _ in range(GW_DAV_CLIENTS)]
+        put_lat, get_lat = [], []
+
+        def put(t: int, item) -> None:
+            path, body = item
+            (status, out), dt = watch(f"PUT {path}", conns[t].request, "PUT", path, body)
+            put_lat.append(dt)
+            if status != 201:
+                errors.append(f"PUT {path} -> {status}: {out[:200]!r}")
+
+        put_s = fan_out(put, files, GW_DAV_CLIENTS, errors)
+        check(not errors, f"WebDAV PUTs: {errors[:3]}")
+        listed = {}
+        t0 = time.perf_counter()
+        for k in range(GW_DAV_DIRS):
+            status, xml = c.request("PROPFIND", f"/dav/d{k}", headers={"Depth": "1"})
+            check(status == 207, f"PROPFIND /dav/d{k} -> {status}")
+            for r in ET.fromstring(xml).findall("D:response", DAV_NS):
+                length = r.find(".//D:getcontentlength", DAV_NS)
+                if length is not None:
+                    listed[r.find("D:href", DAV_NS).text] = (
+                        int(length.text), r.find(".//D:getetag", DAV_NS).text)
+        propfind_s = time.perf_counter() - t0
+        check(listed == {p: (len(b), f'"{md5s[p]}"') for p, b in files},
+              "PROPFIND's sizes or getetags differ from the files PUT and hashlib's MD5")
+
+        def get(t: int, item) -> None:
+            path, body = item
+            (status, out), dt = watch(f"GET {path}", conns[t].request, "GET", path)
+            get_lat.append(dt)
+            if status != 200 or out != body:
+                errors.append(f"GET {path} -> {status}, {len(out)} bytes")
+
+        get_s = fan_out(get, files, GW_DAV_CLIENTS, errors)
+        check(not errors, f"WebDAV GETs: {errors[:3]}")
+        t0 = time.perf_counter()
+        dest = dav.url + "/dav/copy0"
+        check(c.request("COPY", "/dav/d0", headers={"Destination": dest})[0] == 201, "COPY")
+        check(c.request("MOVE", "/dav/copy0",
+                        headers={"Destination": dav.url + "/dav/moved0"})[0] == 201, "MOVE")
+        copy_move_s = time.perf_counter() - t0
+        subtree = [(p, b) for p, b in files if p.startswith("/dav/d0/")]
+        for path, body in subtree:
+            check(c.request("GET", path.replace("/d0/", "/moved0/"))[1] == body,
+                  f"{path} differs after COPY and MOVE")
+            check(c.request("GET", path.replace("/d0/", "/copy0/"))[0] == 404,
+                  f"{path} is still at the MOVE's source")
+            check(c.request("GET", path)[1] == body, f"{path} changed under COPY")
+        locked = files[1][0]
+        status, headers, _ = http_request("LOCK", dav.url + locked, LOCK_INFO)
+        token = headers.get("Lock-Token", "").strip("<>")
+        check(status == 200 and token.startswith("opaquelocktoken:"), f"LOCK -> {status}")
+        check(c.request("PUT", locked, b"no token")[0] == 423, "a PUT without the lock token")
+        check(c.request("PUT", locked, bodies[locked], {"If": f"(<{token}>)"})[0] == 201,
+              "a PUT with the lock token")
+        check(c.request("UNLOCK", locked, headers={"Lock-Token": f"<{token}>"})[0] == 204,
+              "UNLOCK")
+        for cl in conns + [c]:
+            cl.close()
+        dav_bytes = sum(sizes)
+        res["webdav"] = dict(
+            files=dav_files, bytes=dav_bytes, clients=GW_DAV_CLIENTS, generate_s=gen_s,
+            put_s=put_s, put_files_per_s=dav_files / put_s, put_gbps=dav_bytes / put_s / 1e9,
+            put=_pcts(put_lat), get_s=get_s, get_files_per_s=dav_files / get_s,
+            get_gbps=dav_bytes / get_s / 1e9, get=_pcts(get_lat), propfind_s=propfind_s,
+            copy_move_s=copy_move_s, copied_files=len(subtree), lock=[200, 423, 201, 204],
+            getetag_equals_md5=dav_files)
+
+        # (b) FTP
+        def session():
+            s = ftplib.FTP()
+            s.connect("127.0.0.1", ftp.port, timeout=30)
+            s.login(*GW_FTP_CREDS)
+            return s
+
+        rng = np.random.default_rng([seed, 32])
+        ftp_set = [(f"/ftp/f{i:04d}.bin", rng.bytes(GW_FTP_FILE)) for i in range(ftp_files)]
+        large = ("/ftp/large.bin", rng.bytes(ftp_large))
+        sessions = [session() for _ in range(GW_FTP_SESSIONS)]
+        sessions[0].mkd("/ftp")
+
+        def stor(t: int, item) -> None:
+            path, body = item
+            reply, _ = watch(f"STOR {path}", sessions[t].storbinary, f"STOR {path}",
+                             io.BytesIO(body), 1 << 20)
+            if not reply.startswith("226"):
+                errors.append(f"STOR {path}: {reply}")
+
+        stor_s = fan_out(stor, ftp_set, GW_FTP_SESSIONS, errors)
+        (reply, large_stor_s) = watch("STOR large", sessions[0].storbinary, f"STOR {large[0]}",
+                                      io.BytesIO(large[1]), 1 << 20)
+        check(not errors and reply.startswith("226"), f"FTP STOR: {errors[:3]} {reply}")
+
+        def retr(t: int, item) -> None:
+            path, body = item
+            buf = io.BytesIO()
+            watch(f"RETR {path}", sessions[t].retrbinary, f"RETR {path}", buf.write, 1 << 20)
+            size = sessions[t].size(path)
+            if buf.getvalue() != body or size != len(body):
+                errors.append(f"RETR {path}: {len(buf.getvalue())} bytes, SIZE {size}")
+
+        retr_s = fan_out(retr, ftp_set, GW_FTP_SESSIONS, errors)
+        t0 = time.perf_counter()
+        retr(0, large)
+        large_retr_s = time.perf_counter() - t0
+        check(not errors, f"FTP RETR: {errors[:3]}")
+        lines = []
+        sessions[0].retrlines("LIST /ftp", lines.append)
+        listing = {ln.split()[-1]: int(ln.split()[4]) for ln in lines}
+        check(listing == {p.rsplit("/", 1)[1]: len(b) for p, b in ftp_set + [large]},
+              "FTP LIST disagrees with the files STORed")
+        for s in sessions:
+            s.quit()
+        ftp_bytes = ftp_files * GW_FTP_FILE
+        res["ftp"] = dict(
+            files=ftp_files, file_bytes=GW_FTP_FILE, sessions=GW_FTP_SESSIONS,
+            stor_s=stor_s, stor_gbps=ftp_bytes / stor_s / 1e9, retr_s=retr_s,
+            retr_gbps=ftp_bytes / retr_s / 1e9, large_bytes=ftp_large,
+            large_stor_gbps=ftp_large / large_stor_s / 1e9,
+            large_retr_gbps=ftp_large / large_retr_s / 1e9, list_entries=len(listing))
+
+        # (c) the FUSE mount over the filer's local socket
+        check(filer.service.unix_url.startswith("http+unix://"), "the filer has no local socket")
+        wfs = WFS(filer.service.unix_url)
+        stops.append(wfs.meta.stop)
+        wfs.meta.start_subscriber()
+        k = VirtualFuseKernel(wfs)
+        err, mdir = k.mkdir(1, "mnt")
+        check(err == 0, f"MKDIR /mnt -> {err}")
+        data = np.random.default_rng([seed, 33]).bytes(mount_bytes)
+        want = hashlib.sha256(data).hexdigest()
+        err, ino, fh = k.create(mdir, "backup.bin")
+        check(err == 0, f"CREATE -> {err}")
+        t0 = time.perf_counter()
+        for off in range(0, mount_bytes, GW_MOUNT_IO):
+            piece = data[off:off + GW_MOUNT_IO]
+            (err, n), _ = watch(f"WRITE {off}", k.write, ino, fh, off, piece)
+            if err or n != len(piece):
+                check(False, f"WRITE at {off} -> {err}, {n}")
+        write_calls_s = time.perf_counter() - t0
+        check(watch("FLUSH", k.flush, ino, fh)[0] == 0, "FLUSH")
+        check(k.release(ino, fh) == 0, "RELEASE")
+        write_s = time.perf_counter() - t0
+
+        def read_through_mount(lo: int, hi: int) -> bytes:
+            err, rfh = k.open(ino)
+            check(err == 0, f"OPEN -> {err}")
+            out = []
+            for off in range(lo, hi, GW_MOUNT_IO):
+                (err, piece), _ = watch(f"READ {off}", k.read, ino, rfh, off,
+                                        min(GW_MOUNT_IO, hi - off))
+                if err or len(piece) != min(GW_MOUNT_IO, hi - off):
+                    check(False, f"READ at {off} -> {err}, {len(piece)} bytes")
+                out.append(piece)
+            k.release(ino, rfh)
+            return b"".join(out)
+
+        t0 = time.perf_counter()
+        got = read_through_mount(0, mount_bytes)
+        read_s = time.perf_counter() - t0
+        check(hashlib.sha256(got).hexdigest() == want, "the mount's READs differ from the WRITEs")
+        del got
+        # what each READ would pay without WFS._resolved's memo: resolving
+        # the visible intervals of every chunk of the file again
+        entry = wfs.meta.get_entry("/mnt/backup.bin")
+        resolve = []
+        for _ in range(5):
+            wfs._resolved_memo = None
+            t0 = time.perf_counter()
+            wfs._resolved(entry)
+            resolve.append(time.perf_counter() - t0)
+        fc = Client(filer.url)
+        (status, got), http_s = watch("GET /mnt/backup.bin", fc.request, "GET", "/mnt/backup.bin")
+        check(status == 200 and hashlib.sha256(got).hexdigest() == want,
+              f"the filer's GET of the mount's file -> {status}, differs")
+        del got
+        mid = mount_bytes // 2 - MIB // 2  # across the middle chunk edge
+        patch = np.random.default_rng([seed, 34]).bytes(MIB)
+        err, pfh = k.open(ino)
+        for off in range(0, MIB, GW_MOUNT_IO):
+            check(k.write(ino, pfh, mid + off, patch[off:off + GW_MOUNT_IO]) ==
+                  (0, GW_MOUNT_IO), "the overwrite's WRITE")
+        check(k.flush(ino, pfh) == 0 and k.release(ino, pfh) == 0, "the overwrite's FLUSH")
+        lo, hi = mid - 4 * GW_MOUNT_IO, mid + MIB + 4 * GW_MOUNT_IO
+        check(read_through_mount(lo, hi) == data[lo:mid] + patch + data[mid + MIB:hi],
+              "the mount reads stale bytes after the overwrite")
+        status, got = fc.request("GET", "/mnt/backup.bin",
+                                 headers={"Range": f"bytes={mid}-{mid + MIB - 1}"})
+        check(status == 206 and got == patch, "the filer reads stale bytes after the overwrite")
+        del data
+        err, sdir = k.mkdir(mdir, "small")
+        small = np.random.default_rng([seed, 35]).bytes(GW_SMALL * small_files)
+        t0 = time.perf_counter()
+        for j in range(small_files):
+            (err, sino, sfh), _ = watch("CREATE small", k.create, sdir, f"f{j:04d}")
+            body = small[j * GW_SMALL:(j + 1) * GW_SMALL]
+            ok = (err == 0 and k.write(sino, sfh, 0, body) == (0, GW_SMALL)
+                  and k.flush(sino, sfh) == 0 and k.release(sino, sfh) == 0)
+            check(ok, f"small file {j}")
+        small_s = time.perf_counter() - t0
+        err, ents = k.readdir(sdir)
+        check(err == 0 and sorted(n for _, n, _ in ents) ==
+              sorted([".", ".."] + [f"f{j:04d}" for j in range(small_files)]),
+              "READDIR disagrees with the files created")
+        check(k.rename(mdir, "small", mdir, "renamed") == 0, "RENAME of the directory")
+        err, rino, _ = k.lookup(mdir, "renamed")
+        check(err == 0 and rino == sdir and k.lookup(mdir, "small")[0] == fp.ERRNO_NOENT,
+              "the renamed directory")
+        check(k.lookup(sdir, "f0000")[2]["size"] == GW_SMALL, "a file under the renamed directory")
+        check(k.lookup(sdir, "from-http.txt")[0] == fp.ERRNO_NOENT, "from-http.txt exists early")
+        t0 = time.perf_counter()
+        check(fc.request("PUT", "/mnt/renamed/from-http.txt", b"written over HTTP")[0] == 201,
+              "the HTTP PUT under the mount")
+        while k.lookup(sdir, "from-http.txt")[0] != 0:
+            check(time.perf_counter() - t0 < GW_STALL_S, "the meta cache never saw the PUT")
+            time.sleep(0.01)
+        event_s = time.perf_counter() - t0
+        err, hino, attr = k.lookup(sdir, "from-http.txt")
+        err, hfh = k.open(hino)
+        check(k.read(hino, hfh, 0, 100) == (0, b"written over HTTP"), "the HTTP file's READ")
+        k.release(hino, hfh)
+        fc.close()
+        mountpoint = os.path.join(root, "mountpoint")
+        admin = start_admin_service(wfs, mountpoint)
+        stops.append(admin.stop)
+        out = run_command(env, f"mount.configure -dir {mountpoint} -quotaMB 1")
+        check(out == "quota set to 1048576 bytes", f"mount.configure: {out}")
+        status_line = run_command(env, f"mount.configure -dir {mountpoint}")
+        err, qino, qfh = k.create(sdir, "over-quota.bin")
+        check(err == 0 and k.write(qino, qfh, 0, b"x" * GW_SMALL)[0] == fp.ERRNO_NOSPC,
+              "a WRITE past the quota did not answer ENOSPC")
+        k.release(qino, qfh)
+        res["mount"] = dict(
+            bytes=mount_bytes, io_bytes=GW_MOUNT_IO, writes=mount_bytes // GW_MOUNT_IO,
+            write_calls_s=write_calls_s, write_s=write_s, write_gbps=mount_bytes / write_s / 1e9,
+            read_s=read_s, read_gbps=mount_bytes / read_s / 1e9,
+            chunks=len(entry["chunks"]), resolve_ms=float(np.median(resolve)) * 1e3,
+            http_get_s=http_s,
+            http_get_gbps=mount_bytes / http_s / 1e9, sha256=want,
+            small_files=small_files, small_s=small_s,
+            small_ops_per_s=4 * small_files / small_s, small_files_per_s=small_files / small_s,
+            event_visible_ms=event_s * 1e3, quota=status_line, enospc=True)
+
+        # (d) remote storage
+        t0 = time.perf_counter()
+        rng = np.random.default_rng([seed, 36])
+        cloud_root = os.path.join(root, "cloud")
+        cloud = LocalRemoteStorage(cloud_root)
+        objects, total = {}, 0
+        while total < remote_bytes:
+            j = len(objects)
+            n = min(log_uniform(rng, *GW_REMOTE_SIZES, 1)[0], remote_bytes - total)
+            key = f"bucket-{'ab'[j % 2]}/p{j // 2 // GW_REMOTE_PER_DIR:03d}/o{j:05d}.bin"
+            objects[key] = rng.bytes(n)
+            cloud.write_file(key, objects[key])
+            total += n
+        fill_s = time.perf_counter() - t0
+        out = run_command(env, f"remote.configure -name cloud -kind local -root {cloud_root}")
+        check(out == "remote config 'cloud' saved (configs: ['cloud'])", f"remote.configure: {out}")
+        t0 = time.perf_counter()
+        out = run_command(env, "remote.mount.buckets -remote cloud")
+        mount_s = time.perf_counter() - t0
+        check(out == "mounted 2 buckets: bucket-a, bucket-b", f"remote.mount.buckets: {out}")
+
+        def stubs() -> dict:
+            found = {}
+
+            def walk(d: str) -> None:
+                for e in filer.filer.list_entries(d, limit=1 << 31):
+                    if e.is_directory:
+                        walk(e.full_path)
+                    else:
+                        found[e.full_path[len("/buckets/"):]] = e
+            walk("/buckets")
+            return found
+
+        entries = stubs()
+        check(sorted(entries) == sorted(objects)
+              and not any(e.chunks or e.content for e in entries.values()),
+              "the stubs differ from the remote's objects, or carry chunks")
+        keys = sorted(objects)
+        picks = [keys[i] for i in np.random.default_rng([seed, 37]).choice(
+            len(keys), GW_READ_THROUGH, replace=False)]
+        fc = Client(filer.url)
+        rt_lat = []
+        for key in picks:
+            (status, got), dt = watch(f"GET {key}", fc.request, "GET", f"/buckets/{key}")
+            rt_lat.append(dt)
+            check(status == 200 and got == objects[key], f"read-through GET of {key}")
+        t0 = time.perf_counter()  # one bulk verb, not a client's op: no 12 s limit
+        out = run_command(env, "remote.cache -dir /buckets")
+        cache_s = time.perf_counter() - t0
+        rest = len(objects) - GW_READ_THROUGH
+        check(out == f"cached {rest} objects under /buckets", f"remote.cache: {out}")
+        entries = stubs()
+        bad = [k for k, e in entries.items()
+               if e.attributes.md5 != hashlib.md5(objects[k]).hexdigest()
+               or not (e.chunks or e.content)]
+        check(not bad, f"cached entries whose md5 is not hashlib's: {bad[:3]}")
+        inline = sum(1 for e in entries.values() if e.content)
+        cached_bytes = total - sum(len(objects[k]) for k in picks)
+        out = run_command(env, "remote.uncache -dir /buckets/bucket-a/p000")
+        dropped = [k for k in keys if k.startswith("bucket-a/p000/")]
+        check(out == f"uncached {len(dropped)} objects under /buckets/bucket-a/p000",
+              f"remote.uncache: {out}")
+        check(not stubs()[dropped[-1]].chunks, "an uncached entry keeps its chunks")
+        check(fc.request("GET", f"/buckets/{dropped[-1]}") == (200, objects[dropped[-1]]),
+              "a GET after remote.uncache")
+        check(stubs()[dropped[-1]].attributes.md5 == hashlib.md5(objects[dropped[-1]]).hexdigest(),
+              "the re-cached entry's md5")
+        rng = np.random.default_rng([seed, 38])
+        new = {f"bucket-b/new/n{j:02d}.bin": rng.bytes(log_uniform(rng, *GW_REMOTE_SIZES, 1)[0])
+               for j in range(GW_REMOTE_NEW)}
+        for key, body in new.items():
+            cloud.write_file(key, body)
+        out = run_command(env, "remote.meta.sync -dir /buckets/bucket-b")
+        check(out == f"synced {GW_REMOTE_NEW} entries under /buckets/bucket-b",
+              f"remote.meta.sync: {out}")
+        for key, body in new.items():
+            check(fc.request("GET", f"/buckets/{key}") == (200, body), f"GET of the new {key}")
+        fc.close()
+        t_wb = time.time()
+        c = Client(dav.url)
+        check(c.request("MKCOL", "/buckets/bucket-a/wb")[0] == 201, "MKCOL in the mounted bucket")
+        rng = np.random.default_rng([seed, 39])
+        written = {f"wb/w{j:02d}.bin": rng.bytes(log_uniform(rng, *GW_REMOTE_SIZES, 1)[0])
+                   for j in range(GW_WRITE_BACK)}
+        for rel, body in written.items():
+            check(c.request("PUT", f"/buckets/bucket-a/{rel}", body)[0] == 201, f"PUT {rel}")
+        gone = dropped[0]
+        check(c.request("DELETE", f"/buckets/{gone}")[0] == 204, f"DELETE {gone}")
+        c.close()
+        t0 = time.perf_counter()
+        rc = run_filer_remote_sync(["-filer", filer.url, "-dir", "/buckets/bucket-a", "-once",
+                                    "-timeAgo", str(time.time() - t_wb + 2.0)])
+        sync_s = time.perf_counter() - t0
+        check(rc == 0, f"filer.remote.sync -> {rc}")
+        for rel, body in written.items():
+            check(cloud.read_file(f"bucket-a/{rel}") == body, f"the remote's {rel} differs")
+        check(not os.path.exists(cloud._abs(gone)), f"the remote still holds the deleted {gone}")
+        res["remote"] = dict(
+            objects=len(objects), bytes=total, inline_objects=inline, fill_s=fill_s,
+            mount_buckets_s=mount_s, read_through=GW_READ_THROUGH, read_through_get=_pcts(rt_lat),
+            cache_objects=rest, cache_s=cache_s, cache_gbps=cached_bytes / cache_s / 1e9,
+            uncached=len(dropped), meta_sync_new=GW_REMOTE_NEW, write_back=len(written),
+            write_back_deleted=1, write_back_s=sync_s)
+        watch.close()
+        launches = read_launches()
+        for name in ("crc32c_batch", "md5_batch"):
+            check(launches[name] > 0, f"the gateways phase launched no {name} kernel")
+        check(svc.failed_blobs == 0, "the hash service failed a batch")
+        del svc._batch_hash
+        # nearly every chunk has a length of its own: the 8 lengths with the most blobs
+        buckets = batch_buckets(batches)
+        top = sorted(buckets, key=lambda ln: -buckets[ln]["blobs"])[:8]
+        res.update(launches=launches, batch_blobs=svc.batch_blobs, host_blobs=svc.host_blobs,
+                   hash_lengths=len(buckets), hash_batches=len(batches),
+                   hash_buckets={ln: buckets[ln] for ln in top})
+    finally:
+        for stop in reversed(stops):
+            stop()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    # the kernels at the commonest batch of the phase's commonest chunk lengths
+    res["hash_kernels"] = path_hash_times(dev, seed, md5_ops_per_block, batches,
+                                          (FILER_CHUNK, GW_FTP_FILE), "gateways")
+    res.update(wall_s=wall, wall_limit_s=GW_WALL_LIMIT_S, over_wall_limit=wall > GW_WALL_LIMIT_S,
+               cuts=GW_CUTS, note="clients and servers share one process and one GIL")
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -4529,18 +5115,24 @@ def main() -> int:
     ap.add_argument("--cluster-mib", type=int, default=1024)
     ap.add_argument("--mesh-volumes", type=int, default=32)
     ap.add_argument("--mesh-mib", type=int, default=4)
-    ap.add_argument("--filer-files", type=int, default=16384)
+    ap.add_argument("--filer-files", type=int, default=8192)
     ap.add_argument("--filer-large-mib", type=int, default=256)
-    ap.add_argument("--scrub-files", type=int, default=4096)
+    ap.add_argument("--scrub-files", type=int, default=2048)
     ap.add_argument("--scrub-mib", type=int, default=1024)
     ap.add_argument("--maint-mib", type=int, default=256)
     ap.add_argument("--maint-files", type=int, default=2048)
-    ap.add_argument("--filer-dedup-uploads", type=int, default=32)
+    ap.add_argument("--filer-dedup-uploads", type=int, default=16)
     ap.add_argument("--s3-objects", type=int, default=256)
     ap.add_argument("--s3-seconds", type=float, default=60.0)
     ap.add_argument("--s3-clients", type=int, default=20)
     ap.add_argument("--s3-multipart-mib", type=int, default=64)
     ap.add_argument("--tier-mib", type=int, default=1024)
+    ap.add_argument("--gw-dav-files", type=int, default=512)
+    ap.add_argument("--gw-ftp-files", type=int, default=256)
+    ap.add_argument("--gw-ftp-large-mib", type=int, default=256)
+    ap.add_argument("--gw-mount-mib", type=int, default=1024)
+    ap.add_argument("--gw-small-files", type=int, default=256)
+    ap.add_argument("--gw-remote-mib", type=int, default=512)
     ap.add_argument("--offset5-child", metavar="DIR",
                     help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
@@ -4704,6 +5296,15 @@ def main() -> int:
                                                vsd["flush_crc_max_abs_err"])
     timed["gf256_matmul"]["max_abs_err"] = max(timed["gf256_matmul"]["max_abs_err"],
                                                vsd["offset5"]["max_abs_err"])
+
+    # the filer's other front doors and remote storage; its own count
+    gw = gateways_phase(dev, args.gw_dav_files, args.gw_ftp_files, args.gw_ftp_large_mib * MIB,
+                        args.gw_mount_mib * MIB, args.gw_small_files, args.gw_remote_mib * MIB,
+                        md5_block["ops"], args.seed)
+    emit("gateways", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **gw)
+    for name in ("crc32c_batch", "md5_batch"):
+        launches[name] += gw["launches"][name]
+        timed[name]["shapes"].extend(gw["hash_kernels"][name])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

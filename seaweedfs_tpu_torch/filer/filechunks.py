@@ -97,7 +97,14 @@ def view_from_chunks(
 ) -> list[ChunkView]:
     """Chunk reads covering [offset, offset+size) (`filechunks.go:183`
     ViewFromChunks). Gaps (sparse ranges) are simply absent."""
-    visibles = read_resolved_chunks(chunks)
+    return view_from_visibles(read_resolved_chunks(chunks), offset, size)
+
+
+def view_from_visibles(
+    visibles: list[VisibleInterval], offset: int = 0, size: int | None = None
+) -> list[ChunkView]:
+    """`view_from_chunks` over intervals `read_resolved_chunks` already
+    resolved, for a reader that keeps them across reads of one entry."""
     if size is None:
         stop = max((v.stop for v in visibles), default=0)
     else:

@@ -46,12 +46,22 @@ and `fs.merge.volumes` rewrites), `/__dedup__/stats` and `/__dedup__/gc`
 `lock_ring`). `start()` announces the filer to the master
 (`/cluster/register`, then every 5 s, sweeping expired locks).
 
-`faults_spec` is the `-faults` flag (see `util/faults.opt_in`).
+`faults_spec` is the `-faults` flag (see `util/faults.opt_in`), and
+`local_socket` the `-filer.localSocket` flag: `start()` adds a unix-socket
+listener there (`service.unix_url`), how a mount reaches its filer.
 
-Not ported: the native fastlane front door (`_fl_*`, ROADMAP 10a-3),
-remote storage mounts (`/__remote__/*`, 10d-3), and qos admission, usage
-accounting, metrics, telemetry and JWT security (10d-4). The registration
-beat carries no telemetry frame and charges no fastlane qos usage.
+Remote storage mounts (`remote_storage/`): `/__remote__/configure`,
+`mount`, `mount_buckets`, `unmount`, `mounts`, `meta_sync`, `cache` and
+`uncache` keep the configs and mounts in `/etc/remote/remote.conf` and
+`/etc/remote/remote.mount` (loaded at construction), make stub entries
+that carry `remote.*` extended attributes and no chunks, and cache a stub's
+object into chunks (or inline content) on its first GET, a failed fetch
+answering 502.
+
+Not ported: the native fastlane front door (`_fl_*`, ROADMAP 10a-3), and
+qos admission, usage accounting, metrics, telemetry and JWT security
+(10d-4). The registration beat carries no telemetry frame and charges no
+fastlane qos usage.
 """
 
 from __future__ import annotations
@@ -77,6 +87,15 @@ from ..filer.filer_conf import FILER_CONF_PATH, FilerConf
 from ..filer.filerstore import make_store
 from ..filer.wdclient import WeedClient
 from ..ops import cdc
+from ..remote_storage import (
+    CONF_FILE,
+    MOUNT_FILE,
+    REMOTE_KEY,
+    REMOTE_MTIME,
+    REMOTE_SIZE,
+    REMOTE_STORAGE,
+    make_remote_client,
+)
 from ..ops.hash_service import HashService
 from ..ops.rs_kernel import resolve_device
 from ..storage.types import TTL
@@ -111,6 +130,7 @@ class FilerServer:
         dedup_max: int = 512 * 1024,
         device=None,
         faults_spec: str | None = None,
+        local_socket: str | None = None,
         *,
         filer: Filer | None = None,
         client=None,
@@ -168,6 +188,13 @@ class FilerServer:
         self.lock_ring = LockRing()
         self.dlm = DistributedLockManager()
         self._static_peers = list(peers or [])
+        # remote-storage mounts (weed/remote_storage): configs + dir mounts
+        self._remote_confs: dict = {}
+        self._remote_mounts: dict = {}
+        self._load_remote_state()
+        # `-filer.localSocket` (weed/command/filer.go): same-host clients
+        # (mounts) reach the filer over a unix domain socket
+        self.local_socket = local_socket
         self._register_stop = threading.Event()
         self._register_thread: threading.Thread | None = None
         # per-path storage rules (`weed/filer/filer_conf.go`): loaded from
@@ -198,6 +225,8 @@ class FilerServer:
         # the flusher thread must run, or submit_many hashes on the host
         self.hash_service.start()
         self.service.start()
+        if self.local_socket:
+            self.service.enable_unix_socket(self.local_socket)
         self.dlm.host = self.url
         self.lock_ring.set_servers(self._static_peers + [self.url])
         self._register_once()
@@ -469,10 +498,250 @@ class FilerServer:
     def _resolved_chunks(self, entry: Entry) -> list[FileChunk]:
         return resolve_chunk_manifest(self._fetch_chunk, entry.chunks)
 
+    # --- remote storage mounts (weed/remote_storage + read_remote.go) -----------
+    def _load_remote_state(self) -> None:
+        for path, attr in ((CONF_FILE, "_remote_confs"),
+                           (MOUNT_FILE, "_remote_mounts")):
+            e = self.filer.find_entry(path)
+            if e is not None and e.content:
+                try:
+                    setattr(self, attr, json.loads(e.content))
+                except ValueError:
+                    pass
+
+    def _save_remote_state(self) -> None:
+        for path, value in ((CONF_FILE, self._remote_confs),
+                            (MOUNT_FILE, self._remote_mounts)):
+            body = json.dumps(value).encode()
+            e = self.filer.find_entry(path)
+            if e is None:
+                e = Entry(full_path=path, content=body)
+                e.attributes.file_size = len(body)
+                self.filer.create_entry(e)
+            else:
+                e.content = body
+                e.attributes.file_size = len(body)
+                self.filer.update_entry(e)
+
+    def _remote_mount_for(self, path: str):
+        """Longest mounted prefix covering path -> (mount_dir, mount)."""
+        best = None
+        for d, mount in self._remote_mounts.items():
+            if path == d or path.startswith(d.rstrip("/") + "/"):
+                if best is None or len(d) > len(best[0]):
+                    best = (d, mount)
+        return best
+
+    def _remote_client(self, config_name: str):
+        conf = self._remote_confs.get(config_name)
+        if conf is None:
+            raise FilerError(f"remote config {config_name!r} not found")
+        return make_remote_client(conf)
+
+    def _remote_meta_sync(self, mount_dir: str) -> int:
+        """Traverse the remote tree and (re)create stub entries carrying
+        remote.* extended attrs and no chunks (`remote.mount`/`meta.sync`)."""
+        mount = self._remote_mounts[mount_dir]
+        client = self._remote_client(mount["config"])
+        base = mount.get("path", "")
+        n = 0
+        for rel, size, mtime in client.traverse(base):
+            full = normalize(f"{mount_dir}/{rel}")
+            existing = self.filer.find_entry(full)
+            key = f"{base.rstrip('/')}/{rel}".lstrip("/") if base else rel
+            if existing is not None:
+                ext = existing.extended
+                if ext.get(REMOTE_KEY) == key and \
+                        float(ext.get(REMOTE_MTIME, 0)) >= mtime:
+                    continue  # unchanged
+                existing.extended.update({
+                    REMOTE_KEY: key, REMOTE_SIZE: str(size),
+                    REMOTE_MTIME: str(mtime),
+                    REMOTE_STORAGE: mount["config"],
+                })
+                existing.chunks = []  # changed upstream: drop stale cache
+                existing.attributes.file_size = size
+                self._reclaim_chunks(self.filer.update_entry(existing))
+            else:
+                e = Entry(full_path=full)
+                e.attributes.file_size = size
+                e.attributes.mtime = mtime
+                e.extended = {
+                    REMOTE_KEY: key, REMOTE_SIZE: str(size),
+                    REMOTE_MTIME: str(mtime),
+                    REMOTE_STORAGE: mount["config"],
+                }
+                self.filer.create_entry(e)
+            n += 1
+        return n
+
+    def _remote_cache_entry(self, entry: Entry) -> Entry:
+        """Read-through: pull remote bytes into local chunks on first access
+        (`read_remote.go` CacheRemoteObjectToLocalCluster)."""
+        key = entry.extended.get(REMOTE_KEY)
+        config = entry.extended.get(REMOTE_STORAGE)
+        if not key or not config:
+            return entry
+        client = self._remote_client(config)
+        data = client.read_file(key)
+        if len(data) <= SMALL_CONTENT_LIMIT:
+            entry.content = data
+            entry.attributes.md5 = self.hash_service.submit(data).md5_hex()
+        else:
+            chunks, md5_hex = self._upload_chunks(
+                data, "", self.collection, self.default_replication,
+                mime=entry.attributes.mime, filename=entry.full_path,
+            )
+            entry.chunks = maybe_manifestize(self._save_manifest_blob, chunks)
+            entry.attributes.md5 = md5_hex
+        entry.attributes.file_size = len(data)
+        self._reclaim_chunks(self.filer.update_entry(entry))
+        return entry
+
+    def _register_remote_routes(self, svc) -> None:
+        @svc.route("POST", r"/__remote__/configure")
+        def remote_configure(req: Request) -> Response:
+            p = req.json()
+            self._remote_confs[p["name"]] = p["conf"]
+            self._save_remote_state()
+            return Response({"ok": True, "configs": list(self._remote_confs)})
+
+        @svc.route("POST", r"/__remote__/mount")
+        def remote_mount(req: Request) -> Response:
+            p = req.json()
+            dir_ = normalize(p["dir"])
+            if p.get("config") not in self._remote_confs:
+                return Response(
+                    {"error": f"unknown remote config {p.get('config')!r}"}, 400
+                )
+            self._remote_mounts[dir_] = {
+                "config": p["config"], "path": p.get("path", ""),
+            }
+            self._save_remote_state()
+            try:
+                n = self._remote_meta_sync(dir_)
+            except (FilerError, OSError, ValueError) as e:
+                return Response({"error": str(e)}, 500)
+            return Response({"ok": True, "dir": dir_, "synced": n})
+
+        @svc.route("POST", r"/__remote__/mount_buckets")
+        def remote_mount_buckets(req: Request) -> Response:
+            # `command_remote_mount_buckets.go`: mount every bucket of a
+            # configured remote under /buckets/<name> and pull metadata
+            p = req.json()
+            conf_name = p.get("config")
+            conf = self._remote_confs.get(conf_name)
+            if conf is None:
+                return Response(
+                    {"error": f"unknown remote config {conf_name!r}"}, 400)
+            try:
+                client = make_remote_client(conf)
+                buckets = client.list_buckets()
+            except (OSError, ValueError, NotImplementedError) as e:
+                return Response({"error": f"list buckets: {e}"}, 500)
+            mounted = []
+            for b in buckets:
+                dir_ = f"/buckets/{b}"
+                # persist BEFORE syncing (like /__remote__/mount): a
+                # partial failure must leave the completed mounts durable,
+                # not in-memory-only until a restart drops them
+                self._remote_mounts[dir_] = {"config": conf_name, "path": b}
+                self._save_remote_state()
+                try:
+                    self._remote_meta_sync(dir_)
+                except (FilerError, OSError, ValueError) as e:
+                    return Response(
+                        {"error": f"sync {dir_}: {e}", "mounted": mounted},
+                        500)
+                mounted.append(b)
+            return Response({"ok": True, "mounted": mounted})
+
+        @svc.route("POST", r"/__remote__/unmount")
+        def remote_unmount(req: Request) -> Response:
+            dir_ = normalize(req.json()["dir"])
+            if self._remote_mounts.pop(dir_, None) is None:
+                return Response({"error": f"{dir_} not mounted"}, 404)
+            self._save_remote_state()
+            return Response({"ok": True})
+
+        @svc.route("GET", r"/__remote__/mounts")
+        def remote_mounts(req: Request) -> Response:
+            return Response({
+                "mounts": self._remote_mounts,
+                "configs": {k: v.get("kind", "?")
+                            for k, v in self._remote_confs.items()},
+            })
+
+        @svc.route("POST", r"/__remote__/meta_sync")
+        def remote_meta_sync(req: Request) -> Response:
+            dir_ = normalize(req.json()["dir"])
+            if dir_ not in self._remote_mounts:
+                return Response({"error": f"{dir_} not mounted"}, 404)
+            n = self._remote_meta_sync(dir_)
+            return Response({"ok": True, "synced": n})
+
+        @svc.route("POST", r"/__remote__/cache")
+        def remote_cache(req: Request) -> Response:
+            path = normalize(req.json().get("dir", req.json().get("path", "/")))
+            cached = 0
+
+            def walk(p: str) -> None:
+                nonlocal cached
+                for e in self.filer.list_entries(p):
+                    if e.is_directory:
+                        walk(e.full_path)
+                    elif e.extended.get(REMOTE_KEY) and not e.chunks \
+                            and not e.content:
+                        self._remote_cache_entry(e)
+                        cached += 1
+
+            entry = self.filer.find_entry(path)
+            if entry is None:
+                return Response({"error": f"{path} not found"}, 404)
+            if entry.is_directory:
+                walk(path)
+            elif entry.extended.get(REMOTE_KEY):
+                self._remote_cache_entry(entry)
+                cached = 1
+            return Response({"ok": True, "cached": cached})
+
+        @svc.route("POST", r"/__remote__/uncache")
+        def remote_uncache(req: Request) -> Response:
+            path = normalize(req.json().get("dir", "/"))
+            dropped = 0
+
+            def walk(p: str) -> None:
+                nonlocal dropped
+                for e in self.filer.list_entries(p):
+                    if e.is_directory:
+                        walk(e.full_path)
+                    elif e.extended.get(REMOTE_KEY) and (e.chunks or e.content):
+                        self._reclaim_chunks(e.chunks)
+                        e.chunks = []
+                        e.content = b""
+                        self.filer.update_entry(e)
+                        dropped += 1
+
+            entry = self.filer.find_entry(path)
+            if entry is None:
+                return Response({"error": f"{path} not found"}, 404)
+            if entry.is_directory:
+                walk(path)
+            elif entry.extended.get(REMOTE_KEY) and (
+                entry.chunks or entry.content
+            ):
+                self._reclaim_chunks(entry.chunks)
+                entry.chunks = []
+                entry.content = b""
+                self.filer.update_entry(entry)
+                dropped = 1
+            return Response({"ok": True, "uncached": dropped})
+
     # --- routes -----------------------------------------------------------------
     def _routes(self) -> None:
         svc = self.service
         path_re = r"(/.*)"
+        self._register_remote_routes(svc)
 
         # metadata subscription (must register before the catch-all
         # namespace): long-poll equivalent of gRPC SubscribeMetadata
@@ -1013,6 +1282,13 @@ class FilerServer:
         ):
             self.filer.delete_entry(path)  # expired: reap lazily
             return Response({"error": f"{path} expired"}, 404)
+        if not entry.content and not entry.chunks and entry.extended.get(REMOTE_KEY):
+            # read-through: cache the remote object locally on first
+            # access (`read_remote.go` CacheRemoteObjectToLocalCluster)
+            try:
+                entry = self._remote_cache_entry(entry)
+            except (FilerError, OSError) as e:
+                return Response({"error": f"remote fetch: {e}"}, 502)
         etag = entry.attributes.md5 or str(entry.attributes.mtime)
         headers = {
             "ETag": f'"{etag}"',

@@ -16,8 +16,16 @@ them. The POST answers 403 unless the process opted in
 (`faults.enable()`, a server built with `faults_spec`, or
 SEAWEEDFS_TPU_FAULTS=1).
 
+The handler answers the WebDAV verbs (PROPFIND, PROPPATCH, MKCOL, MOVE,
+COPY, LOCK, UNLOCK) beside the HTTP ones. `enable_unix_socket(path)` adds
+an AF_UNIX listener on the same routes (the filer's `-filer.localSocket`,
+the mount's admin socket), advertised as `unix_url`; `http_request` and
+`PooledHTTP` speak `http+unix://<percent-encoded socket path><path>`
+URLs. A service whose `plain_backend` is set binds its TCP side to
+127.0.0.1.
+
 Not ported: request metrics, the other debug and the profiler endpoints,
-QoS, trace propagation, TLS, the IP guard and unix-socket listeners.
+QoS, trace propagation, TLS and the IP guard.
 """
 
 from __future__ import annotations
@@ -164,6 +172,11 @@ class HTTPService:
         self.routes: list[tuple[str, re.Pattern, Callable[[Request], Response]]] = []
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
+        self._unix_httpd: ThreadingHTTPServer | None = None
+        self._unix_path: str | None = None
+        # a listener only same-host code reaches (the mount's admin service)
+        # binds its TCP side to loopback, never an external interface
+        self.plain_backend = False
         _register_fault_routes(self)
 
     def route(self, method: str, pattern: str):
@@ -244,13 +257,56 @@ class HTTPService:
                 service._dispatch(self)
 
             do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _handle
-            do_OPTIONS = _handle  # the S3 gateway's CORS preflight
+            # OPTIONS: the S3 gateway's CORS preflight and WebDAV's probe;
+            # the rest are WebDAV's verbs (webdav_server.go surface)
+            do_OPTIONS = do_PROPFIND = do_PROPPATCH = do_MKCOL = _handle
+            do_MOVE = do_COPY = do_LOCK = do_UNLOCK = _handle
 
-        self._httpd = _Server((self.host, self.port), Handler)
+        bind_host = "127.0.0.1" if self.plain_backend else self.host
+        self._httpd = _Server((bind_host, self.port), Handler)
         self._httpd.daemon_threads = True
         self.port = self._httpd.server_address[1]
+        self._handler_cls = Handler
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
+
+    def enable_unix_socket(self, path: str) -> None:
+        """Extra AF_UNIX listener sharing this service's routes — the
+        `-filer.localSocket` feature (`weed/command/filer.go`): same-host
+        clients (mounts especially) skip the TCP stack. The unix path is
+        same-host-trusted, like the reference's. Call after start()."""
+        import socketserver
+
+        class handler(self._handler_cls):
+            # TCP_NODELAY does not exist on AF_UNIX sockets
+            disable_nagle_algorithm = False
+
+        class UnixHTTPServer(_Server):
+            address_family = socket.AF_UNIX
+
+            def server_bind(inner):
+                try:
+                    os.unlink(path)
+                except FileNotFoundError:
+                    pass
+                # skip HTTPServer.server_bind: it unpacks server_address
+                # as (host, port), which a unix path is not
+                socketserver.TCPServer.server_bind(inner)
+                inner.server_name = "localhost"
+                inner.server_port = 0
+
+        srv = UnixHTTPServer(path, handler)
+        srv.daemon_threads = True
+        self._unix_httpd = srv
+        self._unix_path = path
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+    @property
+    def unix_url(self) -> str | None:
+        """http+unix:// URL for the local-socket listener, or None."""
+        if self._unix_path is None:
+            return None
+        return "http+unix://" + urllib.parse.quote(self._unix_path, safe="")
 
     def stop(self) -> None:
         if self._httpd:
@@ -260,6 +316,15 @@ class HTTPService:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._unix_httpd is not None:
+            self._unix_httpd.shutdown()
+            self._unix_httpd.server_close()
+            self._unix_httpd = None
+            try:
+                os.unlink(self._unix_path)
+            except OSError:
+                pass
+            self._unix_path = None  # unix_url must stop advertising it
 
     @property
     def url(self) -> str:
@@ -333,6 +398,8 @@ def http_request(
     headers: dict | None = None,
     timeout: float = DEFAULT_TIMEOUT,
 ) -> tuple[int, dict, bytes]:
+    if url.startswith("http+unix://"):
+        return _unix_http_request(method, url, body, headers, timeout)
     req = urllib.request.Request(url, data=body, method=method)
     for k, v in (headers or {}).items():
         req.add_header(k, v)
@@ -341,6 +408,40 @@ def http_request(
             return resp.status, dict(resp.headers), resp.read()
     except urllib.error.HTTPError as e:
         return e.code, dict(e.headers), e.read()
+
+
+class _UnixConnection(http.client.HTTPConnection):
+    """An HTTPConnection over a unix domain socket."""
+
+    def __init__(self, sock_path: str, timeout: float) -> None:
+        super().__init__("localhost", timeout=timeout)
+        self.sock_path = sock_path
+
+    def connect(self) -> None:
+        s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        s.settimeout(self.timeout)
+        s.connect(self.sock_path)
+        self.sock = s
+
+
+def _unix_http_request(
+    method: str, url: str, body: bytes | None, headers: dict | None,
+    timeout: float,
+) -> tuple[int, dict, bytes]:
+    """HTTP over a unix domain socket. URL form
+    `http+unix://<percent-encoded-socket-path><request-path>` — the same
+    convention requests-unix-socket/docker clients use. Server side:
+    HTTPService.enable_unix_socket (`-filer.localSocket`)."""
+    rest = url[len("http+unix://"):]
+    sock_quoted, _, path_qs = rest.partition("/")
+    conn = _UnixConnection(urllib.parse.unquote(sock_quoted), timeout)
+    try:
+        conn.request(method, "/" + path_qs, body=body,
+                     headers=dict(headers or {}))
+        resp = conn.getresponse()
+        return resp.status, dict(resp.headers), resp.read()
+    finally:
+        conn.close()
 
 
 class HTTPStatusError(IOError):
@@ -385,7 +486,8 @@ class PooledHTTP:
     small-request paths (the filer's assigns, chunk uploads and chunk
     fetches) would measure connection setup instead of the server. The
     reference's Go clients all reuse connections; this is the equivalent
-    for the data-plane hot paths. Plain HTTP only: the port has no TLS."""
+    for the data-plane hot paths. Plain HTTP (the port has no TLS), over
+    TCP or, for an `http+unix://` URL, a unix domain socket."""
 
     def __init__(self, timeout: float = DEFAULT_TIMEOUT) -> None:
         self._tl = threading.local()
@@ -419,7 +521,10 @@ class PooledHTTP:
         for _ in (0, 1):  # the second try is on a new socket: it never re-sends
             conn = pool.get(key)
             if conn is None:
-                conn = http.client.HTTPConnection(u.netloc, timeout=self.timeout)
+                if u.scheme == "http+unix":
+                    conn = _UnixConnection(urllib.parse.unquote(u.netloc), self.timeout)
+                else:
+                    conn = http.client.HTTPConnection(u.netloc, timeout=self.timeout)
                 pool[key] = conn
                 with self._all_mu:
                     self._all.add(conn)
@@ -427,9 +532,10 @@ class PooledHTTP:
             try:
                 if conn.sock is None:
                     conn.connect()
-                    # headers and body go out as separate writes; without
-                    # TCP_NODELAY Nagle + delayed ACK adds ~40ms per request
-                    conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                    if conn.sock.family != socket.AF_UNIX:
+                        # headers and body go out as separate writes; without
+                        # TCP_NODELAY Nagle + delayed ACK adds ~40ms a request
+                        conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 conn.request(method, path, body=body, headers=headers or {})
                 resp = conn.getresponse()
                 answered = True

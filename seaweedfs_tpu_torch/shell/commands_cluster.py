@@ -14,12 +14,15 @@ topology, the registered filers, the shell's filer and `-include`d urls).
 Not ported: the file's other commands (`cluster.check`, `cluster.top`,
 `cluster.trace`, `cluster.profile`, `cluster.why`, `cluster.heat`,
 `cluster.qos` and the rest), which read routes the port does not serve.
+`mount.configure` reads and sets a running mount's quota over its admin
+socket (`mount.start_admin_service`).
 """
 
 from __future__ import annotations
 
 import json
 import time
+import urllib.parse
 
 from .env import CommandEnv, ShellError
 from .registry import command, parse_flags
@@ -274,3 +277,37 @@ def cmd_cluster_faults(env: CommandEnv, args: list[str]) -> str:
     if len(seen) == 0:
         lines.append("  (no seams registered yet — servers not started?)")
     return "\n".join(lines)
+
+
+@command("mount.configure",
+         "-dir <mountpoint> [-quotaMB n] — inspect/adjust a RUNNING mount"
+         " via its local admin socket")
+def cmd_mount_configure(env: CommandEnv, args: list[str]) -> str:
+    """`command_mount_configure.go`: talks to the mount's admin listener
+    (deterministic unix socket derived from the mountpoint)."""
+    from ..mount import admin_socket_path
+    from ..server.httpd import get_json, post_json
+
+    flags = parse_flags(args)
+    mp = flags.get("dir")
+    if not mp:
+        raise ShellError("usage: mount.configure -dir <mountpoint>"
+                         " [-quotaMB n]")
+    base = "http+unix://" + urllib.parse.quote(admin_socket_path(mp), safe="")
+    if "quotaMB" in flags:
+        try:
+            quota_mb = int(flags["quotaMB"])
+        except ValueError:
+            raise ShellError(f"invalid -quotaMB {flags['quotaMB']!r}")
+        try:
+            out = post_json(base + "/configure", {"quotaMB": quota_mb})
+        except (IOError, OSError) as e:
+            raise ShellError(f"no running mount at {mp!r}? ({e})")
+        return f"quota set to {out['quota_bytes']} bytes"
+    try:
+        out = get_json(base + "/status")
+    except (IOError, OSError) as e:
+        raise ShellError(f"no running mount at {mp!r}? ({e})")
+    return (f"mount {out['mountpoint']}: used {out['used_bytes']} /"
+            f" quota {out['quota_bytes'] or 'unlimited'}"
+            f"{' [read-only]' if out['read_only'] else ''}")

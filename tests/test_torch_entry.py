@@ -157,6 +157,98 @@ def test_filer_server_without_device_raises(kind, monkeypatch, tmp_path):
         srv.filer.close()
 
 
+NEW_IN_GATEWAYS_SLICE = [
+    "seaweedfs_tpu_torch/util/concurrency.py",
+    "seaweedfs_tpu_torch/server/webdav.py",
+    "seaweedfs_tpu_torch/ftpd/__init__.py",
+    "seaweedfs_tpu_torch/mount/__init__.py",
+    "seaweedfs_tpu_torch/mount/fuse_proto.py",
+    "seaweedfs_tpu_torch/mount/meta_cache.py",
+    "seaweedfs_tpu_torch/mount/page_writer.py",
+    "seaweedfs_tpu_torch/mount/weedfs.py",
+    "seaweedfs_tpu_torch/remote_storage/__init__.py",
+    "seaweedfs_tpu_torch/shell/commands_remote.py",
+    "seaweedfs_tpu_torch/command/filer_sync.py",
+]
+
+
+@pytest.mark.parametrize("rel", NEW_IN_GATEWAYS_SLICE)
+def test_gateways_slice_modules_are_scanned(rel):
+    """Each new module of the gateways slice is in the import scan above
+    and imports here."""
+    import importlib
+
+    assert REPO / rel in PORT_FILES
+    assert not [n for n in _imports(REPO / rel)
+                if n.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu")]
+    importlib.import_module(rel[:-3].replace("/", ".").removesuffix(".__init__"))
+
+
+def test_gateways_slice_modules_import_alone():
+    """The gateways slice's modules together import with neither `jax` nor
+    `seaweedfs_tpu` loaded by them."""
+    import subprocess
+    import sys
+
+    mods = [rel[:-3].replace("/", ".").removesuffix(".__init__")
+            for rel in NEW_IN_GATEWAYS_SLICE]
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'seaweedfs_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_gateways_reach_a_filer_that_raises_without_cuda(monkeypatch, tmp_path):
+    """With no CUDA, the filer under every gateway refuses to start unless
+    it was built with device="cpu"; built so, WebDAV, FTP, a mount over its
+    local socket and its remote routes all reach it."""
+    import ftplib
+    import json
+
+    from seaweedfs_tpu_torch.ftpd import FtpServer
+    from seaweedfs_tpu_torch.mount import WFS, VirtualFuseKernel
+    from seaweedfs_tpu_torch.server.filer import FilerServer
+    from seaweedfs_tpu_torch.server.httpd import http_request
+    from seaweedfs_tpu_torch.server.webdav import WebDavServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sock = str(tmp_path / "filer.sock")
+    with pytest.raises(RuntimeError):
+        FilerServer("http://127.0.0.1:1", port=0, local_socket=sock)
+    filer = FilerServer("http://127.0.0.1:1", port=0, local_socket=sock, device="cpu")
+    filer.start()
+    dav = WebDavServer(filer.url, port=0)
+    ftp = FtpServer(filer.url, port=0, user="u", password="p")
+    wfs = None
+    try:
+        assert filer.device.type == "cpu" and filer.hash_service.device.type == "cpu"
+        dav.start()
+        ftp.start()
+        assert http_request("MKCOL", dav.url + "/g")[0] == 201
+        assert http_request("PROPFIND", dav.url + "/g", headers={"Depth": "0"})[0] == 207
+        c = ftplib.FTP()
+        c.connect("127.0.0.1", ftp.port, timeout=10)
+        c.login("u", "p")
+        assert c.cwd("/g") == "250 cwd ok"
+        c.quit()
+        wfs = WFS(filer.service.unix_url)
+        err, ino, _ = VirtualFuseKernel(wfs).lookup(1, "g")
+        assert err == 0 and ino > 1
+        conf = {"name": "c", "conf": {"kind": "local", "root": str(tmp_path / "r")}}
+        assert http_request("POST", filer.url + "/__remote__/configure",
+                            json.dumps(conf).encode())[0] == 200
+        status, _, body = http_request("GET", filer.service.unix_url + "/__remote__/mounts")
+        assert status == 200 and json.loads(body)["configs"] == {"c": "local"}
+    finally:
+        if wfs is not None:
+            wfs.meta.stop()
+        ftp.stop()
+        dav.stop()
+        filer.stop()
+
+
 def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):

@@ -181,7 +181,7 @@ def test_run_command_help_unknown_and_lock():
         "volume.vacuum", "volume.vacuum.disable", "volume.vacuum.enable"]
     cluster_verbs = [
         "cluster.faults", "cluster.maintenance", "cluster.ps", "cluster.scrub",
-        "collection.delete", "collection.list", "volume.list",
+        "collection.delete", "collection.list", "mount.configure", "volume.list",
         "volume.status"]
     fs_verbs = [
         "fs.cat", "fs.cd", "fs.configure", "fs.dedup.gc", "fs.du", "fs.log.purge",
@@ -191,9 +191,12 @@ def test_run_command_help_unknown_and_lock():
     s3_verbs = [
         "s3.bucket.create", "s3.bucket.delete", "s3.bucket.list", "s3.bucket.quota",
         "s3.bucket.quota.enforce", "s3.circuitbreaker", "s3.clean.uploads", "s3.configure"]
+    remote_verbs = [
+        "remote.cache", "remote.configure", "remote.meta.sync", "remote.mount",
+        "remote.mount.buckets", "remote.uncache", "remote.unmount"]
     assert run_command(env, "help").split() == sorted(
         ["ec.balance", "ec.decode", "ec.encode", "ec.rebuild", "lock", "unlock"]
-        + volume_verbs + cluster_verbs + fs_verbs + s3_verbs)
+        + volume_verbs + cluster_verbs + fs_verbs + s3_verbs + remote_verbs)
     assert "rebuild" in run_command(env, "help ec.rebuild")
     assert run_command(env, "") == ""
     with pytest.raises(ShellError, match="unknown command"):
