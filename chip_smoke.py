@@ -11,6 +11,7 @@
                           [--s3-multipart-mib MIB] [--tier-mib MIB]
                           [--gw-dav-files N] [--gw-ftp-files N] [--gw-ftp-large-mib MIB]
                           [--gw-mount-mib MIB] [--gw-small-files N] [--gw-remote-mib MIB]
+                          [--sync-files N] [--mq-messages N]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -46,7 +47,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               device time of kernel and copies, the device's idle share
   5. cols     a small volume at 1 MiB / 64 KiB blocks through the schedule's
               column-split jobs, byte-identical to a CPU plain encode
-  6. upload   --upload-blobs (262,144) seeded 4096-byte blobs submitted to
+  6. upload   --upload-blobs (131,072) seeded 4096-byte blobs submitted to
               HashService(device=cuda) from 16 threads, each waiting for its
               blob's result before the next, as the filer does (BASELINE.md
               config 3); every MD5 and CRC equal to hashlib and the host CRC
@@ -59,7 +60,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               its defaults over --stream-mib (1 GiB); cuts equal the plain
               version's on the card, the first upload's the numpy oracle's
   8. dedup    the filer's CDC dedup write path (BASELINE config 4):
-              --dedup-gib (8) GiB of 64 MiB uploads, four seeded segments
+              --dedup-gib (4) GiB of 64 MiB uploads, four seeded segments
               alternating with byte-shifted repeats (bench.py's stream),
               through FilerServer._upload_chunks_cdc on the card over a
               Filer(MemoryStore()); wall and p75-window GB/s, dedup shares,
@@ -122,7 +123,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               launches, and each device's launch timed beside its byte bound
  12. filer    BASELINE config 3 as the filer takes it: a port master (pulse
               1 s), two volume servers and a FilerServer on the card, one
-              process; --filer-files (8,192) seeded 4 KiB files PUT from 16
+              process; --filer-files (4,096) seeded 4 KiB files PUT from 16
               threads, each waiting for its response (one chunk, one assign,
               one needle POST, one ETag through the filer's hash service);
               4 uploads of --filer-large-mib (256) MiB from 4 threads (64
@@ -139,7 +140,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               (2,048) seeded 4 KiB files through /dir/assign?replication=001
               and POSTs from 8 waiting threads (each write fans out to the other
               r1 server before it is acked), both replicas holding the same
-              needles; in process on the r2 server: --scrub-mib (1024) MiB of
+              needles; in process on the r2 server: --scrub-mib (512) MiB of
               4 KiB needles in one volume, 256 MiB of log-uniform needles
               encoded in place (all 14 shards local), a 64 MiB ecOnline volume;
               a clean `volume.scrub -dryRun` checking every live needle, with
@@ -164,7 +165,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               scrub loop every 3 s) on the card, one process; with the daemon
               paused while the shell holds the lock, --maint-mib (256) MiB of
               log-uniform needles in one volume `ec.encode`d over the four,
-              and --maint-files (2,048) seeded 4 KiB files through
+              and --maint-files (1,024) seeded 4 KiB files through
               /dir/assign?replication=001 from 8 waiting threads; then at
               once 40 % of the files deleted, one needle byte flipped on one
               replica, data shard 3 lost (unmounted, removed, the rest
@@ -181,8 +182,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
  15. filer_dedup  BASELINE config 4 as an operator runs it: a port master
               (pulse 1 s), two volume servers and a FilerServer(dedup=True)
               on a leveldb store on the card, one process;
-              --filer-dedup-uploads (16) PUTs of 64 MiB of bench.py's stream
-              (1 GiB) from 4 threads each waiting for its 201, every md5
+              --filer-dedup-uploads (8) PUTs of 64 MiB of bench.py's stream
+              (0.5 GiB) from 4 threads each waiting for its 201, every md5
               against hashlib, gear_hash launched over them; every file's
               ?metadata=true, the uploads of segments 0 and 1 deleted, and the
               bytes to reclaim counted from that metadata; `fs.dedup.gc`
@@ -199,7 +200,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               servers and a FilerServer (4 MiB chunks) on the card, the admin
               identity written by the shell's `s3.configure`, an S3Server and an
               IamServer, one process; --s3-objects (256) seeded 10 MiB objects
-              PUT from --s3-clients (20) signed clients, then --s3-seconds (60)
+              PUT from --s3-clients (20) signed clients, then --s3-seconds (30)
               of GET 45 % / STAT 30 % / PUT 15 % / DELETE 10 % drawn from the
               seed (a DELETE takes its key out of the live set first, a PUT adds
               a fresh key) under torch.profiler's CUDA activity for the device's
@@ -214,7 +215,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
  17. volume_side  the volume side: a port master and two volume servers (racks r1,
               r2; runtime fault arming on) on the card, one process, and a child
               process at 5-byte offsets (SEAWEEDFS_TPU_OFFSET_BYTES=5, fixed at its
-              import). (a) --tier-mib (1024) MiB of seeded needles in one volume
+              import). (a) --tier-mib (512) MiB of seeded needles in one volume
               (log-uniform 1 KiB-4 MiB, then a quarter of 4 KiB needles, which the
               scrubber checks through crc32c_batch), `volume.tier.configure -kind
               local` and `volume.tier.upload` (the .dat gone), 256 GETs equal, a
@@ -243,18 +244,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               volume servers and a FilerServer (4 MiB chunks, a local socket under
               build/) on the card, a WebDavServer, an FtpServer and a WFS over the
               filer's unix socket through VirtualFuseKernel, one process. (a) WebDAV:
-              --gw-dav-files (512) files (log-uniform 1 KiB-8 MiB, about 0.47 GB) PUT
+              --gw-dav-files (256) files (log-uniform 1 KiB-8 MiB, about 0.23 GB) PUT
               from 8 keep-alive clients into 8 collections, PROPFIND Depth 1 listing
               each with its size and a getetag equal to hashlib's MD5, every GET
               equal, COPY then MOVE of a collection, a LOCK enforced (423 without the
               token, 201 with it); (b) FTP: --gw-ftp-files (256) files of 1 MiB from
               4 sessions and one of --gw-ftp-large-mib (256) MiB, RETR equal, SIZE and
-              LIST agreeing; (c) the mount: --gw-mount-mib (1024) MiB in 128 KiB
+              LIST agreeing; (c) the mount: --gw-mount-mib (512) MiB in 128 KiB
               WRITEs, read back in 128 KiB READs and over HTTP with the same SHA-256,
               1 MiB overwritten across the middle chunk edge, --gw-small-files (256)
               files of 4 KiB, READDIR, a directory rename, an HTTP write seen through
               the meta cache, `mount.configure -quotaMB 1` then ENOSPC; (d) remote:
-              --gw-remote-mib (512) MiB of objects (log-uniform 1 KiB-4 MiB) in two
+              --gw-remote-mib (256) MiB of objects (log-uniform 1 KiB-4 MiB) in two
               buckets of a local remote, `remote.configure`, `remote.mount.buckets`
               (stubs, no chunks), 64 read-through GETs, `remote.cache` (every md5
               hashlib's), `remote.uncache` then a GET, 16 new objects through
@@ -262,7 +263,33 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               written back by `filer.remote.sync -once`; no op past 12 s, md5_batch
               and crc32c_batch launched; the rates, the phase's launches, the kernels
               at its commonest chunk lengths, the wall (limit 150 s)
- 19. entry    entry() on the card equal to the CPU codec
+ 19. sync_mq  sync and messaging as upstream's compose deployments run them
+              (local-clusters and local-sync-mount: two clusters under
+              filer.sync; local-replicate: a notification queue and
+              filer.replicate): clusters A and B, each a port master, a volume
+              server and a FilerServer (4 MiB chunks) on the card, A's with a
+              FileQueue spool, one process. (a) a FilerSyncer each way on
+              threads (-interval 1); --sync-files (256) files a side
+              (log-uniform 1 KiB-8 MiB) from 4 keep-alive clients a side, each
+              file's first GET on the other side after its create event there
+              (its SHA-256 the body's); 32 renames and 32 deletes a side; both
+              trees converge and are equal by SHA-256, every chunk MD5 hashlib's,
+              each event log quiet within 5 s of the last write; sync GB/s a
+              direction, lag p50/p99, events applied and skipped by signature.
+              (b) filer.replicate -once -sink.local over the spool and
+              filer.backup -once of A, each equal to A's /sync by SHA-256.
+              (c) two BrokerServers over A's filer, topic of 4 partitions at
+              replication 1, 4 Publishers sending --mq-messages (8,192) keyed 1
+              KiB messages while a group of 2 Consumers polls and commits; the
+              second broker crashed halfway with no flush, the ring healed; no
+              acked message lost, every value its key's, offsets in order a
+              consumer and partition, committed offsets at the high-water marks,
+              every segment's MD5 hashlib's and the segments the committed
+              messages; mq.topic.list, mq.topic.describe and mq.balance; publish
+              msgs/s, MiB/s, ack and publish-to-consume p50/p99, consume msgs/s,
+              failover ms; md5_batch and crc32c_batch launched, no op past 12 s,
+              the wall (limit 150 s)
+ 20. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -272,6 +299,7 @@ Exits non-zero, printing no result, when CUDA is not available.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ftplib
 import hashlib
@@ -283,6 +311,7 @@ import logging
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -298,7 +327,11 @@ import torch
 
 from seaweedfs_tpu_torch import native
 from seaweedfs_tpu_torch.command import fix, volume_tools
-from seaweedfs_tpu_torch.command.filer_sync import run_filer_remote_sync
+from seaweedfs_tpu_torch.command.filer_sync import (
+    run_filer_backup,
+    run_filer_remote_sync,
+    run_filer_replicate,
+)
 from seaweedfs_tpu_torch.entry import dryrun_multichip, entry
 from seaweedfs_tpu_torch.filer import Filer
 from seaweedfs_tpu_torch.filer.filerstore import MemoryStore
@@ -306,6 +339,8 @@ from seaweedfs_tpu_torch.ftpd import FtpServer
 from seaweedfs_tpu_torch.maintenance import scrub
 from seaweedfs_tpu_torch.mount import WFS, VirtualFuseKernel, start_admin_service
 from seaweedfs_tpu_torch.mount import fuse_proto as fp
+from seaweedfs_tpu_torch.mq import BrokerServer, Consumer, MQError, Publisher
+from seaweedfs_tpu_torch.notification import FileQueue
 from seaweedfs_tpu_torch.ops import _build, cdc, gf256
 from seaweedfs_tpu_torch.ops.crc32c_kernel import crc32c_batch_kernel, crc32c_batch_torch
 from seaweedfs_tpu_torch.ops.hash_service import HashService
@@ -314,8 +349,9 @@ from seaweedfs_tpu_torch.ops.rs_cuda import gf256_matmul, gf_matmul_torch
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.parallel import make_mesh, sharded_crc32c, sharded_encode, sharded_md5
 from seaweedfs_tpu_torch.remote_storage import LocalRemoteStorage
+from seaweedfs_tpu_torch.replication import FilerSyncer
 from seaweedfs_tpu_torch.server.filer import FilerServer
-from seaweedfs_tpu_torch.server.httpd import get_json, http_request
+from seaweedfs_tpu_torch.server.httpd import get_json, http_request, post_json
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from seaweedfs_tpu_torch.server.webdav import WebDavServer
@@ -2281,9 +2317,10 @@ FILER_RANGED = 256
 FILER_SMALL_GETS = 1024
 FILER_WALL_LIMIT_S = 240
 OCTET = {"Content-Type": "application/octet-stream"}  # never compressed
-FILER_CUTS = ("8,192 of config 3's 1M blobs: five roles and the clients share one process"
+FILER_CUTS = ("4,096 of config 3's 1M blobs: five roles and the clients share one process"
               " and one GIL (65,536 took the phase past its 240 s limit; 32,768 was cut to"
-              " make room for the filer_dedup phase, 16,384 for the gateways phase)", "no manifest: 1,000 chunks of 4 MiB is 4 GiB (manifests are"
+              " make room for the filer_dedup phase, 16,384 for the gateways phase, 8,192"
+              " for the sync_mq phase)", "no manifest: 1,000 chunks of 4 MiB is 4 GiB (manifests are"
               " held on the CPU)", "no compression or cipher: seeded random bytes")
 
 
@@ -2568,7 +2605,8 @@ SCRUB_SAMPLE = 1024  # replicated files read back after the repairs
 SCRUB_VACUUM_SHARE = 0.3  # needles of one replicated volume deleted before the vacuum
 SCRUB_WALL_LIMIT_S = 150
 SCRUB_SHAPES = {"crc32c_batch": (1024, SCRUB_FILE), "gf256_matmul": ("scrub", (10, 4096))}
-SCRUB_CUTS = ("1 GiB of 4 KiB needles in one volume of the 30 GB volume limit",
+SCRUB_CUTS = ("512 MiB of 4 KiB needles in one volume of the 30 GB volume limit (1 GiB until"
+              " the sync_mq phase took room in the run)",
               "2,048 replicated 4 KiB files of config 3's 1M blobs: three servers, the master"
               " and 8 clients share one process and one GIL (32,768 took the phase 294-310 s"
               " and 8,192 165 s, past its 150 s limit; 4,096 until the gateways phase took"
@@ -3008,9 +3046,9 @@ MAINT_SCAN_S = 1.0  # the daemon's scan interval
 MAINT_DEADLINE_S = 90
 MAINT_WALL_LIMIT_S = 150
 MAINT_CUTS = ("256 MiB of log-uniform needles in one EC volume of the 30 GB volume limit",
-              "2,048 replicated 4 KiB files in 4 volumes: four servers, the master, the"
+              "1,024 replicated 4 KiB files in 4 volumes: four servers, the master, the"
               " daemon and 8 clients share one process and one GIL, inside the phase's"
-              " 150 s")
+              " 150 s (2,048 until the sync_mq phase took room in the run)")
 
 
 def maintenance_phase(dev: torch.device, ec_bytes: int, n_files: int, seed: int) -> dict:
@@ -3324,9 +3362,9 @@ FD_RECENT_S = 1.1  # past dedup_gc's 1 s recently-referenced window
 FD_WALL_LIMIT_S = 150
 FD_GC_LINE = re.compile(r"scanned (\d+) index entries, dropped (\d+) \((\d+) bytes freed,"
                         r" (\d+) errors\)")
-FD_CUTS = ("--filer-dedup-uploads (16) uploads of 64 MiB (1 GiB) of bench.py's 100 GB"
+FD_CUTS = ("--filer-dedup-uploads (8) uploads of 64 MiB (0.5 GiB) of bench.py's 100 GB"
            " shifted-repeat stream, to fit the phase's 150 s (32 until the gateways phase"
-           " took room in the run)",
+           " took room in the run, 16 until the sync_mq phase did)",
            "a master, two volume servers, the filer on one leveldb store and 4 clients in"
            " one process")
 
@@ -3603,7 +3641,7 @@ S3_CLIENT_TIMEOUT_S = 30  # the gateway's own filer hop's timeout
 S3_STALL_S = 12
 S3_CUTS = ("--s3-objects (256) prepopulated objects (2.5 GiB) of warp mixed's 10 MiB: the"
            " stored set two volume servers hold in one process",
-           "--s3-seconds (60) of mixed traffic in place of warp's 5 minutes",
+           "--s3-seconds (30) of mixed traffic in place of warp's 5 minutes",
            "object bodies drawn from 32 seeded 10 MiB bodies (the filer does not dedup, so"
            " every PUT writes and hashes all its bytes)",
            "the 20 clients, the gateway, IAM, filer, master and two volume servers share one"
@@ -4018,7 +4056,8 @@ VS_SHARD_FAULTS = 4  # shard-read errors at rate 0.25: one interval never loses 
 VS_OFFSET5_BYTES = 256 * MIB
 VS_WALL_LIMIT_S = 120
 VS_SHAPES = {"crc32c_batch": (1024, VS_SMALL), "gf256_matmul": ("online", (1, 10, MIB))}
-VS_CUTS = ("the tiered volume: --tier-mib (1024) MiB of the 30 GB volume limit, its last quarter"
+VS_CUTS = ("the tiered volume: --tier-mib (512) MiB (1024 until the sync_mq phase took room in"
+           " the run) of the 30 GB volume limit, its last quarter"
            " 4 KiB needles: log-uniform needles differ in length and verify on the host, so"
            " the 4 KiB quarter is what crc32c_batch checks",
            "2,048 replicated 4 KiB files (replication 010 over racks r1 and r2): servers, master"
@@ -4547,12 +4586,14 @@ DAV_NS = {"D": "DAV:"}
 LOCK_INFO = (b'<?xml version="1.0"?><D:lockinfo xmlns:D="DAV:"><D:lockscope><D:exclusive/>'
              b"</D:lockscope><D:locktype><D:write/></D:locktype></D:lockinfo>")
 GW_WALL_LIMIT_S = 150
-GW_CUTS = ("(a) --gw-dav-files (512) files, about 0.47 GB, and (d) --gw-remote-mib (512) MiB of"
-           " remote objects, half of 1,024 and 1 GiB, at which the phase took 117.5 s and the run"
+GW_CUTS = ("(a) --gw-dav-files (256) files, about 0.23 GB, and (d) --gw-remote-mib (256) MiB of"
+           " remote objects (512 each until the sync_mq phase took room), a quarter of 1,024"
+           " and of 1 GiB; at half of each the phase took 117.5 s and the run"
            " 922 s on an H100 80GB HBM3 at 700 W, past the run's 900 s (WebDAV PUTs and"
            " remote.cache wait on one serial md5_batch chain a chunk, each of its own length)",
            "(b) --gw-ftp-files (256) files of 1 MiB and one of --gw-ftp-large-mib (256) MiB",
-           "(c) one --gw-mount-mib (1024) MiB file and 256 files of 4 KiB through the mount",
+           "(c) one --gw-mount-mib (512) MiB file (1024 until the sync_mq phase) and 256 files"
+           " of 4 KiB through the mount",
            "every server, gateway and client shares one process and one GIL")
 
 
@@ -5079,6 +5120,630 @@ def gateways_phase(dev: torch.device, dav_files: int, ftp_files: int, ftp_large:
     return res
 
 
+SYNC_CLIENTS = 4  # keep-alive writers a side
+SYNC_DIRS = 8
+SYNC_SIZES = (1024, 8 * MIB)  # the gateways phase's log-uniform sizes
+SYNC_MOVES = 32  # files renamed, and files deleted, on each side
+SYNC_QUIET_S = 5.0  # each filer's event log stops growing this soon after the last write
+SYNC_QUIET_WINDOW_S = 2.0
+SYNC_INTERVAL_S = 1.0  # run_filer_sync's -interval default: each syncer's long poll
+SYNC_DEADLINE_S = 60.0  # to the last file visible, and to convergence after the moves
+MQ_TOPIC = "events"
+MQ_PARTITIONS = 4
+MQ_PUBLISHERS = 4
+MQ_CONSUMERS = 2
+MQ_VALUE = 1024  # bytes a value: 512 seeded bytes as hex
+MQ_RETRY_S = 10.0  # a publish retries through the failover for this long, then fails
+SYNC_MQ_WALL_LIMIT_S = 150
+SYNC_MQ_CUTS = ("(a) --sync-files (256) files a side, log-uniform 1 KiB-8 MiB (about 0.45 GiB in"
+                " all), of the compose deployments' unbounded trees",
+                "(c) --mq-messages (8,192) of 1 KiB over 4 partitions, 16 segments of 512:"
+                " half of 16,384, at which the phase took 165 s of its 150 on an H100 80GB"
+                " HBM3 at 700 W (178 msgs/s: every publish a few Python HTTP hops in one"
+                " process)",
+                "both clusters, the syncers, both brokers and every client share one process"
+                " and one GIL")
+
+
+class _Refused:
+    """A dead process's connection pool: every request is refused."""
+
+    def request(self, *args, **kwargs):
+        raise ConnectionRefusedError(111, "the broker crashed")
+
+    def close(self) -> None:
+        pass
+
+
+class Crashable:
+    """A broker that can crash as its process would. `HTTPService.stop()`
+    closes only the listener: handler threads go on serving kept-alive
+    connections, and in one process the broker's threads live on. So the
+    accepted connections are recorded and reset, the broker's filer client
+    and follower pool are cut, and its registration stops. The crash lands
+    between two segment writes (every partition's flush lock held across
+    it): a write already on the wire would land after it, which one process
+    cannot undo."""
+
+    def __init__(self, broker) -> None:
+        self.broker = broker
+        self.socks = []
+        self.crashed = False
+        srv = broker.service._httpd
+        accept = srv.process_request
+
+        def process_request(request, client_address):
+            self.socks.append(request)
+            return accept(request, client_address)
+
+        srv.process_request = process_request
+
+    def crash(self) -> None:
+        b = self.broker
+        with contextlib.ExitStack() as held:
+            for tp in list(b._partitions.values()):
+                held.enter_context(tp._flush_mu)
+            b.service.stop()
+            for s in self.socks:
+                try:
+                    s.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+            b._stop.set()
+            b._repl_pool.shutdown(wait=False, cancel_futures=True)
+            b.fc.close()
+            b._follow_http.close()
+            b.fc._pool = b._follow_http = _Refused()
+            self.crashed = True
+
+    def stop(self) -> None:
+        """Tear down: a crashed broker's memory is never flushed."""
+        if self.crashed:
+            self.broker._repl_pool.shutdown(wait=True, cancel_futures=True)
+        else:
+            self.broker.stop()
+            self.broker._repl_pool.shutdown(wait=True)
+
+
+def sockstat() -> str | None:
+    """The host's TCP socket counts (in use, orphaned, TIME_WAIT), or None."""
+    try:
+        with open("/proc/net/sockstat") as f:
+            return next((ln.strip() for ln in f if ln.startswith("TCP:")), None)
+    except OSError:
+        return None
+
+
+def walk_files(filer) -> dict:
+    """{path: Entry} of every file under /sync of an in-process filer."""
+    found = {}
+
+    def walk(d: str) -> None:
+        for e in filer.filer.list_entries(d, limit=1 << 31):
+            if e.is_directory:
+                walk(e.full_path)
+            else:
+                found[e.full_path] = e
+    walk("/sync")
+    return found
+
+
+def disk_sha256(root: str) -> dict:
+    out = {}
+    for d, _, names in os.walk(root):
+        for name in names:
+            p = os.path.join(d, name)
+            out["/" + os.path.relpath(p, root)] = sha256_file(p)
+    return out
+
+
+def events_since(url: str, since_ns: int) -> list:
+    out, cursor = [], since_ns
+    while True:
+        page = get_json(f"{url}/__meta__/events?since_ns={cursor}&limit=1024")
+        if not page["events"]:
+            return out
+        out += page["events"]
+        cursor = page["next_ts_ns"]
+
+
+def sync_mq_phase(dev: torch.device, sync_files: int, mq_messages: int, md5_ops_per_block: int,
+                  seed: int) -> dict:
+    """Sync and messaging as upstream's compose deployments run them
+    (`docker/compose/local-clusters-compose.yml`, `local-sync-mount-compose.yml`:
+    two clusters under `filer.sync`; `local-replicate-compose.yml`: a
+    notification queue and `filer.replicate`), in one process: clusters A and
+    B, each a port master (pulse 1 s), a volume server and a FilerServer (4
+    MiB chunks) on the card, A's with a FileQueue spool as its notification
+    queue. (a) one FilerSyncer each way on threads with a stop event, as
+    `run_filer_sync` builds them (-interval 1); `sync_files` files written to
+    A and as many to B (log-uniform 1 KiB-8 MiB from the seed) from 4
+    keep-alive clients a side, each waiting for its 201; a watcher a
+    direction long-polls the other filer's events and GETs each file as its
+    create lands there (the lag: the 201 on one side to that first GET, whose
+    SHA-256 must be the body's); then 32 files renamed and 32 deleted on each
+    side; both trees converge to the expected one and are equal by SHA-256,
+    every chunk's stored MD5 (and each file's) is hashlib's, and each filer's
+    event log stops growing within 5 s of the last write (no event loops);
+    events applied and skipped by signature a direction, from the source's
+    log. (b) `filer.replicate -once -sink.local` over A's spool and
+    `filer.backup -once` of A: both directories hold A's /sync tree by
+    SHA-256. (c) two BrokerServers over A's filer, registered with A's
+    master; topic `events`, 4 partitions, replication 1 (the first name of
+    events, events-1, ... whose partitions both brokers own some of); 4
+    Publishers (discovery through the master) send `mq_messages` keyed 1 KiB
+    messages from the seed while a group of 2 Consumers polls and commits;
+    halfway, the broker that registered second is crashed with no flush
+    (`service.stop()`, its kept-alive connections reset, its registration
+    stopped) and the survivor's ring heals, as the JAX test does; every
+    acked message is consumed by the group with its seeded value, in offset
+    order a consumer and partition, none lost; the group's committed offsets
+    equal the high-water marks; every segment file's chunk MD5 is hashlib's
+    and the segments hold exactly the committed messages; `mq.topic.list`,
+    `mq.topic.describe` and `mq.balance` through the port's shell. No op
+    stays in flight past 12 s; md5_batch and crc32c_batch launch."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-sync_mq-", dir=REPO / "build")
+    spool = os.path.join(root, "spool")
+    stops, batches, res = [], [], {}
+    svcs = []
+    # set on the way out, pass or fail: every loop of the phase's threads ends
+    done, stop_sync = threading.Event(), threading.Event()
+    try:
+        stops.append(done.set)
+        stops.append(stop_sync.set)
+        clusters = {}
+        for name in ("a", "b"):
+            master = MasterServer(port=0, pulse_seconds=1)
+            master.start()
+            stops.append(master.stop)
+            vs = VolumeServer([os.path.join(root, f"{name}-v")], master.url,
+                              pulse_seconds=PULSE_S, device=dev)
+            vs.start()
+            stops.append(vs.stop)
+            filer = FilerServer(master.url, port=0, device=dev,
+                                notification_queue=FileQueue(spool) if name == "a" else None)
+            filer.start()
+            stops.append(filer.stop)
+            check(filer.device.type == dev.type and filer.hash_service.device.type == dev.type
+                  and vs.device.type == dev.type, f"a role of cluster {name} is not on the card")
+            timed_batches(filer.hash_service, batches)
+            svcs.append(filer.hash_service)
+            clusters[name] = (master, vs, filer)
+        fa, fb = clusters["a"][2], clusters["b"][2]
+        zero_launches()
+        watch = Watch("sync_mq")
+        stops.append(watch.stop)
+        errors: list = []
+
+        # (a) active-active filer.sync
+        t0 = time.perf_counter()
+        files = {}
+        for name, stream in (("a", 41), ("b", 42)):
+            rng = np.random.default_rng([seed, stream])
+            for i, n in enumerate(log_uniform(rng, *SYNC_SIZES, sync_files)):
+                files[f"/sync/{name}/d{i % SYNC_DIRS}/f{i:04d}.bin"] = rng.bytes(n)
+        want_sha = {p: hashlib.sha256(b).hexdigest() for p, b in files.items()}
+        gen_s = time.perf_counter() - t0
+        ab, ba = FilerSyncer(fa.url, fb.url), FilerSyncer(fb.url, fa.url)
+        sync_threads = [threading.Thread(target=s.run_forever, args=(SYNC_INTERVAL_S, stop_sync),
+                                         daemon=True) for s in (ab, ba)]
+        for t in sync_threads:
+            t.start()
+
+        def stop_syncers() -> None:
+            stop_sync.set()
+            for t in sync_threads:
+                t.join(timeout=2 * SYNC_INTERVAL_S + 30)
+            ab.close()
+            ba.close()
+        stops.append(stop_syncers)
+        since_ns = min(ab.cursor_ns, ba.cursor_ns)
+        acked_ns, visible_ns = {}, {}
+        directions = {"a": (fa, fb), "b": (fb, fa)}
+
+        def watcher(src: str) -> None:
+            """Long-polls the target's events; GETs each of src's files as
+            its create lands there."""
+            _, target = directions[src]
+            pending = {p for p in files if p.startswith(f"/sync/{src}/")}
+            c = Client(target.url)
+            cursor = since_ns
+            deadline = time.time() + SYNC_DEADLINE_S + 60
+            try:
+                while pending and time.time() < deadline and not done.is_set():
+                    page = get_json(f"{target.url}/__meta__/events?since_ns={cursor}&wait=1")
+                    cursor = page["next_ts_ns"]
+                    for ev in page["events"]:
+                        path = (ev.get("new_entry") or {}).get("full_path")
+                        if path not in pending:
+                            continue
+                        (status, body), _ = watch(f"GET {path} at the target", c.request,
+                                                  "GET", path)
+                        visible_ns[path] = time.time_ns()
+                        pending.discard(path)
+                        if status != 200 or hashlib.sha256(body).hexdigest() != want_sha[path]:
+                            errors.append(f"first GET of {path} on the target -> {status},"
+                                          f" {len(body)} bytes")
+                if pending:
+                    errors.append(f"{len(pending)} of {src}'s files never reached the other side")
+            except BaseException as e:
+                errors.append(f"watcher {src}: {type(e).__name__}: {e}")
+            finally:
+                c.close()
+
+        watchers = [threading.Thread(target=watcher, args=(s,), daemon=True) for s in ("a", "b")]
+        for t in watchers:
+            t.start()
+        writers = {s: [Client(directions[s][0].url) for _ in range(SYNC_CLIENTS)] for s in "ab"}
+        put_lat = []
+
+        def put(t: int, item) -> None:
+            path, body = item
+            side = path.split("/")[2]
+            # items alternate a, b: client t writes side a when t is even
+            (status, out), dt = watch(f"PUT {path}", writers[side][t // 2].request,
+                                      "PUT", path, body, OCTET)
+            acked_ns[path] = time.time_ns()
+            put_lat.append(dt)
+            if status != 201:
+                errors.append(f"PUT {path} -> {status}: {out[:200]!r}")
+
+        # the two sides at once: client t writes side a if t < 4, else side b
+        order = ([p for p in files if p.startswith("/sync/a/")],
+                 [p for p in files if p.startswith("/sync/b/")])
+        items = [(p, files[p]) for pair in itertools.zip_longest(*order) for p in pair if p]
+        t_first_ns = time.time_ns()
+        write_s = fan_out(put, items, 2 * SYNC_CLIENTS, errors)
+        for t in watchers:
+            t.join()
+        check(not errors, f"sync writes: {errors[:3]}")
+        lag_ms = {s: [(visible_ns[p] - acked_ns[p]) / 1e6 for p in files
+                      if p.startswith(f"/sync/{s}/")] for s in "ab"}
+        sync_gbps = {}
+        for s in "ab":
+            mine = [p for p in files if p.startswith(f"/sync/{s}/")]
+            wall = (max(visible_ns[p] for p in mine) - t_first_ns) / 1e9
+            sync_gbps[f"{s}_to_{'ba'[s == 'b']}"] = dict(
+                files=len(mine), bytes=sum(len(files[p]) for p in mine), wall_s=wall,
+                gbps=sum(len(files[p]) for p in mine) / wall / 1e9,
+                lag=_pcts([x / 1e3 for x in lag_ms[s]]))
+        for c in itertools.chain(*writers.values()):
+            c.close()
+
+        # renames and deletes on each side, then convergence
+        expected = dict(files)
+        t0 = time.perf_counter()
+        for s, (src, _) in directions.items():
+            c = Client(src.url)
+            mine = sorted(p for p in files if p.startswith(f"/sync/{s}/"))
+            for p in mine[:SYNC_MOVES]:
+                new = p.replace(f"/sync/{s}/", f"/sync/{s}/moved/")
+                status, out = c.request("POST", f"{new}?mv.from={urllib.parse.quote(p)}", b"")
+                check(status < 300, f"rename {p} -> {status}: {out[:200]!r}")
+                expected[new] = expected.pop(p)
+            for p in mine[SYNC_MOVES:2 * SYNC_MOVES]:
+                status, _ = c.request("DELETE", p)
+                check(status == 204, f"DELETE {p} -> {status}")
+                expected.pop(p)
+            c.close()
+        t_last_ns = time.time_ns()
+        moves_s = time.perf_counter() - t0
+        want_md5 = {p: hashlib.md5(b).hexdigest() for p, b in expected.items()}
+        deadline = time.time() + SYNC_DEADLINE_S
+        while True:
+            trees = [walk_files(f) for f in (fa, fb)]
+            if all({p: e.attributes.md5 for p, e in t.items()} == want_md5 for t in trees):
+                break
+            check(time.time() < deadline,
+                  f"the trees did not converge in {SYNC_DEADLINE_S} s after the moves: "
+                  f"{[len(t) for t in trees]} files of {len(expected)}")
+            time.sleep(0.2)
+        converge_s = time.perf_counter() - t0
+        # every chunk's stored MD5 against hashlib, on both sides
+        chunks = inline = 0
+        for tree in trees:
+            for p, e in tree.items():
+                body = expected[p]
+                if e.content:
+                    inline += 1
+                for ch in e.chunks:
+                    chunks += 1
+                    check(ch.etag == hashlib.md5(body[ch.offset:ch.offset + ch.size]).hexdigest(),
+                          f"{p}: chunk {ch.file_id}'s stored MD5 is not hashlib's")
+        # both trees by SHA-256, over HTTP
+        t0 = time.perf_counter()
+        want_tree = {p: want_sha[p.replace("/moved/", "/")] for p in expected}
+        for name, f in (("a", fa), ("b", fb)):
+            readers = [Client(f.url) for _ in range(SYNC_CLIENTS)]
+
+            def verify(t: int, path: str) -> None:
+                (status, body), _ = watch(f"GET {path}", readers[t].request, "GET", path)
+                if status != 200 or hashlib.sha256(body).hexdigest() != want_tree[path]:
+                    errors.append(f"GET {path} from filer {name} -> {status}")
+
+            fan_out(verify, sorted(expected), SYNC_CLIENTS, errors)
+            for c in readers:
+                c.close()
+        verify_s = time.perf_counter() - t0
+        check(not errors, f"the trees differ by SHA-256: {errors[:3]}")
+        # no loop: each event log quiet within 5 s of the last write
+        time.sleep(max(0.0, t_last_ns / 1e9 + SYNC_QUIET_S - time.time()))
+        latest = [get_json(f"{f.url}/__meta__/info")["latest_ts_ns"] for f in (fa, fb)]
+        time.sleep(SYNC_QUIET_WINDOW_S)
+        later = [get_json(f"{f.url}/__meta__/info")["latest_ts_ns"] for f in (fa, fb)]
+        check(later == latest, f"an event log still grows {SYNC_QUIET_S} s after the last write:"
+                               f" {latest} -> {later}")
+        quiet_after_ms = [(ts - t_last_ns) / 1e6 for ts in latest]
+        check(max(quiet_after_ms) <= SYNC_QUIET_S * 1e3,
+              f"events up to {max(quiet_after_ms):.0f} ms after the last write")
+        stop_syncers()
+        counts = {}
+        for s, (src, dst) in directions.items():
+            evs = events_since(src.url, since_ns)
+            skipped = sum(1 for ev in evs if dst.filer.signature in ev.get("signatures", []))
+            counts[f"{s}_to_{'ba'[s == 'b']}"] = dict(applied=len(evs) - skipped,
+                                                      skipped_by_signature=skipped)
+        la = read_launches()
+        res["sync"] = dict(
+            files_a_side=sync_files, bytes=sum(len(b) for b in files.values()), generate_s=gen_s,
+            write_s=write_s, put=_pcts(put_lat), directions=sync_gbps,
+            lag=_pcts([x / 1e3 for s in "ab" for x in lag_ms[s]]),
+            renamed_a_side=SYNC_MOVES, deleted_a_side=SYNC_MOVES, moves_s=moves_s,
+            converge_s=converge_s, files_after=len(expected), chunks_checked=chunks,
+            inline_files_checked=inline, sha256_verify_s=verify_s,
+            quiet_after_last_write_ms=quiet_after_ms, events=counts,
+            launches={k: la[k] for k in ("crc32c_batch", "md5_batch")})
+
+        # (b) filer.replicate -once and filer.backup -once
+        tree_bytes = sum(len(b) for b in expected.values())
+        out = io.StringIO()
+        runs = {}
+        for name, fn, argv in (
+                ("replicate", run_filer_replicate,
+                 ["-notification.spool", spool, "-source", fa.url, "-sink.local",
+                  os.path.join(root, "replicate"), "-once"]),
+                ("backup", run_filer_backup,
+                 ["-filer", fa.url, "-output", os.path.join(root, "backup"), "-once"])):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = fn(argv)
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"filer.{name} -once -> {rc}")
+            got = {p: h for p, h in disk_sha256(os.path.join(root, name)).items()
+                   if p.startswith("/sync/")}
+            check(got == want_tree, f"filer.{name}'s tree differs from A's /sync by SHA-256:"
+                                    f" {len(got)} files of {len(want_tree)}")
+            runs[name] = dict(wall_s=wall, gbps=tree_bytes / wall / 1e9)
+        check("replicate error" not in out.getvalue(), f"filer.replicate: {out.getvalue()[:300]}")
+        runs["spool_messages"] = len(FileQueue(spool).read_all())
+        runs["bytes"] = tree_bytes
+        res["replicate_backup"] = runs
+
+        # (c) the mq broker
+        tcp = {"before": sockstat()}
+        ma = clusters["a"][0]
+        b1 = BrokerServer(fa.url, master_url=ma.url, port=0)
+        b1.start()
+        stops.append(lambda: (b1.stop(), b1._repl_pool.shutdown(wait=True)))
+        b2 = BrokerServer(fa.url, master_url=ma.url, port=0, peers=[b1.url])
+        b2.start()
+        crash = Crashable(b2)
+        stops.append(crash.stop)
+        b1.ring.set_servers([b1.url, b2.url])
+        check([b["address"] for b in get_json(f"{ma.url}/cluster/ps")["brokers"]]
+              == [b1.url, b2.url], "the brokers are not registered in order")
+        topic = next(t for t in [MQ_TOPIC] + [f"{MQ_TOPIC}-{i}" for i in range(1, 64)]
+                     if len({b1.ring.server_for(f"default/{t}/p{k}")
+                             for k in range(MQ_PARTITIONS)}) == 2)
+        env = CommandEnv(ma.url)
+        rng = np.random.default_rng([seed, 45])
+        keys = [f"k{i:05d}-{int(rng.integers(1 << 30)):09d}" for i in range(mq_messages)]
+        values = [rng.bytes(MQ_VALUE // 2).hex() for _ in range(mq_messages)]
+        by_key = dict(zip(keys, values))
+        pubs = [Publisher(master_url=ma.url) for _ in range(MQ_PUBLISHERS)]
+        check(pubs[0].create_topic(topic, partition_count=MQ_PARTITIONS, replication=1)["ok"],
+              "create_topic")
+        owners = {k: b1._owner_of("default", topic, k) for k in range(MQ_PARTITIONS)}
+        b2_parts = sorted(k for k, o in owners.items() if o == b2.url)
+        consumers = [Consumer(topic, "readers", master_url=ma.url, instance_id=f"c{i}")
+                     for i in range(MQ_CONSUMERS)]
+        consumers[0]._heartbeat()  # the rebalance after the second join, as the JAX test does
+        check(sorted(k for c in consumers for k in c.partitions) == list(range(MQ_PARTITIONS)),
+              f"the group's assignment: {[c.partitions for c in consumers]}")
+        mu = threading.Lock()
+        half = threading.Event()
+        acks, ack_lat, retried = {}, [], [0]
+        received, got_lat, order_breaks = [], [], []
+        def publish(t: int, i: int) -> None:
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    out, _ = watch(f"publish {i}", pubs[t].publish, topic, values[i], keys[i])
+                    break
+                except MQError as e:
+                    check(time.perf_counter() - t0 < MQ_RETRY_S and not done.is_set(),
+                          f"publish {i} failed past {MQ_RETRY_S} s: {e}; brokers"
+                          f" {pubs[t]._brokers()}, b1 {b1.url} ring {b1.ring.servers()},"
+                          f" crashed {crash.crashed}")
+                    with mu:
+                        retried[0] += 1
+                    time.sleep(0.02)
+            with mu:
+                acks[(out["partition"], out["offset"])] = (i, time.perf_counter())
+                ack_lat.append(time.perf_counter() - t0)
+                if len(acks) >= mq_messages // 2:
+                    half.set()
+
+        def consume(c: int) -> None:
+            con, last = consumers[c], {}
+            version = con.version
+            try:
+                while not done.is_set():
+                    try:
+                        msgs, _ = watch(f"poll {c}", con.poll, 512, 0.2)
+                    except MQError:
+                        time.sleep(0.02)
+                        continue
+                    now = time.time_ns()
+                    if con.version != version:
+                        version, last = con.version, {}  # a rebalance: offsets restart
+                    for m in msgs:
+                        k = m["partition"]
+                        if m["offset"] <= last.get(k, -1):
+                            order_breaks.append((c, k, last[k], m["offset"]))
+                        last[k] = m["offset"]
+                        got_lat.append((now - m["ts_ns"]) / 1e9)
+                    with mu:
+                        received.extend((m["partition"], m["offset"], m["key"], m["value"], c)
+                                        for m in msgs)
+                    if msgs:
+                        try:
+                            con.commit()
+                        except MQError:
+                            pass
+            except BaseException as e:
+                errors.append(f"consumer {c}: {type(e).__name__}: {e}")
+
+        cthreads = [threading.Thread(target=consume, args=(c,), daemon=True)
+                    for c in range(MQ_CONSUMERS)]
+        for th in cthreads:
+            th.start()
+        t_pub = time.perf_counter()
+        pub_errors: list = []
+        pub_wall = {}
+        pthread = threading.Thread(target=lambda: pub_wall.setdefault(
+            "s", fan_out(publish, list(range(mq_messages)), MQ_PUBLISHERS, pub_errors)),
+            daemon=True)
+        pthread.start()
+        check(half.wait(120), f"half of the messages were not acked within 120 s:"
+                              f" {len(acks)} acked; {pub_errors[:3]}")
+        t_kill = time.perf_counter()
+        tcp["at_crash"] = sockstat()
+        acked_at_crash = len(acks)
+        crash.crash()  # no flush
+        b1.ring.set_servers([b1.url])  # the ring heals around the survivor
+        pthread.join()
+        check(not pub_errors, f"publishers: {pub_errors[:3]}")
+        publish_wall = pub_wall["s"]
+        # every committed offset, acked or not, is consumed before the group stops
+        hwm = {p["partition"]: p["high_water_mark"] for p in get_json(
+            f"{b1.url}/topics/describe?topic={topic}")["partitions"]}
+        committed_msgs = {(k, o) for k, n in hwm.items() for o in range(n)}
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            with mu:
+                seen = {(p, o) for p, o, *_ in received}
+            if committed_msgs <= seen:
+                break
+            time.sleep(0.1)
+        t_consumed = time.perf_counter()
+        done.set()
+        for th in cthreads:
+            th.join(timeout=30)
+        check(not errors, f"consumers: {errors[:3]}")
+        for con in consumers:
+            con.commit()
+        first = {}
+        for (p, o), (i, t) in acks.items():
+            if p in b2_parts and t > t_kill:
+                first[p] = min(first.get(p, t), t)
+        check(len(first) == len(b2_parts), "no publish was acked to a failed-over partition")
+        consumed = {}
+        for p, o, k, v, _ in received:
+            consumed.setdefault((p, o), (k, v))
+        lost = set(acks) - set(consumed)
+        check(not lost, f"{len(lost)} acked messages were never consumed: {sorted(lost)[:5]};"
+                        f" high-water marks {hwm}, failed over {b2_parts}, consumed a partition"
+                        f" {collections.Counter(p for p, _ in consumed)}, assignments"
+                        f" {[(c.partitions, c.version) for c in consumers]}, segments of"
+                        f" p{sorted(lost)[0][0] if lost else 0}: "
+                        f"{[e.name for e in fa.filer.list_entries(f'/topics/default/{topic}/p{(sorted(lost)[0][0] if lost else 0):04d}', limit=1 << 31)]}")
+        check(set(consumed) == committed_msgs,
+              f"consumed {len(consumed)} offsets, the partitions hold {len(committed_msgs)}")
+        bad = [(p, o) for (p, o), (i, _) in acks.items() if consumed[(p, o)][0] != keys[i]]
+        bad += [(p, o, c) for p, o, k, v, c in received if by_key.get(k) != v]
+        check(not bad, f"consumed messages not as published: {bad[:5]}")
+        check(not order_breaks, f"offsets out of order within a partition: {order_breaks[:5]}")
+        dup = len(received) - len(consumed)
+        desc = json.loads(run_command(env, f"mq.topic.describe -topic {topic}"))
+        check(desc["partition_count"] == MQ_PARTITIONS and desc["replication"] == 1
+              and all(p["owner"] == b1.url for p in desc["partitions"])
+              and {p["partition"]: p["high_water_mark"] for p in desc["partitions"]} == hwm,
+              f"mq.topic.describe: {desc}")
+        offsets = get_json(f"{b1.url}/offsets?topic={topic}&group=readers")["offsets"]
+        check({int(k): v for k, v in offsets.items()} == hwm,
+              f"the group's committed offsets {offsets} != the high-water marks {hwm}")
+        listed = json.loads(run_command(env, "mq.topic.list"))
+        check({"namespace": "default", "topic": topic} in listed, f"mq.topic.list: {listed}")
+        balanced = run_command(env, "mq.balance")
+        check(balanced == "already balanced", f"mq.balance: {balanced}")
+        # the segments: every chunk MD5 hashlib's, the contents the committed messages
+        post_json(f"{b1.url}/flush", {})
+        segs, seg_bytes, in_segs = 0, 0, set()
+        seg_client = Client(fa.url)
+        for k in range(MQ_PARTITIONS):
+            d = f"/topics/default/{topic}/p{k:04d}"
+            for e in fa.filer.list_entries(d, limit=1 << 31):
+                if not e.name.endswith(".log"):
+                    continue
+                status, body = seg_client.request("GET", e.full_path)
+                check(status == 200, f"GET {e.full_path} -> {status}")
+                check(e.attributes.md5 == hashlib.md5(body).hexdigest()
+                      and all(ch.etag == hashlib.md5(body[ch.offset:ch.offset + ch.size])
+                              .hexdigest() for ch in e.chunks),
+                      f"{e.full_path}: a stored MD5 is not hashlib's")
+                for line in body.decode().splitlines():
+                    m = json.loads(line)
+                    check((k, m["offset"]) not in in_segs, f"offset {m['offset']} of p{k} twice")
+                    in_segs.add((k, m["offset"]))
+                segs += 1
+                seg_bytes += len(body)
+        seg_client.close()
+        check(in_segs == committed_msgs, f"the segments hold {len(in_segs)} messages, the group"
+                                         f" consumed {len(committed_msgs)}")
+        for con in consumers:
+            con.close()
+        for pub in pubs:
+            pub.close()
+        value_bytes = sum(len(v) for v in values)
+        res["mq"] = dict(
+            topic=topic, partitions=MQ_PARTITIONS, replication=1, publishers=MQ_PUBLISHERS,
+            consumers=MQ_CONSUMERS, messages=mq_messages, acked=len(acks),
+            committed_unacked=len(committed_msgs) - len(acks), redelivered=dup,
+            publish_retries=retried[0], publish_wall_s=publish_wall,
+            publish_msgs_per_s=len(acks) / publish_wall,
+            publish_mib_per_s=value_bytes / publish_wall / MIB, publish_ack=_pcts(ack_lat),
+            publish_to_consume=_pcts(got_lat),
+            consume_msgs_per_s=len(received) / (t_consumed - t_pub),
+            failover_ms=(min(first.values()) - t_kill) * 1e3, failed_over_partitions=b2_parts,
+            segments=segs, segment_bytes=seg_bytes, committed=hwm,
+            acked_at_crash=acked_at_crash, crash_after_s=t_kill - t_pub,
+            tcp_sockstat={**tcp, "after": sockstat()})
+        watch.close()
+        launches = read_launches()
+        for name in ("crc32c_batch", "md5_batch"):
+            check(launches[name] > 0, f"the sync_mq phase launched no {name} kernel")
+        check(all(s.failed_blobs == 0 for s in svcs), "a hash service failed a batch")
+        buckets = batch_buckets(batches)
+        top = sorted(buckets, key=lambda ln: -buckets[ln]["blobs"])[:8]
+        res.update(launches=launches, hash_lengths=len(buckets), hash_batches=len(batches),
+                   hash_buckets={ln: buckets[ln] for ln in top})
+    finally:
+        for svc in svcs:
+            svc.__dict__.pop("_batch_hash", None)
+        for stop in reversed(stops):
+            stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    res["hash_kernels"] = path_hash_times(dev, seed, md5_ops_per_block, batches, (FILER_CHUNK,),
+                                          "sync_mq")
+    res.update(wall_s=wall, wall_limit_s=SYNC_MQ_WALL_LIMIT_S,
+               over_wall_limit=wall > SYNC_MQ_WALL_LIMIT_S, cuts=SYNC_MQ_CUTS,
+               note="clients and servers share one process and one GIL")
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -5106,33 +5771,35 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--volume-mib", type=int, default=1024)
-    ap.add_argument("--upload-blobs", type=int, default=1 << 18)
+    ap.add_argument("--upload-blobs", type=int, default=1 << 17)
     ap.add_argument("--chunked-mib", type=int, default=1024)
     ap.add_argument("--cdc-uploads", type=int, default=64)
     ap.add_argument("--stream-mib", type=int, default=1024)
-    ap.add_argument("--dedup-gib", type=int, default=8)
+    ap.add_argument("--dedup-gib", type=int, default=4)
     ap.add_argument("--online-mib", type=int, default=1024)
     ap.add_argument("--cluster-mib", type=int, default=1024)
     ap.add_argument("--mesh-volumes", type=int, default=32)
     ap.add_argument("--mesh-mib", type=int, default=4)
-    ap.add_argument("--filer-files", type=int, default=8192)
+    ap.add_argument("--filer-files", type=int, default=4096)
     ap.add_argument("--filer-large-mib", type=int, default=256)
     ap.add_argument("--scrub-files", type=int, default=2048)
-    ap.add_argument("--scrub-mib", type=int, default=1024)
+    ap.add_argument("--scrub-mib", type=int, default=512)
     ap.add_argument("--maint-mib", type=int, default=256)
-    ap.add_argument("--maint-files", type=int, default=2048)
-    ap.add_argument("--filer-dedup-uploads", type=int, default=16)
+    ap.add_argument("--maint-files", type=int, default=1024)
+    ap.add_argument("--filer-dedup-uploads", type=int, default=8)
     ap.add_argument("--s3-objects", type=int, default=256)
-    ap.add_argument("--s3-seconds", type=float, default=60.0)
+    ap.add_argument("--s3-seconds", type=float, default=30.0)
     ap.add_argument("--s3-clients", type=int, default=20)
     ap.add_argument("--s3-multipart-mib", type=int, default=64)
-    ap.add_argument("--tier-mib", type=int, default=1024)
-    ap.add_argument("--gw-dav-files", type=int, default=512)
+    ap.add_argument("--tier-mib", type=int, default=512)
+    ap.add_argument("--gw-dav-files", type=int, default=256)
     ap.add_argument("--gw-ftp-files", type=int, default=256)
     ap.add_argument("--gw-ftp-large-mib", type=int, default=256)
-    ap.add_argument("--gw-mount-mib", type=int, default=1024)
+    ap.add_argument("--gw-mount-mib", type=int, default=512)
     ap.add_argument("--gw-small-files", type=int, default=256)
-    ap.add_argument("--gw-remote-mib", type=int, default=512)
+    ap.add_argument("--gw-remote-mib", type=int, default=256)
+    ap.add_argument("--sync-files", type=int, default=256)
+    ap.add_argument("--mq-messages", type=int, default=8192)
     ap.add_argument("--offset5-child", metavar="DIR",
                     help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
@@ -5305,6 +5972,13 @@ def main() -> int:
     for name in ("crc32c_batch", "md5_batch"):
         launches[name] += gw["launches"][name]
         timed[name]["shapes"].extend(gw["hash_kernels"][name])
+
+    # filer.sync both ways, filer.replicate and filer.backup, the mq broker; its own count
+    sm = sync_mq_phase(dev, args.sync_files, args.mq_messages, md5_block["ops"], args.seed)
+    emit("sync_mq", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **sm)
+    for name in ("crc32c_batch", "md5_batch"):
+        launches[name] += sm["launches"][name]
+        timed[name]["shapes"].extend(sm["hash_kernels"][name])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

@@ -550,20 +550,18 @@ class VolumeServer:
                 timeout=READ_POLICY.deadline,
             )
 
+        t0 = time.perf_counter()
         try:
             status, _, out = READ_POLICY.call(fwd)
-        except (IOError, OSError) as e:
+        except Exception as e:
+            # never die with chunks enqueued; the detail keeps the whole
+            # cause (timeout, refusal or reset) and how long the forward ran
             state["error"] = {
-                "error": "hop_unreachable",
+                "error": "hop_unreachable" if isinstance(e, OSError) else "hop_failed",
                 "failed_hop_server": nxt.get("server", ""),
-                "chunk": seq, "detail": str(e)[:200],
-            }
-            return
-        except Exception as e:  # never die with chunks enqueued
-            state["error"] = {
-                "error": "hop_failed",
-                "failed_hop_server": nxt.get("server", ""),
-                "chunk": seq, "detail": str(e)[:200],
+                "chunk": seq,
+                "detail": f"{type(e).__name__}: {e} after"
+                          f" {(time.perf_counter() - t0) * 1e3:.1f} ms",
             }
             return
         if status != 200:

@@ -4,7 +4,7 @@ driven over master/volume RPC; here over their HTTP admin APIs).
 The port's copy of `seaweedfs_tpu/shell/` with the commands of
 `commands_cluster` (`lock`, `unlock`, `cluster.ps`, `collection.list`,
 `collection.delete`, `volume.list`, `volume.status`, `cluster.scrub`,
-`cluster.faults`, `mount.configure`), `commands_ec` (`ec.encode`,
+`cluster.faults`, `mount.configure`, and the `mq.*` verbs), `commands_ec` (`ec.encode`,
 `ec.decode`, `ec.rebuild`, `ec.balance`), `commands_fs` (every `fs.*` verb,
 over a filer), `commands_maintenance` (`cluster.maintenance`),
 `commands_remote` (every `remote.*` verb, over a filer), `commands_s3`

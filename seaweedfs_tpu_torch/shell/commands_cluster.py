@@ -15,7 +15,9 @@ Not ported: the file's other commands (`cluster.check`, `cluster.top`,
 `cluster.trace`, `cluster.profile`, `cluster.why`, `cluster.heat`,
 `cluster.qos` and the rest), which read routes the port does not serve.
 `mount.configure` reads and sets a running mount's quota over its admin
-socket (`mount.start_admin_service`).
+socket (`mount.start_admin_service`). `mq.topic.list`, `mq.topic.create`,
+`mq.topic.describe`, `mq.topic.configure` and `mq.balance` speak to the
+first mq broker registered with the master (`mq/broker.py`).
 """
 
 from __future__ import annotations
@@ -311,3 +313,73 @@ def cmd_mount_configure(env: CommandEnv, args: list[str]) -> str:
     return (f"mount {out['mountpoint']}: used {out['used_bytes']} /"
             f" quota {out['quota_bytes'] or 'unlimited'}"
             f"{' [read-only]' if out['read_only'] else ''}")
+
+
+# --- mq.* (`weed/shell/command_mq_topic_list.go` etc.) -----------------------
+def _broker_url(env) -> str:
+    ps = env.get(f"{env.master_url}/cluster/ps")
+    brokers = ps.get("brokers") or []
+    if not brokers:
+        raise ShellError("no live mq brokers registered")
+    return brokers[0]["address"]
+
+
+@command("mq.topic.list", "list message-queue topics")
+def cmd_mq_topic_list(env: CommandEnv, args: list[str]) -> str:
+    out = env.get(f"{_broker_url(env)}/topics/list")
+    return json.dumps(out["topics"], indent=2)
+
+
+@command("mq.topic.create",
+         "-topic <name> [-namespace default] [-partitionCount 4]")
+def cmd_mq_topic_create(env: CommandEnv, args: list[str]) -> str:
+    flags = parse_flags(args)
+    out = env.post(f"{_broker_url(env)}/topics/create", {
+        "namespace": flags.get("namespace", "default"),
+        "topic": flags["topic"],
+        "partition_count": int(flags.get("partitionCount", 4)),
+    })
+    return f"created topic {flags['topic']} ({out['partition_count']} partitions)"
+
+
+@command("mq.topic.describe", "-topic <name> [-namespace default]")
+def cmd_mq_topic_describe(env: CommandEnv, args: list[str]) -> str:
+    flags = parse_flags(args)
+    ns = flags.get("namespace", "default")
+    out = env.get(
+        f"{_broker_url(env)}/topics/describe?namespace={ns}"
+        f"&topic={flags['topic']}"
+    )
+    return json.dumps(out, indent=2)
+
+
+@command("mq.balance", "rebalance topic partitions across live brokers")
+def cmd_mq_balance(env: CommandEnv, args: list[str]) -> str:
+    out = env.post(f"{_broker_url(env)}/balance", {})
+    acts = out.get("actions", [])
+    if not acts:
+        return "already balanced"
+    return "\n".join(
+        f"moved {a['namespace']}/{a['topic']} p{a['partition']} "
+        f"{a['from']} -> {a['to']}" for a in acts
+    )
+
+
+@command("mq.topic.configure",
+         "-topic <name> -partitionCount <n> [-namespace default] — grow a"
+         " live topic's partition count")
+def cmd_mq_topic_configure(env: CommandEnv, args: list[str]) -> str:
+    flags = parse_flags(args)
+    ns = flags.get("namespace", "default")
+    try:
+        out = env.post(f"{_broker_url(env)}/topics/configure", {
+            "namespace": ns, "topic": flags["topic"],
+            "partition_count": int(flags["partitionCount"]),
+        })
+    except KeyError:
+        raise ShellError("usage: mq.topic.configure -topic <name>"
+                         " -partitionCount <n>")
+    except IOError as e:
+        raise ShellError(str(e))
+    return (f"topic {ns}/{flags['topic']} now has"
+            f" {out['partition_count']} partitions")

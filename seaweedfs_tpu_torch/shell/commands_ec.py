@@ -448,7 +448,7 @@ def apply_rebuild_pipelined(
                 ec_decoder.REPAIR.inc("restarts", reason)
                 log.warning("ec.rebuild volume %s: chain restart (%s) at node %r,"
                             " chunk %s: %s", plan["volume"], reason, e.server,
-                            e.chunk, e.detail[:200])
+                            e.chunk, e.detail)
                 restarts += 1
                 if reason in strikes:
                     strikes[reason] += 1
@@ -525,7 +525,10 @@ def _hop_failed(resp: dict, server: str, chunk: int | None = None) -> Exception:
         return ShellError(
             f"pipelined rebuild: codec_failed on hop {server}:"
             f" {resp.get('detail', '')}")
-    return _HopFailed(server, _reason_of(resp), str(resp)[:300],
+    # the detail first and whole: it names the cause (a timeout, a refusal
+    # or a reset) and the forward's elapsed ms; the rest of the answer after
+    rest = {k: v for k, v in resp.items() if k != "detail"}
+    return _HopFailed(server, _reason_of(resp), f"{resp.get('detail', '')} {rest}",
                       chunk=resp.get("chunk", chunk))
 
 

@@ -268,3 +268,47 @@ def test_library_names_follow_sources():
         assert (_build.CSRC_DIR / src.file).is_file()
         assert "-gencode" in src.flags
         assert "arch=compute_90a,code=sm_90a" in src.flags
+
+
+NEW_IN_SYNC_SLICE = [
+    "seaweedfs_tpu_torch/notification/__init__.py",
+    "seaweedfs_tpu_torch/notification/cloud.py",
+    "seaweedfs_tpu_torch/replication/__init__.py",
+    "seaweedfs_tpu_torch/replication/cloud_sinks.py",
+    "seaweedfs_tpu_torch/mq/__init__.py",
+    "seaweedfs_tpu_torch/mq/schema.py",
+    "seaweedfs_tpu_torch/mq/broker.py",
+    "seaweedfs_tpu_torch/mq/client.py",
+    "seaweedfs_tpu_torch/command/filer_sync.py",
+    "seaweedfs_tpu_torch/shell/commands_cluster.py",
+]
+
+
+@pytest.mark.parametrize("rel", NEW_IN_SYNC_SLICE)
+def test_sync_slice_modules_are_scanned(rel):
+    """Each module of the sync and messaging slice is in the import scan
+    above and imports here."""
+    import importlib
+
+    assert REPO / rel in PORT_FILES
+    assert not [n for n in _imports(REPO / rel)
+                if n.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu")]
+    importlib.import_module(rel[:-3].replace("/", ".").removesuffix(".__init__"))
+
+
+def test_sync_slice_modules_import_alone():
+    """The sync and messaging slice's modules together import with neither
+    `jax` nor `seaweedfs_tpu` loaded by them, nor `cryptography`, which
+    only a GCS token provider loads."""
+    import subprocess
+    import sys
+
+    mods = [rel[:-3].replace("/", ".").removesuffix(".__init__")
+            for rel in NEW_IN_SYNC_SLICE]
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'seaweedfs_tpu', 'cryptography')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

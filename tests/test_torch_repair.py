@@ -591,3 +591,59 @@ def test_holder_codec_failure_fails_degraded_get(clusters, tmp_path, monkeypatch
     assert status == 500 and b"codec failed" in body
     assert not calls
     assert not reader.store.get_ec_volume(vid).partial_fallbacks
+
+
+def test_hop_failure_detail_reaches_the_warning_whole(monkeypatch, caplog):
+    """A hop's answer puts its detail first and whole into the restart
+    warning, however long: the cause of a stalled forward (a timeout, a
+    refusal or a reset, and its elapsed ms) must not be cut away."""
+    detail = ("ConnectionResetError: [Errno 104] Connection reset by peer after 30012.5 ms; "
+              + "x" * 400)
+    resp = {"received": 7, "read": 7, "committed": 6, "error": "hop_unreachable",
+            "failed_hop_server": "127.0.0.1:1", "chunk": 6, "detail": detail}
+    err = commands_ec._hop_failed(resp, "127.0.0.1:1")
+    assert err.detail.startswith(detail) and len(detail) > 300
+    calls = []
+
+    def chain(env, plan, chunk, restarts, **kw):
+        calls.append(restarts)
+        if restarts == 0:
+            raise err
+        return [3], {"restarts": restarts}
+
+    monkeypatch.setattr(commands_ec, "_run_chain", chain)
+    monkeypatch.setattr(commands_ec, "plan_rebuild_pipelined",
+                        lambda env, vid, coll, **kw: {**plan, "chain": []})
+    monkeypatch.setattr(commands_ec, "_abort", lambda *a: None)
+    plan = {"volume": 5, "collection": "", "rebuilder_url": "http://127.0.0.1:2",
+            "rebuilder": "127.0.0.1:2", "chain": [], "missing": [3]}
+    with caplog.at_level("WARNING", logger=commands_ec.log.name):
+        assert commands_ec.apply_rebuild_pipelined(None, plan) == ([3], {"restarts": 1})
+    assert calls == [0, 1]
+    warned = [r.getMessage() for r in caplog.records if "chain restart" in r.getMessage()]
+    assert len(warned) == 1 and detail in warned[0]
+
+
+def test_forward_failure_detail_names_the_cause_and_its_ms(monkeypatch):
+    """The volume server's forward records the exception's type, its whole
+    text and the forward's elapsed ms in the session's error detail."""
+    from seaweedfs_tpu_torch.server import volume as volume_mod
+
+    text = "timed out " + "y" * 300
+
+    class Policy:
+        deadline = 1.0
+
+        @staticmethod
+        def call(fn):
+            raise TimeoutError(text)
+
+    monkeypatch.setattr(volume_mod, "READ_POLICY", Policy)
+    state = {"error": None}
+    volume_mod.VolumeServer._forward_one(None, state, {"server": "127.0.0.1:3"},
+                                         "http://127.0.0.1:3/x?a=1", (4, 0, 3, b"abc"))
+    err = state["error"]
+    assert err["error"] == "hop_unreachable" and err["chunk"] == 4
+    assert err["failed_hop_server"] == "127.0.0.1:3"
+    assert err["detail"].startswith(f"TimeoutError: {text} after ")
+    assert err["detail"].endswith(" ms")

@@ -181,8 +181,9 @@ def test_run_command_help_unknown_and_lock():
         "volume.vacuum", "volume.vacuum.disable", "volume.vacuum.enable"]
     cluster_verbs = [
         "cluster.faults", "cluster.maintenance", "cluster.ps", "cluster.scrub",
-        "collection.delete", "collection.list", "mount.configure", "volume.list",
-        "volume.status"]
+        "collection.delete", "collection.list", "mount.configure", "mq.balance",
+        "mq.topic.configure", "mq.topic.create", "mq.topic.describe", "mq.topic.list",
+        "volume.list", "volume.status"]
     fs_verbs = [
         "fs.cat", "fs.cd", "fs.configure", "fs.dedup.gc", "fs.du", "fs.log.purge",
         "fs.ls", "fs.merge.volumes", "fs.meta.cat", "fs.meta.changeVolumeId",
