@@ -11,7 +11,8 @@
                           [--s3-multipart-mib MIB] [--tier-mib MIB]
                           [--gw-dav-files N] [--gw-ftp-files N] [--gw-ftp-large-mib MIB]
                           [--gw-mount-mib MIB] [--gw-small-files N] [--gw-remote-mib MIB]
-                          [--sync-files N] [--mq-messages N]
+                          [--sync-files N] [--mq-messages N] [--ha-files N]
+                          [--ha-large-mib MIB] [--ha-ec-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -47,7 +48,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               device time of kernel and copies, the device's idle share
   5. cols     a small volume at 1 MiB / 64 KiB blocks through the schedule's
               column-split jobs, byte-identical to a CPU plain encode
-  6. upload   --upload-blobs (131,072) seeded 4096-byte blobs submitted to
+  6. upload   --upload-blobs (65,536) seeded 4096-byte blobs submitted to
               HashService(device=cuda) from 16 threads, each waiting for its
               blob's result before the next, as the filer does (BASELINE.md
               config 3); every MD5 and CRC equal to hashlib and the host CRC
@@ -123,7 +124,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               launches, and each device's launch timed beside its byte bound
  12. filer    BASELINE config 3 as the filer takes it: a port master (pulse
               1 s), two volume servers and a FilerServer on the card, one
-              process; --filer-files (4,096) seeded 4 KiB files PUT from 16
+              process; --filer-files (2,048) seeded 4 KiB files PUT from 16
               threads, each waiting for its response (one chunk, one assign,
               one needle POST, one ETag through the filer's hash service);
               4 uploads of --filer-large-mib (256) MiB from 4 threads (64
@@ -140,7 +141,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               (2,048) seeded 4 KiB files through /dir/assign?replication=001
               and POSTs from 8 waiting threads (each write fans out to the other
               r1 server before it is acked), both replicas holding the same
-              needles; in process on the r2 server: --scrub-mib (512) MiB of
+              needles; in process on the r2 server: --scrub-mib (256) MiB of
               4 KiB needles in one volume, 256 MiB of log-uniform needles
               encoded in place (all 14 shards local), a 64 MiB ecOnline volume;
               a clean `volume.scrub -dryRun` checking every live needle, with
@@ -200,7 +201,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               servers and a FilerServer (4 MiB chunks) on the card, the admin
               identity written by the shell's `s3.configure`, an S3Server and an
               IamServer, one process; --s3-objects (256) seeded 10 MiB objects
-              PUT from --s3-clients (20) signed clients, then --s3-seconds (30)
+              PUT from --s3-clients (20) signed clients, then --s3-seconds (15)
               of GET 45 % / STAT 30 % / PUT 15 % / DELETE 10 % drawn from the
               seed (a DELETE takes its key out of the live set first, a PUT adds
               a fresh key) under torch.profiler's CUDA activity for the device's
@@ -215,7 +216,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
  17. volume_side  the volume side: a port master and two volume servers (racks r1,
               r2; runtime fault arming on) on the card, one process, and a child
               process at 5-byte offsets (SEAWEEDFS_TPU_OFFSET_BYTES=5, fixed at its
-              import). (a) --tier-mib (512) MiB of seeded needles in one volume
+              import). (a) --tier-mib (256) MiB of seeded needles in one volume
               (log-uniform 1 KiB-4 MiB, then a quarter of 4 KiB needles, which the
               scrubber checks through crc32c_batch), `volume.tier.configure -kind
               local` and `volume.tier.upload` (the .dat gone), 256 GETs equal, a
@@ -269,7 +270,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               filer.replicate): clusters A and B, each a port master, a volume
               server and a FilerServer (4 MiB chunks) on the card, A's with a
               FileQueue spool, one process. (a) a FilerSyncer each way on
-              threads (-interval 1); --sync-files (256) files a side
+              threads (-interval 1); --sync-files (128) files a side
               (log-uniform 1 KiB-8 MiB) from 4 keep-alive clients a side, each
               file's first GET on the other side after its create event there
               (its SHA-256 the body's); 32 renames and 32 deletes a side; both
@@ -279,7 +280,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               (b) filer.replicate -once -sink.local over the spool and
               filer.backup -once of A, each equal to A's /sync by SHA-256.
               (c) two BrokerServers over A's filer, topic of 4 partitions at
-              replication 1, 4 Publishers sending --mq-messages (8,192) keyed 1
+              replication 1, 4 Publishers sending --mq-messages (4,096) keyed 1
               KiB messages while a group of 2 Consumers polls and commits; the
               second broker crashed halfway with no flush, the ring healed; no
               acked message lost, every value its key's, offsets in order a
@@ -289,7 +290,35 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               msgs/s, MiB/s, ack and publish-to-consume p50/p99, consume msgs/s,
               failover ms; md5_batch and crc32c_batch launched, no op past 12 s,
               the wall (limit 150 s)
- 20. entry    entry() on the card equal to the CPU codec
+ 20. secure_ha  security and raft HA as upstream lays them out (compose's
+              three masters under raft with -peers; `weed scaffold
+              -config=security`'s jwt.signing, jwt.signing.read, guard and
+              tls): three port masters with their own raft directories, three
+              volume servers (racks r1, r1, r2) given all three and a
+              FilerServer (4 MiB chunks), on the card, one process, on one
+              SecurityConfig (a write key, a read key, white list 127.0.0.1)
+              with mTLS process-wide from a PKI made on the host
+              (cryptography, else openssl: a CA, an allowed node and an
+              intruder). (a) --ha-files (2,048) 4 KiB files and 8 of
+              --ha-large-mib (64) MiB PUT through the filer over https from 8
+              waiting threads and read back, md5 equal to hashlib; (b)
+              --ha-ec-mib (256) MiB of log-uniform needles in one volume with
+              signed POSTs, ec.encode through the leader, a data shard deleted
+              and needles on it read degraded with read tokens; (c) the leader
+              crashed (its raft cut, its connections reset) while 8 threads
+              call /dir/assign: ms to a new leader and to its first assign,
+              assign p50/p99 before and after, no fid handed out twice, every
+              server's heartbeat on the new leader; (d) a second data shard
+              deleted, ec.rebuild through the new leader, both shards equal
+              to the lost ones, every needle read back; (e) cluster.raft.ps,
+              .remove of the dead master, .add of a fresh fourth that catches
+              up by InstallSnapshot (the logs compact past 8 entries); (f)
+              unsigned POST and DELETE, a wrong-key read and a token-less
+              /query 401, the intruder's certificate 403 at the CN gate, no
+              client certificate a failed handshake, plain http no answer,
+              every url https; TLS reset on the way out; md5_batch,
+              crc32c_batch and gf256_matmul launched, the wall (limit 90 s)
+ 21. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -312,13 +341,16 @@ import os
 import re
 import shutil
 import socket
+import ssl
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.parse
+import urllib.request
 from pathlib import Path
 from xml.etree import ElementTree as ET
 
@@ -335,6 +367,7 @@ from seaweedfs_tpu_torch.command.filer_sync import (
 from seaweedfs_tpu_torch.entry import dryrun_multichip, entry
 from seaweedfs_tpu_torch.filer import Filer
 from seaweedfs_tpu_torch.filer.filerstore import MemoryStore
+from seaweedfs_tpu_torch.filer.wdclient import WeedClient
 from seaweedfs_tpu_torch.ftpd import FtpServer
 from seaweedfs_tpu_torch.maintenance import scrub
 from seaweedfs_tpu_torch.mount import WFS, VirtualFuseKernel, start_admin_service
@@ -350,8 +383,11 @@ from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.parallel import make_mesh, sharded_crc32c, sharded_encode, sharded_md5
 from seaweedfs_tpu_torch.remote_storage import LocalRemoteStorage
 from seaweedfs_tpu_torch.replication import FilerSyncer
+from seaweedfs_tpu_torch.security import SecurityConfig, tls
+from seaweedfs_tpu_torch.security.jwt import gen_read_jwt, gen_write_jwt
+from seaweedfs_tpu_torch.security.tls import TLSConfig
 from seaweedfs_tpu_torch.server.filer import FilerServer
-from seaweedfs_tpu_torch.server.httpd import get_json, http_request, post_json
+from seaweedfs_tpu_torch.server.httpd import get_json, http_request, peer_url, post_json
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from seaweedfs_tpu_torch.server.webdav import WebDavServer
@@ -388,8 +424,13 @@ GF_SHAPES = (
 )
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for a phase; `at_s` is the seconds since the script
+    started, so each phase's share of the run reads off the log."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _T0, **fields}), flush=True)
 
 
 class RecordLog(logging.Handler):
@@ -1593,11 +1634,17 @@ PULSE_S = 1.0  # the server's pulse: pumps age the tail row out (flush_age 2 s)
 
 
 class Client:
-    """One keep-alive HTTP connection to the volume server."""
+    """One keep-alive HTTP connection to a server; an `https` url presents
+    the process's mTLS client certificate."""
 
     def __init__(self, url: str) -> None:
-        host, port = url.split("//", 1)[1].split(":")
-        self.conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        scheme, rest = url.split("//", 1)
+        host, port = rest.split(":")
+        if scheme == "https:":
+            self.conn = http.client.HTTPSConnection(host, int(port), timeout=120,
+                                                    context=tls.client_context())
+        else:
+            self.conn = http.client.HTTPConnection(host, int(port), timeout=120)
 
     def request(self, method: str, path: str, body=None, headers=None) -> tuple[int, bytes]:
         self.conn.request(method, path, body=body, headers=headers or {})
@@ -1614,10 +1661,10 @@ class Client:
         self.conn.close()
 
 
-def online_plan(nbytes: int, seed: int) -> tuple[list, memoryview]:
+def online_plan(nbytes: int, seed: int, vid: int = ONLINE_VID) -> tuple[list, memoryview]:
     """Needles of log-uniform sizes in [1 KiB, 4 MiB] (write_volume's rule)
-    whose payloads add up to `nbytes`: [(fid, needle_id, offset, size)]
-    into one seeded pool."""
+    whose payloads add up to `nbytes`: [(fid, needle_id, offset, size)] in
+    volume `vid`, into one seeded pool."""
     rng = np.random.default_rng([seed, 9])
     pool = memoryview(rng.bytes(nbytes))
     plan = []
@@ -1627,7 +1674,7 @@ def online_plan(nbytes: int, seed: int) -> tuple[list, memoryview]:
         size = min(int(np.exp(rng.uniform(np.log(1024), np.log(4 * MIB)))), nbytes - used)
         nid += int(rng.integers(1, 1 << 20))
         cookie = int(rng.integers(0, 1 << 32))
-        plan.append((f"{ONLINE_VID},{file_id.format_needle_id_cookie(nid, cookie)}",
+        plan.append((f"{vid},{file_id.format_needle_id_cookie(nid, cookie)}",
                      nid, used, size))
         used += size
     return plan, pool
@@ -2317,10 +2364,10 @@ FILER_RANGED = 256
 FILER_SMALL_GETS = 1024
 FILER_WALL_LIMIT_S = 240
 OCTET = {"Content-Type": "application/octet-stream"}  # never compressed
-FILER_CUTS = ("4,096 of config 3's 1M blobs: five roles and the clients share one process"
+FILER_CUTS = ("2,048 of config 3's 1M blobs: five roles and the clients share one process"
               " and one GIL (65,536 took the phase past its 240 s limit; 32,768 was cut to"
               " make room for the filer_dedup phase, 16,384 for the gateways phase, 8,192"
-              " for the sync_mq phase)", "no manifest: 1,000 chunks of 4 MiB is 4 GiB (manifests are"
+              " for the sync_mq phase, 4,096 for the secure_ha phase)", "no manifest: 1,000 chunks of 4 MiB is 4 GiB (manifests are"
               " held on the CPU)", "no compression or cipher: seeded random bytes")
 
 
@@ -2605,8 +2652,8 @@ SCRUB_SAMPLE = 1024  # replicated files read back after the repairs
 SCRUB_VACUUM_SHARE = 0.3  # needles of one replicated volume deleted before the vacuum
 SCRUB_WALL_LIMIT_S = 150
 SCRUB_SHAPES = {"crc32c_batch": (1024, SCRUB_FILE), "gf256_matmul": ("scrub", (10, 4096))}
-SCRUB_CUTS = ("512 MiB of 4 KiB needles in one volume of the 30 GB volume limit (1 GiB until"
-              " the sync_mq phase took room in the run)",
+SCRUB_CUTS = ("256 MiB of 4 KiB needles in one volume of the 30 GB volume limit (1 GiB until"
+              " the sync_mq phase took room in the run, 512 MiB until the secure_ha phase did)",
               "2,048 replicated 4 KiB files of config 3's 1M blobs: three servers, the master"
               " and 8 clients share one process and one GIL (32,768 took the phase 294-310 s"
               " and 8,192 165 s, past its 150 s limit; 4,096 until the gateways phase took"
@@ -3641,7 +3688,8 @@ S3_CLIENT_TIMEOUT_S = 30  # the gateway's own filer hop's timeout
 S3_STALL_S = 12
 S3_CUTS = ("--s3-objects (256) prepopulated objects (2.5 GiB) of warp mixed's 10 MiB: the"
            " stored set two volume servers hold in one process",
-           "--s3-seconds (30) of mixed traffic in place of warp's 5 minutes",
+           "--s3-seconds (15) of mixed traffic in place of warp's 5 minutes (60 until the"
+           " sync_mq phase took room in the run, 30 until the secure_ha phase did)",
            "object bodies drawn from 32 seeded 10 MiB bodies (the filer does not dedup, so"
            " every PUT writes and hashes all its bytes)",
            "the 20 clients, the gateway, IAM, filer, master and two volume servers share one"
@@ -4056,8 +4104,8 @@ VS_SHARD_FAULTS = 4  # shard-read errors at rate 0.25: one interval never loses 
 VS_OFFSET5_BYTES = 256 * MIB
 VS_WALL_LIMIT_S = 120
 VS_SHAPES = {"crc32c_batch": (1024, VS_SMALL), "gf256_matmul": ("online", (1, 10, MIB))}
-VS_CUTS = ("the tiered volume: --tier-mib (512) MiB (1024 until the sync_mq phase took room in"
-           " the run) of the 30 GB volume limit, its last quarter"
+VS_CUTS = ("the tiered volume: --tier-mib (256) MiB (1024 until the sync_mq phase took room in"
+           " the run, 512 until the secure_ha phase did) of the 30 GB volume limit, its last quarter"
            " 4 KiB needles: log-uniform needles differ in length and verify on the host, so"
            " the 4 KiB quarter is what crc32c_batch checks",
            "2,048 replicated 4 KiB files (replication 010 over racks r1 and r2): servers, master"
@@ -5135,12 +5183,13 @@ MQ_CONSUMERS = 2
 MQ_VALUE = 1024  # bytes a value: 512 seeded bytes as hex
 MQ_RETRY_S = 10.0  # a publish retries through the failover for this long, then fails
 SYNC_MQ_WALL_LIMIT_S = 150
-SYNC_MQ_CUTS = ("(a) --sync-files (256) files a side, log-uniform 1 KiB-8 MiB (about 0.45 GiB in"
-                " all), of the compose deployments' unbounded trees",
-                "(c) --mq-messages (8,192) of 1 KiB over 4 partitions, 16 segments of 512:"
-                " half of 16,384, at which the phase took 165 s of its 150 on an H100 80GB"
+SYNC_MQ_CUTS = ("(a) --sync-files (128) files a side, log-uniform 1 KiB-8 MiB (about 0.22 GiB in"
+                " all; 256 until the secure_ha phase took room in the run), of the compose"
+                " deployments' unbounded trees",
+                "(c) --mq-messages (4,096) of 1 KiB over 4 partitions, 8 segments of 512: a"
+                " quarter of 16,384, at which the phase took 165 s of its 150 on an H100 80GB"
                 " HBM3 at 700 W (178 msgs/s: every publish a few Python HTTP hops in one"
-                " process)",
+                " process); 8,192 until the secure_ha phase took room in the run",
                 "both clusters, the syncers, both brokers and every client share one process"
                 " and one GIL")
 
@@ -5155,6 +5204,29 @@ class _Refused:
         pass
 
 
+def record_accepts(service) -> list:
+    """The connections `service`'s listener accepts from now on, so that a
+    crash can reset them (`HTTPService.stop()` closes only the listener)."""
+    socks = []
+    srv = service._httpd
+    accept = srv.process_request
+
+    def process_request(request, client_address):
+        socks.append(request)
+        return accept(request, client_address)
+
+    srv.process_request = process_request
+    return socks
+
+
+def reset_all(socks: list) -> None:
+    for s in socks:
+        try:
+            s.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+
+
 class Crashable:
     """A broker that can crash as its process would. `HTTPService.stop()`
     closes only the listener: handler threads go on serving kept-alive
@@ -5167,16 +5239,8 @@ class Crashable:
 
     def __init__(self, broker) -> None:
         self.broker = broker
-        self.socks = []
+        self.socks = record_accepts(broker.service)
         self.crashed = False
-        srv = broker.service._httpd
-        accept = srv.process_request
-
-        def process_request(request, client_address):
-            self.socks.append(request)
-            return accept(request, client_address)
-
-        srv.process_request = process_request
 
     def crash(self) -> None:
         b = self.broker
@@ -5184,11 +5248,7 @@ class Crashable:
             for tp in list(b._partitions.values()):
                 held.enter_context(tp._flush_mu)
             b.service.stop()
-            for s in self.socks:
-                try:
-                    s.shutdown(socket.SHUT_RDWR)
-                except OSError:
-                    pass
+            reset_all(self.socks)
             b._stop.set()
             b._repl_pool.shutdown(wait=False, cancel_futures=True)
             b.fc.close()
@@ -5743,6 +5803,646 @@ def sync_mq_phase(dev: torch.device, sync_files: int, mq_messages: int, md5_ops_
                note="clients and servers share one process and one GIL")
     return res
 
+# --- phase 20: security and raft HA -------------------------------------------------
+HA_RACKS = ("r1", "r1", "r2")
+HA_THREADS = 8  # filer clients, each waiting for its answer; and assign threads
+HA_FILE = 4096
+HA_LARGE = 8  # large files, one a thread
+HA_EC_VID = 901  # past the ids the masters grow
+HA_EC_COLLECTION = "ha"
+HA_WRITERS = 4  # threads POSTing the EC volume's needles
+HA_DEGRADED = 64  # needles read back while a data shard is gone
+HA_ASSIGN_BEFORE_S = 1.5  # assigns before the leader stops
+HA_ASSIGN_AFTER_S = 1.5  # and after the new leader's first answer
+HA_FAILOVER_LIMIT_S = 15.0
+HA_COMPACT = 8  # each master's raft log compacts past this many applied entries
+HA_CN = "seaweedfs-node"  # the common name the allow-list admits
+HA_INTRUDER = "intruder"  # signed by the same CA, not admitted
+HA_WALL_LIMIT_S = 90
+HA_CUTS = ("(a) --ha-files (2,048) 4 KiB files and 8 x --ha-large-mib (64) MiB through the"
+           " filer: the filer phase's shapes at half its count", "(b) --ha-ec-mib (256) MiB"
+           " in one volume of the 30 GB limit", "each master's raft log compacts past 8"
+           " applied entries (256 by default) so that (e) crosses a compaction")
+
+
+def free_ports(n: int) -> list[int]:
+    """n ports the kernel calls free now (bound together, then closed): the
+    masters' `-peers` list is known before they start."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def _pki_cryptography(d: str) -> tuple[dict, str]:
+    import datetime
+
+    import cryptography
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes, serialization
+    from cryptography.hazmat.primitives.asymmetric import ec
+    from cryptography.x509.oid import NameOID
+
+    now = datetime.datetime.now(datetime.timezone.utc)
+
+    def cert(cn: str, key, issuer, issuer_key, ca: bool):
+        b = (x509.CertificateBuilder()
+             .subject_name(x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, cn)]))
+             .issuer_name(issuer).public_key(key.public_key())
+             .serial_number(x509.random_serial_number())
+             .not_valid_before(now - datetime.timedelta(minutes=5))
+             .not_valid_after(now + datetime.timedelta(days=1)))
+        if ca:
+            b = b.add_extension(x509.BasicConstraints(ca=True, path_length=None), critical=True)
+        return b.sign(issuer_key, hashes.SHA256())
+
+    def write(name: str, data: bytes) -> str:
+        path = os.path.join(d, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
+
+    ca_key = ec.generate_private_key(ec.SECP256R1())
+    ca_name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "chip-smoke-ca")])
+    ca = cert("chip-smoke-ca", ca_key, ca_name, ca_key, True)
+    out = {"ca": write("ca.pem", ca.public_bytes(serialization.Encoding.PEM))}
+    for role, cn in (("node", HA_CN), ("evil", HA_INTRUDER)):
+        key = ec.generate_private_key(ec.SECP256R1())
+        out[role] = (
+            write(f"{cn}.pem", cert(cn, key, ca_name, ca_key, False)
+                  .public_bytes(serialization.Encoding.PEM)),
+            write(f"{cn}.key", key.private_bytes(serialization.Encoding.PEM,
+                                                 serialization.PrivateFormat.PKCS8,
+                                                 serialization.NoEncryption())))
+    return out, f"cryptography {cryptography.__version__}"
+
+
+def _pki_openssl(d: str, openssl: str) -> tuple[dict, str]:
+    def run(*args: str) -> str:
+        return subprocess.run([openssl, *args], cwd=d, check=True, capture_output=True,
+                              text=True, timeout=60).stdout
+
+    run("ecparam", "-name", "prime256v1", "-genkey", "-noout", "-out", "ca.key")
+    run("req", "-x509", "-new", "-key", "ca.key", "-subj", "/CN=chip-smoke-ca", "-days", "1",
+        "-addext", "basicConstraints=critical,CA:TRUE", "-out", "ca.pem")
+    out = {"ca": os.path.join(d, "ca.pem")}
+    for role, cn in (("node", HA_CN), ("evil", HA_INTRUDER)):
+        run("ecparam", "-name", "prime256v1", "-genkey", "-noout", "-out", f"{cn}.key")
+        run("req", "-new", "-key", f"{cn}.key", "-subj", f"/CN={cn}", "-out", f"{cn}.csr")
+        run("x509", "-req", "-in", f"{cn}.csr", "-CA", "ca.pem", "-CAkey", "ca.key",
+            "-set_serial", str(int.from_bytes(os.urandom(8), "big")), "-days", "1",
+            "-out", f"{cn}.pem")
+        out[role] = (os.path.join(d, f"{cn}.pem"), os.path.join(d, f"{cn}.key"))
+    return out, run("version").strip()
+
+
+def make_pki(d: str) -> tuple[dict | None, str]:
+    """A throw-away PKI in `d`: a CA, a certificate for HA_CN and one for
+    HA_INTRUDER, EC P-256, valid for a day, made by the host's
+    `cryptography` package, else its `openssl` binary; (None, why) when it
+    has neither."""
+    os.makedirs(d, exist_ok=True)
+    try:
+        return _pki_cryptography(d)
+    except ImportError:
+        pass
+    openssl = shutil.which("openssl")
+    if openssl is None:
+        return None, "neither the cryptography package nor an openssl binary"
+    return _pki_openssl(d, openssl)
+
+
+def _ctx(pki: dict, role: str | None) -> ssl.SSLContext:
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    ctx.load_verify_locations(pki["ca"])
+    ctx.check_hostname = False
+    if role is not None:
+        ctx.load_cert_chain(*pki[role])
+    return ctx
+
+
+def _urlopen_status(url: str, ctx=None) -> int | str:
+    """The status a urllib GET gets, or the name of what it raised."""
+    try:
+        with urllib.request.urlopen(url, context=ctx, timeout=10) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+    except (OSError, http.client.HTTPException) as e:
+        return type(e).__name__
+
+
+def wait_leader(masters: list, timeout: float = HA_FAILOVER_LIMIT_S):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        leaders = [m for m in masters if m.raft.is_leader()]
+        if len(leaders) == 1:
+            return leaders[0]
+        time.sleep(0.002)
+    raise AssertionError(f"no single raft leader among {[m.url for m in masters]}")
+
+
+def secure_ha_phase(dev: torch.device, n_files: int, large_bytes: int, ec_bytes: int,
+                    md5_ops_per_block: int, seed: int) -> dict:
+    """Security and raft HA as upstream's docs lay them out
+    (`docker/compose/local-cluster-compose.yml`: three masters under raft
+    with `-peers`; the `security.toml` of `weed scaffold -config=security`:
+    `[jwt.signing]`, `[jwt.signing.read]`, `[guard] white_list` and `[tls]`
+    with `allowed_commonNames`), in one process: three port masters with
+    their own raft directories, three volume servers (racks r1, r1, r2)
+    given all three and a FilerServer (4 MiB chunks), on the card, all on
+    one SecurityConfig (a write key, a read key, white list 127.0.0.1) with
+    mTLS configured process-wide from a PKI made now (the host's
+    cryptography package, else openssl). (a) `n_files` 4 KiB files and 8 of
+    `large_bytes` PUT through the filer over https from 8 waiting threads
+    and read back (the filer signs its own write and read tokens); md5_batch
+    and crc32c_batch launch. (b) `ec_bytes` of log-uniform needles in one
+    volume with signed POSTs, `ec.encode` through the leader (gf256_matmul),
+    a data shard deleted and needles on it read degraded with read tokens.
+    (c) the leader stopped while 8 threads call /dir/assign: the time until
+    a survivor leads and until it answers an assign, assign p50/p99 before
+    and after, no fid handed out twice, every volume server's heartbeat on
+    the new leader. (d) a second data shard deleted, `ec.rebuild` through
+    the new leader, both shards equal to the lost ones, every needle read
+    back byte for byte. (e) `cluster.raft.ps`, `cluster.raft.remove` of the
+    dead master, `cluster.raft.add` of a fresh fourth, which catches up by
+    InstallSnapshot (the log was compacted). (f) unsigned POST and DELETE,
+    a wrong-key read and a token-less /query answer 401; the intruder's
+    certificate is refused by the CN gate (403) and a client without one
+    fails the handshake; a plain-http client gets no answer; every url is
+    https. TLS is reset on the way out, pass or fail."""
+    t_phase = time.perf_counter()
+    (REPO / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke-secure_ha-", dir=REPO / "build")
+    stops, batches, res = [], [], {}
+    try:
+        pki, pki_source = make_pki(os.path.join(root, "pki"))
+        check(pki is not None, f"secure_ha: no PKI ({pki_source}): the phase never runs without TLS")
+        tls.configure(TLSConfig(ca=pki["ca"], cert=pki["node"][0], key=pki["node"][1],
+                                allowed_common_names=HA_CN))
+        rng = np.random.default_rng([seed, 31])
+        sec = SecurityConfig(write_key=rng.bytes(16).hex(), read_key=rng.bytes(16).hex(),
+                             white_list=["127.0.0.1"])
+        peers = [f"https://127.0.0.1:{p}" for p in free_ports(3)]
+        masters, accepted = [], []
+        t0 = time.perf_counter()
+        for i, url in enumerate(peers):
+            m = MasterServer(port=int(url.rsplit(":", 1)[1]), pulse_seconds=1, security=sec,
+                             peers=peers, raft_dir=os.path.join(root, f"raft{i}"))
+            m.start()
+            stops.append(m.stop)
+            masters.append(m)
+            accepted.append(record_accepts(m.service))
+            m.raft.compact_threshold = HA_COMPACT
+            check(m.url == url and m.raft is not None, f"master {i} at {m.url}, raft {m.raft}")
+        leader = wait_leader(masters)
+        election_ms = (time.perf_counter() - t0) * 1e3
+        servers = []
+        for i, rack in enumerate(HA_RACKS):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], ",".join(peers), rack=rack,
+                              pulse_seconds=PULSE_S, device=dev, security=sec)
+            vs.start()
+            stops.append(vs.stop)
+            servers.append(vs)
+        deadline = time.perf_counter() + HA_FAILOVER_LIMIT_S
+        while True:  # every server's beat on the leader (an early term may still turn over)
+            for vs in servers:
+                vs.heartbeat_once()
+            leader = wait_leader(masters)
+            if all(vs.master_url == leader.url for vs in servers):
+                break
+            check(time.perf_counter() < deadline,
+                  f"heartbeats on {[vs.master_url for vs in servers]}, not {leader.url}")
+        filer = FilerServer(",".join(peers), port=0, device=dev, security=sec)
+        filer.start()
+        stops.append(filer.stop)
+        svc = filer.hash_service
+        check(svc.device.type == "cuda" and all(vs.device.type == "cuda" for vs in servers),
+              "a secure_ha role is not on cuda")
+        timed_batches(svc, batches)
+        stops.append(lambda: svc.__dict__.pop("_batch_hash", None))
+        urls = [m.url for m in masters] + [vs.url for vs in servers] + [filer.url]
+        check(all(u.startswith("https://") for u in urls), f"a plain url: {urls}")
+        by_url = {vs.url.split("//", 1)[1]: vs for vs in servers}
+        errors = []
+
+        steps = {"setup": time.perf_counter() - t_phase}  # seconds of each step
+
+        def step(name: str) -> None:
+            steps[name] = time.perf_counter() - t_phase - sum(steps.values())
+
+        # (a) the filer over mTLS and JWT
+        small = np.random.default_rng([seed, 32]).bytes(n_files * HA_FILE)
+        large = [np.random.default_rng([seed, 33, k]).bytes(large_bytes) for k in range(HA_LARGE)]
+        zero_launches()
+        put_lat = [[] for _ in range(HA_THREADS)]
+
+        def put_small(t: int) -> None:
+            c = Client(filer.url)
+            try:
+                for i in range(t, n_files, HA_THREADS):
+                    data = small[i * HA_FILE : (i + 1) * HA_FILE]
+                    t0 = time.perf_counter()
+                    status, out = c.request("PUT", f"/ha/small/{i:05d}", data, OCTET)
+                    put_lat[t].append(time.perf_counter() - t0)
+                    if status != 201 or json.loads(out)["md5"] != hashlib.md5(data).hexdigest():
+                        errors.append(f"PUT /ha/small/{i:05d} -> {status}: {out[:200]!r}")
+                        return
+            except BaseException as e:  # re-raised on the main thread
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        def put_large(k: int) -> None:
+            c = Client(filer.url)
+            try:
+                status, out = c.request("PUT", f"/ha/large/{k}", large[k], OCTET)
+                if status != 201 or json.loads(out)["md5"] != hashlib.md5(large[k]).hexdigest():
+                    errors.append(f"PUT /ha/large/{k} -> {status}: {out[:200]!r}")
+            except BaseException as e:
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        small_s = run_threads(put_small, HA_THREADS)
+        check(not errors, f"secure_ha (a) small PUTs: {errors[:3]}")
+        large_s = run_threads(put_large, HA_LARGE)
+        check(not errors, f"secure_ha (a) large PUTs: {errors[:3]}")
+        launches_a = read_launches()
+        for name in ("crc32c_batch", "md5_batch"):
+            check(launches_a[name] > 0, f"the secure filer path launched no {name} kernel")
+        check(svc.failed_blobs == 0 and svc.host_blobs == 0, "the hash service failed a batch")
+
+        def get_back(t: int) -> None:
+            c = Client(filer.url)
+            try:
+                for i in range(t, n_files, HA_THREADS):
+                    status, got = c.request("GET", f"/ha/small/{i:05d}")
+                    if status != 200 or got != small[i * HA_FILE : (i + 1) * HA_FILE]:
+                        errors.append(f"GET /ha/small/{i:05d} -> {status}")
+                        return
+                if t < HA_LARGE:
+                    status, got = c.request("GET", f"/ha/large/{t}")
+                    if status != 200 or got != large[t]:
+                        errors.append(f"GET /ha/large/{t} -> {status}, {len(got)} bytes")
+            except BaseException as e:
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        get_s = run_threads(get_back, HA_THREADS)
+        check(not errors, f"secure_ha (a) GETs: {errors[:3]}")
+        small_lat = [x for lat in put_lat for x in lat]
+        res["filer"] = dict(
+            files=n_files, file_bytes=HA_FILE, threads=HA_THREADS, small_s=small_s,
+            files_per_s=n_files / small_s, **{f"put_{k}": v for k, v in _pcts(small_lat).items()},
+            large_files=HA_LARGE, large_bytes=large_bytes, large_wall_s=large_s,
+            large_gbps=HA_LARGE * large_bytes / large_s / 1e9, get_all_s=get_s,
+            get_gbps=(len(small) + HA_LARGE * large_bytes) / get_s / 1e9, launches=launches_a,
+            batch_blobs=svc.batch_blobs)
+        del small, large
+
+        step("a_filer")
+
+        # (b) one volume of signed POSTs, ec.encode through the leader, degraded GETs
+        s0 = servers[0]
+        post_json(f"{s0.url}/admin/allocate_volume",
+                  {"volume": HA_EC_VID, "collection": HA_EC_COLLECTION, "replication": "000"})
+        plan, pool = online_plan(ec_bytes, seed, vid=HA_EC_VID)
+
+        def signed(fid: str, key: str, gen) -> dict:
+            return {"Authorization": f"BEARER {gen(key, fid)}"}
+
+        def write_ec(t: int) -> None:
+            c = Client(s0.url)
+            try:
+                for fid, _, off, size in plan[t::HA_WRITERS]:
+                    status, out = c.request("POST", f"/{fid}", pool[off : off + size],
+                                            {**OCTET, **signed(fid, sec.write_key, gen_write_jwt)})
+                    if status != 201:
+                        errors.append(f"signed POST {fid} -> {status}: {out[:200]!r}")
+                        return
+            except BaseException as e:
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        write_s = run_threads(write_ec, HA_WRITERS)
+        check(not errors, f"secure_ha (b) signed POSTs: {errors[:3]}")
+        v = s0.store.get_volume(HA_EC_VID)
+        dat_size = v.size()
+        places = {fid: v.nm.get(nid) for fid, nid, _, _ in plan}
+        for vs in servers:
+            vs.heartbeat_once()
+        env = CommandEnv(leader.url)
+        check(run_command(env, "lock") == "lock acquired", "lock through the leader")
+        n0 = gf256_matmul.launches
+        t0 = time.perf_counter()
+        out = run_command(env, f"ec.encode -volumeId {HA_EC_VID} -collection {HA_EC_COLLECTION}")
+        encode_s = time.perf_counter() - t0
+        encode_launches = gf256_matmul.launches - n0
+        check("shards spread" in out, f"ec.encode: {out[:300]}")
+        check(encode_launches > 0, "ec.encode launched no gf256_matmul kernel")
+
+        def placement() -> dict:
+            return {sv.url: sorted(sv.ec_shards.get(HA_EC_VID, [])) for sv in env.servers()}
+
+        def shard_path(url: str, shard: int) -> str:
+            d = by_url[url].store.locations[0].directory
+            return os.path.join(d, f"{HA_EC_COLLECTION}_{HA_EC_VID}{geometry.to_ext(shard)}")
+
+        held = placement()
+        check(sorted(s for x in held.values() for s in x) == list(range(14)),
+              f"ec.encode mounted {held}")
+        s0_addr = s0.url.split("//", 1)[1]
+        # two data shards off the reader, one lost now and one in (d)
+        lose = [(u, s) for u, shards in held.items() if u != s0_addr for s in shards if s < 10][:2]
+        check(len(lose) == 2, f"no two data shards off {s0_addr}: {held}")
+        lost_dir = os.path.join(root, "lost")
+        os.mkdir(lost_dir)
+
+        def drop(url: str, shard: int) -> None:
+            shutil.copyfile(shard_path(url, shard), os.path.join(lost_dir, f"{shard}"))
+            out = env.post(f"{peer_url(url)}/admin/ec/delete_shards",
+                           {"volume": HA_EC_VID, "collection": HA_EC_COLLECTION,
+                            "shards": [shard], "delete_index": False})
+            check(out["removed"] == [shard], f"delete_shards {shard}: {out}")
+
+        drop(*lose[0])
+        shard_size = geometry.shard_file_size(dat_size, geometry.LARGE_BLOCK_SIZE,
+                                              geometry.SMALL_BLOCK_SIZE)
+        on_lost = []
+        for fid, _, off, size in plan:
+            noff, nsize = places[fid]
+            ivs = geometry.locate_data(geometry.LARGE_BLOCK_SIZE, geometry.SMALL_BLOCK_SIZE,
+                                       10 * shard_size, noff, get_actual_size(nsize, 3))
+            if any(iv.to_shard_id_and_offset(geometry.LARGE_BLOCK_SIZE,
+                                             geometry.SMALL_BLOCK_SIZE)[0] == lose[0][1]
+                   for iv in ivs):
+                on_lost.append((fid, off, size))
+        check(on_lost, f"no needle on data shard {lose[0][1]}")
+        c = Client(s0.url)
+        degraded_lat = []
+        n0 = gf256_matmul.launches
+        try:
+            for fid, off, size in on_lost[:HA_DEGRADED]:
+                t0 = time.perf_counter()
+                status, got = c.request("GET", f"/{fid}",
+                                        headers=signed(fid, sec.read_key, gen_read_jwt))
+                degraded_lat.append(time.perf_counter() - t0)
+                check(status == 200 and got == pool[off : off + size], f"degraded GET {fid}")
+        finally:
+            c.close()
+        degraded_launches = gf256_matmul.launches - n0
+        check(degraded_launches > 0, "the degraded GETs launched no gf256_matmul kernel")
+        res["ec"] = dict(
+            volume_bytes=dat_size, needles=len(plan), write_s=write_s,
+            write_gbps=ec_bytes / write_s / 1e9, encode_s=encode_s,
+            encode_gbps=dat_size / encode_s / 1e9, encode_launches=encode_launches,
+            lost_shard=lose[0][1], degraded_gets=len(degraded_lat),
+            **{f"degraded_{k}": v for k, v in _pcts(degraded_lat).items()},
+            degraded_launches=degraded_launches)
+
+        step("b_ec_encode_degraded")
+
+        # (c) the leader stops while 8 threads assign
+        events = [[] for _ in range(HA_THREADS)]  # (end, seconds, fid, the master that answered)
+        refused = [0] * HA_THREADS
+        last_refusal = [""]
+        stop_assign = threading.Event()
+
+        def assigner(t: int) -> None:
+            wc = WeedClient(",".join(peers))
+            try:
+                while not stop_assign.is_set():
+                    t0 = time.perf_counter()
+                    try:
+                        a = wc.assign()
+                    except (OSError, ValueError) as e:  # no leader, or no topology yet
+                        refused[t] += 1
+                        last_refusal[0] = repr(e)[:300]
+                        time.sleep(0.01)
+                        continue
+                    t1 = time.perf_counter()
+                    events[t].append((t1, t1 - t0, a["fid"], wc.master_url))
+            except BaseException as e:
+                errors.append(repr(e))
+            finally:
+                wc.close()
+
+        timeline = []  # (ms from the stop, each server's master, each master's raft role)
+        t_stop = None
+
+        def watch_roles() -> None:
+            last = None
+            while not stop_assign.is_set():
+                now = (tuple(peers.index(vs.master_url) if vs.master_url in peers else -1
+                             for vs in servers),
+                       tuple(m.raft.role[0] for m in masters))
+                if now != last and t_stop is not None:
+                    timeline.append(((time.perf_counter() - t_stop) * 1e3, *now))
+                    last = now
+                time.sleep(0.002)
+
+        threads = [threading.Thread(target=assigner, args=(t,)) for t in range(HA_THREADS)]
+        threads.append(threading.Thread(target=watch_roles))
+        for th in threads:
+            th.start()
+        try:
+            time.sleep(HA_ASSIGN_BEFORE_S)
+            old = leader
+            t_stop = time.perf_counter()
+            # a crash as its process would see one: its raft sends nothing
+            # more, and its kept-alive connections are reset
+            old.raft.rpc = _Refused().request
+            old.stop()
+            reset_all(accepted[masters.index(old)])
+            stop_wall = time.perf_counter() - t_stop
+            survivors = [m for m in masters if m is not old]
+            leader = wait_leader(survivors)
+            t_elected = time.perf_counter()
+
+            def first_answer() -> float | None:
+                done = [e[0] for ev in events for e in ev if e[3] == leader.url and e[0] > t_stop]
+                return min(done) if done else None
+
+            deadline = t_stop + HA_FAILOVER_LIMIT_S
+            while first_answer() is None:
+                check(time.perf_counter() < deadline and not errors,
+                      f"no assign answered by the new leader {leader.url}: {errors[:3]}"
+                      f" (last refusal: {last_refusal[0]})")
+                time.sleep(0.002)
+            t_first = first_answer()
+            time.sleep(HA_ASSIGN_AFTER_S)
+            deadline = time.perf_counter() + HA_FAILOVER_LIMIT_S
+            while not all(vs.master_url == leader.url for vs in servers):
+                check(time.perf_counter() < deadline,
+                      f"heartbeats on {[vs.master_url for vs in servers]}, not {leader.url};"
+                      f" timeline {timeline[:40]}")
+                time.sleep(0.01)
+        finally:
+            stop_assign.set()
+            for th in threads:
+                th.join()
+        check(not errors, f"secure_ha (c) assigns: {errors[:3]}")
+        all_events = [e for ev in events for e in ev]
+        fids = [e[2] for e in all_events]
+        keys = [f.split(",")[1][:-8] for f in fids]
+        check(len(set(fids)) == len(fids) and len(set(keys)) == len(keys),
+              f"a fid handed out twice across the failover ({len(fids) - len(set(keys))})")
+        before = [e[1] for e in all_events if e[0] < t_stop]
+        after = [e[1] for e in all_events if e[0] > t_first and e[3] == leader.url]
+        check(before and after, "no assign before or after the failover")
+        # the first moment every server's heartbeat went to the new leader
+        on_new = tuple([masters.index(leader)] * len(servers))
+        beats_ms = next(t for t, targets, _ in timeline if targets == on_new)
+        res["failover"] = dict(
+            masters=3, old_leader=masters.index(old), new_leader=masters.index(leader),
+            election_ms_at_start=election_ms, stop_call_ms=stop_wall * 1e3,
+            new_leader_ms=(t_elected - t_stop) * 1e3, first_assign_ms=(t_first - t_stop) * 1e3,
+            heartbeats_on_new_leader_ms=beats_ms, assigns=len(fids),
+            unique_fids=len(set(fids)), refused_calls=sum(refused),
+            last_refusal=last_refusal[0],
+            assign_before=_pcts(before), assign_after=_pcts(after),
+            assigns_before=len(before), assigns_after=len(after), threads=HA_THREADS,
+            timeline=timeline[:40])
+
+        step("c_failover")
+
+        # (d) a second data shard lost, ec.rebuild through the new leader
+        for vs in servers:
+            vs.heartbeat_once()
+        drop(*lose[1])
+        env = CommandEnv(leader.url)
+        check(run_command(env, "lock") == "lock acquired", "lock through the new leader")
+        n0 = gf256_matmul.launches
+        t0 = time.perf_counter()
+        out = run_command(env, f"ec.rebuild -volumeId {HA_EC_VID} -collection {HA_EC_COLLECTION}")
+        rebuild_s = time.perf_counter() - t0
+        rebuild_launches = gf256_matmul.launches - n0
+        lost = sorted(s for _, s in lose)
+        check(f"rebuilt shards {lost}" in out, f"ec.rebuild: {out}")
+        check(rebuild_launches > 0, "ec.rebuild launched no gf256_matmul kernel")
+        held = placement()
+        check(sorted(s for x in held.values() for s in x) == list(range(14)),
+              f"ec.rebuild mounted {held}")
+        for s in lost:
+            (url,) = [u for u, x in held.items() if s in x]
+            check(same_file(shard_path(url, s), os.path.join(lost_dir, f"{s}")),
+                  f"rebuilt shard {s} differs from the lost one")
+        def read_back(t: int) -> None:
+            c = Client(s0.url)
+            try:
+                for fid, _, off, size in plan[t::HA_WRITERS]:
+                    status, got = c.request("GET", f"/{fid}",
+                                            headers=signed(fid, sec.read_key, gen_read_jwt))
+                    if status != 200 or got != pool[off : off + size]:
+                        errors.append(f"GET {fid} after rebuild -> {status}")
+                        return
+            except BaseException as e:
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        run_threads(read_back, HA_WRITERS)
+        check(not errors, f"secure_ha (d) read-back: {errors[:3]}")
+        res["ec"].update(rebuild_s=rebuild_s, rebuilt=lost, rebuild_line=out.splitlines()[-1],
+                         rebuild_gbps=10 * shard_size / rebuild_s / 1e9,
+                         rebuild_launches=rebuild_launches, read_back=len(plan))
+
+        step("d_rebuild_read_back")
+
+        # (e) cluster.raft.ps, remove the dead master, add a fresh fourth
+        ps = run_command(env, "cluster.raft.ps").splitlines()
+        check(ps[0].startswith(f"{leader.url}  role=leader")
+              and any(ln.startswith(f"{old.url}  unreachable") for ln in ps), f"raft.ps: {ps}")
+        out = run_command(env, f"cluster.raft.remove -address {old.url}")
+        check(old.url not in out.split("members: ", 1)[1], f"cluster.raft.remove: {out}")
+        with leader.raft.mu:
+            snap_at_add = leader.raft.snap_index
+        check(snap_at_add > 0, f"the leader's log never compacted ({HA_COMPACT} entries)")
+        (port4,) = free_ports(1)
+        url4 = f"https://127.0.0.1:{port4}"
+        fourth = MasterServer(port=port4, pulse_seconds=1, security=sec,
+                              peers=[m.url for m in survivors] + [url4],
+                              raft_dir=os.path.join(root, "raft3"))
+        t0 = time.perf_counter()
+        fourth.start()
+        stops.append(fourth.stop)
+        out = run_command(env, f"cluster.raft.add -address {url4}")
+        check(url4 in out.split("members: ", 1)[1], f"cluster.raft.add: {out}")
+        deadline = time.perf_counter() + HA_FAILOVER_LIMIT_S
+        while not (fourth.raft.leader() == leader.url
+                   and fourth._seq_ceiling == leader._seq_ceiling
+                   and fourth.topo._max_volume_id == leader.topo._max_volume_id):
+            check(time.perf_counter() < deadline, "the fourth master never caught up")
+            time.sleep(0.005)
+        catch_up_ms = (time.perf_counter() - t0) * 1e3
+        with fourth.raft.mu:
+            check(fourth.raft.snap_index >= snap_at_add and fourth.raft.snap_state is not None,
+                  "the fourth master caught up without InstallSnapshot")
+        ps_after = run_command(env, "cluster.raft.ps").splitlines()
+        check(any(ln.startswith(f"{url4}  role=follower") for ln in ps_after),
+              f"raft.ps after the add: {ps_after}")
+        res["raft"] = dict(ps=len(ps), removed=masters.index(old), snapshot_index=snap_at_add,
+                           compact_threshold=HA_COMPACT, fourth_catch_up_ms=catch_up_ms,
+                           fourth_installed_snapshot=True, members_after=len(ps_after),
+                           max_volume_id=leader.topo._max_volume_id,
+                           seq_ceiling=leader._seq_ceiling)
+
+        step("e_raft_membership")
+
+        # (f) what must be refused
+        a = get_json(f"{leader.url}/dir/assign")
+        check(bool(a.get("auth")), "the leader handed out no write token")
+        target = f"{peer_url(a['url'])}/{a['fid']}"
+        fid0 = plan[0][0]
+        refusals = {
+            "unsigned_post": http_request("POST", target, b"x", OCTET)[0],
+            "unsigned_delete": http_request("DELETE", f"{s0.url}/{fid0}")[0],
+            "wrong_key_read": http_request("GET", f"{s0.url}/{fid0}",
+                                           headers=signed(fid0, "not-the-key", gen_read_jwt))[0],
+            "query_without_token": http_request(
+                "POST", f"{s0.url}/query", json.dumps({"fid": fid0}).encode(),
+                {"Content-Type": "application/json"})[0],
+            "intruder_certificate": _urlopen_status(f"{s0.url}/status", _ctx(pki, "evil")),
+            "no_client_certificate": _urlopen_status(f"{leader.url}/cluster/status",
+                                                     _ctx(pki, None)),
+            "plain_http": _urlopen_status(filer.url.replace("https://", "http://") + "/"),
+            "node_certificate": _urlopen_status(f"{s0.url}/status", _ctx(pki, "node")),
+        }
+        check(refusals["unsigned_post"] == refusals["unsigned_delete"] == 401
+              and refusals["wrong_key_read"] == refusals["query_without_token"] == 401
+              and refusals["intruder_certificate"] == 403
+              and isinstance(refusals["no_client_certificate"], str)
+              and isinstance(refusals["plain_http"], str)
+              and refusals["node_certificate"] == 200, f"refusals: {refusals}")
+        urls += [fourth.url]
+        check(all(u.startswith("https://") for u in urls), f"a plain url: {urls}")
+        step("f_refusals")
+        res.update(refusals=refusals, https_urls=len(urls), pki=pki_source, steps_s=steps,
+                   tls_allowed_common_names=HA_CN, white_list=sec.white_list)
+        launches = read_launches()
+        for name in ("crc32c_batch", "md5_batch", "gf256_matmul"):
+            check(launches[name] > 0, f"the secure_ha phase launched no {name} kernel")
+        res["launches"] = launches
+    finally:
+        for stop in reversed(stops):
+            stop()
+        tls.reset()  # nothing after this phase runs under TLS
+        shutil.rmtree(root, ignore_errors=True)
+    check(tls.client_context() is None and tls.server_context() is None, "TLS left on")
+    wall = time.perf_counter() - t_phase
+    res["hash_kernels"] = path_hash_times(dev, seed, md5_ops_per_block, batches,
+                                          (HA_FILE, FILER_CHUNK), "secure_ha")
+    res.update(wall_s=wall, wall_limit_s=HA_WALL_LIMIT_S, over_wall_limit=wall > HA_WALL_LIMIT_S,
+               cuts=HA_CUTS, note="clients and servers share one process and one GIL")
+    return res
+
 
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
@@ -5771,7 +6471,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--volume-mib", type=int, default=1024)
-    ap.add_argument("--upload-blobs", type=int, default=1 << 17)
+    ap.add_argument("--upload-blobs", type=int, default=1 << 16)
     ap.add_argument("--chunked-mib", type=int, default=1024)
     ap.add_argument("--cdc-uploads", type=int, default=64)
     ap.add_argument("--stream-mib", type=int, default=1024)
@@ -5780,26 +6480,29 @@ def main() -> int:
     ap.add_argument("--cluster-mib", type=int, default=1024)
     ap.add_argument("--mesh-volumes", type=int, default=32)
     ap.add_argument("--mesh-mib", type=int, default=4)
-    ap.add_argument("--filer-files", type=int, default=4096)
+    ap.add_argument("--filer-files", type=int, default=2048)
     ap.add_argument("--filer-large-mib", type=int, default=256)
     ap.add_argument("--scrub-files", type=int, default=2048)
-    ap.add_argument("--scrub-mib", type=int, default=512)
+    ap.add_argument("--scrub-mib", type=int, default=256)
     ap.add_argument("--maint-mib", type=int, default=256)
     ap.add_argument("--maint-files", type=int, default=1024)
     ap.add_argument("--filer-dedup-uploads", type=int, default=8)
     ap.add_argument("--s3-objects", type=int, default=256)
-    ap.add_argument("--s3-seconds", type=float, default=30.0)
+    ap.add_argument("--s3-seconds", type=float, default=15.0)
     ap.add_argument("--s3-clients", type=int, default=20)
     ap.add_argument("--s3-multipart-mib", type=int, default=64)
-    ap.add_argument("--tier-mib", type=int, default=512)
+    ap.add_argument("--tier-mib", type=int, default=256)
     ap.add_argument("--gw-dav-files", type=int, default=256)
     ap.add_argument("--gw-ftp-files", type=int, default=256)
     ap.add_argument("--gw-ftp-large-mib", type=int, default=256)
     ap.add_argument("--gw-mount-mib", type=int, default=512)
     ap.add_argument("--gw-small-files", type=int, default=256)
     ap.add_argument("--gw-remote-mib", type=int, default=256)
-    ap.add_argument("--sync-files", type=int, default=256)
-    ap.add_argument("--mq-messages", type=int, default=8192)
+    ap.add_argument("--sync-files", type=int, default=128)
+    ap.add_argument("--mq-messages", type=int, default=4096)
+    ap.add_argument("--ha-files", type=int, default=2048)
+    ap.add_argument("--ha-large-mib", type=int, default=64)
+    ap.add_argument("--ha-ec-mib", type=int, default=256)
     ap.add_argument("--offset5-child", metavar="DIR",
                     help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
@@ -5979,6 +6682,15 @@ def main() -> int:
     for name in ("crc32c_batch", "md5_batch"):
         launches[name] += sm["launches"][name]
         timed[name]["shapes"].extend(sm["hash_kernels"][name])
+
+    # security and raft HA: mTLS and JWT on every path, a leader failover; its own count
+    ha = secure_ha_phase(dev, args.ha_files, args.ha_large_mib * MIB, args.ha_ec_mib * MIB,
+                         md5_block["ops"], args.seed)
+    emit("secure_ha", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **ha)
+    for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
+        launches[name] += ha["launches"][name]
+    for name in ("crc32c_batch", "md5_batch"):
+        timed[name]["shapes"].extend(ha["hash_kernels"][name])
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

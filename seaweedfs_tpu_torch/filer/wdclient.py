@@ -6,9 +6,11 @@ stream; this build refreshes by lookup-on-miss with a TTL, which the filer's
 request patterns amortize the same way.
 
 The port's copy of `seaweedfs_tpu/filer/wdclient.py`, over the port's
-master (`/dir/assign`, `/dir/lookup`) and volume servers. Left out: JWT
-(the port's master mints no write token and its volume servers check
-none), so `WeedClient` takes no signing keys.
+master (`/dir/assign`, `/dir/lookup`) and volume servers. Writes carry the
+assign's `auth` write token; with `read_jwt_key` every chunk fetch signs a
+read token for its fid, and with `jwt_key` a delete signs a wildcard token
+(an empty fid claim), as the reference's filer does with its copies of the
+security.toml keys.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import random
 import threading
 import time
 
+from ..security.jwt import encode_jwt, gen_read_jwt
 from ..server.httpd import PooledHTTP, http_request, peer_url
 from ..util import faults
 from ..util.retry import READ_POLICY, RetryPolicy
@@ -29,7 +32,8 @@ _FP_CHUNK = faults.register("filer.chunk.read")
 
 class WeedClient:
     def __init__(
-        self, master_url: str, cache_ttl: float = 30.0,
+        self, master_url: str, cache_ttl: float = 30.0, jwt_key: str = "",
+        read_jwt_key: str = "",
         retry: RetryPolicy | None = None,
     ) -> None:
         # comma-separated master list; requests follow leader hints
@@ -40,6 +44,10 @@ class WeedClient:
         ]
         self.master_url = self.masters[0]
         self.cache_ttl = cache_ttl
+        self.jwt_key = jwt_key  # the shared security.toml signing key
+        # jwt.signing.read: the filer signs read tokens from its own copy,
+        # as the reference does (`weed/security/jwt.go`)
+        self.read_jwt_key = read_jwt_key
         self._vid_cache: dict[int, tuple[float, list[str]]] = {}
         self._lock = threading.Lock()
         # keep-alive for the hot data-plane hops (assign, chunk upload,
@@ -217,6 +225,11 @@ class WeedClient:
         with jitter and re-looks-up — a killed holder mid-read-storm
         surfaces as a retried read, not a client-visible error."""
         vid = int(file_id.split(",")[0])
+        # the token names the base fid: the volume server strips a batched
+        # assign's `_N` before it compares the claim (the JAX client signs
+        # the whole fid, which no `_N` chunk's read passes)
+        auth = (gen_read_jwt(self.read_jwt_key, file_id.split("_")[0])
+                if self.read_jwt_key else "")
         policy = self.retry
         start = time.monotonic()
         attempt = 0
@@ -237,6 +250,8 @@ class WeedClient:
             all_404 = bool(urls)
             for url in urls:
                 headers = {"Range": range_header} if range_header else {}
+                if auth:
+                    headers["Authorization"] = f"BEARER {auth}"
                 try:
                     status, _, body = self._pool.request(
                         "GET", url, headers=headers
@@ -284,9 +299,15 @@ class WeedClient:
             time.sleep(delay)
 
     def delete(self, file_id: str) -> None:
+        headers = {}
+        if self.jwt_key:
+            # a filer-signed wildcard token (empty fid claim), as the
+            # reference's filer signs with its copy of the key
+            token = encode_jwt(self.jwt_key, {"fid": "", "exp": int(time.time()) + 10})
+            headers["Authorization"] = f"BEARER {token}"
         last_err: Exception | None = None
         for url in self.lookup_file_id(file_id):
-            status, _, body = http_request("DELETE", url)
+            status, _, body = http_request("DELETE", url, headers=headers)
             if status < 300 or status == 404:  # 404 = already gone, idempotent
                 return
             last_err = IOError(f"DELETE {url} -> {status}: {body[:200]!r}")

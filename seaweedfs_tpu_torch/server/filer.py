@@ -58,10 +58,15 @@ that carry `remote.*` extended attributes and no chunks, and cache a stub's
 object into chunks (or inline content) on its first GET, a failed fetch
 answering 502.
 
+Security (`security/`): `security=` hands the write and read keys to the
+filer's `WeedClient` (chunk uploads carry the assign's write token, chunk
+fetches a read token the filer signs, deletes a wildcard write token) and
+`white_list` puts a `Guard` on the service.
+
 Not ported: the native fastlane front door (`_fl_*`, ROADMAP 10a-3), and
-qos admission, usage accounting, metrics, telemetry and JWT security
-(10d-4). The registration beat carries no telemetry frame and charges no
-fastlane qos usage.
+qos admission, usage accounting, metrics and telemetry (10d-4b). The
+registration beat carries no telemetry frame and charges no fastlane qos
+usage.
 """
 
 from __future__ import annotations
@@ -97,6 +102,7 @@ from ..remote_storage import (
     make_remote_client,
 )
 from ..ops.hash_service import HashService
+from ..security import Guard, SecurityConfig
 from ..ops.rs_kernel import resolve_device
 from ..storage.types import TTL
 from ..util import cipher as cipher_util
@@ -136,8 +142,10 @@ class FilerServer:
         client=None,
         notification_queue=None,
         peers: list[str] | None = None,
+        security: SecurityConfig | None = None,
     ) -> None:
         self.device = resolve_device(device)
+        self.security = security or SecurityConfig()
         faults.opt_in(faults_spec)  # the -faults flag
         # -encryptVolumeData / compression defaults (`weed/command/filer.go`)
         if cipher and not cipher_util.available():
@@ -149,7 +157,8 @@ class FilerServer:
         if client is None:
             if not master_url:
                 raise ValueError("FilerServer needs a master_url or a client")
-            client = WeedClient(master_url)
+            client = WeedClient(master_url, jwt_key=self.security.write_key,
+                                read_jwt_key=self.security.read_key)
         self.filer = filer if filer is not None else Filer(make_store(store_kind, store_path))
         if notification_queue is not None:
             self.filer.notification_queue = notification_queue
@@ -158,6 +167,8 @@ class FilerServer:
         self.default_replication = default_replication
         self.collection = collection
         self.service = HTTPService(host, port)
+        if self.security.white_list:
+            self.service.guard = Guard(self.security.white_list)
         self.cipher = cipher
         self.compress = compress
         # the server's own batch hash service, on its device: chunk ETags

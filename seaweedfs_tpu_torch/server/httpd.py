@@ -24,8 +24,20 @@ the mount's admin socket), advertised as `unix_url`; `http_request` and
 URLs. A service whose `plain_backend` is set binds its TCP side to
 127.0.0.1.
 
+Security (`security/`): a service whose `guard` is set answers 403 to a
+peer whose IP the white list does not admit. Once `security.tls` is
+configured, every service started afterwards listens with mutual TLS (a
+client certificate signed by the CA is required; the handshake runs in
+the connection's handler thread, not the accept loop) and answers 403 to
+a certificate whose CommonName the allow-list, captured at start, does
+not match; its `url` is `https`, `peer_url` qualifies bare addresses as
+`https`, and `http_request` and `PooledHTTP` present the client
+certificate on every `https` connection. The unix-socket listener is
+same-host-trusted: neither the CN gate nor the guard applies there. A
+`plain_backend` listener stays plain.
+
 Not ported: request metrics, the other debug and the profiler endpoints,
-QoS, trace propagation, TLS and the IP guard.
+QoS and trace propagation.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import json
 import os
 import re
 import socket
+import ssl
 import sys
 import threading
 import weakref
@@ -44,6 +57,7 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
+from ..security import tls as _tls
 from ..util import faults as faults_mod
 
 DEFAULT_TIMEOUT = 30.0  # seconds; no outbound call may hang a worker forever
@@ -175,8 +189,12 @@ class HTTPService:
         self._unix_httpd: ThreadingHTTPServer | None = None
         self._unix_path: str | None = None
         # a listener only same-host code reaches (the mount's admin service)
-        # binds its TCP side to loopback, never an external interface
+        # binds its TCP side to loopback, never an external interface, and
+        # stays plain under process mTLS
         self.plain_backend = False
+        self.guard = None  # security.Guard: 403 to IPs it does not admit
+        self._tls_on = False  # set at start(): this listener serves mTLS
+        self._allowed_cns: list = []  # the CN allow-list captured at start()
         _register_fault_routes(self)
 
     def route(self, method: str, pattern: str):
@@ -188,23 +206,45 @@ class HTTPService:
 
         return deco
 
+    def _admitted(self, handler: BaseHTTPRequestHandler) -> Response | None:
+        """The mTLS CN gate, then the IP guard: a 403 for a peer either
+        refuses, else None. A unix-socket peer is same-host-trusted:
+        neither applies (no TLS on AF_UNIX, no IP to whitelist)."""
+        if getattr(handler, "_unix_peer", False):
+            return None
+        if self._tls_on:
+            try:
+                ok = _tls.peer_allowed(handler.connection.getpeercert(),
+                                       self._allowed_cns)
+            except Exception:
+                ok = False
+            if not ok:
+                return Response({"error": "client certificate CN not allowed"}, 403)
+        addr = handler.client_address
+        if self.guard is not None and isinstance(addr, tuple) and addr \
+                and not self.guard.is_allowed(addr[0]):
+            return Response({"error": "forbidden"}, 403)
+        return None
+
     def _dispatch(self, handler: BaseHTTPRequestHandler) -> None:
         path = urllib.parse.urlparse(handler.path).path
         req = None
-        for method, pattern, fn in self.routes:
-            if method != handler.command:
-                continue
-            m = pattern.fullmatch(path)
-            if m is None:
-                continue
-            req = Request(handler, m)
-            try:
-                resp = fn(req)
-            except Exception as e:  # uniform JSON error surface
-                resp = Response({"error": str(e)}, status=500)
-            break
-        else:
-            resp = Response({"error": f"no route {handler.command} {path}"}, 404)
+        resp = self._admitted(handler)
+        if resp is None:
+            for method, pattern, fn in self.routes:
+                if method != handler.command:
+                    continue
+                m = pattern.fullmatch(path)
+                if m is None:
+                    continue
+                req = Request(handler, m)
+                try:
+                    resp = fn(req)
+                except Exception as e:  # uniform JSON error surface
+                    resp = Response({"error": str(e)}, status=500)
+                break
+            else:
+                resp = Response({"error": f"no route {handler.command} {path}"}, 404)
         # drain an unread request body before responding — on a keep-alive
         # connection leftover body bytes would desynchronize the next request
         length = int(handler.headers.get("Content-Length") or 0)
@@ -262,8 +302,31 @@ class HTTPService:
             do_OPTIONS = do_PROPFIND = do_PROPPATCH = do_MKCOL = _handle
             do_MOVE = do_COPY = do_LOCK = do_UNLOCK = _handle
 
+        ctx = None if self.plain_backend else _tls.server_context()
+        self._tls_on = ctx is not None
+        self._allowed_cns = _tls.allowed_cn_patterns()
         bind_host = "127.0.0.1" if self.plain_backend else self.host
-        self._httpd = _Server((bind_host, self.port), Handler)
+        if ctx is None:
+            self._httpd = _Server((bind_host, self.port), Handler)
+        else:
+            # mTLS on every listener (`weed/security/tls.go` semantics). The
+            # accepted socket is wrapped without a handshake: it runs on the
+            # first read in the connection's handler thread, so a stalled
+            # client cannot pin the accept loop
+            class _TLSServer(_Server):
+                def get_request(inner):
+                    sock, addr = inner.socket.accept()
+                    sock.settimeout(60)
+                    return ctx.wrap_socket(sock, server_side=True,
+                                           do_handshake_on_connect=False), addr
+
+                def handle_error(inner, request, client_address):
+                    # a refused handshake (no certificate, a plain-http
+                    # client, an unknown CA) is the gate working, not a fault
+                    if not isinstance(sys.exc_info()[1], (ssl.SSLError, OSError)):
+                        super().handle_error(request, client_address)
+
+            self._httpd = _TLSServer((bind_host, self.port), Handler)
         self._httpd.daemon_threads = True
         self.port = self._httpd.server_address[1]
         self._handler_cls = Handler
@@ -280,6 +343,7 @@ class HTTPService:
         class handler(self._handler_cls):
             # TCP_NODELAY does not exist on AF_UNIX sockets
             disable_nagle_algorithm = False
+            _unix_peer = True  # same-host: exempt from the CN gate and guard
 
         class UnixHTTPServer(_Server):
             address_family = socket.AF_UNIX
@@ -328,7 +392,8 @@ class HTTPService:
 
     @property
     def url(self) -> str:
-        return f"http://{self.host}:{self.port}"
+        scheme = "https" if self._tls_on else "http"
+        return f"{scheme}://{self.host}:{self.port}"
 
 
 def _register_fault_routes(service: HTTPService) -> None:
@@ -383,11 +448,31 @@ def _register_fault_routes(service: HTTPService) -> None:
 
 
 def peer_url(hostport: str) -> str:
-    """Scheme-qualify another node's advertised host:port (plain HTTP:
-    the port has no TLS)."""
+    """Scheme-qualify another node's advertised host:port. Heartbeats and
+    lookups carry bare addresses; when process-wide mTLS is configured
+    (`security.tls`), every peer listener is TLS too."""
     if hostport.startswith(("http://", "https://")):
         return hostport
-    return f"http://{hostport}"
+    scheme = "https" if _tls.client_context() is not None else "http"
+    return f"{scheme}://{hostport}"
+
+
+_TLS_OPENER: tuple = (None, None)  # (client context, urllib opener over it)
+
+
+def _opener_for(url: str):
+    """urllib's opener for a URL: an `https` one presents the process's
+    client certificate (the default context when mTLS is off)."""
+    if not url.startswith("https:"):
+        return _OPENER
+    global _TLS_OPENER
+    ctx = _tls.client_context()
+    cached_ctx, opener = _TLS_OPENER
+    if opener is None or cached_ctx is not ctx:
+        opener = urllib.request.build_opener(
+            urllib.request.ProxyHandler({}), urllib.request.HTTPSHandler(context=ctx))
+        _TLS_OPENER = (ctx, opener)
+    return opener
 
 
 # --- tiny client helpers ----------------------------------------------------
@@ -404,7 +489,7 @@ def http_request(
     for k, v in (headers or {}).items():
         req.add_header(k, v)
     try:
-        with _OPENER.open(req, timeout=timeout) as resp:
+        with _opener_for(url).open(req, timeout=timeout) as resp:
             return resp.status, dict(resp.headers), resp.read()
     except urllib.error.HTTPError as e:
         return e.code, dict(e.headers), e.read()
@@ -475,8 +560,10 @@ def post_json(url: str, payload: dict | None = None,
 
 
 # what a write to, or a read from, a keep-alive socket the peer closed
-# while it sat idle raises (RemoteDisconnected is a ConnectionResetError)
-_IDLE_CLOSED = (ConnectionResetError, BrokenPipeError, ConnectionAbortedError)
+# while it sat idle raises (RemoteDisconnected is a ConnectionResetError;
+# over TLS the close may read as an EOF of the TLS stream)
+_IDLE_CLOSED = (ConnectionResetError, BrokenPipeError, ConnectionAbortedError,
+                ssl.SSLEOFError, ssl.SSLZeroReturnError)
 
 
 class PooledHTTP:
@@ -486,8 +573,9 @@ class PooledHTTP:
     small-request paths (the filer's assigns, chunk uploads and chunk
     fetches) would measure connection setup instead of the server. The
     reference's Go clients all reuse connections; this is the equivalent
-    for the data-plane hot paths. Plain HTTP (the port has no TLS), over
-    TCP or, for an `http+unix://` URL, a unix domain socket."""
+    for the data-plane hot paths. Over TCP (an `https` URL presents the
+    process's mTLS client certificate) or, for an `http+unix://` URL, a
+    unix domain socket."""
 
     def __init__(self, timeout: float = DEFAULT_TIMEOUT) -> None:
         self._tl = threading.local()
@@ -523,6 +611,10 @@ class PooledHTTP:
             if conn is None:
                 if u.scheme == "http+unix":
                     conn = _UnixConnection(urllib.parse.unquote(u.netloc), self.timeout)
+                elif u.scheme == "https":
+                    ctx = _tls.client_context() or ssl.create_default_context()
+                    conn = http.client.HTTPSConnection(u.netloc, timeout=self.timeout,
+                                                       context=ctx)
                 else:
                     conn = http.client.HTTPConnection(u.netloc, timeout=self.timeout)
                 pool[key] = conn

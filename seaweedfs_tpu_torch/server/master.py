@@ -23,8 +23,29 @@ it at runtime (`dryRun`, `rebuildMode`, `lazyWindow`), `POST
 and `GET /debug/maintenance` serves its status. While it is enabled,
 dry-run included, it owns vacuum and the pulse's vacuum round is skipped.
 
-The master and the daemon are host code and hold no device. One master
-is the leader: there is no raft, so the sequence lease is not needed.
+The master and the daemon are host code and hold no device.
+
+Raft HA (`raft/`, after `weed/server/raft_server.go`): `peers=` (the
+`-peers` flag: every master's url, this one's included or not) starts a
+`RaftNode` at `start()`, its state under `raft_dir`; `enable_raft(urls)`
+starts one on a running service. The replicated state machine is the
+volume-id counter (the topology's `vid_allocator` proposes
+`next_volume_id`) and the file-id sequence ceiling: the leader hands out
+ids only below a committed ceiling, and after any term change it commits a
+barrier and fast-forwards its sequencer to the ceiling first, so no fid is
+handed out twice across a failover. Log compaction snapshots both.
+`/heartbeat`, `/dir/assign` and `/dir/lookup` are leader-only: a follower
+answers 409 `raft.not.leader` naming the leader, which the volume servers'
+heartbeats and `WeedClient` follow. `/raft/{request_vote,append_entries,
+install_snapshot}` carry the raft RPCs, `GET /raft/status` shows this node,
+and `POST /raft/{add,remove}` change the membership through the log
+(leader-only; `cluster.raft.add`, `cluster.raft.remove`). The JAX master's
+demote hook clears the native fastlane's assign profiles; the port has no
+fastlane, so its raft node gets no demote hook.
+
+Security (`security/`): with `security.write_key` set, `/dir/assign`
+answers with `auth`, a write token bound to the fid that the volume
+servers demand; `security.white_list` puts a `Guard` on the service.
 
 Filers and brokers announce themselves through `/cluster/register` (the
 member registry `_members`, first-seen order deciding each group's
@@ -36,9 +57,8 @@ fault arming (`POST /debug/faults`), a spec string also arms it
 (`faults.arm_from_spec`). `/dir/assign` and `/dir/lookup` pass the
 `master.assign` and `master.lookup` fault points.
 
-Not ported: raft HA and the `/raft/*` routes, the native fastlane front
-door, JWT (`security`), telemetry (`/cluster/telemetry`), metrics, heat
-and `/ui`.
+Not ported: the native fastlane front door, telemetry
+(`/cluster/telemetry`), metrics, heat and `/ui`.
 """
 
 from __future__ import annotations
@@ -46,6 +66,9 @@ from __future__ import annotations
 import threading
 import time
 
+from ..raft import NotLeader, RaftNode
+from ..security import Guard, SecurityConfig
+from ..security.jwt import gen_write_jwt
 from ..storage.types import TTL, ReplicaPlacement
 from ..topology import Topology
 from ..topology.node import VolumeInfo
@@ -75,6 +98,9 @@ class MasterServer:
         maintenance_interval: float | None = None,
         repair_lazy_window: float = 0.0,
         faults_spec: str | None = None,
+        security: SecurityConfig | None = None,
+        peers: list[str] | None = None,
+        raft_dir: str | None = None,
     ) -> None:
         faults.opt_in(faults_spec)  # the -faults flag
         seq = MemorySequencer(f"{meta_dir}/sequence.json" if meta_dir else None)
@@ -93,7 +119,21 @@ class MasterServer:
             c.strip() for c in ec_online.split(",") if c.strip()
         }
         self.ec_online_block = ec_online_block
+        self.security = security or SecurityConfig()
         self.service = HTTPService(host, port)
+        if self.security.white_list:
+            self.service.guard = Guard(self.security.white_list)
+        # raft HA: created at start() once the listen port is known (or by
+        # enable_raft); None = single-master mode
+        self.raft: RaftNode | None = None
+        self._peer_config = list(peers or [])
+        self._raft_dir = raft_dir
+        self._seq_ceiling = 0
+        # the raft term the sequencer lease was last synced in: any term
+        # change (any possible leadership handoff, even one this node never
+        # saw through a request) forces a re-sync against the replicated
+        # ceiling before ids are handed out
+        self._seq_synced_term = -1
         self._grow_lock = threading.Lock()
         self._stop = threading.Event()
         self._pulse: threading.Thread | None = None
@@ -117,6 +157,11 @@ class MasterServer:
     # --- lifecycle -------------------------------------------------------------
     def start(self) -> None:
         self.service.start()
+        if self._peer_config:
+            self.enable_raft(
+                [p.rstrip("/") for p in self._peer_config
+                 if p.rstrip("/") != self.url]
+            )
         self._pulse = threading.Thread(
             target=self._pulse_loop, name="master-pulse", daemon=True
         )
@@ -174,6 +219,8 @@ class MasterServer:
         if self._pulse is not None:
             self._pulse.join()
             self._pulse = None
+        if self.raft is not None:
+            self.raft.stop()
         self.service.stop()
 
     @property
@@ -212,11 +259,77 @@ class MasterServer:
             except Exception:
                 pass
 
+    # --- raft HA ------------------------------------------------------------------
+    def enable_raft(self, peer_urls: list[str]) -> None:
+        self.raft = RaftNode(
+            self.url, peer_urls, self._raft_apply, state_dir=self._raft_dir,
+            snapshot_fn=self._raft_snapshot, restore_fn=self._raft_restore,
+        )
+        self.topo.vid_allocator = lambda: self.raft.propose(
+            {"type": "next_volume_id"}
+        )
+        self.raft.start()
+
+    def _raft_snapshot(self) -> dict:
+        """Applied master state for log compaction."""
+        return {
+            "max_volume_id": self.topo._max_volume_id,
+            "seq_ceiling": self._seq_ceiling,
+        }
+
+    def _raft_restore(self, state: dict) -> None:
+        self.topo._max_volume_id = max(
+            self.topo._max_volume_id, int(state.get("max_volume_id", 0))
+        )
+        self._seq_ceiling = max(
+            self._seq_ceiling, int(state.get("seq_ceiling", 0))
+        )
+
+    def _raft_apply(self, command: dict):
+        """Replicated master state machine: volume-id counter + file-id
+        sequence ceiling (the two pieces the reference raft-persists)."""
+        kind = command.get("type")
+        if kind == "next_volume_id":
+            return self.topo._next_volume_id_raw()
+        if kind == "sequence_ceiling":
+            self._seq_ceiling = max(self._seq_ceiling, int(command["value"]))
+            return self._seq_ceiling
+        return None
+
     def _is_leader(self) -> bool:
-        return True  # one master, no raft
+        return self.raft is None or self.raft.is_leader()
 
     def leader_url(self) -> str:
-        return self.url
+        if self.raft is None or self.raft.is_leader():
+            return self.url
+        return self.raft.leader() or self.url
+
+    def _not_leader_response(self) -> Response:
+        return Response(
+            {"error": "raft.not.leader", "leader": self.leader_url()}, 409
+        )
+
+    def _ensure_sequence_lease(self, count: int) -> None:
+        """Leader-side sequence lease (`sequence raft SetMax`): ids are only
+        handed out below the committed ceiling; whenever the raft term moved
+        since the last sync, the counter is fast-forwarded to the replicated
+        ceiling first so ids never repeat across failover."""
+        if self.raft is None:
+            return
+        seq = self.topo.sequencer
+        term = self.raft.term()
+        if self._seq_synced_term != term:
+            # a no-op barrier first: committing it applies every ceiling
+            # entry of earlier terms on this node, so the set_max below sees
+            # grants the old leader made that were still unapplied here
+            self.raft.propose({"type": "sequence_ceiling", "value": 0})
+            seq.set_max(self._seq_ceiling)
+            self._seq_synced_term = term
+        while seq.peek() + count >= self._seq_ceiling:
+            self.raft.propose({
+                "type": "sequence_ceiling",
+                "value": seq.peek() + count + 10000,
+            })
 
     # --- growth ----------------------------------------------------------------
     def _is_ec_online(self, collection: str) -> bool:
@@ -283,6 +396,10 @@ class MasterServer:
 
         @svc.route("POST", r"/heartbeat")
         def heartbeat(req: Request) -> Response:
+            if not self._is_leader():
+                # volume servers re-target to the leader (KeepConnected
+                # redirect semantics, `master_grpc_server.go`)
+                return self._not_leader_response()
             self.topo.sync_heartbeat(req.json())
             return Response(
                 {
@@ -291,9 +408,59 @@ class MasterServer:
                 }
             )
 
+        # --- raft plane (`weed/server/raft_server.go` transport) ---
+        @svc.route("POST", r"/raft/request_vote")
+        def raft_request_vote(req: Request) -> Response:
+            if self.raft is None:
+                return Response({"error": "raft disabled"}, 503)
+            return Response(self.raft.handle_request_vote(req.json()))
+
+        @svc.route("POST", r"/raft/append_entries")
+        def raft_append_entries(req: Request) -> Response:
+            if self.raft is None:
+                return Response({"error": "raft disabled"}, 503)
+            return Response(self.raft.handle_append_entries(req.json()))
+
+        @svc.route("POST", r"/raft/install_snapshot")
+        def raft_install_snapshot(req: Request) -> Response:
+            if self.raft is None:
+                return Response({"error": "raft disabled"}, 503)
+            return Response(self.raft.handle_install_snapshot(req.json()))
+
+        @svc.route("GET", r"/raft/status")
+        def raft_status(req: Request) -> Response:
+            if self.raft is None:
+                return Response({"enabled": False, "leader": self.url})
+            out = self.raft.status()
+            out["enabled"] = True
+            return Response(out)
+
+        def raft_member(req: Request, change: str) -> Response:
+            # `cluster.raft.add/remove` (command_cluster_raft_add.go): a
+            # replicated membership change; leader-only like every admin
+            # mutation
+            if self.raft is None:
+                return Response({"error": "raft not enabled"}, 400)
+            if not self._is_leader():
+                return self._not_leader_response()
+            peer = (req.json().get("peer") or "").rstrip("/")
+            if not peer:
+                return Response({"error": "missing peer url"}, 400)
+            return Response(getattr(self.raft, change)(peer))
+
+        @svc.route("POST", r"/raft/add")
+        def raft_add(req: Request) -> Response:
+            return raft_member(req, "add_peer")
+
+        @svc.route("POST", r"/raft/remove")
+        def raft_remove(req: Request) -> Response:
+            return raft_member(req, "remove_peer")
+
         def do_assign(req: Request) -> Response:
             _FP_ASSIGN.hit()  # injected error -> 500 via _dispatch; the
             # writer's retry/fresh-assignment path is what's under test
+            if not self._is_leader():
+                return self._not_leader_response()
             count = int(req.query.get("count", 1))
             replication = req.query.get("replication") or self.default_replication
             collection = req.query.get("collection", "")
@@ -319,12 +486,17 @@ class MasterServer:
             if lo.active_volume_count(dc) == 0:
                 try:
                     self._grow_volumes(collection, rp, ttl_u32, dc)
+                except NotLeader:
+                    return self._not_leader_response()
                 except Exception as e:
                     return Response({"error": f"cannot grow volumes: {e}"}, 500)
             try:
+                self._ensure_sequence_lease(count)
                 fid, cnt, nodes = self.topo.pick_for_write(
                     count, replication, ttl, collection, dc, shard=shard
                 )
+            except NotLeader:
+                return self._not_leader_response()
             except NoWritableVolume:
                 # raced with a full/readonly transition: grow then retry once
                 try:
@@ -332,26 +504,37 @@ class MasterServer:
                     fid, cnt, nodes = self.topo.pick_for_write(
                         count, replication, ttl, collection, dc, shard=shard
                     )
+                except NotLeader:
+                    return self._not_leader_response()
                 except Exception as e:
                     return Response({"error": str(e)}, 404)
             main = nodes[0]
-            return Response(
-                {
-                    "fid": fid,
-                    "url": main.id,
-                    "publicUrl": main.url,
-                    "count": cnt,
-                    "replicas": [
-                        {"url": n.id, "publicUrl": n.url} for n in nodes[1:]
-                    ],
-                }
-            )
+            out = {
+                "fid": fid,
+                "url": main.id,
+                "publicUrl": main.url,
+                "count": cnt,
+                "replicas": [
+                    {"url": n.id, "publicUrl": n.url} for n in nodes[1:]
+                ],
+            }
+            if self.security.write_key:
+                # per-fileId write token the volume server will demand
+                # (`weed/security/jwt.go GenJwtForVolumeServer`)
+                out["auth"] = gen_write_jwt(
+                    self.security.write_key, fid, self.security.write_expires_sec
+                )
+            return Response(out)
 
         svc.route("GET", r"/dir/assign")(do_assign)
         svc.route("POST", r"/dir/assign")(do_assign)
 
         def do_lookup(req: Request) -> Response:
             _FP_LOOKUP.hit()
+            if not self._is_leader():
+                # followers have empty topologies (heartbeats are
+                # leader-only): redirect instead of a misleading 404
+                return self._not_leader_response()
             vid_s = req.query.get("volumeId", "")
             if "," in vid_s:
                 vid_s = vid_s.split(",")[0]

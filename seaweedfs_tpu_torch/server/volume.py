@@ -64,9 +64,19 @@ the `volume.heartbeat.send` fault point (an injected error or partition
 drops the beat); `faults_spec` is the `-faults` flag
 (`util/faults.opt_in`).
 
-Not ported: the native fastlane, JWT (so `/query` checks no token, as
-the GET path checks none), `/ui`, metrics, traces, events, telemetry and
-the retry policy of the copy stream (a failed range fails the copy).
+Security (`security/`, `volume_server_handlers.go:33-75`): with
+`security.write_key` set, POST, PUT and DELETE of a needle answer 401
+unless the request carries a token (`Authorization: BEARER`, else `?jwt=`)
+signed with that key whose fid claim is the request's fid (its `_N` and
+`.ext` stripped) or empty (a wildcard); with `security.read_key` set, GET,
+HEAD and `/query` demand a read token the same way. A replicated write or
+delete passes the client's `Authorization` on to the other holders, which
+verify the same token. `security.white_list` puts a `Guard` on the
+service.
+
+Not ported: the native fastlane, `/ui`, metrics, traces, events,
+telemetry and the retry policy of the copy stream (a failed range fails
+the copy).
 """
 
 from __future__ import annotations
@@ -84,6 +94,8 @@ import numpy as np
 from ..maintenance.scrub import ScrubCodecFailed, VolumeScrubber
 from ..ops.rs_kernel import RSCodec, resolve_device
 from ..query import query_csv, query_json_lines
+from ..security import Guard, SecurityConfig
+from ..security.jwt import token_from_request, verify_file_jwt
 from ..storage import crc as crc_mod
 from ..storage.backend import BackendError, configure_backend
 from ..storage.erasure_coding import decoder as ec_decoder
@@ -159,9 +171,11 @@ class VolumeServer:
         scrub_rate_mb: float = 8.0,
         device=None,
         faults_spec: str | None = None,
+        security: SecurityConfig | None = None,
     ) -> None:
         self.device = resolve_device(device)
         faults.opt_in(faults_spec)  # the -faults flag
+        self.security = security or SecurityConfig()
         # -mserver may list several masters; heartbeats follow the raft
         # leader hint (`volume_grpc_client_to_master.go` re-dial on redirect)
         self.master_urls = [
@@ -169,6 +183,8 @@ class VolumeServer:
         ]
         self.master_url = self.master_urls[0] if self.master_urls else ""
         self.service = HTTPService(host, port)
+        if self.security.white_list:
+            self.service.guard = Guard(self.security.white_list)
         self.store: Store | None = None
         self._dirs = directories
         self._host = host
@@ -867,8 +883,7 @@ class VolumeServer:
         @svc.route("POST", r"/query")
         def query(req: Request) -> Response:
             """S3-Select-ish filtering of one needle's JSON or CSV content
-            (`volume_grpc_query.go:12`). No JWT check: the port's read path
-            has none (security is ROADMAP 10d-4)."""
+            (`volume_grpc_query.go:12`)."""
             p = req.json()
             fid = p.get("fid", "")
             try:
@@ -877,6 +892,10 @@ class VolumeServer:
                 key, cookie = parse_key_hash_with_delta(rest)
             except (ValueError, AttributeError):
                 return Response({"error": f"bad fid {fid!r}"}, 400)
+            # /query returns needle content: it is a read and demands the
+            # same token the GET path does
+            if not self._file_jwt_ok(req, self.security.read_key, fid):
+                return Response({"error": "unauthorized"}, 401)
             try:
                 n = self.store.read(vid, key, cookie=cookie)
             except (NotFound, VolumeError) as e:
@@ -1945,11 +1964,32 @@ class VolumeServer:
         key, cookie = parse_key_hash_with_delta(req.match.group(2))
         return vid, key, cookie
 
+    def _file_jwt_ok(self, req: Request, key: str, fid: str) -> bool:
+        """One fid-bound token check for reads and writes
+        (`volume_server_handlers.go:33-75` maybeCheckJwtAuthorization): the
+        multi-count `_N` suffix and any `.ext` are stripped, since the
+        master signed the base fid."""
+        if not key:
+            return True
+        base = fid.split("_")[0].split(".")[0]
+        token = token_from_request(req.headers, req.query)
+        return verify_file_jwt(key, token, base)
+
+    def _check_read_jwt(self, req: Request) -> bool:
+        fid = f"{req.match.group(1)},{req.match.group(2)}"
+        return self._file_jwt_ok(req, self.security.read_key, fid)
+
+    def _check_write_jwt(self, req: Request) -> bool:
+        fid = f"{req.match.group(1)},{req.match.group(2)}"
+        return self._file_jwt_ok(req, self.security.write_key, fid)
+
     def _do_read(self, req: Request, head: bool) -> Response:
         try:
             vid, key, cookie = self._parse_fid(req)
         except ValueError as e:
             return Response({"error": str(e)}, 400)
+        if not self._check_read_jwt(req):
+            return Response({"error": "unauthorized"}, 401)
         try:
             n = self.store.read(vid, key, cookie=cookie)
         except NotFound:
@@ -2019,6 +2059,8 @@ class VolumeServer:
             vid, key, cookie = self._parse_fid(req)
         except ValueError as e:
             return Response({"error": str(e)}, 400)
+        if not self._check_write_jwt(req):
+            return Response({"error": "unauthorized"}, 401)
         is_replicate = req.query.get("type") == "replicate"
         body = req.body
         part = req.multipart_file()
@@ -2080,6 +2122,8 @@ class VolumeServer:
                         {
                             "Content-Type": req.headers.get("Content-Type", ""),
                             "X-File-Name": req.headers.get("X-File-Name", ""),
+                            # replicas verify the same master-signed token
+                            "Authorization": req.headers.get("Authorization", ""),
                         },
                         extra_query=extra,
                     )
@@ -2096,6 +2140,8 @@ class VolumeServer:
             vid, key, cookie = self._parse_fid(req)
         except ValueError as e:
             return Response({"error": str(e)}, 400)
+        if not self._check_write_jwt(req):
+            return Response({"error": "unauthorized"}, 401)
         is_replicate = req.query.get("type") == "replicate"
         n = Needle(cookie=cookie, id=key)
         try:
@@ -2112,7 +2158,8 @@ class VolumeServer:
                 if rp and rp.copy_count() > 1:
                     try:
                         self._replicate(
-                            "DELETE", vid, req.match.group(2), b"", {})
+                            "DELETE", vid, req.match.group(2), b"",
+                            {"Authorization": req.headers.get("Authorization", "")})
                     except VolumeError as e:
                         return Response({"error": str(e)}, 500)
         return Response({"size": freed}, 202)

@@ -18,6 +18,9 @@ Not ported: the file's other commands (`cluster.check`, `cluster.top`,
 socket (`mount.start_admin_service`). `mq.topic.list`, `mq.topic.create`,
 `mq.topic.describe`, `mq.topic.configure` and `mq.balance` speak to the
 first mq broker registered with the master (`mq/broker.py`).
+`cluster.raft.ps` lists the raft members of the shell's master and its
+peers (`/raft/status`), and `cluster.raft.add` and `cluster.raft.remove`
+change the membership through the leader (`/raft/{add,remove}`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import json
 import time
 import urllib.parse
 
+from ..server.httpd import peer_url
 from .env import CommandEnv, ShellError
 from .registry import command, parse_flags
 
@@ -173,9 +177,7 @@ def _discover_endpoints(env: CommandEnv, include: str = "") -> set[str]:
     for extra in include.split(","):
         extra = extra.strip().rstrip("/")
         if extra:
-            if not extra.startswith(("http://", "https://")):
-                extra = "http://" + extra
-            endpoints.add(extra)
+            endpoints.add(peer_url(extra))
     try:
         for sv in env.servers():
             endpoints.add(sv.http)
@@ -207,10 +209,7 @@ def cmd_cluster_faults(env: CommandEnv, args: list[str]) -> str:
     flags = parse_flags(args)
     endpoints = _discover_endpoints(env, flags.get("include", ""))
     if "node" in flags:
-        node = flags["node"].rstrip("/")
-        if not node.startswith(("http://", "https://")):
-            node = "http://" + node
-        endpoints = {node}
+        endpoints = {peer_url(flags["node"].rstrip("/"))}
 
     if "arm" in flags or "disarm" in flags or "disarmAll" in flags:
         if "arm" in flags:
@@ -383,3 +382,46 @@ def cmd_mq_topic_configure(env: CommandEnv, args: list[str]) -> str:
         raise ShellError(str(e))
     return (f"topic {ns}/{flags['topic']} now has"
             f" {out['partition_count']} partitions")
+
+
+@command("cluster.raft.ps", "show raft member status on the master(s)")
+def cmd_cluster_raft_ps(env: CommandEnv, args: list[str]) -> str:
+    out = env.get(f"{env.master_url}/raft/status")
+    if not out.get("enabled"):
+        return f"raft disabled (single master at {env.master_url})"
+    lines = [f"{out['id']}  role={out['role']} term={out['term']} "
+             f"commit={out['commit_index']}"]
+    for p in out.get("peers", []):
+        try:
+            ps = env.get(f"{p}/raft/status")
+            lines.append(f"{ps['id']}  role={ps['role']} term={ps['term']} "
+                         f"commit={ps['commit_index']}")
+        except Exception as e:
+            lines.append(f"{p}  unreachable ({e})")
+    return "\n".join(lines)
+
+
+def _raft_member(env: CommandEnv, args: list[str], op: str) -> str:
+    flags = parse_flags(args)
+    addr = flags.get("address") or flags.get("id")
+    if not addr:
+        raise ShellError(f"usage: cluster.raft.{op} -address <master_url>")
+    try:
+        out = env.post(f"{env.master_url}/raft/{op}", {"peer": addr})
+    except IOError as e:
+        raise ShellError(str(e))
+    done = "added" if op == "add" else "removed"
+    return f"{done} {addr}; members: {', '.join(out.get('peers', []))}"
+
+
+@command("cluster.raft.add",
+         "-address <master_url> — add a master to the raft cluster"
+         " (replicated membership change)")
+def cmd_cluster_raft_add(env: CommandEnv, args: list[str]) -> str:
+    return _raft_member(env, args, "add")
+
+
+@command("cluster.raft.remove",
+         "-address <master_url> — remove a master from the raft cluster")
+def cmd_cluster_raft_remove(env: CommandEnv, args: list[str]) -> str:
+    return _raft_member(env, args, "remove")

@@ -9,7 +9,7 @@ through the master's `/cluster/ps` when none was given, and
 
 from __future__ import annotations
 
-from ..server.httpd import get_json, http_request, post_json
+from ..server.httpd import get_json, http_request, peer_url, post_json
 
 
 class ShellError(Exception):
@@ -34,7 +34,7 @@ class ServerView:
 
     @property
     def http(self) -> str:
-        return f"http://{self.url}"
+        return peer_url(self.url)  # https under process mTLS
 
     def free_slots(self) -> int:
         return self.max_volume_count - len(self.volumes) - len(self.ec_shards)

@@ -312,3 +312,43 @@ def test_sync_slice_modules_import_alone():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+NEW_IN_SECURITY_SLICE = [
+    "seaweedfs_tpu_torch/security/__init__.py",
+    "seaweedfs_tpu_torch/security/config.py",
+    "seaweedfs_tpu_torch/security/guard.py",
+    "seaweedfs_tpu_torch/security/jwt.py",
+    "seaweedfs_tpu_torch/security/tls.py",
+    "seaweedfs_tpu_torch/raft/__init__.py",
+]
+
+
+@pytest.mark.parametrize("rel", NEW_IN_SECURITY_SLICE)
+def test_security_slice_modules_are_scanned(rel):
+    """Each module of `security/` and `raft/` is in the import scan above
+    and imports here."""
+    import importlib
+
+    assert REPO / rel in PORT_FILES
+    assert not [n for n in _imports(REPO / rel)
+                if n.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu")]
+    importlib.import_module(rel[:-3].replace("/", ".").removesuffix(".__init__"))
+
+
+def test_security_slice_modules_import_alone():
+    """`security/`, `raft/` and the servers that use them import with
+    neither `jax` nor `seaweedfs_tpu` loaded by them."""
+    import subprocess
+    import sys
+
+    mods = [rel[:-3].replace("/", ".").removesuffix(".__init__")
+            for rel in NEW_IN_SECURITY_SLICE] + [
+        "seaweedfs_tpu_torch.server.master", "seaweedfs_tpu_torch.server.volume",
+        "seaweedfs_tpu_torch.server.filer", "seaweedfs_tpu_torch.shell"]
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'seaweedfs_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

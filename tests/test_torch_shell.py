@@ -180,7 +180,8 @@ def test_run_command_help_unknown_and_lock():
         "volume.tier.info", "volume.tier.move", "volume.tier.upload", "volume.unmount",
         "volume.vacuum", "volume.vacuum.disable", "volume.vacuum.enable"]
     cluster_verbs = [
-        "cluster.faults", "cluster.maintenance", "cluster.ps", "cluster.scrub",
+        "cluster.faults", "cluster.maintenance", "cluster.ps", "cluster.raft.add",
+        "cluster.raft.ps", "cluster.raft.remove", "cluster.scrub",
         "collection.delete", "collection.list", "mount.configure", "mq.balance",
         "mq.topic.configure", "mq.topic.create", "mq.topic.describe", "mq.topic.list",
         "volume.list", "volume.status"]

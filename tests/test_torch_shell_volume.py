@@ -114,7 +114,9 @@ def tasks_of(tasks, side) -> list:
 
 @pytest.fixture
 def shells():
-    with twin() as (ref, port):
+    # the pulse must not vacuum on its own: the tests delete past the
+    # default 0.3 garbage threshold, and each verb sets its own
+    with twin(master_kw={"garbage_threshold": 0.99}) as (ref, port):
         yield Shells(ref, port)
 
 
