@@ -12,7 +12,8 @@
                           [--gw-dav-files N] [--gw-ftp-files N] [--gw-ftp-large-mib MIB]
                           [--gw-mount-mib MIB] [--gw-small-files N] [--gw-remote-mib MIB]
                           [--sync-files N] [--mq-messages N] [--ha-files N]
-                          [--ha-large-mib MIB] [--ha-ec-mib MIB]
+                          [--ha-large-mib MIB] [--ha-ec-mib MIB] [--obs-files N]
+                          [--obs-large N] [--obs-ec-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -110,7 +111,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               and degraded p50/p99 with launches a lost interval, each
               ec.rebuild round's wall, GB/s and bytes on wire beside classic's,
               ec.decode wall, the phase's launches, and the kernel at a
-              pipelined hop's (1, 4, 983,040) and (4, 4, 983,040)
+              pipelined hop's (1, 4, 983,040) and (4, 4, 983,040); a pipelined
+              round that restarts or falls back prints the journal's
+              chain_restart events, each hop's whole detail
  11. mesh     BASELINE config 5 on this host's CUDA devices (one here):
               dryrun_multichip(1); sharded_encode over make_mesh() of
               --mesh-volumes (32) seeded host volumes of 10 x --mesh-mib (4)
@@ -138,7 +141,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               GB/s, hash batches by length, launches, the wall (limit 240 s)
  13. scrub    the volume integrity plane: a port master and three volume
               servers (racks r1, r1, r2) on the card, one process; --scrub-files
-              (2,048) seeded 4 KiB files through /dir/assign?replication=001
+              (1,024) seeded 4 KiB files through /dir/assign?replication=001
               and POSTs from 8 waiting threads (each write fans out to the other
               r1 server before it is acked), both replicas holding the same
               needles; in process on the r2 server: --scrub-mib (256) MiB of
@@ -183,8 +186,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
  15. filer_dedup  BASELINE config 4 as an operator runs it: a port master
               (pulse 1 s), two volume servers and a FilerServer(dedup=True)
               on a leveldb store on the card, one process;
-              --filer-dedup-uploads (8) PUTs of 64 MiB of bench.py's stream
-              (0.5 GiB) from 4 threads each waiting for its 201, every md5
+              --filer-dedup-uploads (6) PUTs of 64 MiB of bench.py's stream
+              (0.375 GiB) from 4 threads each waiting for its 201, every md5
               against hashlib, gear_hash launched over them; every file's
               ?metadata=true, the uploads of segments 0 and 1 deleted, and the
               bytes to reclaim counted from that metadata; `fs.dedup.gc`
@@ -201,7 +204,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               servers and a FilerServer (4 MiB chunks) on the card, the admin
               identity written by the shell's `s3.configure`, an S3Server and an
               IamServer, one process; --s3-objects (256) seeded 10 MiB objects
-              PUT from --s3-clients (20) signed clients, then --s3-seconds (15)
+              PUT from --s3-clients (20) signed clients, then --s3-seconds (10)
               of GET 45 % / STAT 30 % / PUT 15 % / DELETE 10 % drawn from the
               seed (a DELETE takes its key out of the live set first, a PUT adds
               a fresh key) under torch.profiler's CUDA activity for the device's
@@ -318,7 +321,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               client certificate a failed handshake, plain http no answer,
               every url https; TLS reset on the way out; md5_batch,
               crc32c_batch and gf256_matmul launched, the wall (limit 90 s)
- 21. entry    entry() on the card equal to the CPU codec
+ 21. observe  the stats core and the debug plane on a loaded cluster: a
+              master (pulse 1 s), four volume servers and a FilerServer with
+              its metrics port, every role metered, the process's history and
+              alert state cleared first. (a) --obs-files (1,024) 4 KiB and
+              --obs-large (16) 4 MiB files through the filer from 8 waiting
+              threads; (b) --obs-ec-mib (256) MiB of 1 MiB needles POSTed into
+              one volume, ec.encode, data shards 2 and 7 deleted, 64 degraded
+              GETs, ec.rebuild -mode classic; (c) during the 4 MiB PUTs,
+              GET /debug/pprof/device?seconds=2 on the metrics port (after one
+              warm-up capture). Checks: SeaweedFS_filer_hash_seconds
+              {kernel="batch-cuda"} grew by the hash service's batches; the EC
+              encode and decode histograms by one each; the last PUT's
+              X-Sw-Trace-Id is a cluster.trace tree of the filer, master and
+              volume roles; cluster.why <vid> lists OBS_WHY_EVENTS;
+              cluster.check lists every node healthy before the loss and
+              cluster.top -once has a row a role; the device trace is a gzip
+              of a Chrome trace holding CUDA kernel events of the port's
+              kernels; cluster.profile returns stacks; every role's /metrics
+              passes the port's name lint. Files/s, PUT p50/p99, the trace's
+              kernel events against the launches counted in its window, one
+              history self-scrape's ms, the wall (limit 45 s)
+ 22. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -331,6 +355,7 @@ import argparse
 import collections
 import contextlib
 import ftplib
+import gzip
 import hashlib
 import http.client
 import io
@@ -392,6 +417,11 @@ from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from seaweedfs_tpu_torch.server.webdav import WebDavServer
 from seaweedfs_tpu_torch.shell import CommandEnv, commands_ec, run_command
+from seaweedfs_tpu_torch.stats import alerts as alerts_mod
+from seaweedfs_tpu_torch.stats import events as events_mod
+from seaweedfs_tpu_torch.stats import history as history_mod
+from seaweedfs_tpu_torch.stats import parse_exposition
+from seaweedfs_tpu_torch.stats import trace as trace_mod
 from seaweedfs_tpu_torch.storage import crc, file_id
 from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometry
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
@@ -399,6 +429,7 @@ from seaweedfs_tpu_torch.storage.erasure_coding.online import PATHOLOGICAL_REASO
 from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
 from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE
 from seaweedfs_tpu_torch.storage.volume import Volume
+from seaweedfs_tpu_torch.tools.check_metric_names import exposition_violations
 from seaweedfs_tpu_torch.util import cipher as cipher_util
 from seaweedfs_tpu_torch.util import faults
 
@@ -2148,13 +2179,18 @@ def cluster_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
             total = at_rebuilder = 0
             hops = []
 
+            wall0 = time.time()
+
             def since_round() -> str:
                 now = decoder.REPAIR.snapshot()
                 return "; since the round began: " + str(
                     {k: {r: n - before[k].get(r, 0) for r, n in now[k].items()
                          if n != before[k].get(r, 0)}
                      for k in ("restarts", "fallbacks", "stream_chunks")}
-                ) + f"; chain restarts logged: {restart_log.records}"
+                ) + f"; chain restarts logged: {restart_log.records}" + (
+                    "; the journal's chain_restart events (whole detail): "
+                    + json.dumps(events_mod.recorder().events(type="chain_restart",
+                                                              since=wall0)))
 
             restart_log = RecordLog(commands_ec.log)
             with restart_log:
@@ -2179,7 +2215,7 @@ def cluster_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
             restarts = sum(after["restarts"].values()) - sum(before["restarts"].values())
             fallbacks = sum(after["fallbacks"].values()) - sum(before["fallbacks"].values())
             check(restarts == 0 and fallbacks == 0,
-                  f"{what}: {restarts} chain restarts, {fallbacks} fallbacks")
+                  f"{what}: {restarts} chain restarts, {fallbacks} fallbacks" + since_round())
             check(launches > 0, f"{what} launched no gf256_matmul kernel")
             check_rebuilt(shards_of, what)
             return dict(
@@ -2654,10 +2690,10 @@ SCRUB_WALL_LIMIT_S = 150
 SCRUB_SHAPES = {"crc32c_batch": (1024, SCRUB_FILE), "gf256_matmul": ("scrub", (10, 4096))}
 SCRUB_CUTS = ("256 MiB of 4 KiB needles in one volume of the 30 GB volume limit (1 GiB until"
               " the sync_mq phase took room in the run, 512 MiB until the secure_ha phase did)",
-              "2,048 replicated 4 KiB files of config 3's 1M blobs: three servers, the master"
+              "1,024 replicated 4 KiB files of config 3's 1M blobs: three servers, the master"
               " and 8 clients share one process and one GIL (32,768 took the phase 294-310 s"
               " and 8,192 165 s, past its 150 s limit; 4,096 until the gateways phase took"
-              " room in the run)",
+              " room in the run, 2,048 until the observe phase did)",
               "one sealed volume of 256 MiB and one online volume of 64 MiB")
 
 
@@ -3409,9 +3445,10 @@ FD_RECENT_S = 1.1  # past dedup_gc's 1 s recently-referenced window
 FD_WALL_LIMIT_S = 150
 FD_GC_LINE = re.compile(r"scanned (\d+) index entries, dropped (\d+) \((\d+) bytes freed,"
                         r" (\d+) errors\)")
-FD_CUTS = ("--filer-dedup-uploads (8) uploads of 64 MiB (0.5 GiB) of bench.py's 100 GB"
+FD_CUTS = ("--filer-dedup-uploads (6) uploads of 64 MiB (0.375 GiB) of bench.py's 100 GB"
            " shifted-repeat stream, to fit the phase's 150 s (32 until the gateways phase"
-           " took room in the run, 16 until the sync_mq phase did)",
+           " took room in the run, 16 until the sync_mq phase did, 8 until the observe"
+           " phase did)",
            "a master, two volume servers, the filer on one leveldb store and 4 clients in"
            " one process")
 
@@ -3688,8 +3725,9 @@ S3_CLIENT_TIMEOUT_S = 30  # the gateway's own filer hop's timeout
 S3_STALL_S = 12
 S3_CUTS = ("--s3-objects (256) prepopulated objects (2.5 GiB) of warp mixed's 10 MiB: the"
            " stored set two volume servers hold in one process",
-           "--s3-seconds (15) of mixed traffic in place of warp's 5 minutes (60 until the"
-           " sync_mq phase took room in the run, 30 until the secure_ha phase did)",
+           "--s3-seconds (10) of mixed traffic in place of warp's 5 minutes (60 until the"
+           " sync_mq phase took room in the run, 30 until the secure_ha phase did, 15"
+           " until the observe phase did)",
            "object bodies drawn from 32 seeded 10 MiB bodies (the filer does not dedup, so"
            " every PUT writes and hashes all its bytes)",
            "the 20 clients, the gateway, IAM, filer, master and two volume servers share one"
@@ -6444,6 +6482,359 @@ def secure_ha_phase(dev: torch.device, n_files: int, large_bytes: int, ec_bytes:
     return res
 
 
+# --- phase 22: the stats core and the debug plane -----------------------------------
+OBS_RACKS = ("r1", "r2", "r3", "r4")
+OBS_THREADS = 8  # filer clients, each waiting for its answer
+OBS_SMALL = 4096
+OBS_LARGE = 4 * MIB
+OBS_EC_VID = 951  # past the ids the master grows
+OBS_EC_NEEDLE = MIB  # the EC volume's needles, POSTed to one server
+OBS_EC_WRITERS = 4
+OBS_LOST = (2, 7)  # the data shards deleted before the degraded reads
+OBS_DEGRADED = 64
+OBS_DEVICE_S = 2.0  # the device trace's window, during the 4 MiB PUTs
+OBS_PROFILE_S = 1.0  # cluster.profile's window
+# the event types `cluster.why <vid>` lists for the EC sequence (allocate,
+# POSTs, ec.encode, two data shards deleted, degraded GETs, ec.rebuild
+# -mode classic), as tests/test_torch_observe.py establishes on the CPU for
+# both packages
+OBS_WHY_EVENTS = ("degraded_read", "remount_swap", "volume_state")
+OBS_ROLES = ("filer", "master", "volume")
+OBS_KERNEL_NAMES = ("gf256_matmul", "md5_batch", "crc32c_batch", "gear_hash")
+OBS_WALL_LIMIT_S = 45
+OBS_CUTS = ("(a) --obs-files (1,024) 4 KiB files and --obs-large (16) 4 MiB files through"
+            " one filer from 8 waiting threads, beside the filer phase's 2,048 from 16; (b)"
+            " --obs-ec-mib (256) MiB in one volume of the 30 GB volume limit; every role"
+            " in one process, so they share one registry, trace ring and journal")
+
+
+def metric_value(text: str, family: str, **labels) -> float:
+    """The sum of a family's samples whose labels include `labels`."""
+    return sum(v for name, lb, v in parse_exposition(text)
+               if name == family and all(lb.get(k) == w for k, w in labels.items()))
+
+
+def observe_ec_sequence(env: CommandEnv, servers: list, vid: int, nbytes: int,
+                        seed: int) -> dict:
+    """The EC half of the observe phase, on a cluster of four volume servers:
+    `vid` allocated on servers[0], `nbytes` of seeded 1 MiB needles POSTed to
+    it from 4 threads, `ec.encode -volumeId vid`, data shards OBS_LOST deleted
+    from their holders, OBS_DEGRADED GETs of needles with an interval on a
+    lost shard (every body equal), then `ec.rebuild -mode classic`. Returns
+    the encode and rebuild outputs, the GET latencies and the needles."""
+    s0 = servers[0]
+    Client(s0.url).json("/admin/allocate_volume", {"volume": vid})
+    rng = np.random.default_rng([seed, 41])
+    n = max(1, nbytes // OBS_EC_NEEDLE)
+    pool = memoryview(rng.bytes(n * OBS_EC_NEEDLE))
+    cookie = 0x0B5E7A11
+    fids = [f"{vid},{i + 1:x}{cookie:08x}" for i in range(n)]
+    errors = []
+
+    def post(t: int) -> None:
+        c = Client(s0.url)
+        try:
+            for i in range(t, n, OBS_EC_WRITERS):
+                status, out = c.request("POST", f"/{fids[i]}",
+                                        pool[i * OBS_EC_NEEDLE : (i + 1) * OBS_EC_NEEDLE], OCTET)
+                if status != 201:
+                    errors.append(f"POST {fids[i]} -> {status}: {out[:200]!r}")
+                    return
+        finally:
+            c.close()
+
+    ingest_s = run_threads(post, OBS_EC_WRITERS)
+    check(not errors, f"observe ingest: {errors[:3]}")
+    s0.heartbeat_once()
+    v = s0.store.get_volume(vid)
+    spots = {i: v.nm.get(i + 1) for i in range(n)}  # needle -> (.dat offset, size)
+    dat_size = v.size()
+    check(run_command(env, "lock") == "lock acquired", "lock")
+    t0 = time.perf_counter()
+    enc = run_command(env, f"ec.encode -volumeId {vid}")
+    encode_s = time.perf_counter() - t0
+    check("shards spread" in enc, f"ec.encode: {enc[-300:]}")
+    held = {sv.url: sorted(sv.ec_shards.get(vid, [])) for sv in env.servers()}
+    for url, shards in held.items():
+        drop = [s for s in shards if s in OBS_LOST]
+        if drop:
+            out = env.post(f"http://{url}/admin/ec/delete_shards",
+                           {"volume": vid, "shards": drop, "delete_index": False})
+            check(sorted(out["removed"]) == drop, f"delete_shards {vid}: {out}")
+    shard_size = geometry.shard_file_size(dat_size, geometry.LARGE_BLOCK_SIZE,
+                                          geometry.SMALL_BLOCK_SIZE)
+    on_lost = []
+    for i, (noff, nsize) in spots.items():
+        ivs = geometry.locate_data(geometry.LARGE_BLOCK_SIZE, geometry.SMALL_BLOCK_SIZE,
+                                   10 * shard_size, noff, get_actual_size(nsize, 3))
+        if any(iv.to_shard_id_and_offset(geometry.LARGE_BLOCK_SIZE,
+                                         geometry.SMALL_BLOCK_SIZE)[0] in OBS_LOST
+               for iv in ivs):
+            on_lost.append(i)
+    pick = rng.choice(len(on_lost), size=min(OBS_DEGRADED, len(on_lost)), replace=False)
+    urls = sorted(u for u, shards in held.items() if shards)
+    clients = {u: Client(f"http://{u}") for u in urls}
+    degraded_lat = []
+    try:
+        for j, k in enumerate(pick):
+            i = on_lost[int(k)]
+            t0 = time.perf_counter()
+            status, got = clients[urls[j % len(urls)]].request("GET", f"/{fids[i]}")
+            degraded_lat.append(time.perf_counter() - t0)
+            check(status == 200 and got == pool[i * OBS_EC_NEEDLE : (i + 1) * OBS_EC_NEEDLE],
+                  f"degraded GET {fids[i]} -> {status}")
+    finally:
+        for c in clients.values():
+            c.close()
+    t0 = time.perf_counter()
+    reb = run_command(env, f"ec.rebuild -volumeId {vid} -mode classic")
+    rebuild_s = time.perf_counter() - t0
+    check(f"rebuilt shards {list(OBS_LOST)}" in reb and "(classic)" in reb,
+          f"ec.rebuild {vid}: {reb}")
+    check(run_command(env, "unlock") == "lock released", "unlock")
+    return dict(ingest_s=ingest_s, needles=n, dat_bytes=dat_size, encode_s=encode_s,
+                rebuild_s=rebuild_s, degraded_gets=len(degraded_lat),
+                **{f"degraded_{k}": v for k, v in _pcts(degraded_lat).items()},
+                encode_out=enc, rebuild_out=reb)
+
+
+def why_event_types(out: str) -> list:
+    """The event types of `cluster.why` rows (spans excluded)."""
+    types = set()
+    for line in out.splitlines()[1:]:
+        body = line.split("s  ", 1)[-1]
+        if body and not body.startswith("span "):
+            types.add(body.split()[0])
+    return sorted(types)
+
+
+def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
+                  seed: int) -> dict:
+    """The stats core and the debug plane on a loaded cluster: a port master
+    (pulse 1 s, maintenance off), four volume servers and a filer with its
+    metrics port, every role metered as constructed. (a) n_files seeded
+    4 KiB and n_large 4 MiB files through the filer from 8 waiting threads,
+    the 4 MiB PUTs going on until (c) returns; (b) observe_ec_sequence over
+    ec_bytes; (c) during the 4 MiB PUTs, `GET /debug/pprof/device` on the
+    filer's metrics port. Checks: (1) the
+    filer's `SeaweedFS_filer_hash_seconds{kernel="batch-cuda"}` observations
+    grew by its hash service's batches over (a); (2) the EC encode and
+    decode histograms grew by the one encode and the one rebuild of (b);
+    (3) the last PUT's X-Sw-Trace-Id names a `cluster.trace` tree with the
+    filer, master and volume roles; (4) `cluster.why <vid>` lists
+    OBS_WHY_EVENTS; (5) `cluster.check` lists every node healthy before the
+    loss and `cluster.top -once` has a row for every role; (6) the device
+    trace is a gzip of a Chrome trace with CUDA kernel events of the port's
+    kernels, and `cluster.profile` returns stacks; (7) every role's
+    /metrics passes the port's name lint. Prints files/s and PUT p50/p99,
+    the trace's kernel events against the launches counted in its window,
+    one history self-scrape's ms, and the phase's span."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-observe-", dir=REPO / "build")
+    master = MasterServer(port=0, pulse_seconds=1)
+    master.start()
+    servers, filer = [], None
+    res = {}
+    try:
+        for i, rack in enumerate(OBS_RACKS):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url, rack=rack,
+                              pulse_seconds=PULSE_S, device=dev)
+            vs.start()
+            servers.append(vs)
+        filer = FilerServer(master.url, port=0, device=dev, metrics_port=-1)
+        filer.start()
+        svc = filer.hash_service
+        check(filer.device.type == dev.type and svc.device.type == dev.type
+              and all(vs.device.type == dev.type for vs in servers),
+              "an observe-phase role is off the card")
+        env = CommandEnv(master.url)
+        metrics_url = filer.metrics_url
+        label = "batch-" + dev.type
+        # the process's history ring and alert state start with this phase:
+        # earlier phases' latencies and injected faults must not fire here
+        hist = history_mod.default_history()
+        hist.clear()
+        alerts_mod.engine().evaluate()
+
+        def filer_metrics() -> str:
+            status, _, body = http_request("GET", metrics_url + "/metrics")
+            check(status == 200, f"GET the filer's /metrics -> {status}")
+            return body.decode()
+
+        # 5a. every node healthy before the loss
+        out = run_command(env, "cluster.check")
+        check(out.endswith("cluster is healthy")
+              and all(f"node {vs.node_id} " in out for vs in servers),
+              f"cluster.check before the loss: {out}")
+        res["check_before"] = out.splitlines()
+        # (a) small files from 8 waiting threads
+        h0, b0 = metric_value(filer_metrics(), "SeaweedFS_filer_hash_seconds_count",
+                              kernel=label), svc.batches
+        per = [n_files // OBS_THREADS + (t < n_files % OBS_THREADS) for t in range(OBS_THREADS)]
+        rngs = [np.random.default_rng([seed, 42, t]) for t in range(OBS_THREADS)]
+        errors = []
+        put_lat = [[] for _ in range(OBS_THREADS)]
+
+        def put_small(t: int) -> None:
+            c = Client(filer.url)
+            try:
+                for i in range(per[t]):
+                    data = rngs[t].bytes(OBS_SMALL)
+                    t0 = time.perf_counter()
+                    status, out = c.request("PUT", f"/obs/t{t}/f{i:05d}", data, OCTET)
+                    put_lat[t].append(time.perf_counter() - t0)
+                    if status != 201 or json.loads(out)["md5"] != hashlib.md5(data).hexdigest():
+                        errors.append(f"PUT /obs/t{t}/f{i:05d} -> {status}: {out[:200]!r}")
+                        return
+            finally:
+                c.close()
+
+        small_s = run_threads(put_small, OBS_THREADS)
+        check(not errors, f"observe small PUTs: {errors[:3]}")
+        # (c) the profiler's first capture pays its set-up; then the 4 MiB
+        # PUTs run inside the timed capture
+        t0 = time.perf_counter()
+        status, _, _ = http_request("GET", metrics_url + "/debug/pprof/device?seconds=0.05",
+                                    timeout=120)
+        warm_s = time.perf_counter() - t0
+        check(status == 200, f"the first device capture -> {status}")
+        large = [np.random.default_rng([seed, 43, k]).bytes(OBS_LARGE) for k in range(n_large)]
+        cap = {}
+
+        def capture() -> None:
+            l0, t0 = read_launches(), time.perf_counter()
+            status, _, body = http_request(
+                "GET", f"{metrics_url}/debug/pprof/device?seconds={OBS_DEVICE_S:g}",
+                timeout=120)
+            l1 = read_launches()
+            cap.update(status=status, body=body, s=time.perf_counter() - t0,
+                       launches={k: l1[k] - l0[k] for k in l1})
+
+        th = threading.Thread(target=capture)
+        th.start()
+        time.sleep(0.2)
+        large_put = [0] * OBS_THREADS
+
+        def put_large(t: int) -> None:
+            # n_large files at least, and on until the capture returns, so
+            # the window holds launches however late the profiler starts
+            c = Client(filer.url)
+            try:
+                k = t
+                while k < n_large or th.is_alive():
+                    data = large[k % n_large]
+                    status, out = c.request("PUT", f"/obs/large/{k}", data, OCTET)
+                    if status != 201 or \
+                            json.loads(out)["md5"] != hashlib.md5(data).hexdigest():
+                        errors.append(f"PUT /obs/large/{k} -> {status}: {out[:200]!r}")
+                        return
+                    large_put[t] += 1
+                    k += OBS_THREADS
+            finally:
+                c.close()
+
+        large_s = run_threads(put_large, OBS_THREADS)
+        th.join()
+        check(not errors, f"observe large PUTs: {errors[:3]}")
+        # the marker PUT: its trace id, for cluster.trace
+        c = Client(filer.url)
+        try:
+            c.conn.request("PUT", "/obs/marker", b"m" * OBS_SMALL, OCTET)
+            resp = c.conn.getresponse()
+            resp.read()
+            check(resp.status == 201, f"marker PUT -> {resp.status}")
+            marker = resp.getheader(trace_mod.TRACE_HEADER)
+        finally:
+            c.close()
+        h1, b1 = metric_value(filer_metrics(), "SeaweedFS_filer_hash_seconds_count",
+                              kernel=label), svc.batches
+        # 1. one observation a batch
+        check(b1 > b0 and h1 - h0 == b1 - b0,
+              f"{h1 - h0:g} {label} observations of SeaweedFS_filer_hash_seconds against"
+              f" {b1 - b0} hash-service batches")
+        # 6. the device trace
+        check(cap.get("status") == 200, f"the device capture -> {cap.get('status')}")
+        trace_doc = json.loads(gzip.decompress(cap["body"]))
+        kernel_events = collections.Counter()
+        for ev in trace_doc.get("traceEvents", []):
+            if ev.get("cat") == "kernel":
+                for name in OBS_KERNEL_NAMES:
+                    if name in ev.get("name", ""):
+                        kernel_events[name] += 1
+        check(sum(kernel_events.values()) > 0,
+              f"the device trace holds no port kernel event ({len(trace_doc.get('traceEvents', []))}"
+              f" events; launches counted in its window: {cap['launches']})")
+        # 3. the marker's trace spans three roles
+        out = run_command(env, "cluster.trace -limit 50")
+        line = next((ln for ln in out.splitlines() if ln.startswith(f"trace {marker} ")), None)
+        check(line is not None and line.split("roles=")[1].split(",") == list(OBS_ROLES),
+              f"cluster.trace of the marker {marker}: {line!r}")
+        res["marker_trace"] = out[out.index(line):].split("\ntrace ")[0].splitlines()
+        # (b) the EC sequence, with the kernel histograms around it
+        text = filer_metrics()
+        e0 = metric_value(text, "SeaweedFS_volume_ec_encode_seconds_count")
+        d0 = metric_value(text, "SeaweedFS_volume_ec_decode_seconds_count")
+        ec = observe_ec_sequence(env, servers, OBS_EC_VID, ec_bytes, seed)
+        text = filer_metrics()
+        e1 = metric_value(text, "SeaweedFS_volume_ec_encode_seconds_count")
+        d1 = metric_value(text, "SeaweedFS_volume_ec_decode_seconds_count")
+        # 2. one encode and one rebuild
+        check(e1 - e0 == 1 and d1 - d0 == 1,
+              f"ec histograms grew by {e1 - e0:g} encodes and {d1 - d0:g} decodes, not 1 and 1")
+        # 4. the journal's story of the volume
+        why = run_command(env, f"cluster.why {OBS_EC_VID}")
+        check(why_event_types(why) == sorted(OBS_WHY_EVENTS),
+              f"cluster.why {OBS_EC_VID} lists {why_event_types(why)}: {why[:2000]}")
+        # 5b. a row for every role
+        top = run_command(env, "cluster.top -once")
+        rows = {ln.split()[0] for ln in top.splitlines()[2:] if ln and not ln.startswith(" ")}
+        check(set(OBS_ROLES) <= rows, f"cluster.top -once rows {sorted(rows)}: {top}")
+        # 6b. stacks from every process
+        prof = run_command(env, f"cluster.profile -seconds {OBS_PROFILE_S:g}")
+        stacks = [ln for ln in prof.splitlines()[1:] if ";" in ln]
+        check(len(stacks) > 0, f"cluster.profile returned no stacks: {prof[:500]}")
+        # 7. every role's exposition passes the port's name lint
+        bad = []
+        for url in [master.url] + [vs.url for vs in servers] + [metrics_url]:
+            status, _, body = http_request("GET", url + "/metrics")
+            check(status == 200, f"GET {url}/metrics -> {status}")
+            bad += exposition_violations(body.decode())
+        check(not bad, f"metric-name lint: {bad[:5]}")
+        t0 = time.perf_counter()
+        hist.scrape_once()
+        scrape_ms = (time.perf_counter() - t0) * 1e3
+        small_lat = [x for lat in put_lat for x in lat]
+        res.update(
+            files=n_files, file_bytes=OBS_SMALL, threads=OBS_THREADS, small_s=small_s,
+            files_per_s=n_files / small_s,
+            **{f"put_{k}": v for k, v in _pcts(small_lat).items()},
+            large_files=sum(large_put), large_s=large_s,
+            large_gbps=sum(large_put) * OBS_LARGE / large_s / 1e9,
+            hash_batches=b1 - b0, hash_observations=h1 - h0,
+            ec={k: v for k, v in ec.items() if not k.endswith("_out")},
+            ec_encodes=e1 - e0, ec_decodes=d1 - d0, why_events=why_event_types(why),
+            why_rows=len(why.splitlines()) - 1, top=top.splitlines(),
+            profile_stacks=len(stacks), profile_head=prof.splitlines()[0],
+            device_trace=dict(
+                warm_capture_s=warm_s, window_s=OBS_DEVICE_S, request_s=cap["s"],
+                gzip_bytes=len(cap["body"]), events=len(trace_doc.get("traceEvents", [])),
+                kernel_events=dict(kernel_events),
+                launches_in_window={k: v for k, v in cap["launches"].items() if v}),
+            history_scrape_ms=scrape_ms, history_series=len(hist.families()),
+            lint_violations=0)
+    finally:
+        if filer is not None:
+            filer.stop()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    res.update(wall_s=wall, wall_limit_s=OBS_WALL_LIMIT_S, over_wall_limit=wall > OBS_WALL_LIMIT_S,
+               cuts=OBS_CUTS, note="every role in one process: one registry, ring and journal")
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -6482,13 +6873,13 @@ def main() -> int:
     ap.add_argument("--mesh-mib", type=int, default=4)
     ap.add_argument("--filer-files", type=int, default=2048)
     ap.add_argument("--filer-large-mib", type=int, default=256)
-    ap.add_argument("--scrub-files", type=int, default=2048)
+    ap.add_argument("--scrub-files", type=int, default=1024)
     ap.add_argument("--scrub-mib", type=int, default=256)
     ap.add_argument("--maint-mib", type=int, default=256)
     ap.add_argument("--maint-files", type=int, default=1024)
-    ap.add_argument("--filer-dedup-uploads", type=int, default=8)
+    ap.add_argument("--filer-dedup-uploads", type=int, default=6)
     ap.add_argument("--s3-objects", type=int, default=256)
-    ap.add_argument("--s3-seconds", type=float, default=15.0)
+    ap.add_argument("--s3-seconds", type=float, default=10.0)
     ap.add_argument("--s3-clients", type=int, default=20)
     ap.add_argument("--s3-multipart-mib", type=int, default=64)
     ap.add_argument("--tier-mib", type=int, default=256)
@@ -6503,6 +6894,9 @@ def main() -> int:
     ap.add_argument("--ha-files", type=int, default=2048)
     ap.add_argument("--ha-large-mib", type=int, default=64)
     ap.add_argument("--ha-ec-mib", type=int, default=256)
+    ap.add_argument("--obs-files", type=int, default=1024)
+    ap.add_argument("--obs-large", type=int, default=16)
+    ap.add_argument("--obs-ec-mib", type=int, default=256)
     ap.add_argument("--offset5-child", metavar="DIR",
                     help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
@@ -6691,6 +7085,15 @@ def main() -> int:
         launches[name] += ha["launches"][name]
     for name in ("crc32c_batch", "md5_batch"):
         timed[name]["shapes"].extend(ha["hash_kernels"][name])
+
+    # the stats core and the debug plane on a loaded cluster; its own count
+    l0 = read_launches()
+    ob = observe_phase(dev, args.obs_files, args.obs_large, args.obs_ec_mib * MIB, args.seed)
+    ob["launches"] = {k: v - l0[k] for k, v in read_launches().items()}
+    emit("observe", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **ob)
+    for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
+        check(ob["launches"][name] > 0, f"the observe phase launched no {name} kernel")
+        launches[name] += ob["launches"][name]
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

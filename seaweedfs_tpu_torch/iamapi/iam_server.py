@@ -9,8 +9,9 @@ Reference: `weed/iamapi/iamapi_server.go:24`,
 `iamapi_management_handlers.go` (action dispatch + policy→action mapping).
 
 The port's copy of `seaweedfs_tpu/iamapi/iam_server.py`, over the port's
-`filer/filer_client.py`, `s3api/auth.py` and `server/httpd.py`. Not
-ported: request metrics (10d-4).
+`filer/filer_client.py`, `s3api/auth.py` and `server/httpd.py`. The
+service is metered as role "iam" (no `/metrics` route, as in the JAX
+server); `slow_ms` sets the role's slow-span threshold.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..s3api.auth import (
     S3ApiError,
 )
 from ..server.httpd import HTTPService, Request, Response
+from ..stats import trace
 
 IAM_XMLNS = "https://iam.amazonaws.com/doc/2010-05-08/"
 IDENTITY_PATH = "/etc/iam/identity.json"
@@ -117,9 +119,13 @@ class IamServer:
         filer_url: str,
         host: str = "127.0.0.1",
         port: int = 8111,
+        slow_ms: float | None = None,
     ) -> None:
         self.fc = FilerClient(filer_url)
         self.service = HTTPService(host, port)
+        self.service.enable_metrics("iam", serve_route=False)
+        if slow_ms is not None:  # -slowMs: the role's slow-span threshold
+            trace.set_slow_threshold_ms(slow_ms, role="iam")
         # serializes read-modify-write of identity.json across the threaded
         # HTTP server — without it concurrent mutations lose updates
         self._mutate_lock = threading.Lock()

@@ -14,12 +14,13 @@ divergence, and the repair routing shared by the `scrub` task and the
 `volume.scrub` verb.
 
 The daemon is host code; the heals it starts run `gf256_matmul` and
-`crc32c_batch` on the volume servers' devices. Not ported: the JAX
-package's metric families, alert hook, events journal and trace spans
-(plain counters in `MaintenanceDaemon.status()` instead).
+`crc32c_batch` on the volume servers' devices. The metric families,
+alert hook, events journal and trace spans are the JAX package's
+(`stats/`); `MaintenanceDaemon.status()` also reports plain counts.
 """
 
-from .daemon import ALERT_SCANS, MaintenanceDaemon
+from .daemon import ALERT_SCANS, MAINTENANCE_FAMILIES, MaintenanceDaemon, \
+    ensure_metrics
 from .detectors import DETECTORS, TASK_TYPES, RepairTask, TaskSpec, scan
 from .executors import EXECUTORS, execute
 from .scheduler import RepairScheduler
@@ -39,9 +40,10 @@ from .scrub import (
 
 __all__ = [
     "ALERT_SCANS", "DETECTORS", "EMPTY_NEEDLE_DIGEST", "EXECUTORS",
-    "MaintenanceDaemon", "RepairScheduler", "RepairTask",
+    "MAINTENANCE_FAMILIES", "MaintenanceDaemon", "RepairScheduler", "RepairTask",
     "SCRUB_FINDING_KINDS", "ScrubCodecFailed", "ScrubFinding", "TASK_TYPES",
     "TaskSpec", "TokenBucket", "VolumeScrubber", "apply_scrub_repairs",
-    "describe_scrub_repairs", "detect", "execute", "needle_set_digest",
+    "describe_scrub_repairs", "detect", "ensure_metrics", "execute",
+    "needle_set_digest",
     "plan_scrub_repairs", "scan",
 ]

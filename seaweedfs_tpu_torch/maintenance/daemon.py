@@ -14,16 +14,17 @@ see exactly what the daemon *would* heal.
 The daemon is host code and holds no device: the kernels of a heal run
 on the volume servers its executors drive.
 
-Differences from the JAX package: the metric families
-(`SeaweedFS_maintenance_{tasks_total,task_seconds,failures_total,
-queue_depth}`) are plain counters that `status()` reports (`counts` by
-type and state, `seconds` and `failures` by type, `queue_depths`, and the
-scheduler's `lazy_batch` and `events`); the events journal's
-`task_done`/`task_failed` is the history entry. The alert engine is not
-ported, so `start()` registers no alert hook; `_on_alert` still maps an
-alert's name through `ALERT_SCANS` to `request_scan`. `stop()` waits for
-the worker pool's running tasks and the lease thread (bounded), so no
-repair outlives the master that started it.
+Observability, as in the JAX package: the metric families
+`SeaweedFS_maintenance_{tasks_total,task_seconds,failures_total}`
+(`ensure_metrics`) and the scrape-time `SeaweedFS_maintenance_queue_depth`
+gauge; a finished task journals `task_done` or `task_failed`; `start()`
+registers `_on_alert` with the process's alert engine, so a firing alert
+named in `ALERT_SCANS` triggers its detector subset at once. `status()`
+also reports the totals as plain counts (`counts` by type and state,
+`seconds` and `failures` by type, `queue_depths`, and the scheduler's
+`lazy_batch` and `events`). `stop()` removes the hook and the collector,
+and waits for the worker pool's running tasks and the lease thread
+(bounded), so no repair outlives the master that started it.
 """
 
 from __future__ import annotations
@@ -34,14 +35,21 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as wait_futures
 
+from ..stats import alerts as alerts_mod
+from ..stats import default_registry
+from ..stats import events as events_mod
+from ..stats.metrics import _fmt_labels
 from . import detectors as detectors_mod
 from . import executors as executors_mod
 from .detectors import TASK_TYPES, RepairTask
-from .scheduler import RepairScheduler
+from .scheduler import RepairScheduler, _coll_attr, task_key_str
 
-# alert name -> detector subset to scan immediately on a rising edge
-# (the JAX package's AlertEngine hook; here `_on_alert` is called by
-# whoever raises the alert)
+MAINTENANCE_FAMILIES = ("SeaweedFS_maintenance_queue_depth",)
+
+# alert name -> detector subset to scan immediately on a rising edge. The
+# alert engine evaluates the daemon's process-local metrics history, so
+# volume-server-side series drive these hooks only where the servers share
+# the master's process; elsewhere the periodic scan is the heal path.
 ALERT_SCANS = {
     "disk_near_cap": ("vacuum", "balance"),
     "heartbeat_stale": ("evacuate",),
@@ -56,6 +64,30 @@ ALERT_SCANS = {
 STOP_WAIT_SECONDS = 60.0
 
 
+def ensure_metrics(registry=None):
+    """Register the maintenance metric families on the process registry
+    once; returns (tasks_total, task_seconds, failures_total)."""
+    reg = registry if registry is not None else default_registry()
+    return (
+        reg.counter(
+            "SeaweedFS_maintenance_tasks_total",
+            "maintenance tasks by terminal state"
+            " (completed|failed|planned)",
+            ("task", "state"),
+        ),
+        reg.histogram(
+            "SeaweedFS_maintenance_task_seconds",
+            "wall time per executed maintenance task",
+            ("task",),
+        ),
+        reg.counter(
+            "SeaweedFS_maintenance_failures_total",
+            "failed maintenance task executions (each arms backoff)",
+            ("task",),
+        ),
+    )
+
+
 class MaintenanceDaemon:
     def __init__(
         self,
@@ -66,6 +98,7 @@ class MaintenanceDaemon:
         history_size: int = 128,
         rebuild_mode: str = "auto",
         lazy_window: float = 0.0,
+        registry=None,
     ) -> None:
         self.master = master
         self.interval = (
@@ -84,9 +117,15 @@ class MaintenanceDaemon:
         # Runtime-settable via POST /maintenance/enable {"lazyWindow"}.
         self.scheduler = scheduler or RepairScheduler(
             lazy_window=lazy_window)
+        self.registry = registry if registry is not None else default_registry()
+        self._m_tasks, self._m_seconds, self._m_failures = ensure_metrics(
+            self.registry
+        )
+        self._collector = None
+        self._alert_engine = None
         self._lock = threading.Lock()
         self._history: deque[dict] = deque(maxlen=history_size)
-        # the JAX metric families as plain counters
+        # the metric families' totals, as plain counts for status()
         self._counts: dict[tuple[str, str], int] = {}
         self._seconds: dict[str, float] = {}
         self._failures: dict[str, int] = {}
@@ -109,6 +148,12 @@ class MaintenanceDaemon:
         if self._thread is not None:
             return
         self.started_at = time.time()
+        self._collector = self.registry.register_collector(
+            self._queue_depth_lines, names=MAINTENANCE_FAMILIES
+        )
+        # react to firing alerts, not only the polling scan
+        self._alert_engine = alerts_mod.engine()
+        self._alert_engine.add_on_fire(self._on_alert)
         self._pool = ThreadPoolExecutor(
             max_workers=self.scheduler.global_limit,
             thread_name_prefix="sw-maint",
@@ -133,6 +178,12 @@ class MaintenanceDaemon:
         renew = self._renew_thread
         if renew is not None:
             renew.join(timeout=STOP_WAIT_SECONDS)
+        if self._alert_engine is not None:
+            self._alert_engine.remove_on_fire(self._on_alert)
+            self._alert_engine = None
+        if self._collector is not None:
+            self.registry.unregister_collector(self._collector)
+            self._collector = None
 
     def _command_env(self):
         if self._env is None:
@@ -312,11 +363,23 @@ class MaintenanceDaemon:
         duration = time.time() - started
         ok = state != "failed"
         retry_in = self.scheduler.complete(task, ok=ok)
+        events_mod.emit(
+            "task_done" if ok else "task_failed",
+            task=task_key_str(task), volume=task.volume_id,
+            node=task.node, type=task.type, state=state,
+            duration_ms=round(duration * 1000.0, 2),
+            **({"error": error} if error is not None else {}),
+            **_coll_attr(task),
+        )
         # a finished task frees a cap/throttle slot: wake the loop so the
         # next queued task dispatches now, not a full scan interval later
         if not self._stopping.is_set():
             self._wake.set()
-        # the JAX events journal's task_done / task_failed
+        self._m_tasks.labels(task.type, state).inc()
+        if state != "planned":  # planning costs nothing worth timing
+            self._m_seconds.labels(task.type).observe(duration)
+        if not ok:
+            self._m_failures.labels(task.type).inc()
         entry = {
             "task": task.to_dict(), "state": state,
             "started": round(started, 3),
@@ -341,6 +404,19 @@ class MaintenanceDaemon:
                     self._failures.get(task.type, 0) + 1)
 
     # --- views ----------------------------------------------------------------
+    def _queue_depth_lines(self) -> list[str]:
+        lines = ["# TYPE SeaweedFS_maintenance_queue_depth gauge"]
+        depths = self.scheduler.queue_depths()
+        for task_type in sorted(TASK_TYPES):
+            d = depths.get(task_type, {"queued": 0, "in_flight": 0})
+            for st in ("queued", "in_flight"):
+                lines.append(
+                    "SeaweedFS_maintenance_queue_depth"
+                    + _fmt_labels(("task", "state"), (task_type, st))
+                    + f" {d[st]}"
+                )
+        return lines
+
     def status(self, history_limit: int = 50) -> dict:
         with self._lock:
             history = list(self._history)[-history_limit:]

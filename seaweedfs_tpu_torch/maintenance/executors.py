@@ -15,9 +15,8 @@ servers they drive: `ec_rebuild` runs `gf256_matmul` on the rebuilder or
 on each hop of a pipelined chain, the online re-arm re-encodes parity
 through it, and `scrub` repairs act on findings the servers' scrub
 passes made through `crc32c_batch`. A codec or kernel failure on a
-server comes back as an error, which fails the task.
-
-Difference from the JAX package: `execute` opens no trace span.
+server comes back as an error, which fails the task. `execute` runs each
+task under a `maintenance.<type>` span.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from ..shell.commands_volume import (
     plan_vacuum,
 )
 
+from ..stats import trace
 from . import scrub as scrub_mod
 from .detectors import RepairTask
 
@@ -321,11 +321,17 @@ EXECUTORS = {
 
 def execute(task: RepairTask, env, dry_run: bool = False,
             scheduler=None, rebuild_mode: str = "auto") -> dict:
-    """Run one task's executor. `scheduler`/`rebuild_mode` feed the
-    ec_rebuild mode choice (live dispatch pressure + the daemon's
-    configured default)."""
+    """Run one task's executor; every repair is traced as a
+    `maintenance.<type>` span so /debug/traces and cluster.trace show
+    healing next to the foreground traffic it must not starve.
+    `scheduler`/`rebuild_mode` feed the ec_rebuild mode choice (live
+    dispatch pressure + the daemon's configured default)."""
     fn = EXECUTORS[task.type]
     kwargs = {}
     if task.type == "ec_rebuild":
         kwargs = {"scheduler": scheduler, "rebuild_mode": rebuild_mode}
-    return fn(task, env, dry_run, **kwargs)
+    with trace.span(
+        f"maintenance.{task.type}", role="master",
+        volume=task.volume_id, node=task.node, dry_run=dry_run,
+    ):
+        return fn(task, env, dry_run, **kwargs)

@@ -26,9 +26,11 @@ study, arXiv:1709.05365):
 Everything takes an optional `now` so tests drive time deterministically,
 and the jitter draws from the `rng` passed in. Host code: no device.
 
-Difference from the JAX package: its events journal and its
-`SeaweedFS_maintenance_lazy_batch_total` family are plain counters on
-the scheduler (`events` by event name, `lazy_batch` by outcome).
+A task's life journals `task_queued`, `task_dispatched` and
+`task_backoff` events keyed by `task_key_str`, and the lazy window's
+decisions count into `SeaweedFS_maintenance_lazy_batch_total{outcome}`,
+as in the JAX package; the scheduler also keeps both as plain counters
+(`events` by event name, `lazy_batch` by outcome).
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ import random
 import threading
 import time
 
+from ..stats import default_registry
+from ..stats import events as events_mod
 from .detectors import TASK_TYPES, RepairTask
 
 # lazy-batching window (amortize co-stripe losses): task
@@ -51,8 +55,37 @@ LAZY_TYPES = ("ec_rebuild",)
 #   bypassed — an urgent (alert/operator-driven) task skipped the window
 #   expired  — a single-target task waited out the full window alone
 LAZY_OUTCOMES = ("deferred", "folded", "batched", "bypassed", "expired")
-# the JAX package's task lifecycle events, counted by name
+# the task lifecycle events, also counted by name
 EVENTS = ("task_queued", "task_dispatched", "task_backoff")
+
+_lazy_counter_cache = None
+
+
+def lazy_batch_counter():
+    """Register the lazy-batching counter family once."""
+    global _lazy_counter_cache
+    if _lazy_counter_cache is None:
+        _lazy_counter_cache = default_registry().counter(
+            "SeaweedFS_maintenance_lazy_batch_total",
+            "lazy-batching window decisions for amortizable repairs",
+            ("outcome",),
+        )
+    return _lazy_counter_cache
+
+
+def task_key_str(task: RepairTask) -> str:
+    """The journal's `task` correlation key: the scheduler's dedup
+    identity, flattened ("ec_rebuild:7", "evacuate:127.0.0.1:81"), so
+    cluster.why can follow one repair queued -> dispatched -> done."""
+    return ":".join(str(p) for p in task.key)
+
+
+def _coll_attr(task: RepairTask) -> dict:
+    """The `collection` correlation key of a task's events: "default" for
+    a volume in the unnamed collection, none for a node-scoped task."""
+    if task.volume_id is None:
+        return {}
+    return {"collection": task.collection or "default"}
 
 class RepairScheduler:
     def __init__(
@@ -175,6 +208,14 @@ class RepairScheduler:
             if folded:
                 self.lazy_batch["folded"] += 1
             self.events["task_queued"] += 1
+        if folded:
+            lazy_batch_counter().labels("folded").inc()
+        events_mod.emit("task_queued", task=task_key_str(task),
+                        volume=task.volume_id, node=task.node,
+                        type=task.type,
+                        reason=("folded into queued task" if folded
+                                else task.reason),
+                        **_coll_attr(task))
         return True
 
     # --- dispatch -------------------------------------------------------------
@@ -250,6 +291,11 @@ class RepairScheduler:
             if lazy_outcome is not None:
                 self.lazy_batch[lazy_outcome] += 1
             self.events["task_dispatched"] += 1
+        if lazy_outcome is not None:
+            lazy_batch_counter().labels(lazy_outcome).inc()
+        events_mod.emit("task_dispatched", task=task_key_str(picked),
+                        volume=picked.volume_id, node=picked.node,
+                        type=picked.type, **_coll_attr(picked))
         return picked
 
     def _lazy_gate(self, task: RepairTask, now: float) -> str | None:
@@ -272,6 +318,7 @@ class RepairScheduler:
             if key not in self._lazy_deferred:
                 self._lazy_deferred.add(key)
                 self.lazy_batch["deferred"] += 1
+                lazy_batch_counter().labels("deferred").inc()
             return "deferred"
         return "expired"  # waited the full window alone: repair anyway
 
@@ -304,6 +351,11 @@ class RepairScheduler:
             ) * (0.5 + self._rng.random())  # +-50% jitter
             bo["not_before"] = now + delay
             self.events["task_backoff"] += 1
+            failures = bo["failures"]
+        events_mod.emit("task_backoff", task=task_key_str(task),
+                        volume=task.volume_id, node=task.node,
+                        type=task.type, retry_in=round(delay, 2),
+                        failures=failures, **_coll_attr(task))
         return delay
 
     def next_lazy_deadline(self, now: float | None = None) -> float | None:

@@ -42,9 +42,12 @@ Differences from the JAX package, by design: every bulk group goes
 through the device kernel (the JAX scrubber prefers a host library when
 one is built); a failure of the CRC kernel or the codec raises
 `ScrubCodecFailed` out of the pass instead of falling to the scalar path
-or being swallowed with the volume; the metric families and the events
-journal are plain counters on the scrubber (`counters`: bytes and seconds
-by kernel, findings and repairs by kind), served by `status()`.
+or being swallowed with the volume. The JAX metric families
+(`SeaweedFS_volume_scrub_{bytes_total,seconds,findings_total,
+repairs_total}`, `ensure_metrics`) and `scrub_finding` events are fed as
+in the JAX package; the scrubber also keeps plain counters (`counters`:
+bytes and seconds by kernel, findings by kind, and repairs by kind as they
+land on this holder), served by `status()`.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..ops.crc32c_kernel import crc32c_batch
+from ..stats import default_registry
+from ..stats import events as events_mod
 from ..storage import crc as crc_mod
 from ..storage.erasure_coding.geometry import DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT
 from ..storage.erasure_coding.online import ParityCodecFailed
@@ -76,6 +81,47 @@ SCRUB_FINDING_KINDS = (
     "tmp_litter",          # abandoned .tmp shard files (aborted rebuild)
 )
 SCRUB_KERNELS = ("batched", "scalar", "gf")
+
+_metrics_cache = None
+
+
+def ensure_metrics(registry=None):
+    """Register (idempotently) the scrub families; returns
+    (bytes_total{kernel}, seconds{kernel}, findings_total{kind},
+    repairs_total{kind})."""
+    global _metrics_cache
+    if registry is None and _metrics_cache is not None:
+        return _metrics_cache
+    reg = registry if registry is not None else default_registry()
+    out = (
+        reg.counter(
+            "SeaweedFS_volume_scrub_bytes_total",
+            "bytes integrity-verified by the scrubber, by kernel"
+            " (batched = bulk CRC32C matmul, scalar = table CRC,"
+            " gf = EC parity recompute)",
+            ("kernel",),
+        ),
+        reg.histogram(
+            "SeaweedFS_volume_scrub_seconds",
+            "wall seconds per scrub verification slice, by kernel"
+            " (GB/s = bytes/sum)",
+            ("kernel",),
+        ),
+        reg.counter(
+            "SeaweedFS_volume_scrub_findings_total",
+            "silent-damage findings detected by scrub passes, by kind",
+            ("kind",),
+        ),
+        reg.counter(
+            "SeaweedFS_volume_scrub_repairs_total",
+            "scrub findings routed into a repair, by kind",
+            ("kind",),
+        ),
+    )
+    if registry is None:
+        _metrics_cache = out
+    return out
+
 
 # .tmp litter pattern: the _ShardWriters convention (shard file + .tmp)
 _TMP_RE = re.compile(r"\.ec\d\d\.tmp$")
@@ -280,6 +326,8 @@ class VolumeScrubber:
             "codec_calls": 0,
             "codec_failures": 0,
         }
+        (self._m_bytes, self._m_seconds, self._m_findings,
+         self._m_repairs) = ensure_metrics()
         # the last pass that failed on the kernel or the codec, kept (with
         # the count above) so a failure in the loop is never dropped
         self.codec_failure: dict | None = None
@@ -297,6 +345,8 @@ class VolumeScrubber:
         with self._lock:
             self.counters["bytes"][kernel] += nbytes
             self.counters["seconds"][kernel] += dt
+        self._m_bytes.labels(kernel).inc(nbytes)
+        self._m_seconds.labels(kernel).observe(dt)
 
     def count_repair(self, kind: str) -> None:
         """A repair of `kind` landed on this holder (the repair endpoints
@@ -313,6 +363,15 @@ class VolumeScrubber:
                 self.counters["findings"][f.kind] += 1
         if fresh:
             self.stats["findings"] += 1
+            self._m_findings.labels(f.kind).inc()
+            events_mod.emit("scrub_finding", volume=f.volume_id,
+                            node=f.node or None, kind=f.kind,
+                            collection=f.collection or "default",
+                            **({"needle": f"{f.needle:x}"}
+                               if f.needle is not None else {}),
+                            **({"shard": f.shard}
+                               if f.shard is not None else {}),
+                            detail=f.detail[:120])
 
     def resolve(self, kind: str | None = None, volume: int | None = None,
                 needle: int | None = None) -> int:
@@ -688,6 +747,11 @@ class VolumeScrubber:
             with self._lock:
                 self.counters["findings"]["tmp_litter"] += 1
                 self.counters["repairs"]["tmp_litter"] += 1
+            self._m_findings.labels("tmp_litter").inc()
+            self._m_repairs.labels("tmp_litter").inc()
+            events_mod.emit("scrub_finding", node=self.node_id or None,
+                            kind="tmp_litter", path=name,
+                            age_s=round(age, 1))
         return findings
 
     def status(self) -> dict:
@@ -905,6 +969,7 @@ def _repair_needle(env, a: dict) -> str:
 def apply_scrub_repairs(env, actions: list[dict]) -> list[str]:
     """Apply every routed repair, isolating failures per action. Raises
     only when NOTHING succeeded."""
+    m_repairs = ensure_metrics()[3]
     applied: list[str] = []
     failures: list[str] = []
     for a in actions:
@@ -912,6 +977,7 @@ def apply_scrub_repairs(env, actions: list[dict]) -> list[str]:
             continue
         try:
             applied.append(_apply_one(env, a))
+            m_repairs.labels(a["kind"]).inc()
         except Exception as e:
             failures.append(
                 f"volume {a['volume']} [{a['kind']}] on {a['node']}:"

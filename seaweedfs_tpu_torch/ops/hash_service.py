@@ -20,7 +20,15 @@ needle on the volume server (`weed/storage/needle/needle.go:52`,
 
 The device is fixed at construction: `HashService()` runs on cuda or
 raises. There is no backend pick, rate calibration or override. Counters:
-`batch_blobs` (hashed by the batch path), `host_blobs`, `failed_blobs`.
+`batch_blobs` (hashed by the batch path), `batches` (batch-path calls),
+`host_blobs`, `failed_blobs`.
+
+Every hash feeds `SeaweedFS_filer_hash_seconds{kernel}` and its bytes
+counter, as in the JAX package, with labels that name the port's paths:
+"batch-cuda" (or "batch-cpu") for a bucket through the batch kernels,
+timed over the staging copy, both kernels and the copy back, which the
+batch already waits for; "scalar" for a lone blob hashed on an idle
+service; "sw128", "md5_spans" and "md5_crc_spans" for the span methods.
 
 The dedup write path's span methods, `span_keys`, `md5_spans` and
 `hash_spans`, are synchronous host code on either device, as in the JAX
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..stats import trace
 from ..storage import crc as crc_mod
 from .crc32c_kernel import crc32c_batch_kernel
 from .md5_kernel import md5_batch_kernel
@@ -128,11 +137,14 @@ class HashService:
         self._staging: torch.Tensor | None = None  # pinned; used by the flusher only
         self._count_mu = threading.Lock()
         self.batch_blobs = 0
+        self.batches = 0
         self.host_blobs = 0
         self.failed_blobs = 0
+        self._batch_label = "batch-" + self.device.type
 
     def _count(self, batch: int = 0, host: int = 0, failed: int = 0) -> None:
         with self._count_mu:
+            self.batches += batch > 0
             self.batch_blobs += batch
             self.host_blobs += host
             self.failed_blobs += failed
@@ -177,7 +189,12 @@ class HashService:
                     self._cv.notify_all()  # wake the flusher, or end its linger
         if idle:
             try:
+                t0 = time.perf_counter()
                 r._set(*_hash_one(data))
+                trace.observe_kernel(
+                    trace.FILER_HASH_SECONDS, "scalar",
+                    time.perf_counter() - t0, len(data),
+                )
                 self._count(host=1)
             finally:
                 with self._cv:
@@ -219,14 +236,24 @@ class HashService:
         "x<hex32>", SW128 keyed by the caller's per-store 16-byte seed."""
         if len(cuts) == 0:
             return []
-        return ["x" + d.tobytes().hex() for d in native.fast128_spans(buf, cuts, seed)]
+        with trace.kernel_span(
+            "hash.sw128_spans", trace.FILER_HASH_SECONDS, "sw128",
+            nbytes=int(cuts[-1]), role="filer", spans=len(cuts),
+        ):
+            digests = native.fast128_spans(buf, cuts, seed)
+        return ["x" + d.tobytes().hex() for d in digests]
 
     def md5_spans(self, buf, ranges: list[tuple[int, int]]) -> list[str]:
         """MD5 hex per (offset, length) span of one buffer, in one batch.
         The dedup path hashes its index MISSES only (their upload ETags)."""
         if not ranges:
             return []
-        digests = native.md5_spans(buf, [r[0] for r in ranges], [r[1] for r in ranges])
+        with trace.kernel_span(
+            "hash.md5_spans", trace.FILER_HASH_SECONDS, "md5_spans",
+            nbytes=sum(n for _, n in ranges), role="filer", spans=len(ranges),
+        ):
+            digests = native.md5_spans(buf, [r[0] for r in ranges],
+                                       [r[1] for r in ranges])
         return [d.tobytes().hex() for d in digests]
 
     def hash_spans(self, buf, cuts) -> list[tuple[str, int]]:
@@ -234,7 +261,11 @@ class HashService:
         exclusive ends, in one batch with no per-span copies."""
         if len(cuts) == 0:
             return []
-        digests, crcs = native.md5_crc_batch_spans(buf, cuts)
+        with trace.kernel_span(
+            "hash.spans", trace.FILER_HASH_SECONDS, "md5_crc_spans",
+            nbytes=int(cuts[-1]), role="filer", spans=len(cuts),
+        ):
+            digests, crcs = native.md5_crc_batch_spans(buf, cuts)
         return [(d.tobytes().hex(), int(c)) for d, c in zip(digests, crcs.tolist())]
 
     # --- internals -----------------------------------------------------------
@@ -275,7 +306,12 @@ class HashService:
                 r._set(*_hash_one(data))
             self._count(host=len(items))
             return
+        t0 = time.perf_counter()
         digests, crcs = self._batch_hash(items, length)
+        trace.observe_kernel(
+            trace.FILER_HASH_SECONDS, self._batch_label,
+            time.perf_counter() - t0, len(items) * length,
+        )
         md5s, crc_list = digests.tobytes(), crcs.tolist()
         for i, (_, r) in enumerate(items):
             r._set(md5s[16 * i : 16 * i + 16], crc_list[i])

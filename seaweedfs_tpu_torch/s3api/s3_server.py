@@ -21,10 +21,13 @@ ETags (an object's MD5, a multipart upload's MD5 of its parts' MD5s) are
 `hashlib`, as in the reference, so they stay equal to its answers.
 `faults_spec` is the `-faults` flag (see `util/faults.opt_in`).
 
+The service is metered as role "s3" (no `/metrics` route: the bucket
+namespace is a catch-all); `slow_ms` is its `-slowMs` span threshold.
+
 Not ported: the native front (the engine relay, its per-bucket flags and
-upload registry, `url`'s engine branch), QoS admission, usage accounting,
-request metrics, the slow-span threshold, the telemetry spool and the
-`TelemetryPusher`; the constructor takes none of their options. The
+upload registry, `url`'s engine branch; ROADMAP 10a-3), QoS admission,
+usage accounting, the telemetry spool and the `TelemetryPusher` (10d-4c);
+the constructor takes none of their options. The
 `s3-meta-objects` marker an x-amz-meta PUT writes on its bucket entry is
 kept, so a store written here reads the same to a gateway that has the
 native front.
@@ -44,6 +47,7 @@ from xml.sax.saxutils import escape
 from ..filer.filer_client import FilerClient
 from ..filer.meta_aggregator import MetaSubscriber
 from ..server.httpd import HTTPService, Request, Response
+from ..stats import trace
 from ..util import faults
 
 from . import policy as bucket_policy
@@ -99,6 +103,7 @@ class S3Server:
         config: dict | None = None,
         circuit_breaker: CircuitBreaker | None = None,
         faults_spec: str | None = None,
+        slow_ms: float | None = None,
     ) -> None:
         faults.opt_in(faults_spec)  # the -faults flag
         self.fc = FilerClient(filer_url)
@@ -109,6 +114,9 @@ class S3Server:
         self.lifecycle_sweep_interval = 3600.0  # 0 disables the sweeper
         self._sweep_stop = None
         self.service = HTTPService(host, port)
+        self.service.enable_metrics("s3", serve_route=False)
+        if slow_ms is not None:  # -slowMs: the role's slow-span threshold
+            trace.set_slow_threshold_ms(slow_ms, role="s3")
         self._iam_subscriber = None
         # buckets this gateway has marked as holding x-amz-meta objects
         self._meta_dirty: set[str] = set()

@@ -63,10 +63,19 @@ filer's `WeedClient` (chunk uploads carry the assign's write token, chunk
 fetches a read token the filer signs, deletes a wildcard write token) and
 `white_list` puts a `Guard` on the service.
 
-Not ported: the native fastlane front door (`_fl_*`, ROADMAP 10a-3), and
-qos admission, usage accounting, metrics and telemetry (10d-4b). The
-registration beat carries no telemetry frame and charges no fastlane qos
-usage.
+Observability (`stats/`): the service is metered as role "filer" without
+a `/metrics` route on its own port, since any path there may be a file;
+`metrics_port` (`-metricsPort`: -1 an ephemeral port, 0 none, above 0
+that port) serves `/metrics` and the debug routes on a `MetricsService`
+(`metrics_url`). `slow_ms` is its `-slowMs` span threshold. Uploads record
+`filer.upload_chunks` (or `filer.upload_chunks_cdc`) spans, and its hash
+service feeds `SeaweedFS_filer_hash_seconds` under the port's kernel
+labels.
+
+Not ported: the native fastlane front door (`_fl_*`, and with it the
+`lease_churn` and `fallback_fastlane` events, ROADMAP 10a-3), and qos
+admission, usage accounting and telemetry (10d-4c). The registration beat
+carries no telemetry frame and charges no fastlane qos usage.
 """
 
 from __future__ import annotations
@@ -92,6 +101,7 @@ from ..filer.filer_conf import FILER_CONF_PATH, FilerConf
 from ..filer.filerstore import make_store
 from ..filer.wdclient import WeedClient
 from ..ops import cdc
+from ..stats import trace
 from ..remote_storage import (
     CONF_FILE,
     MOUNT_FILE,
@@ -109,7 +119,7 @@ from ..util import cipher as cipher_util
 from ..util import faults
 from ..util.chunk_cache import TieredChunkCache
 from ..util.compression import decompress_data, maybe_compress_data
-from .httpd import HTTPService, Request, Response, http_request, peer_url
+from .httpd import HTTPService, MetricsService, Request, Response, http_request, peer_url
 
 SMALL_CONTENT_LIMIT = 2 * 1024  # inline small files in the entry
 
@@ -143,6 +153,8 @@ class FilerServer:
         notification_queue=None,
         peers: list[str] | None = None,
         security: SecurityConfig | None = None,
+        metrics_port: int = -1,
+        slow_ms: float | None = None,
     ) -> None:
         self.device = resolve_device(device)
         self.security = security or SecurityConfig()
@@ -169,6 +181,14 @@ class FilerServer:
         self.service = HTTPService(host, port)
         if self.security.white_list:
             self.service.guard = Guard(self.security.white_list)
+        # the filer's namespace is a catch-all (any path may be a file, incl.
+        # /metrics), so metrics get their own listener (`-metricsPort`)
+        self.service.enable_metrics("filer", serve_route=False)
+        if slow_ms is not None:  # -slowMs: the role's slow-span threshold
+            trace.set_slow_threshold_ms(slow_ms, role="filer")
+        self.metrics_service = (
+            MetricsService(host, max(metrics_port, 0)) if metrics_port != 0 else None
+        )
         self.cipher = cipher
         self.compress = compress
         # the server's own batch hash service, on its device: chunk ETags
@@ -236,6 +256,8 @@ class FilerServer:
         # the flusher thread must run, or submit_many hashes on the host
         self.hash_service.start()
         self.service.start()
+        if self.metrics_service is not None:
+            self.metrics_service.start()
         if self.local_socket:
             self.service.enable_unix_socket(self.local_socket)
         self.dlm.host = self.url
@@ -273,6 +295,8 @@ class FilerServer:
         if self._register_thread is not None:
             self._register_thread.join(timeout=10)
         self.service.stop()
+        if self.metrics_service is not None:
+            self.metrics_service.stop()
         self.hash_service.stop()
         close = getattr(self.client, "close", None)
         if close is not None:
@@ -282,6 +306,11 @@ class FilerServer:
     @property
     def url(self) -> str:
         return self.service.url
+
+    @property
+    def metrics_url(self) -> str | None:
+        """The `-metricsPort` listener's URL (None when it is off)."""
+        return self.metrics_service.url if self.metrics_service else None
 
     # --- upload pipeline --------------------------------------------------------
     def _upload_chunks(
@@ -293,12 +322,17 @@ class FilerServer:
         independently maybe-compressed (mime heuristic) and AES-GCM
         encrypted when the filer runs ciphered (`upload_content.go`)."""
         if self.dedup:
-            return self._upload_chunks_cdc(
-                data, ttl, collection, replication, mime=mime, filename=filename,
+            with trace.span("filer.upload_chunks_cdc", role="filer",
+                            bytes=len(data)):
+                return self._upload_chunks_cdc(
+                    data, ttl, collection, replication, mime=mime,
+                    filename=filename,
+                )
+        with trace.span("filer.upload_chunks", role="filer", bytes=len(data)):
+            return self._upload_chunks_plain(
+                data, ttl, collection, replication, mime=mime,
+                filename=filename,
             )
-        return self._upload_chunks_plain(
-            data, ttl, collection, replication, mime=mime, filename=filename,
-        )
 
     def _upload_chunks_plain(
         self, data: bytes, ttl: str, collection: str, replication: str,
@@ -759,6 +793,7 @@ class FilerServer:
         # (`weed/server/filer_grpc_server_sub_meta.go`)
         @svc.route("GET", r"/__meta__/events")
         def meta_events(req: Request) -> Response:
+            trace.annotate(long_poll=True)  # slow by design: skip slow-log
             since = int(req.query.get("since_ns", 0))
             limit = int(req.query.get("limit", 1024))
             wait = float(req.query.get("wait", 0))

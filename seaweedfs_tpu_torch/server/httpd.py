@@ -36,20 +36,34 @@ certificate on every `https` connection. The unix-socket listener is
 same-host-trusted: neither the CN gate nor the guard applies there. A
 `plain_backend` listener stays plain.
 
-Not ported: request metrics, the other debug and the profiler endpoints,
-QoS and trace propagation.
+Observability (`stats/`): `enable_metrics(role)` counts and times every
+request under the role's label (`SeaweedFS_http_request_{total,seconds}`),
+serves `/metrics` unless the role has a catch-all namespace (the filer
+serves it on a `MetricsService`, its metrics port), and starts the
+process's history loop, alert engine and events journal and the role's
+request spans. `enable_tracing` registers the debug routes:
+`/debug/traces`, `/debug/requests`, `/debug/pprof/{profile,threads,device}`
+(the device route is a `torch.profiler` capture of the process's CUDA
+activity), `/debug/metrics/history`, `/debug/alerts` and `/debug/events`.
+`http_request` and `PooledHTTP` carry the active span's trace headers
+(`X-Sw-Trace-Id`, `X-Sw-Span`) to the next hop.
+
+Not ported: usage and heat accounting, `/debug/usage`, `/debug/heat`,
+`/qos/limits` and `/debug/qos` (ROADMAP 10d-4c).
 """
 
 from __future__ import annotations
 
 import http.client
 import json
+import math
 import os
 import re
 import socket
 import ssl
 import sys
 import threading
+import time
 import weakref
 import urllib.error
 import urllib.parse
@@ -57,7 +71,15 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
+from .. import __version__
 from ..security import tls as _tls
+from ..stats import alerts as alerts_mod
+from ..stats import default_registry
+from ..stats import events as events_mod
+from ..stats import history as history_mod
+from ..stats import profiler as prof_mod
+from ..stats import trace as trace_mod
+from ..stats.metrics import PROCESS_START_TIME
 from ..util import faults as faults_mod
 
 DEFAULT_TIMEOUT = 30.0  # seconds; no outbound call may hang a worker forever
@@ -195,7 +217,59 @@ class HTTPService:
         self.guard = None  # security.Guard: 403 to IPs it does not admit
         self._tls_on = False  # set at start(): this listener serves mTLS
         self._allowed_cns: list = []  # the CN allow-list captured at start()
+        self.metrics_role: str | None = None  # instrument requests when set
+        self.trace_role: str | None = None  # record request spans when set
         _register_fault_routes(self)
+
+    def enable_metrics(self, role: str, serve_route: bool = True) -> None:
+        """Count and time every request under this role label and (unless
+        the main port has a catch-all namespace, like the filer's) serve
+        the Prometheus text format on /metrics (`weed/stats/metrics.go`).
+        The first metered service of a process starts its history loop,
+        alert engine and events journal."""
+        self.metrics_role = role
+        reg = default_registry()
+        self._m_total = reg.counter(
+            "SeaweedFS_http_request_total", "requests", ("role", "method", "code")
+        )
+        # exemplars: each latency sample carries the active trace id, so a
+        # cluster.top p99 row links to the trace that landed in that bucket
+        self._m_seconds = reg.histogram(
+            "SeaweedFS_http_request_seconds", "request latency",
+            ("role", "method"), exemplars=True,
+        )
+        if serve_route:
+            self.route("GET", r"/metrics")(_metrics_route(reg))
+        # process identity: start time (the history ring's restart signal)
+        # and a build_info series a role: cluster.top's uptime and version.
+        # Whole seconds render exactly in the exposition.
+        reg.gauge(
+            "SeaweedFS_process_start_time_seconds",
+            "unix time this process started (counter-reset detection)",
+        ).set(int(PROCESS_START_TIME))
+        reg.gauge(
+            "SeaweedFS_build_info",
+            "constant 1, labeled with the build version and server role",
+            ("version", "role"),
+        ).labels(__version__, role).set(1)
+        history_mod.default_history().start()
+        alerts_mod.engine()
+        events_mod.enable()
+        self.enable_tracing(role)
+
+    def enable_tracing(self, role: str) -> None:
+        """Record a span for every request under this role (inheriting the
+        caller's trace through X-Sw-Trace-Id/X-Sw-Span) and serve the debug
+        routes. Idempotent."""
+        if self.trace_role is not None:
+            return
+        self.trace_role = role
+        _register_debug_routes(self)
+
+    def serve_debug_routes(self) -> None:
+        """Serve the debug routes without request spans (a standalone
+        listener such as MetricsService)."""
+        _register_debug_routes(self)
 
     def route(self, method: str, pattern: str):
         compiled = re.compile(pattern)
@@ -227,7 +301,13 @@ class HTTPService:
         return None
 
     def _dispatch(self, handler: BaseHTTPRequestHandler) -> None:
+        start = time.monotonic()
         path = urllib.parse.urlparse(handler.path).path
+        span = None
+        if self.trace_role is not None:
+            span = trace_mod.begin_server_span(
+                self.trace_role, handler.command, path, handler.headers
+            )
         req = None
         resp = self._admitted(handler)
         if resp is None:
@@ -245,6 +325,19 @@ class HTTPService:
                 break
             else:
                 resp = Response({"error": f"no route {handler.command} {path}"}, 404)
+        # a QoS shed (X-Sw-Qos-Reason rides every one) is a deliberate
+        # refusal ahead of service, not a failure: counting its 503 would
+        # burn the availability SLO the shed protects
+        if self.metrics_role is not None and "X-Sw-Qos-Reason" not in resp.headers:
+            self._m_total.labels(
+                self.metrics_role, handler.command, str(resp.status)
+            ).inc()
+            self._m_seconds.labels(
+                self.metrics_role, handler.command
+            ).observe(time.monotonic() - start)
+        if span is not None:
+            resp.headers.setdefault(trace_mod.TRACE_HEADER, span.trace_id)
+            trace_mod.end_server_span(span, resp.status)
         # drain an unread request body before responding — on a keep-alive
         # connection leftover body bytes would desynchronize the next request
         length = int(handler.headers.get("Content-Length") or 0)
@@ -447,6 +540,230 @@ def _register_fault_routes(service: HTTPService) -> None:
         return Response({"error": f"unknown action {action!r}"}, 400)
 
 
+def _metrics_route(reg):
+    def metrics(req: Request) -> Response:
+        return Response(
+            reg.render().encode(),
+            content_type="text/plain; version=0.0.4; charset=utf-8",
+        )
+    return metrics
+
+
+def _since_param(query: dict):
+    """Parse the shared `?since=` incremental cursor (None when absent;
+    ValueError on anything non-finite, which the routes answer with 400).
+    /debug/metrics/history and /debug/events both take it: pass the previous
+    response's unrounded `watermark` back and only newer items ship."""
+    since = query.get("since")
+    if since is None:
+        return None
+    since = float(since)
+    if not math.isfinite(since):
+        raise ValueError(since)
+    return since
+
+
+def _register_debug_routes(service: HTTPService) -> None:
+    """`/debug/traces` (recent finished traces; ?limit= & ?min_ms=, or ?id=
+    for one trace), `/debug/requests` (in-flight spans; ?limit=), the
+    profiling surface (`/debug/pprof/profile`: ?seconds= & ?hz=,
+    collapsed-stack text or ?format=json; `/debug/pprof/threads`;
+    `/debug/pprof/device`: a gzipped Chrome trace of the process's CUDA
+    activity, 501 without CUDA, 429 while a capture runs),
+    `/debug/metrics/history` (?family= & ?window= & ?samples= & ?since=),
+    `/debug/alerts` (?window=) and `/debug/events` (?type= & ?volume= &
+    ?trace= & ?since= & ?limit=). On a catch-all namespace (the filer) they
+    shadow same-named file paths. A malformed number is a 400."""
+    col = trace_mod.collector()
+
+    def role():
+        return service.trace_role or service.metrics_role
+
+    @service.route("GET", r"/debug/traces")
+    def debug_traces(req: Request) -> Response:
+        trace_id = req.query.get("id")
+        if trace_id is not None:
+            # exact lookup: exemplar links and cluster.why resolve one trace
+            # without paging the whole ring
+            if not re.fullmatch(r"[0-9a-f]{1,32}", trace_id):
+                return Response(
+                    {"error": f"malformed trace id {trace_id!r}"
+                              " (lowercase hex)"}, 400
+                )
+            spans = col.trace_spans(trace_id)
+            return Response({
+                "trace_id": trace_id,
+                "found": bool(spans),
+                "spans": spans,
+            })
+        try:
+            limit = int(req.query.get("limit", 20))
+            min_ms = float(req.query.get("min_ms", 0))
+            if not math.isfinite(min_ms):
+                raise ValueError(min_ms)
+        except ValueError:
+            return Response(
+                {"error": "limit/min_ms must be finite numbers"}, 400
+            )
+        return Response({
+            "traces": col.traces(limit=limit, min_ms=min_ms),
+            "capacity": col.max_spans,
+        })
+
+    @service.route("GET", r"/debug/requests")
+    def debug_requests(req: Request) -> Response:
+        try:
+            limit = int(req.query.get("limit", 0))
+        except ValueError:
+            return Response({"error": "limit must be numeric"}, 400)
+        in_flight = col.inflight()
+        if limit > 0:
+            in_flight = in_flight[:limit]
+        return Response({"in_flight": in_flight})
+
+    @service.route("GET", r"/debug/pprof/profile")
+    def debug_pprof_profile(req: Request) -> Response:
+        try:
+            seconds = prof_mod.clamp_seconds(req.query.get("seconds", 2))
+            hz = int(req.query.get("hz", 100))
+        except ValueError:
+            return Response({"error": "seconds/hz must be finite numbers"}, 400)
+        try:
+            out = prof_mod.profile(seconds=seconds, hz=hz)
+        except prof_mod.ProfilerBusy as e:
+            return Response({"error": str(e)}, 429)
+        out["role"] = role()
+        out["proc"] = prof_mod.PROCESS_TOKEN  # cluster.profile dedup key
+        if req.query.get("format") == "json":
+            return Response(out)
+        return Response(prof_mod.render_collapsed(out["stacks"]))
+
+    @service.route("GET", r"/debug/pprof/threads")
+    def debug_pprof_threads(req: Request) -> Response:
+        return Response({"role": role(), "threads": prof_mod.threads_dump()})
+
+    @service.route("GET", r"/debug/metrics/history")
+    def debug_metrics_history(req: Request) -> Response:
+        hist = history_mod.default_history()
+        try:
+            window = float(req.query.get("window", hist.retention_seconds))
+            max_samples = int(req.query.get("samples", 16))
+            if not math.isfinite(window) or window <= 0:
+                raise ValueError(window)
+            since = _since_param(req.query)
+        except ValueError:
+            return Response(
+                {"error": "window/samples/since must be finite numbers"},
+                400,
+            )
+        hist.ensure_fresh()
+        family = req.query.get("family") or None
+        return Response({
+            "interval": hist.interval,
+            "slots": hist.slots,
+            "window": window,
+            "scrapes": hist.scrapes_total,
+            # unrounded: a rounded-down watermark could sit below the stored
+            # timestamp of the scrape it names and re-ship its samples
+            "watermark": hist.last_scrape,
+            "proc": prof_mod.PROCESS_TOKEN,  # cluster.top dedup key
+            "series": hist.snapshot(
+                family=family, window=window,
+                max_samples=max(0, max_samples), since=since,
+            ),
+            # histogram exemplars ride here, not in the 0.0.4 text format:
+            # per (labels, upper bucket), the freshest sample's trace id
+            "exemplars": default_registry().exemplars(family=family),
+        })
+
+    @service.route("GET", r"/debug/alerts")
+    def debug_alerts(req: Request) -> Response:
+        window = req.query.get("window")
+        try:
+            if window is not None:
+                window = float(window)
+                if not math.isfinite(window) or window <= 0:
+                    raise ValueError(window)
+        except ValueError:
+            return Response(
+                {"error": "window must be a positive finite number"}, 400
+            )
+        out = alerts_mod.engine().status(window=window)
+        out["proc"] = prof_mod.PROCESS_TOKEN
+        return Response(out)
+
+    @service.route("GET", r"/debug/events")
+    def debug_events(req: Request) -> Response:
+        """The events journal (stats/events.py), filtered by ?type= /
+        ?volume= / ?trace= / ?collection= / ?since= (+ ?limit=).
+        cluster.why fans this out across every node."""
+        q = req.query
+        try:
+            limit = int(q.get("limit", 256))
+            volume = int(q["volume"]) if "volume" in q else None
+            since = _since_param(q)
+        except ValueError:
+            return Response(
+                {"error": "limit/volume/since must be finite numbers"}, 400
+            )
+        type_ = q.get("type") or None
+        if type_ is not None and type_ not in events_mod.EVENT_TYPES:
+            return Response(
+                {"error": f"unknown event type {type_!r}",
+                 "types": sorted(events_mod.EVENT_TYPES)}, 400
+            )
+        rec = events_mod.recorder()
+        return Response({
+            "proc": prof_mod.PROCESS_TOKEN,  # cluster.why dedup key
+            "role": role(),
+            "enabled": rec.enabled,
+            "capacity": rec.capacity,
+            "recorded": rec.recorded_total,
+            "dropped": rec.dropped_total,
+            # unrounded, like the history watermark
+            "watermark": rec.last_wall,
+            "events": rec.events(type=type_, volume=volume,
+                                 trace=q.get("trace") or None,
+                                 since=since,
+                                 collection=q.get("collection") or None,
+                                 limit=limit),
+        })
+
+    @service.route("GET", r"/debug/pprof/device")
+    def debug_pprof_device(req: Request) -> Response:
+        try:
+            seconds = prof_mod.clamp_seconds(req.query.get("seconds", 2))
+        except ValueError:
+            return Response({"error": "seconds must be a finite number"}, 400)
+        try:
+            data = prof_mod.device_trace(seconds)
+        except prof_mod.DeviceProfilerUnavailable as e:
+            return Response({"error": str(e)}, 501)
+        except prof_mod.ProfilerBusy as e:
+            return Response({"error": str(e)}, 429)
+        except Exception as e:  # noqa: BLE001 - the capture failed; profiler is off
+            return Response({"error": f"device trace failed: {e}"}, 500)
+        return Response(
+            data,
+            content_type="application/gzip",
+            headers={
+                "Content-Disposition":
+                    'attachment; filename="torch-trace.json.gz"'
+            },
+        )
+
+
+class MetricsService(HTTPService):
+    """Standalone /metrics listener (with the debug routes) for a server
+    whose main port has a catch-all namespace (the filer): the reference's
+    `-metricsPort`."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0) -> None:
+        super().__init__(host, port)
+        self.route("GET", r"/metrics")(_metrics_route(default_registry()))
+        self.serve_debug_routes()
+
+
 def peer_url(hostport: str) -> str:
     """Scheme-qualify another node's advertised host:port. Heartbeats and
     lookups carry bare addresses; when process-wide mTLS is configured
@@ -483,6 +800,7 @@ def http_request(
     headers: dict | None = None,
     timeout: float = DEFAULT_TIMEOUT,
 ) -> tuple[int, dict, bytes]:
+    headers = trace_mod.with_trace_headers(headers)
     if url.startswith("http+unix://"):
         return _unix_http_request(method, url, body, headers, timeout)
     req = urllib.request.Request(url, data=body, method=method)
@@ -593,6 +911,7 @@ class PooledHTTP:
         headers: dict | None = None,
         idempotent: bool = False,
     ) -> tuple[int, dict, bytes]:
+        headers = trace_mod.with_trace_headers(headers)
         u = urllib.parse.urlsplit(url)
         key = f"{u.scheme}://{u.netloc}"
         pool = getattr(self._tl, "conns", None)

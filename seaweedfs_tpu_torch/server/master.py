@@ -57,8 +57,14 @@ fault arming (`POST /debug/faults`), a spec string also arms it
 (`faults.arm_from_spec`). `/dir/assign` and `/dir/lookup` pass the
 `master.assign` and `master.lookup` fault points.
 
+Observability (`stats/`): the service is metered as role "master"
+(`slow_ms` is its `-slowMs` span threshold); a scrape-time collector
+exports the heartbeat-fed topology gauges (`MASTER_METRIC_FAMILIES`) and
+journals `heartbeat_stale`/`heartbeat_rejoin` edges; growth and the vacuum
+check record spans; `/ui` is the status page.
+
 Not ported: the native fastlane front door, telemetry
-(`/cluster/telemetry`), metrics, heat and `/ui`.
+(`/cluster/telemetry`) and heat (ROADMAP 10d-4c).
 """
 
 from __future__ import annotations
@@ -69,6 +75,10 @@ import time
 from ..raft import NotLeader, RaftNode
 from ..security import Guard, SecurityConfig
 from ..security.jwt import gen_write_jwt
+from ..stats import default_registry
+from ..stats import events as events_mod
+from ..stats import trace
+from ..stats.metrics import _fmt_labels
 from ..storage.types import TTL, ReplicaPlacement
 from ..topology import Topology
 from ..topology.node import VolumeInfo
@@ -101,6 +111,7 @@ class MasterServer:
         security: SecurityConfig | None = None,
         peers: list[str] | None = None,
         raft_dir: str | None = None,
+        slow_ms: float | None = None,
     ) -> None:
         faults.opt_in(faults_spec)  # the -faults flag
         seq = MemorySequencer(f"{meta_dir}/sequence.json" if meta_dir else None)
@@ -123,6 +134,11 @@ class MasterServer:
         self.service = HTTPService(host, port)
         if self.security.white_list:
             self.service.guard = Guard(self.security.white_list)
+        self.service.enable_metrics("master")
+        if slow_ms is not None:  # -slowMs: the role's slow-span threshold
+            trace.set_slow_threshold_ms(slow_ms, role="master")
+        self._metrics_collector = None
+        self._stale_nodes: set = set()
         # raft HA: created at start() once the listen port is known (or by
         # enable_raft); None = single-master mode
         self.raft: RaftNode | None = None
@@ -155,8 +171,101 @@ class MasterServer:
         self._routes()
 
     # --- lifecycle -------------------------------------------------------------
+    MASTER_METRIC_FAMILIES = (
+        "SeaweedFS_master_volume_size_bytes",
+        "SeaweedFS_master_volume_file_count",
+        "SeaweedFS_master_volume_deleted_bytes",
+        "SeaweedFS_master_volume_readonly",
+        "SeaweedFS_master_volume_size_limit_bytes",
+        "SeaweedFS_master_free_slots",
+        "SeaweedFS_master_heartbeat_age_seconds",
+        "SeaweedFS_master_stale_heartbeats",
+        "SeaweedFS_master_ec_shard_count",
+        "SeaweedFS_master_volumes_underreplicated",
+        "SeaweedFS_master_ec_missing_shards",
+    )
+
+    def _metrics_lines(self) -> list[str]:
+        lines: list[str] = []
+        # disambiguates multiple masters sharing one process registry
+        # (raft test clusters) — same role the volume collector's `server`
+        # label plays; without it their series would collide. Advertise the
+        # public port (the engine front when present, not the loopback
+        # backend the Python service binds behind it; the port has none)
+        me = f"{self.service.host}:{self.service.port}"
+
+        def sample(family: str, labels: dict, value) -> None:
+            labels = {"master": me, **labels}
+            # integers render exactly: '{:g}' would clip volume sizes to 6
+            # significant digits, skewing cluster.check's capacity math
+            v = str(int(value)) if float(value).is_integer() else f"{value:g}"
+            lines.append(
+                f"{family}"
+                f"{_fmt_labels(tuple(labels), tuple(labels.values()))}"
+                f" {v}"
+            )
+
+        for fam in self.MASTER_METRIC_FAMILIES:
+            lines.append(f"# TYPE {fam} gauge")
+        sample("SeaweedFS_master_volume_size_limit_bytes", {},
+               self.topo.volume_size_limit)
+        now = time.time()
+        # 3x pulse: late enough that a GIL-starved heartbeat thread does
+        # not flap the gauge, early enough to flag well before the 5x-pulse
+        # node expiry removes the node (and its gauges) entirely
+        stale_after = 3 * max(self.topo.pulse_seconds, 1)
+        # flight-recorder edges: staleness is computed right here, so the
+        # journal events ride the same scrape that flips the gauge (a
+        # racing double-render could at worst duplicate an edge — the
+        # journal tolerates that; missing one it would not)
+        prev_stale = self._stale_nodes
+        # a stale node that EXPIRED out of the topology never rejoined —
+        # drop it without an edge, so the set can't leak and a later
+        # fresh re-registration can't fabricate a spurious rejoin
+        live_ids = {n.id for n in self.topo.all_nodes()}
+        prev_stale &= live_ids
+        for node in self.topo.all_nodes():
+            where = {"dc": node.dc_name(), "rack": node.rack_name(),
+                     "node": node.id}
+            sample("SeaweedFS_master_free_slots", where, node.free_slots())
+            age = max(0.0, now - node.last_seen)
+            stale = age > stale_after
+            if stale and node.id not in prev_stale:
+                prev_stale.add(node.id)
+                events_mod.emit("heartbeat_stale", node=node.id,
+                                age_s=round(age, 2))
+            elif not stale and node.id in prev_stale:
+                prev_stale.discard(node.id)
+                events_mod.emit("heartbeat_rejoin", node=node.id,
+                                age_s=round(age, 2))
+            sample("SeaweedFS_master_heartbeat_age_seconds", where, age)
+            sample("SeaweedFS_master_stale_heartbeats", where,
+                   1 if stale else 0)
+            sample("SeaweedFS_master_ec_shard_count", where,
+                   sum(len(s.shard_ids()) for s in node.ec_shards.values()))
+            for vid, v in sorted(node.volumes.items()):
+                vl = {"volume": vid, "collection": v.collection,
+                      "node": node.id}
+                sample("SeaweedFS_master_volume_size_bytes", vl, v.size)
+                sample("SeaweedFS_master_volume_file_count", vl, v.file_count)
+                sample("SeaweedFS_master_volume_deleted_bytes", vl,
+                       v.deleted_byte_count)
+                sample("SeaweedFS_master_volume_readonly", vl,
+                       1 if v.read_only else 0)
+        for coll, vid, have, want in self.topo.under_replicated_volumes():
+            sample("SeaweedFS_master_volumes_underreplicated",
+                   {"volume": vid, "collection": coll, "have": have,
+                    "want": want}, want - have)
+        for vid, missing in sorted(self.topo.ec_missing_shards().items()):
+            sample("SeaweedFS_master_ec_missing_shards", {"volume": vid},
+                   missing)
+        return lines
+
     def start(self) -> None:
         self.service.start()
+        self._metrics_collector = default_registry().register_collector(
+            self._metrics_lines, names=self.MASTER_METRIC_FAMILIES,
+        )
         if self._peer_config:
             self.enable_raft(
                 [p.rstrip("/") for p in self._peer_config
@@ -219,6 +328,9 @@ class MasterServer:
         if self._pulse is not None:
             self._pulse.join()
             self._pulse = None
+        if self._metrics_collector is not None:
+            default_registry().unregister_collector(self._metrics_collector)
+            self._metrics_collector = None
         if self.raft is not None:
             self.raft.stop()
         self.service.stop()
@@ -246,7 +358,8 @@ class MasterServer:
         # mutations")
         if self.maintenance is not None and self.maintenance.enabled:
             return
-        self._vacuum_round()
+        with trace.span("master.vacuum_check", role="master"):
+            self._vacuum_round()
 
     def _vacuum_round(self) -> None:
         for node, vid, _ in self.topo.vacuum_candidates(self.garbage_threshold):
@@ -342,7 +455,9 @@ class MasterServer:
         self, collection: str, rp: ReplicaPlacement, ttl_u32: int, dc: str
     ) -> None:
         """Pick servers then instruct them to allocate (`volume_growth.go:243`)."""
-        with self._grow_lock:
+        with self._grow_lock, trace.span(
+            "master.grow", role="master", collection=collection,
+        ):
             lo = self.topo.layout(collection, rp, ttl_u32)
             if lo.active_volume_count(dc) > 0:
                 return  # another request already grew (in this DC if pinned)
@@ -396,6 +511,9 @@ class MasterServer:
 
         @svc.route("POST", r"/heartbeat")
         def heartbeat(req: Request) -> Response:
+            # periodic chatter: recorded only when the volume server's
+            # (sampled) heartbeat span linked us into its trace
+            trace.annotate(noise=True)
             if not self._is_leader():
                 # volume servers re-target to the leader (KeepConnected
                 # redirect semantics, `master_grpc_server.go`)
@@ -575,6 +693,31 @@ class MasterServer:
                 }
             )
 
+        @svc.route("GET", r"/ui")
+        def ui(req: Request) -> Response:
+            # minimal HTML status page (`weed/server/master_ui/`)
+            rows = []
+            for node in self.topo.all_nodes():
+                rows.append(
+                    f"<tr><td>{node.id}</td><td>{node.dc_name()}</td>"
+                    f"<td>{node.rack_name()}</td>"
+                    f"<td>{len(node.volumes)}</td></tr>"
+                )
+            html = (
+                "<html><head><title>seaweedfs-tpu master</title></head><body>"
+                f"<h1>Master {self.url}</h1>"
+                f"<p>leader: {self.leader_url()} | max volume id: "
+                f"{self.topo._max_volume_id}</p>"
+                "<table border=1><tr><th>volume server</th><th>DC</th>"
+                "<th>rack</th><th>volumes</th></tr>"
+                + "".join(rows) + "</table>"
+                "<p><a href='/dir/status'>topology json</a> | "
+                "<a href='/cluster/ps'>cluster ps</a> | "
+                "<a href='/metrics'>metrics</a></p>"
+                "</body></html>"
+            ).encode()
+            return Response(html, content_type="text/html")
+
         @svc.route("GET", r"/dir/status")
         def dir_status(req: Request) -> Response:
             return Response(
@@ -592,6 +735,7 @@ class MasterServer:
         def cluster_register(req: Request) -> Response:
             """Filers/brokers announce themselves (the reference rides this on
             the KeepConnected stream, `weed/cluster/cluster.go`)."""
+            trace.annotate(noise=True)  # periodic re-registration chatter
             p = req.json()
             prev = self._members.get(p["address"])
             self._members[p["address"]] = {

@@ -74,9 +74,17 @@ delete passes the client's `Authorization` on to the other holders, which
 verify the same token. `security.white_list` puts a `Guard` on the
 service.
 
-Not ported: the native fastlane, `/ui`, metrics, traces, events,
-telemetry and the retry policy of the copy stream (a failed range fails
-the copy).
+Observability (`stats/`): the service is metered as role "volume"
+(`slow_ms` is its `-slowMs` span threshold); a scrape-time collector
+exports each data directory's used and free bytes under the server's
+`server` label; every twelfth heartbeat (the first included) is a
+`volume.heartbeat` span, so the master's handler joins its trace; the
+partial-rebuild routes annotate their spans with the hop; `/ui` is the
+status page.
+
+Not ported: the native fastlane (and with it the fastlane metric
+families), telemetry and the retry policy of the copy stream (a failed
+range fails the copy).
 """
 
 from __future__ import annotations
@@ -96,6 +104,9 @@ from ..ops.rs_kernel import RSCodec, resolve_device
 from ..query import query_csv, query_json_lines
 from ..security import Guard, SecurityConfig
 from ..security.jwt import token_from_request, verify_file_jwt
+from ..stats import default_registry
+from ..stats import trace
+from ..stats.metrics import _fmt_labels
 from ..storage import crc as crc_mod
 from ..storage.backend import BackendError, configure_backend
 from ..storage.erasure_coding import decoder as ec_decoder
@@ -172,6 +183,7 @@ class VolumeServer:
         device=None,
         faults_spec: str | None = None,
         security: SecurityConfig | None = None,
+        slow_ms: float | None = None,
     ) -> None:
         self.device = resolve_device(device)
         faults.opt_in(faults_spec)  # the -faults flag
@@ -185,6 +197,11 @@ class VolumeServer:
         self.service = HTTPService(host, port)
         if self.security.white_list:
             self.service.guard = Guard(self.security.white_list)
+        self.service.enable_metrics("volume")
+        if slow_ms is not None:  # -slowMs: the role's slow-span threshold
+            trace.set_slow_threshold_ms(slow_ms, role="volume")
+        self._metrics_collector = None
+        self._hb_count = 0
         self.store: Store | None = None
         self._dirs = directories
         self._host = host
@@ -236,6 +253,9 @@ class VolumeServer:
             loc.max_volume_count = self.max_volume_count
             for ev in loc.ec_volumes.values():
                 self._attach_shard_fetcher(ev)
+        self._metrics_collector = default_registry().register_collector(
+            self._metrics_lines, names=self.METRIC_FAMILIES,
+        )
         self.scrubber = VolumeScrubber(
             self.store, node_id=self.node_id, rate_mb=self.scrub_rate_mb,
             active_tmp_paths=self._active_rebuild_tmps,
@@ -252,6 +272,9 @@ class VolumeServer:
 
     def stop(self) -> None:  # idempotent: fixtures may stop twice
         self._stop.set()
+        if self._metrics_collector is not None:
+            default_registry().unregister_collector(self._metrics_collector)
+            self._metrics_collector = None
         self.service.stop()
         if self._pulse is not None:
             self._pulse.join()
@@ -335,12 +358,58 @@ class VolumeServer:
                 for p in state["writers"].tmp_paths.values()
             }
 
+    # --- metrics collector ------------------------------------------------------
+    # the JAX server's FL_FAMILIES less the fastlane's (ROADMAP 10a-3)
+    METRIC_FAMILIES = (
+        "SeaweedFS_volume_disk_used_bytes",
+        "SeaweedFS_volume_disk_free_bytes",
+    )
+
+    def _metrics_lines(self) -> list[str]:
+        """Scrape-time per-directory disk gauges. The `server` label tells
+        apart servers sharing one process registry (test clusters)."""
+        server = self.node_id
+        lines: list[str] = []
+
+        def sample(family: str, labels: dict, value) -> None:
+            # integers render exactly: '{:g}' would clip large byte counts
+            v = str(int(value)) if float(value).is_integer() else f"{value:g}"
+            lines.append(
+                f"{family}{_fmt_labels(tuple(labels), tuple(labels.values()))}"
+                f" {v}"
+            )
+
+        store = self.store
+        if store is not None:
+            lines.append("# TYPE SeaweedFS_volume_disk_used_bytes gauge")
+            lines.append("# TYPE SeaweedFS_volume_disk_free_bytes gauge")
+            for loc in store.locations:
+                try:
+                    sv = os.statvfs(loc.directory)
+                except OSError:
+                    continue
+                sample("SeaweedFS_volume_disk_used_bytes",
+                       {"server": server, "dir": loc.directory},
+                       (sv.f_blocks - sv.f_bfree) * sv.f_frsize)
+                sample("SeaweedFS_volume_disk_free_bytes",
+                       {"server": server, "dir": loc.directory},
+                       sv.f_bavail * sv.f_frsize)
+        return lines
+
     def heartbeat_once(self) -> None:
-        """One heartbeat POST to the master (none without a master_url)."""
+        """One heartbeat POST to the master (none without a master_url).
+        Sampled tracing (the first beat, then every 12th): a root span makes
+        the master's handler span join its trace, while a span every beat
+        would flood the bounded ring and evict request traces."""
         if not self.master_urls or self.store is None:
             return
         with self._hb_lock:
-            self._heartbeat_locked()
+            n, self._hb_count = self._hb_count, self._hb_count + 1
+            if n % 12:
+                self._heartbeat_locked()
+                return
+            with trace.span("volume.heartbeat", role="volume"):
+                self._heartbeat_locked()
 
     def _heartbeat_locked(self) -> None:
         try:
@@ -803,6 +872,34 @@ class VolumeServer:
             p = req.json()
             self.store.mark_readonly(int(p["volume"]), bool(p.get("readonly", True)))
             return Response({"ok": True})
+
+        @svc.route("GET", r"/ui")
+        def ui(req: Request) -> Response:
+            # minimal HTML status page (`weed/server/volume_server_ui/`)
+            rows = []
+            if self.store is not None:
+                for vid in self.store.volume_ids():
+                    v = self.store.get_volume(vid)
+                    if v is None:
+                        continue
+                    rows.append(
+                        f"<tr><td>{vid}</td><td>{v.collection or '(default)'}"
+                        f"</td><td>{v.size()}</td><td>{v.file_count()}</td>"
+                        f"<td>{v.garbage_level():.1%}</td>"
+                        f"<td>{'ro' if v.readonly else 'rw'}</td></tr>"
+                    )
+            html = (
+                "<html><head><title>seaweedfs-tpu volume</title></head><body>"
+                f"<h1>Volume server {self.url}</h1>"
+                f"<p>master: {self.master_url}</p>"
+                "<table border=1><tr><th>id</th><th>collection</th>"
+                "<th>size</th><th>files</th><th>garbage</th><th>mode</th></tr>"
+                + "".join(rows) + "</table>"
+                "<p><a href='/status'>status json</a> | "
+                "<a href='/metrics'>metrics</a></p>"
+                "</body></html>"
+            ).encode()
+            return Response(html, content_type="text/html")
 
         @svc.route("POST", r"/admin/volume/configure_replication")
         def configure_replication(req: Request) -> Response:
@@ -1624,6 +1721,11 @@ class VolumeServer:
             if size <= 0 or offset < 0 or not targets:
                 return Response({"error": "bad offset/size/targets"}, 400)
             chain = json.loads(q["chain"]) if "chain" in q else []
+            # hop identity onto the request's server span: a pipelined
+            # rebuild renders in cluster.trace as one cross-node chain of
+            # `POST /admin/ec/partial` spans, the attrs naming each hop
+            trace.annotate(volume=vid, targets=targets, hop=me,
+                           hops_left=len(chain))
             if chain:
                 hop, rest = chain[0], chain[1:]
                 coefs = {int(k): v for k, v in hop.get("coefs", {}).items()}
@@ -1739,6 +1841,8 @@ class VolumeServer:
                     {"error": "bad session/chain/targets",
                      "failed_hop_server": me}, 400)
             _FP_PARTIAL.hit(key=me)
+            trace.annotate(volume=vid, targets=targets, hop=me,
+                           hops_left=len(chain), stream=True)
             hop, rest = chain[0], chain[1:]
             state = {
                 "session": sid, "volume": vid,

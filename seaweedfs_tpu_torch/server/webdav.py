@@ -13,9 +13,10 @@ the gateway is stateless like the reference's.
 The port's copy of `seaweedfs_tpu/server/webdav.py`, over the port's
 `FilerClient` and `HTTPService`: a PUT's chunks are hashed by the port
 filer's device, and a file's `getetag` is the MD5 its hash service gave.
-Not ported: request metrics, the `-slowMs` threshold and the telemetry
-pusher (`enable_metrics`, `slow_ms`, `master_url`; ROADMAP 10d-4), so the
-constructor takes none of them.
+The service is metered as role "webdav" (no `/metrics` route: every path
+is a file); `slow_ms` is its `-slowMs` span threshold. Not ported: the
+telemetry pusher (`master_url`; ROADMAP 10d-4c), so the constructor takes
+no master.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from xml.sax.saxutils import escape
 
 from ..filer.filer_client import FilerClient
 
+from ..stats import trace
 from .httpd import HTTPService, Request, Response
 
 DAV_NS = "DAV:"
@@ -43,10 +45,14 @@ def _iso8601(ts: float) -> str:
 
 class WebDavServer:
     def __init__(self, filer_url: str, host: str = "127.0.0.1",
-                 port: int = 7333, read_only: bool = False) -> None:
+                 port: int = 7333, read_only: bool = False,
+                 slow_ms: float | None = None) -> None:
         self.fc = FilerClient(filer_url)
         self.read_only = read_only
         self.service = HTTPService(host, port)
+        self.service.enable_metrics("webdav", serve_route=False)
+        if slow_ms is not None:  # -slowMs: the role's slow-span threshold
+            trace.set_slow_threshold_ms(slow_ms, role="webdav")
         # path -> (token, expiry). Locks are actually enforced: mutations on
         # a locked path demand the token via the If header, LOCK on a live
         # lock is refused (423), and entries expire at the advertised

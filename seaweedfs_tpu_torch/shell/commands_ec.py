@@ -20,10 +20,17 @@ either mode.
 One difference from the JAX package: a hop whose codec fails answers
 `codec_failed`, and the orchestrator raises `ShellError` naming the hop
 instead of restarting the chain or falling back to classic, so a kernel
-fault never turns into a quiet classic repair. Repair metrics, traces and
-events are not ported; the plane counts into `decoder.REPAIR`, and a chain
-restart (the JAX `chain_restart` event) is a warning on this module's
-logger with its reason, node, chunk and detail."""
+fault never turns into a quiet classic repair.
+
+Observability, as in the JAX package: a rebuild runs inside an
+`ec.rebuild` span, so every hop's POST joins its trace; the plane counts
+into `decoder.REPAIR` (which feeds the repair metric families) and times
+each stage into `SeaweedFS_volume_ec_repair_seconds{mode,stage}`; a
+fallback journals `fallback_repair`, and a chain restart journals
+`chain_restart` beside a warning on this module's logger. The restart
+event carries the failed hop's whole `detail` (the exception's type and
+text and the forward's elapsed ms), where the JAX event cuts it to 200
+characters, so the journal names the cause of a hop stall."""
 
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ import urllib.parse
 import uuid
 
 from ..server.httpd import http_request
+from ..stats import events as events_mod
+from ..stats import trace as trace_mod
 from ..storage.erasure_coding import decoder as ec_decoder
 from ..storage.erasure_coding.ec_volume import TRANSPORT_ERRORS
 from .env import CommandEnv, ServerView, ShellError
@@ -254,8 +263,10 @@ def apply_rebuild(env: CommandEnv, plan: dict) -> list[int]:
     device (gf256_matmul on the card), drop pulled-only inputs, re-mount.
     The whole-shard pulls are flagged `repair` so the rebuilder counts
     them into bytes_on_wire["classic"]."""
+    _, mseconds, _, _ = ec_decoder.repair_metrics()
     vid, collection = plan["volume"], plan["collection"]
     rb = plan["rebuilder_url"]
+    t0 = time.perf_counter()
     for p in plan["pulls"]:
         env.post(
             f"{rb}/admin/ec/copy",
@@ -264,10 +275,13 @@ def apply_rebuild(env: CommandEnv, plan: dict) -> list[int]:
              "repair": True},
             timeout=3600,
         )
+    mseconds.labels("classic", "pull").observe(time.perf_counter() - t0)
+    t1 = time.perf_counter()
     out = env.post(
         f"{rb}/admin/ec/rebuild",
         {"volume": vid, "collection": collection}, timeout=3600,
     )
+    mseconds.labels("classic", "decode").observe(time.perf_counter() - t1)
     # drop shards the rebuilder only pulled as rebuild inputs, keep its own +
     # the rebuilt ones, then re-mount to refresh its shard list
     pulled = [s for p in plan["pulls"] for s in p["shards"]]
@@ -446,6 +460,13 @@ def apply_rebuild_pipelined(
                     if e.reason in ec_decoder.REPAIR_RESTART_REASONS \
                     else "hop_failed"
                 ec_decoder.REPAIR.inc("restarts", reason)
+                # the hop's whole detail: the journal, not only the log,
+                # must name what failed (type, text, elapsed ms)
+                events_mod.emit(
+                    "chain_restart", volume=plan["volume"],
+                    node=e.server, reason=reason, detail=e.detail,
+                    **({"chunk": e.chunk} if e.chunk is not None else {}),
+                )
                 log.warning("ec.rebuild volume %s: chain restart (%s) at node %r,"
                             " chunk %s: %s", plan["volume"], reason, e.server,
                             e.chunk, e.detail)
@@ -535,10 +556,12 @@ def _hop_failed(resp: dict, server: str, chunk: int | None = None) -> Exception:
 def _run_chain(env, plan, chunk, restarts, stream=None,
                window=STREAM_WINDOW,
                stall_timeout=None) -> tuple[list[int], dict]:
+    mseconds = ec_decoder.repair_metrics()[1]
     vid, collection = plan["volume"], plan["collection"]
     rb = plan["rebuilder_url"]
     chain = plan["chain"]
     targets = plan["missing"]
+    t0 = time.perf_counter()
     try:
         start = env.post(
             f"{rb}/admin/ec/partial/start",
@@ -552,6 +575,7 @@ def _run_chain(env, plan, chunk, restarts, stream=None,
     committed = int(start.get("committed", 0))
     if chunk is None:
         chunk = auto_chunk(shard_size)
+    mseconds.labels("pipelined", "start").observe(time.perf_counter() - t0)
     saved = 0
     if committed and len(chain) > 1:
         # bytes a from-scratch restart would have re-sent: the committed
@@ -561,6 +585,7 @@ def _run_chain(env, plan, chunk, restarts, stream=None,
         ec_decoder.REPAIR.add_resumed(saved)
     use_stream = stream if stream is not None else (
         len(chain) > 1 and shard_size - committed > chunk)
+    t1 = time.perf_counter()
     if use_stream:
         received, read_bytes = _stream_chunks(
             plan, chunk, window, shard_size, committed,
@@ -568,10 +593,13 @@ def _run_chain(env, plan, chunk, restarts, stream=None,
     else:
         received, read_bytes = _serial_chunks(
             plan, chunk, shard_size, committed)
+    mseconds.labels("pipelined", "chain").observe(time.perf_counter() - t1)
+    t2 = time.perf_counter()
     out = env.post(
         f"{rb}/admin/ec/partial/commit",
         {"volume": vid, "collection": collection}, timeout=60,
     )
+    mseconds.labels("pipelined", "commit").observe(time.perf_counter() - t2)
     stats = {
         "bytes_on_wire_total": sum(received),
         "bytes_on_wire_rebuilder": received[-1] if received else 0,
@@ -703,7 +731,21 @@ def run_rebuild(
 ) -> dict:
     """Choose the mode, plan and apply, with the typed fallback to
     classic. Returns a dict: {healed} | {dry_run, mode, planned} |
-    {mode, planned, rebuilt, rebuilder, stats?}."""
+    {mode, planned, rebuilt, rebuilder, stats?}.
+
+    The whole repair runs inside an `ec.rebuild` span: every hop POST
+    inherits its trace id, so `cluster.trace` shows the start -> partial
+    hops -> commit chain as one cross-node trace (under the maintenance
+    task's span from the daemon; the root from the shell)."""
+    with trace_mod.span("ec.rebuild", volume=vid, mode=mode):
+        return _run_rebuild(env, vid, collection, mode, pressure, dry_run,
+                            stream)
+
+
+def _run_rebuild(
+    env: CommandEnv, vid: int, collection: str, mode: str,
+    pressure: dict | None, dry_run: bool, stream: bool | None = None,
+) -> dict:
     if mode not in ("auto",) + ec_decoder.REPAIR_MODES:
         raise ShellError(f"mode must be auto|classic|pipelined, got {mode}")
     plan = plan_rebuild(env, vid, collection)
@@ -720,8 +762,12 @@ def run_rebuild(
         mode, _why = choose_rebuild_mode(pplan, pressure)
         if mode == "classic" and pplan is not None:
             ec_decoder.REPAIR.inc("fallbacks", "too_few_holders")
+            events_mod.emit("fallback_repair", volume=vid,
+                            reason="too_few_holders")
     if mode == "pipelined" and pplan is None:
         ec_decoder.REPAIR.inc("fallbacks", "insufficient_shards")
+        events_mod.emit("fallback_repair", volume=vid,
+                        reason="insufficient_shards")
         mode = "classic"
     if dry_run:
         planned = describe_rebuild_pipelined(pplan) if mode == "pipelined" \
@@ -737,6 +783,8 @@ def run_rebuild(
                     "stats": stats}
         except PipelinedRebuildError as e:
             ec_decoder.REPAIR.inc("fallbacks", e.reason)
+            events_mod.emit("fallback_repair", volume=vid, reason=e.reason,
+                            detail=e.detail[:200])
             # classic stays the fallback: re-plan (the partial state was
             # aborted server-side)
             plan = plan_rebuild(env, vid, collection)

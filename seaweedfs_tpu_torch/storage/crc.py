@@ -13,10 +13,12 @@ previous CRC, `crc32c(data) == update(0, data)`.
 from __future__ import annotations
 
 import ctypes
+import time as _time
 
 import numpy as np
 
 from seaweedfs_tpu_torch.ops import _build
+from seaweedfs_tpu_torch.stats import trace as _trace
 
 _CASTAGNOLI_POLY_REFLECTED = 0x82F63B78
 
@@ -58,8 +60,25 @@ def update(crc: int, data: bytes | bytearray | memoryview | np.ndarray) -> int:
     return _lib_update()(crc & 0xFFFFFFFF, buf.ctypes.data, buf.nbytes)
 
 
+# Needle-checksum timing, the volume side's family (apart from
+# SeaweedFS_filer_hash_seconds, so the hash service's host path, which
+# calls crc32c inside its own observed section, never counts twice in one
+# family). Only blobs of _OBSERVE_MIN or more are recorded: the small-needle
+# hot path must not take metric locks a call.
+_OBSERVE_MIN = 64 * 1024
+VOLUME_CRC32C_SECONDS = "SeaweedFS_volume_crc32c_seconds"
+
+
 def crc32c(data: bytes | bytearray | memoryview | np.ndarray) -> int:
-    return update(0, data)
+    n = data.nbytes if isinstance(data, np.ndarray) else len(data)
+    if n < _OBSERVE_MIN:
+        return update(0, data)
+    t0 = _time.perf_counter()
+    out = update(0, data)
+    _trace.observe_kernel(
+        VOLUME_CRC32C_SECONDS, "crc32c", _time.perf_counter() - t0, n
+    )
+    return out
 
 
 def legacy_value(crc: int) -> int:

@@ -13,8 +13,10 @@ shards live and only the partial sums move. `repair_coefficients` builds
 the matrix, `partial_contribution` runs one holder's share on the codec's
 kernel, `xor_partials` folds contributions in any order. The pipelined
 rebuild plane's modes, typed reasons and chunk states are the JAX
-package's sets; its counters are plain in-process dicts (`REPAIR`) where
-the JAX package registers metric families.
+package's sets. Its counters (`REPAIR`) keep in-process totals and feed
+the JAX package's metric families (`repair_metrics`, `stream_metrics`).
+`write_dat_file` runs under a kernel span feeding
+`SeaweedFS_volume_ec_decode_seconds` (kernel "destripe").
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 
 from seaweedfs_tpu_torch.ops import gf256
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
+from seaweedfs_tpu_torch.stats import default_registry, trace
 from seaweedfs_tpu_torch.storage import idx as idx_mod
 from seaweedfs_tpu_torch.storage.needle import get_actual_size
 from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE, SuperBlock
@@ -107,10 +110,14 @@ def write_dat_file(
     large_block_size: int = LARGE_BLOCK_SIZE,
     small_block_size: int = SMALL_BLOCK_SIZE,
 ) -> None:
-    """De-stripe the 10 data shards into .dat (`ec_decoder.go:154-201`)."""
+    """De-stripe the 10 data shards into .dat (`ec_decoder.go:154-201`).
+    Runs under a kernel span feeding SeaweedFS_volume_ec_decode_seconds."""
     readers = [open(shard_file_names[i], "rb") for i in range(DATA_SHARDS_COUNT)]
     try:
-        with open(base_file_name + ".dat", "wb") as out:
+        with trace.kernel_span(
+            "ec.decode", trace.EC_DECODE_SECONDS, "destripe",
+            nbytes=dat_file_size,
+        ), open(base_file_name + ".dat", "wb") as out:
             remaining = dat_file_size
             while remaining >= DATA_SHARDS_COUNT * large_block_size:
                 for r in readers:
@@ -162,6 +169,72 @@ REPAIR_RESTART_REASONS = ("hop_failed", "crc_mismatch", "stream_stall",
 # the stall budget, `crc_failed` when its CRC32C did not survive the hop.
 STREAM_CHUNK_STATES = ("forwarded", "written", "stalled", "crc_failed")
 
+REPAIR_BYTES_ON_WIRE = "SeaweedFS_volume_ec_repair_bytes_on_wire_total"
+REPAIR_SECONDS = "SeaweedFS_volume_ec_repair_seconds"
+REPAIR_FALLBACKS = "SeaweedFS_volume_ec_repair_fallbacks_total"
+REPAIR_RESTARTS = "SeaweedFS_volume_ec_repair_chain_restarts_total"
+REPAIR_STREAM_CHUNKS = "SeaweedFS_volume_ec_repair_stream_chunks_total"
+REPAIR_RESUMED_BYTES = "SeaweedFS_volume_ec_repair_resumed_bytes_total"
+
+_repair_metrics_cache = None
+_stream_metrics_cache = None
+
+
+def repair_metrics():
+    """Register the ec_repair families once; returns (bytes_on_wire{mode},
+    seconds{mode,stage}, fallbacks{reason}, chain_restarts{reason}).
+    bytes_on_wire counts every repair payload once, at the node that
+    receives it or serves a ranged partial, so
+    `rate(...{mode="classic"}) / rate(...{mode="pipelined"})` is the
+    bandwidth cut, straight off /metrics."""
+    global _repair_metrics_cache
+    if _repair_metrics_cache is None:
+        reg = default_registry()
+        _repair_metrics_cache = (
+            reg.counter(
+                REPAIR_BYTES_ON_WIRE,
+                "EC repair bytes moved over the network, by rebuild mode",
+                ("mode",),
+            ),
+            reg.histogram(
+                REPAIR_SECONDS,
+                "EC repair wall time per stage and mode",
+                ("mode", "stage"),
+            ),
+            reg.counter(
+                REPAIR_FALLBACKS,
+                "pipelined repairs degraded to classic, by typed reason",
+                ("reason",),
+            ),
+            reg.counter(
+                REPAIR_RESTARTS,
+                "repair chains re-planned minus a dead hop, by reason",
+                ("reason",),
+            ),
+        )
+    return _repair_metrics_cache
+
+
+def stream_metrics():
+    """Register the streaming-session families once; returns
+    (stream_chunks{state}, resumed_bytes)."""
+    global _stream_metrics_cache
+    if _stream_metrics_cache is None:
+        reg = default_registry()
+        _stream_metrics_cache = (
+            reg.counter(
+                REPAIR_STREAM_CHUNKS,
+                "streaming-rebuild chunks by per-chunk lifecycle state",
+                ("state",),
+            ),
+            reg.counter(
+                REPAIR_RESUMED_BYTES,
+                "bytes not re-sent because a restarted chain resumed from"
+                " the writer's committed frontier",
+            ),
+        )
+    return _stream_metrics_cache
+
 
 class RepairCounters:
     """The plane's counters, by family and label: `bytes_on_wire` by mode
@@ -188,16 +261,25 @@ class RepairCounters:
             self._resumed = 0
 
     def inc(self, family: str, label: str, n: int = 1) -> None:
-        """Add n to one labelled counter; an unknown label raises."""
+        """Add n to one labelled counter (and its metric family); an
+        unknown label raises."""
         with self._lock:
             fam = self._counts[family]
             if label not in fam:
                 raise ValueError(f"{family}: unknown label {label!r}")
             fam[label] += n
+        if family == "stream_chunks":
+            metric = stream_metrics()[0]
+        else:
+            wire, _, fallbacks, restarts = repair_metrics()
+            metric = {"bytes_on_wire": wire, "fallbacks": fallbacks,
+                      "restarts": restarts}[family]
+        metric.labels(label).inc(n)
 
     def add_resumed(self, n: int) -> None:
         with self._lock:
             self._resumed += n
+        stream_metrics()[1].inc(n)
 
     def snapshot(self) -> dict:
         with self._lock:

@@ -14,8 +14,11 @@ deletion via .ecx tombstone + .ecj journal append.
 A local shard read passes the `volume.ec.shard.read` fault point: an
 injected error there counts as a missing shard, so the read goes remote or
 is rebuilt through the codec; `corrupt` flips a byte of what was read.
-Not ported: events and metrics (the partial step keeps plain counters:
-`partial_served`, `partial_fallbacks` by reason). All file access uses
+A reconstructed interval counts
+`SeaweedFS_volume_degraded_reads_total{reason="ec_reconstruct"}` and
+journals a `degraded_read` event with its shard and route (`partial_fanin`
+or `full_decode`); the partial step also keeps plain counters
+(`partial_served`, `partial_fallbacks` by reason). All file access uses
 positional os.pread/os.pwrite, so concurrent reads and read+delete are
 safe.
 """
@@ -41,7 +44,8 @@ from seaweedfs_tpu_torch.storage.types import (
     size_is_deleted,
     size_to_u32,
 )
-from seaweedfs_tpu_torch.storage.volume import NotFound
+from seaweedfs_tpu_torch.stats import events as events_mod
+from seaweedfs_tpu_torch.storage.volume import NotFound, degraded_reads_counter
 from seaweedfs_tpu_torch.util import faults
 
 from . import encoder
@@ -261,6 +265,7 @@ class EcVolume:
         if self.partial_fetcher is not None:
             data = self._fetch_partial(missing_shard, off, size)
             if data is not None:
+                self._count_degraded(missing_shard, "partial_fanin")
                 return data
         present: dict[int, np.ndarray] = {}
         for shard_id in self.shards:
@@ -287,7 +292,16 @@ class EcVolume:
                 f"cannot recover shard {missing_shard}: only {len(present)} present"
             )
         out = self.codec.reconstruct(present, targets=[missing_shard])
+        self._count_degraded(missing_shard, "full_decode")
         return out[missing_shard].tobytes()
+
+    def _count_degraded(self, missing_shard: int, via: str) -> None:
+        """Count and journal one sealed-EC reconstruction (a cold path:
+        it runs only once a shard read already failed)."""
+        degraded_reads_counter().labels("ec_reconstruct").inc()
+        events_mod.emit("degraded_read", volume=self.volume_id,
+                        reason="ec_reconstruct", shard=missing_shard, via=via,
+                        collection=self.collection or "default")
 
     def _fetch_partial(self, missing_shard: int, off: int, size: int) -> bytes | None:
         try:

@@ -17,6 +17,14 @@ through a three-stage pipeline:
 * the writer thread waits on each batch's parity and lays both data and
   parity bytes into the 14 shard files with positional pwrite. A buffer
   goes back to the ring only after its batch's parity has arrived.
+
+Each stage observes its busy and queue-wait seconds a batch into
+`SeaweedFS_volume_ec_pipeline_seconds{stage,state}`, and a whole encode or
+rebuild runs under a kernel span feeding `SeaweedFS_volume_ec_encode_seconds`
+(kernel "pipeline-<device type>", e.g. "pipeline-cuda") or
+`SeaweedFS_volume_ec_decode_seconds` (kernel "rebuild") with its bytes
+counter. The span times what the pipeline already waits for (every
+batch's parity reaches the host before it returns), with no added sync.
 """
 
 from __future__ import annotations
@@ -25,12 +33,14 @@ import json
 import os
 import queue
 import threading
+import time
 
 import numpy as np
 
 from seaweedfs_tpu_torch.ops import gf256
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.storage import idx as idx_mod
+from seaweedfs_tpu_torch.stats import default_registry, trace
 from seaweedfs_tpu_torch.storage.types import size_is_valid
 
 from .geometry import (
@@ -48,6 +58,28 @@ from .geometry import (
 # device path wants large batches to amortize transfers and launches.
 DEFAULT_BATCH_HOST = 1024 * 1024
 DEFAULT_BATCH_DEVICE = 32 * 1024 * 1024
+
+
+# Per-stage pipeline telemetry: every batch records a busy observation (the
+# stage's own work) and a wait observation (blocked on the bounded queues or
+# buffer freelist), so /metrics alone says which stage is the bottleneck.
+# The write stage's busy time includes waiting on the batch's parity.
+EC_PIPELINE_SECONDS = "SeaweedFS_volume_ec_pipeline_seconds"
+
+_pipeline_hist_cache = None
+
+
+def _pipeline_hist():
+    global _pipeline_hist_cache
+    hist = _pipeline_hist_cache  # GIL-atomic read; registry locks creation
+    if hist is None:
+        hist = default_registry().histogram(
+            EC_PIPELINE_SECONDS,
+            "per-batch busy vs queue-wait seconds per EC pipeline stage",
+            ("stage", "state"),
+        )
+        _pipeline_hist_cache = hist
+    return hist
 
 
 def _default_batch(codec: RSCodec) -> int:
@@ -203,6 +235,8 @@ def _run_pipeline(jobs, read_job, encode_job, write_job) -> None:
         free.put(None)  # buffer slots; reader sizes/reuses lazily
     stop = threading.Event()
     errors: list[BaseException] = []
+    hist = _pipeline_hist()
+    perf = time.perf_counter
 
     def _put(q: queue.Queue, item) -> bool:
         while not stop.is_set():
@@ -214,12 +248,21 @@ def _run_pipeline(jobs, read_job, encode_job, write_job) -> None:
         return False
 
     def reader():
+        o_wait = hist.labels("read", "wait")
+        o_busy = hist.labels("read", "busy")
         try:
             for job in jobs:
                 if stop.is_set():
                     return
-                buf = read_job(job, free.get())
-                if not _put(read_q, (job, buf)):
+                t0 = perf()
+                slot = free.get()
+                t1 = perf()
+                buf = read_job(job, slot)
+                t2 = perf()
+                ok = _put(read_q, (job, buf))
+                o_wait.observe((t1 - t0) + (perf() - t2))
+                o_busy.observe(t2 - t1)
+                if not ok:
                     return
         except BaseException as e:  # noqa: BLE001 - propagated below
             errors.append(e)
@@ -228,13 +271,19 @@ def _run_pipeline(jobs, read_job, encode_job, write_job) -> None:
             _put(read_q, None) or read_q.put(None)
 
     def writer():
+        o_wait = hist.labels("write", "wait")
+        o_busy = hist.labels("write", "busy")
         try:
             while True:
+                t0 = perf()
                 item = write_q.get()
+                t1 = perf()
                 if item is None:
                     return
                 job, buf, handle = item
                 write_job(job, buf, handle)
+                o_wait.observe(t1 - t0)
+                o_busy.observe(perf() - t1)
                 free.put(buf)
         except BaseException as e:  # noqa: BLE001
             errors.append(e)
@@ -249,13 +298,21 @@ def _run_pipeline(jobs, read_job, encode_job, write_job) -> None:
     wt = threading.Thread(target=writer, name="ec-writer", daemon=True)
     rt.start()
     wt.start()
+    o_wait = hist.labels("encode", "wait")
+    o_busy = hist.labels("encode", "busy")
     try:
         while True:
+            t0 = perf()
             item = read_q.get()
+            t1 = perf()
             if item is None:
                 break
             job, buf = item
-            write_q.put((job, buf, encode_job(job, buf)))
+            handle = encode_job(job, buf)
+            t2 = perf()
+            write_q.put((job, buf, handle))
+            o_wait.observe((t1 - t0) + (perf() - t2))
+            o_busy.observe(t2 - t1)
     except BaseException as e:  # noqa: BLE001 - e.g. device error mid-encode
         errors.append(e)
         stop.set()
@@ -280,13 +337,32 @@ def write_ec_files(
     batch: int | None = None,
 ) -> None:
     """Generate .ec00–.ec13 from .dat (`ec_encoder.go:57,198-235`) through
-    the three-stage pipeline (see module docstring). The codec defaults to
-    one on cuda."""
+    the three-stage pipeline (see module docstring), under a kernel span
+    feeding SeaweedFS_volume_ec_encode_seconds (and the bytes counter), so
+    /metrics alone yields encode GB/s. The codec defaults to one on cuda."""
     codec = codec or RSCodec()
     if batch is None:
         batch = _default_batch(codec)
+    total = os.path.getsize(base_file_name + ".dat")
+    with trace.kernel_span(
+        "ec.encode", trace.EC_ENCODE_SECONDS,
+        "pipeline-" + codec.device.type, nbytes=total,
+    ):
+        _write_ec_files_pipeline(
+            base_file_name, codec, large_block_size, small_block_size,
+            batch, total,
+        )
+
+
+def _write_ec_files_pipeline(
+    base_file_name: str,
+    codec: RSCodec,
+    large_block_size: int,
+    small_block_size: int,
+    batch: int,
+    total: int,
+) -> None:
     dat_path = base_file_name + ".dat"
-    total = os.path.getsize(dat_path)
     shard_size = shard_file_size(total, large_block_size, small_block_size)
     writers = _ShardWriters(base_file_name, shard_size)
     try:
@@ -369,7 +445,21 @@ def rebuild_ec_files(
     """Regenerate missing .ecXX files from the surviving >= 10
     (`ec_encoder.go:61,237-291`) through the same three-stage pipeline —
     the GF transform is the inverted-submatrix product. Returns the
-    rebuilt shard ids. The codec defaults to one on cuda."""
+    rebuilt shard ids. The codec defaults to one on cuda. Runs under a
+    kernel span feeding SeaweedFS_volume_ec_decode_seconds, whose bytes
+    are those read from the surviving data shards."""
+    with trace.kernel_span(
+        "ec.rebuild", trace.EC_DECODE_SECONDS, "rebuild"
+    ) as sp:
+        return _rebuild_ec_files(base_file_name, codec, chunk, sp)
+
+
+def _rebuild_ec_files(
+    base_file_name: str,
+    codec: RSCodec | None,
+    chunk: int | None,
+    sp,
+) -> list[int]:
     codec = codec or RSCodec()
     if chunk is None:
         chunk = _default_batch(codec)
@@ -392,6 +482,8 @@ def rebuild_ec_files(
             codec.data_shards, codec.parity_shards, tuple(present), tuple(missing)
         )
         shard_size = os.path.getsize(base_file_name + to_ext(use[0]))
+        # throughput convention: bytes read from the surviving data shards
+        sp.attrs["bytes"] = shard_size * DATA_SHARDS_COUNT
         writers = _ShardWriters(base_file_name, shard_size, shard_ids=missing)
         try:
             jobs = [

@@ -37,10 +37,11 @@ Every row batch goes through one buffered path: a positional read of the
 .dat into pinned staging memory taken once from the codec, the codec's
 `encode_rows_async`, and a positional write of the parity. The JAX
 package's zero-copy mapped GFNI path and its threaded split probe are
-host GFNI and are not ported. Trace, metrics and event hooks are not
-ported either; the raw counters (`stripes`, `encoded_bytes`,
-`encode_seconds`, `parity_bytes`, `fallbacks`, `journal_replays`) are
-kept. The `volume.ec.parity.write` fault point fails a pump (`error`,
+host GFNI and are not ported. The raw counters (`stripes`,
+`encoded_bytes`, `encode_seconds`, `parity_bytes`, `fallbacks`,
+`journal_replays`) feed the JAX package's `SeaweedFS_volume_ec_online_*`
+families by volume (`ensure_metrics`), and a degrade journals a
+`fallback_ec_online` event. The `volume.ec.parity.write` fault point fails a pump (`error`,
 `disk_full`: the writer degrades as on a real emit failure) or, in `torn`
 mode, chops the tail off parity shard 0 after a pump wrote rows, which only
 `parity_health()` notices and `rearm()` heals.
@@ -56,6 +57,8 @@ import time
 import numpy as np
 
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
+from seaweedfs_tpu_torch.stats import default_registry
+from seaweedfs_tpu_torch.stats import events as events_mod
 from seaweedfs_tpu_torch.storage import crc as crc_mod
 from seaweedfs_tpu_torch.util import faults
 
@@ -98,6 +101,54 @@ class ParityCodecFailed(RuntimeError):
     unreadable volume."""
 
 
+_metrics_cache = None
+
+
+def ensure_metrics(registry=None):
+    """Register (idempotently) the ec_online families; returns the tuple
+    (stripes_total, encode_seconds, bytes_total, buffered_bytes,
+    journal_replays_total, fallbacks_total)."""
+    global _metrics_cache
+    if registry is None and _metrics_cache is not None:
+        return _metrics_cache
+    reg = registry if registry is not None else default_registry()
+    out = (
+        reg.counter(
+            "SeaweedFS_volume_ec_online_stripes_total",
+            "stripe rows parity-encoded on the ingest path",
+            ("volume",),
+        ),
+        reg.histogram(
+            "SeaweedFS_volume_ec_online_encode_seconds",
+            "per-batch read+encode+parity-write seconds on the ingest path",
+            ("volume",),
+        ),
+        reg.counter(
+            "SeaweedFS_volume_ec_online_bytes_total",
+            ".dat bytes parity-encoded online (GB/s = bytes/sum(seconds))",
+            ("volume",),
+        ),
+        reg.gauge(
+            "SeaweedFS_volume_ec_online_buffered_bytes",
+            "ingested bytes not yet covered by a durable parity watermark",
+            ("volume",),
+        ),
+        reg.counter(
+            "SeaweedFS_volume_ec_online_journal_replays_total",
+            "partial-stripe journal replays (re-encode from the watermark)",
+            ("volume",),
+        ),
+        reg.counter(
+            "SeaweedFS_volume_ec_online_fallbacks_total",
+            "online-EC degrade events by reason",
+            ("volume", "reason"),
+        ),
+    )
+    if registry is None:
+        _metrics_cache = out
+    return out
+
+
 class OnlineEcWriter:
     """Streams one live Volume's appends through the RS encoder,
     emitting parity shards incrementally. See module docstring. The codec
@@ -131,6 +182,9 @@ class OnlineEcWriter:
         self.parity_bytes = 0
         self.journal_replays = 0
         self.fallbacks: dict[str, int] = {}
+        (self._m_stripes, self._m_seconds, self._m_bytes, self._m_buffered,
+         self._m_replays, self._m_fallbacks) = ensure_metrics()
+        self._vol_label = str(volume.id)
         # reused stripe read buffer, pinned on cuda (codec.host_buffer):
         # the codec would otherwise stage every row through a fresh
         # page-locked copy
@@ -171,6 +225,7 @@ class OnlineEcWriter:
         behind = self._end() - self.watermark
         if behind > 0 and self._journal_existed:
             self.journal_replays += 1
+            self._m_replays.labels(self._vol_label).inc()
             self.pump(force=self._partial > 0)
 
     # --- journal ------------------------------------------------------------
@@ -237,6 +292,9 @@ class OnlineEcWriter:
 
     def _count_fallback(self, reason: str) -> None:
         self.fallbacks[reason] = self.fallbacks.get(reason, 0) + 1
+        self._m_fallbacks.labels(self._vol_label, reason).inc()
+        events_mod.emit("fallback_ec_online", volume=int(self._vol_label),
+                        reason=reason)
 
     def _degrade(self, reason: str) -> None:
         """Leave online mode: the volume reverts to classic
@@ -265,10 +323,14 @@ class OnlineEcWriter:
         row = offset // self.stripe
         self._size_parity(row + nrows)
         self._write_parity(parity, row, nrows)
-        self.encode_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.encode_seconds += dt
         self.encoded_bytes += need
         self.parity_bytes += nrows * self.block * PARITY_SHARDS_COUNT
         self.stripes += nrows
+        self._m_seconds.labels(self._vol_label).observe(dt)
+        self._m_bytes.labels(self._vol_label).inc(need)
+        self._m_stripes.labels(self._vol_label).inc(nrows)
 
     def _encode_backlog_pipelined(self, offset: int, nrows: int) -> None:
         """Catch-up path for multi-stripe backlogs (journal replay, seal):
@@ -309,10 +371,14 @@ class OnlineEcWriter:
             self._journal_append()
             self.stripes += rows
             self.parity_bytes += rows * self.block * PARITY_SHARDS_COUNT
+            self._m_stripes.labels(self._vol_label).inc(rows)
 
         encoder_mod._run_pipeline(jobs, read_job, encode_job, write_job)
-        self.encode_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.encode_seconds += dt
         self.encoded_bytes += nrows * self.stripe
+        self._m_seconds.labels(self._vol_label).observe(dt)
+        self._m_bytes.labels(self._vol_label).inc(nrows * self.stripe)
 
     def pump(self, now: float | None = None, force: bool = False) -> int:
         """Encode whatever full stripe rows have accumulated past the
@@ -328,6 +394,7 @@ class OnlineEcWriter:
         now = time.monotonic() if now is None else now
         end = self._end()
         behind = end - self.watermark
+        self._m_buffered.labels(self._vol_label).set(max(0, behind))
         if behind <= 0:
             self._pending_since = None
             return 0
@@ -386,6 +453,9 @@ class OnlineEcWriter:
                 spec = _FP_PARITY.draw(volume=vol)
                 if spec is not None:
                     self._tear_parity(spec.frac)
+        self._m_buffered.labels(self._vol_label).set(
+            max(0, self._end() - self.watermark)
+        )
         return rows_done
 
     def _tear_parity(self, frac: float) -> None:
@@ -741,6 +811,7 @@ class OnlineEcWriter:
                 os.unlink(self._journal_path)
             except OSError:
                 pass
+            self._m_buffered.labels(self._vol_label).set(0)
 
     def close(self) -> None:
         with self._lock:

@@ -11,7 +11,10 @@ A store has one device, `cuda` unless the caller passes `device="cpu"`
 loaded). Every codec it makes, for an online-EC writer, an EC volume or
 a degraded read, runs there. Each volume it opens gets the store's
 host:port as its `fault_key`, the spec key of its `volume.write.dat` seam.
-Volume-state events are not ported.
+Each volume-state change journals a `volume_state` event (created,
+deleted, readonly, writable, mounted, unmounted, ec_mounted,
+ec_unmounted) and a shard-set refresh a `remount_swap`, as in the JAX
+store.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import threading
 from dataclasses import dataclass, field
 
 from ..ops.rs_kernel import RSCodec, resolve_device
+from ..stats import events as events_mod
 from .erasure_coding.ec_volume import EcVolume, ec_shard_file_name
 from .needle import Needle
 from .types import TTL, ReplicaPlacement
@@ -190,6 +194,8 @@ class Store:
                     v.close()
                     raise
             loc.volumes[vid] = v
+        events_mod.emit("volume_state", volume=vid, state="created",
+                        collection=collection, ec_online=bool(ec_online))
         return v
 
     def _pick_location(self) -> DiskLocation:
@@ -204,6 +210,8 @@ class Store:
                 v = loc.volumes.pop(vid, None)
                 if v is not None:
                     v.destroy()
+                    events_mod.emit("volume_state", volume=vid,
+                                    state="deleted")
                     return
         raise VolumeError(f"volume {vid} not found")
 
@@ -212,6 +220,8 @@ class Store:
         if v is None:
             raise VolumeError(f"volume {vid} not found")
         v.readonly = readonly
+        events_mod.emit("volume_state", volume=vid,
+                        state="readonly" if readonly else "writable")
 
     # --- data ops -------------------------------------------------------------
     def write(self, vid: int, n: Needle, check_cookie: bool = False) -> tuple[int, int]:
@@ -253,6 +263,8 @@ class Store:
                                device=self.device)
                     v.fault_key = loc.fault_key
                     loc.volumes[vid] = v
+                    events_mod.emit("volume_state", volume=vid,
+                                    state="mounted", collection=collection)
                     return v
         raise VolumeError(f"no local .dat for volume {vid}")
 
@@ -263,6 +275,8 @@ class Store:
                 v = loc.volumes.pop(vid, None)
                 if v is not None:
                     v.close()
+                    events_mod.emit("volume_state", volume=vid,
+                                    state="unmounted")
                     return
         raise VolumeError(f"volume {vid} not found")
 
@@ -274,6 +288,8 @@ class Store:
                 ev = EcVolume(loc.directory, collection, vid,
                               codec=RSCodec(device=self.device))
                 loc.ec_volumes[vid] = ev
+                events_mod.emit("volume_state", volume=vid,
+                                state="ec_mounted", shards=ev.shard_ids())
                 return ev
         raise VolumeError(f"no local .ecx for ec volume {vid}")
 
@@ -282,6 +298,8 @@ class Store:
             ev = loc.ec_volumes.pop(vid, None)
             if ev is not None:
                 ev.close()
+                events_mod.emit("volume_state", volume=vid,
+                                state="ec_unmounted")
                 return
 
     def remount_ec_volume(
@@ -313,6 +331,9 @@ class Store:
                     break
             if new is None and old_loc is not None:
                 old_loc.ec_volumes.pop(vid, None)
+        events_mod.emit("remount_swap", volume=vid,
+                        shards=new.shard_ids() if new is not None else [],
+                        had_old=old is not None)
         if old is not None:
             if grace > 0:
                 t = threading.Timer(grace, old.close)

@@ -30,7 +30,9 @@ of entries past the compact snapshot) counts in NEEDLE_MAP_ENTRY_SIZE, so
 a 5-byte-offset volume reopens and keeps its late writes across a vacuum;
 the JAX package counts 16 bytes there (ROADMAP Queue 3).
 
-Not ported: the native fastlane hook, events and metrics.
+A degraded read counts `SeaweedFS_volume_degraded_reads_total{reason}`
+and journals a `degraded_read` event (`stats/`), as the JAX volume does.
+Not ported: the native fastlane hook.
 Thread-safety: one writer lock; reads use positional os.pread.
 """
 
@@ -41,6 +43,8 @@ import os
 import threading
 import time
 
+from ..stats import default_registry
+from ..stats import events as events_mod
 from ..util import faults
 from . import crc as crc_mod
 from . import idx as idx_mod
@@ -66,6 +70,31 @@ from .types import (
 _FP_READ_DAT = faults.register("volume.read.dat")
 _FP_READ_IDX = faults.register("volume.read.idx")
 _FP_WRITE_DAT = faults.register("volume.write.dat")
+
+# `reason` label values of SeaweedFS_volume_degraded_reads_total, declared
+# (and linted by the port's check_metric_names) so dashboards and the
+# degraded_reads alert cannot drift from the increments:
+#   dat_read       the .dat pread failed or came back short
+#   needle_parse   the bytes read back torn (CRC/id/size mismatch)
+#   ec_reconstruct a sealed EC interval was rebuilt from parity
+#                  (counted in erasure_coding/ec_volume.py)
+DEGRADED_READ_REASONS = ("dat_read", "needle_parse", "ec_reconstruct")
+
+_degraded_metric = None
+
+
+def degraded_reads_counter():
+    """SeaweedFS_volume_degraded_reads_total{reason}, registered on first
+    use (library imports pay nothing) and shared with ec_volume.py."""
+    global _degraded_metric
+    if _degraded_metric is None:
+        _degraded_metric = default_registry().counter(
+            "SeaweedFS_volume_degraded_reads_total",
+            "needle reads served by EC reconstruction or alternate-source"
+            " recovery instead of failing",
+            ("reason",),
+        )
+    return _degraded_metric
 
 
 class VolumeError(Exception):
@@ -393,6 +422,20 @@ class Volume:
         if n.id != needle_id:
             raise cause
         self._validate_needle(n, needle_id, cookie)
+        from .needle import CRCError, SizeMismatchError
+
+        reason = (
+            "needle_parse"
+            if isinstance(cause, (CRCError, SizeMismatchError, ValueError))
+            else "dat_read"
+        )
+        degraded_reads_counter().labels(reason).inc()
+        # the event carries the request's trace id (this runs inside the
+        # server span), so `cluster.why <trace>` can say why it degraded
+        events_mod.emit("degraded_read", volume=self.id, reason=reason,
+                        needle=f"{needle_id:x}",
+                        collection=self.collection or "default",
+                        cause=str(cause)[:120])
         return n
 
     def _reconstruct_from_sealed(self, offset: int, size: int) -> bytes | None:

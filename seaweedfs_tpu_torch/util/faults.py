@@ -29,10 +29,11 @@ Seam API:
     data = _FP.mangle(data)  # torn/corrupt byte seams
     spec = _FP.draw()        # custom seams act themselves (tear a parity file)
 
+A firing fault counts `SeaweedFS_faults_injected_total{point,mode}` and
+journals a `fault_injected` event (`stats/`) with its key and the
+`volume=` a seam passes, so `cluster.why <volume>` shows the injection.
 Not ported: the `volume.fastlane.drain` point (the native fastlane is not
-ported), the injection counter `SeaweedFS_faults_injected_total` and the
-`fault_injected` events journal (`stats/`); `draw` keeps its `volume=`
-argument, which only those would read.
+ported).
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ import random
 import threading
 import time
 from dataclasses import dataclass
+
+from ..stats import default_registry
+from ..stats import events as _events
 
 ALL_POINTS = (
     "volume.read.dat",        # needle read from the .dat
@@ -99,6 +103,20 @@ class FaultSpec:
                 "after": self.after}
 
 
+_metric = None
+
+
+def _injected_counter():
+    global _metric
+    if _metric is None:
+        _metric = default_registry().counter(
+            "SeaweedFS_faults_injected_total",
+            "fault injections fired, by point and mode",
+            ("point", "mode"),
+        )
+    return _metric
+
+
 class FaultPoint:
     """One named seam. `spec` is None when disarmed."""
 
@@ -135,6 +153,12 @@ class FaultPoint:
                 if spec.count == 0:
                     self.spec = None
             self.fired += 1
+        _injected_counter().labels(self.name, spec.mode).inc()
+        # cold path: only a firing fault pays. Emitted inside the request
+        # span when one is active, so cluster.why joins the injection to
+        # the read it degraded
+        _events.emit("fault_injected", point=self.name, mode=spec.mode,
+                     key=key or "", volume=volume)
         return spec
 
     def hit(self, key: str | None = None, volume: int | None = None) -> None:

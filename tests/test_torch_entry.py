@@ -17,7 +17,8 @@ from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "seaweedfs_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "kernel_turns.py", REPO / "s3_stall_probe.py"]
+    REPO / "chip_smoke.py", REPO / "kernel_turns.py", REPO / "s3_stall_probe.py",
+    REPO / "metering_cost.py"]
 
 
 def test_entry_equals_reference():

@@ -180,8 +180,9 @@ def test_run_command_help_unknown_and_lock():
         "volume.tier.info", "volume.tier.move", "volume.tier.upload", "volume.unmount",
         "volume.vacuum", "volume.vacuum.disable", "volume.vacuum.enable"]
     cluster_verbs = [
-        "cluster.faults", "cluster.maintenance", "cluster.ps", "cluster.raft.add",
-        "cluster.raft.ps", "cluster.raft.remove", "cluster.scrub",
+        "cluster.check", "cluster.faults", "cluster.maintenance", "cluster.profile",
+        "cluster.ps", "cluster.raft.add", "cluster.raft.ps", "cluster.raft.remove",
+        "cluster.scrub", "cluster.top", "cluster.trace", "cluster.why",
         "collection.delete", "collection.list", "mount.configure", "mq.balance",
         "mq.topic.configure", "mq.topic.create", "mq.topic.describe", "mq.topic.list",
         "volume.list", "volume.status"]
@@ -202,7 +203,7 @@ def test_run_command_help_unknown_and_lock():
     assert "rebuild" in run_command(env, "help ec.rebuild")
     assert run_command(env, "") == ""
     with pytest.raises(ShellError, match="unknown command"):
-        run_command(env, "cluster.check")
+        run_command(env, "cluster.heat")
     for verb in ("ec.encode -collection x", "ec.decode -volumeId 1",
                  "ec.rebuild -volumeId 1", "ec.balance"):
         with pytest.raises(ShellError, match="admin lock"):
