@@ -13,7 +13,8 @@
                           [--gw-mount-mib MIB] [--gw-small-files N] [--gw-remote-mib MIB]
                           [--sync-files N] [--mq-messages N] [--ha-files N]
                           [--ha-large-mib MIB] [--ha-ec-mib MIB] [--obs-files N]
-                          [--obs-large N] [--obs-ec-mib MIB]
+                          [--obs-large N] [--obs-ec-mib MIB] [--qt-files N]
+                          [--qt-large N] [--qt-flood-s S]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -49,7 +50,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               device time of kernel and copies, the device's idle share
   5. cols     a small volume at 1 MiB / 64 KiB blocks through the schedule's
               column-split jobs, byte-identical to a CPU plain encode
-  6. upload   --upload-blobs (65,536) seeded 4096-byte blobs submitted to
+  6. upload   --upload-blobs (32,768) seeded 4096-byte blobs submitted to
               HashService(device=cuda) from 16 threads, each waiting for its
               blob's result before the next, as the filer does (BASELINE.md
               config 3); every MD5 and CRC equal to hashlib and the host CRC
@@ -58,11 +59,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               the full chunks on the card through both kernels, CRC equal to
               its plain version, MD5 to hashlib
   7. cdc      find_boundaries at the filer's dedup settings over
-              --cdc-uploads (64) seeded 64 MiB uploads, and chunk_stream at
+              --cdc-uploads (32) seeded 64 MiB uploads, and chunk_stream at
               its defaults over --stream-mib (1 GiB); cuts equal the plain
               version's on the card, the first upload's the numpy oracle's
   8. dedup    the filer's CDC dedup write path (BASELINE config 4):
-              --dedup-gib (4) GiB of 64 MiB uploads, four seeded segments
+              --dedup-gib (2) GiB of 64 MiB uploads, four seeded segments
               alternating with byte-shifted repeats (bench.py's stream),
               through FilerServer._upload_chunks_cdc on the card over a
               Filer(MemoryStore()); wall and p75-window GB/s, dedup shares,
@@ -302,7 +303,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               SecurityConfig (a write key, a read key, white list 127.0.0.1)
               with mTLS process-wide from a PKI made on the host
               (cryptography, else openssl: a CA, an allowed node and an
-              intruder). (a) --ha-files (2,048) 4 KiB files and 8 of
+              intruder). (a) --ha-files (1,024) 4 KiB files and 8 of
               --ha-large-mib (64) MiB PUT through the filer over https from 8
               waiting threads and read back, md5 equal to hashlib; (b)
               --ha-ec-mib (256) MiB of log-uniform needles in one volume with
@@ -342,7 +343,33 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               passes the port's name lint. Files/s, PUT p50/p99, the trace's
               kernel events against the launches counted in its window, one
               history self-scrape's ms, the wall (limit 45 s)
- 22. entry    entry() on the card equal to the CPU codec
+ 22. qos_telemetry  tenant usage, heat, the cluster telemetry plane, its
+              durable spool and QoS admission on two filer gateways that share
+              one -qos.limits policy ("abuser=20:40,victim=10000,*=200"): a
+              master with a telemetry_dir, two volume servers, two filers on
+              the card (each with its own telemetry_dir; one process keeps one
+              spool, the first given), an S3 and a WebDAV gateway given the
+              master; the process's history and usage state cleared first. (a)
+              a victim tenant writes --qt-files (512) 4 KiB and --qt-large
+              (8) 4 MiB files from 8 waiting threads (a quarter of the small
+              ones through S3 bucket victim) and reads them back, alone, then
+              under (b) an abuser flood of --qt-flood-s (8) s from 8 threads,
+              half through each filer, a quarter through S3; (c) cluster.qos
+              -limit 'abuser=5:10' live and 3 s more of flood; (d) one filer
+              stopped, the spool closed and read post-mortem by cluster.top
+              -once -spool and cluster.why abuser -spool; (e) cluster.heat -n 8
+              and cluster.qos. Checks: no victim request shed; the abuser
+              refused only with typed 429/503 (S3 SlowDown/ServiceUnavailable)
+              and admitted at most rate x (T + queue_wait) + burst a stage;
+              the master's /debug/cluster/telemetry holds every sender (two
+              volume servers, two filers, S3, WebDAV, the master) and the
+              abuser's merged count within the sketch's error bound of the
+              gateways' /debug/usage; the spool reads back events and series;
+              md5_batch and crc32c_batch launched. Victim files/s and PUT
+              p50/p99 alone and under the flood, the abuser's admitted and shed
+              by reason, frames and bytes by sender, spool bytes by tier, the
+              wall (limit 30 s)
+ 23. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -355,6 +382,7 @@ import argparse
 import collections
 import contextlib
 import ftplib
+import gc
 import gzip
 import hashlib
 import http.client
@@ -417,10 +445,14 @@ from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from seaweedfs_tpu_torch.server.webdav import WebDavServer
 from seaweedfs_tpu_torch.shell import CommandEnv, commands_ec, run_command
+from seaweedfs_tpu_torch.qos import actuator as act_mod
+from seaweedfs_tpu_torch.qos import admission as qos_mod
 from seaweedfs_tpu_torch.stats import alerts as alerts_mod
 from seaweedfs_tpu_torch.stats import events as events_mod
 from seaweedfs_tpu_torch.stats import history as history_mod
 from seaweedfs_tpu_torch.stats import parse_exposition
+from seaweedfs_tpu_torch.stats import store as store_mod
+from seaweedfs_tpu_torch.stats import usage as usage_mod
 from seaweedfs_tpu_torch.stats import trace as trace_mod
 from seaweedfs_tpu_torch.storage import crc, file_id
 from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometry
@@ -458,10 +490,44 @@ GF_SHAPES = (
 _T0 = time.perf_counter()
 
 
+class GcPauses:
+    """The cyclic collector's pauses since the last `take()`, by generation.
+    A full (generation 2) collection holds the GIL through its whole pass
+    over the heap that every role of the script shares: 0.3-0.5 s on the
+    card's host once earlier phases' survivors are in it, as long as the
+    raft masters' election timeout (0.3-0.6 s). A failed check of the
+    secure_ha phase prints the pauses so far."""
+
+    def __init__(self) -> None:
+        self._start = 0.0
+        self._pauses: list = []
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._start = time.perf_counter()
+        else:
+            self._pauses.append((info["generation"], time.perf_counter() - self._start))
+
+    def take(self, reset: bool = True) -> dict:
+        pauses = self._pauses
+        if reset:
+            self._pauses = []
+        full = [d for g, d in pauses if g == 2]
+        return dict(collections=[sum(1 for g, _ in pauses if g == k) for k in range(3)],
+                    full_max_ms=max(full, default=0.0) * 1e3,
+                    full_total_ms=sum(full) * 1e3, objects=len(gc.get_objects()))
+
+
+GC_PAUSES = GcPauses()
+
+
 def emit(phase: str, **fields) -> None:
     """One JSON line for a phase; `at_s` is the seconds since the script
-    started, so each phase's share of the run reads off the log."""
-    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _T0, **fields}), flush=True)
+    started, so each phase's share of the run reads off the log, and `gc`
+    the collector's pauses since the previous line."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _T0,
+                      "gc": GC_PAUSES.take(), **fields}), flush=True)
 
 
 class RecordLog(logging.Handler):
@@ -5857,8 +5923,9 @@ HA_COMPACT = 8  # each master's raft log compacts past this many applied entries
 HA_CN = "seaweedfs-node"  # the common name the allow-list admits
 HA_INTRUDER = "intruder"  # signed by the same CA, not admitted
 HA_WALL_LIMIT_S = 90
-HA_CUTS = ("(a) --ha-files (2,048) 4 KiB files and 8 x --ha-large-mib (64) MiB through the"
-           " filer: the filer phase's shapes at half its count", "(b) --ha-ec-mib (256) MiB"
+HA_CUTS = ("(a) --ha-files (1,024; 2,048 until the qos_telemetry phase took room in the"
+           " run) 4 KiB files and 8 x --ha-large-mib (64) MiB through the filer: the filer"
+           " phase's shapes", "(b) --ha-ec-mib (256) MiB"
            " in one volume of the 30 GB limit", "each master's raft log compacts past 8"
            " applied entries (256 by default) so that (e) crosses a compaction")
 
@@ -6106,8 +6173,11 @@ def secure_ha_phase(dev: torch.device, n_files: int, large_bytes: int, ec_bytes:
             finally:
                 c.close()
 
+        terms_a = [m.raft.status()["term"] for m in masters]
         small_s = run_threads(put_small, HA_THREADS)
-        check(not errors, f"secure_ha (a) small PUTs: {errors[:3]}")
+        check(not errors, f"secure_ha (a) small PUTs: {errors[:3]}; raft terms at (a)'s start"
+                          f" {terms_a}, now {[m.raft.status() for m in masters]}; the"
+                          f" collector's pauses since the phase began {GC_PAUSES.take(reset=False)}")
         large_s = run_threads(put_large, HA_LARGE)
         check(not errors, f"secure_ha (a) large PUTs: {errors[:3]}")
         launches_a = read_launches()
@@ -6397,7 +6467,9 @@ def secure_ha_phase(dev: torch.device, n_files: int, large_bytes: int, ec_bytes:
         # (e) cluster.raft.ps, remove the dead master, add a fresh fourth
         ps = run_command(env, "cluster.raft.ps").splitlines()
         check(ps[0].startswith(f"{leader.url}  role=leader")
-              and any(ln.startswith(f"{old.url}  unreachable") for ln in ps), f"raft.ps: {ps}")
+              and any(ln.startswith(f"{old.url}  unreachable") for ln in ps),
+              f"raft.ps: {ps}; the collector's pauses since the phase began"
+              f" {GC_PAUSES.take(reset=False)}")
         out = run_command(env, f"cluster.raft.remove -address {old.url}")
         check(old.url not in out.split("members: ", 1)[1], f"cluster.raft.remove: {out}")
         with leader.raft.mu:
@@ -6503,7 +6575,7 @@ OBS_ROLES = ("filer", "master", "volume")
 OBS_KERNEL_NAMES = ("gf256_matmul", "md5_batch", "crc32c_batch", "gear_hash")
 OBS_WALL_LIMIT_S = 45
 OBS_CUTS = ("(a) --obs-files (1,024) 4 KiB files and --obs-large (16) 4 MiB files through"
-            " one filer from 8 waiting threads, beside the filer phase's 2,048 from 16; (b)"
+            " one filer from 8 waiting threads, beside the filer phase's 1,024 from 16; (b)"
             " --obs-ec-mib (256) MiB in one volume of the 30 GB volume limit; every role"
             " in one process, so they share one registry, trace ring and journal")
 
@@ -6631,6 +6703,13 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
     one history self-scrape's ms, and the phase's span."""
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke-observe-", dir=REPO / "build")
+    # the process's history ring and alert state start with this phase:
+    # earlier phases' latencies and injected faults must not fire here, nor
+    # ride the first telemetry frames into the master's one-fetch aggregate
+    # that cluster.check reads
+    hist = history_mod.default_history()
+    hist.clear()
+    alerts_mod.engine().evaluate()
     master = MasterServer(port=0, pulse_seconds=1)
     master.start()
     servers, filer = [], None
@@ -6650,11 +6729,6 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
         env = CommandEnv(master.url)
         metrics_url = filer.metrics_url
         label = "batch-" + dev.type
-        # the process's history ring and alert state start with this phase:
-        # earlier phases' latencies and injected faults must not fire here
-        hist = history_mod.default_history()
-        hist.clear()
-        alerts_mod.engine().evaluate()
 
         def filer_metrics() -> str:
             status, _, body = http_request("GET", metrics_url + "/metrics")
@@ -6835,6 +6909,351 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
     return res
 
 
+QT_THREADS = 8  # victim clients, each waiting for its answer; and abuser threads
+QT_SMALL = 4096
+QT_LARGE = 4 * MIB
+QT_LIMITS = "abuser=20:40,victim=10000,*=200"  # tests/test_qos.py's two-gateway policy
+QT_ABUSER = (20.0, 40.0)  # the abuser's (rate, burst) in QT_LIMITS
+QT_LIVE_LIMIT = "abuser=5:10"  # set live through cluster.qos
+QT_LIVE = (5.0, 10.0)
+QT_AFTER_S = 3.0  # flood seconds after the live change
+QT_S3_EVERY = 4  # every 4th victim file and abuser op goes through S3
+QT_SENDER_ROLES = ("master", "volume", "filer", "s3", "webdav")
+QT_SENDER_WAIT_S = 12.0  # the pushers' and registrations' 5 s cadence, twice, and some
+QT_WALL_LIMIT_S = 30
+QT_CUTS = ("(a) --qt-files (512; 1,024 took the phase past its 30 s) 4 KiB and --qt-large (8) 4 MiB victim"
+           " files from 8 waiting"
+           " threads, twice; (b) an abuser flood of --qt-flood-s (8) s from 8 threads, then"
+           " 3 s more; every role in one process, so the gateways share one admission"
+           " controller, one usage accountant and one telemetry spool (the first"
+           " telemetry_dir given: the master's)")
+
+
+def request_full(c: "Client", method: str, path: str, body=None,
+                 headers=None) -> tuple[int, dict, bytes]:
+    """One request on a keep-alive Client: status, headers, body."""
+    c.conn.request(method, path, body=body, headers=headers or {})
+    resp = c.conn.getresponse()
+    out = resp.read()
+    return resp.status, dict(resp.getheaders()), out
+
+
+def typed_shed(where: str, status: int, headers: dict, body: bytes) -> str | None:
+    """The shed reason of a typed QoS refusal, else None: a filer 429/503
+    with Retry-After and a JSON reason, an S3 SlowDown (429) or
+    ServiceUnavailable (503) with Retry-After."""
+    reason = headers.get("X-Sw-Qos-Reason")
+    if status not in (429, 503) or not reason or "Retry-After" not in headers:
+        return None
+    if where == "s3":
+        code = "SlowDown" if status == 429 else "ServiceUnavailable"
+        return reason if f"<Code>{code}</Code>".encode() in body else None
+    try:
+        return reason if json.loads(body).get("reason") == reason else None
+    except ValueError:
+        return None
+
+
+def qos_telemetry_phase(dev: torch.device, n_files: int, n_large: int, flood_s: float,
+                        seed: int) -> dict:
+    """Telemetry, usage and QoS on two filer gateways that share one
+    `-qos.limits` policy (QT_LIMITS): a master with a telemetry_dir (pulse
+    1 s), two volume servers and two filers on the card, each filer with
+    its own telemetry_dir, an S3 and a WebDAV gateway given the master (so
+    their pushers run). (a) a victim tenant (?collection=victim, S3 bucket
+    victim) writes n_files 4 KiB and n_large 4 MiB files from 8 waiting
+    threads, every QT_S3_EVERY-th small file through S3, and reads them
+    back, once alone, then again under (b) an abuser flood of flood_s s
+    from 8 threads, half through each filer and a quarter of its ops
+    through S3; (c) `cluster.qos -limit QT_LIVE_LIMIT` live, then QT_AFTER_S
+    s more of flood; (d) one filer stopped and the process's spool closed,
+    then `cluster.top -once -spool` and `cluster.why -spool abuser` read it
+    post-mortem; (e) `cluster.heat -n 8` and `cluster.qos` rendered.
+    Checks: no victim request shed; the abuser refused only with typed
+    sheds, admitted at most rate x (T + queue_wait) + burst in each stage
+    (the bucket may run queue_wait into deficit, and a changed limit
+    starts a fresh burst); the master's one fetch holds frames from every
+    sender, and the abuser's merged count lies within the sketch's error
+    bound of the gateways' /debug/usage count (one process: one
+    accountant); the spool reads back events and series. Prints victim
+    files/s and PUT p50/p99 alone and under the flood, the abuser's
+    admitted and shed by reason, frames and bytes by sender, spool bytes
+    by tier and the phase's span."""
+    from seaweedfs_tpu_torch.s3api import S3Server
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-qos-", dir=REPO / "build")
+    spools = {name: os.path.join(root, f"spool-{name}") for name in ("master", "f1", "f2")}
+    check(store_mod.store() is None, "a telemetry spool is on before the qos_telemetry phase")
+    # earlier phases' latencies must not burn an SLO the actuator acts on,
+    # and the process's usage accountant counts this phase's tenants only
+    history_mod.default_history().clear()
+    alerts_mod.engine().evaluate()
+    usage_mod.reset()
+    master = MasterServer(port=0, pulse_seconds=1, telemetry_dir=spools["master"])
+    master.start()
+    servers, filers, s3, dav = [], [], None, None
+    ctl = qos_mod.controller()
+    res = {}
+    try:
+        for i, rack in enumerate(("r1", "r2")):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url, rack=rack,
+                              pulse_seconds=PULSE_S, device=dev)
+            vs.start()
+            servers.append(vs)
+        for name in ("f1", "f2"):
+            f = FilerServer(master.url, port=0, device=dev, qos_limits=QT_LIMITS,
+                            telemetry_dir=spools[name],
+                            peers=[filers[0].url] if filers else None)
+            f.start()
+            filers.append(f)
+        s3 = S3Server(filers[0].url, port=0, master_url=master.url)
+        s3.start()
+        dav = WebDavServer(filers[1].url, port=0, master_url=master.url)
+        dav.start()
+        check(all(f.device.type == dev.type for f in filers)
+              and all(vs.device.type == dev.type for vs in servers),
+              "a qos_telemetry role is off the card")
+        check(ctl.armed and list(ctl.status()["limits"]["abuser"]) == list(QT_ABUSER),
+              f"-qos.limits did not arm the controller: {ctl.status()}")
+        spool = store_mod.store()
+        check(spool is not None and spool.dir == spools["master"],
+              "the process's spool is not the first telemetry_dir given (the master's)")
+        env = CommandEnv(master.url)
+        for bucket in ("victim", "abuser"):
+            status, _, out = http_request("PUT", f"{s3.url}/{bucket}")
+            check(status == 200, f"S3 create bucket {bucket} -> {status}: {out[:200]!r}")
+        urls = {"s3": s3.url, "f1": filers[0].url, "f2": filers[1].url}
+
+        def victim_run(tag: str) -> dict:
+            rngs = [np.random.default_rng([seed, 71, t]) for t in range(QT_THREADS)]
+            per = [n_files // QT_THREADS + (t < n_files % QT_THREADS)
+                   for t in range(QT_THREADS)]
+            written = [[] for _ in range(QT_THREADS)]
+            lat = [[] for _ in range(QT_THREADS)]
+            errors, shed = [], []
+
+            def write(t: int) -> None:
+                conns = {k: Client(u) for k, u in urls.items()}
+                try:
+                    for i in range(per[t]):
+                        data = rngs[t].bytes(QT_SMALL)
+                        if (i + t) % QT_S3_EVERY == QT_S3_EVERY - 1:
+                            where, path = "s3", f"/victim/{tag}/t{t}/f{i:05d}"
+                        else:
+                            where = "f1" if t % 2 == 0 else "f2"
+                            path = f"/qt/{tag}/t{t}/f{i:05d}?collection=victim"
+                        t0 = time.perf_counter()
+                        status, hdrs, out = request_full(conns[where], "PUT", path, data, OCTET)
+                        lat[t].append(time.perf_counter() - t0)
+                        ok = 200 if where == "s3" else 201
+                        if status in (429, 503):
+                            shed.append(f"{where} PUT {path} -> {status} {out[:200]!r}")
+                            continue
+                        if status != ok:
+                            errors.append(f"{where} PUT {path} -> {status}: {out[:200]!r}")
+                            return
+                        written[t].append((where, path, data))
+                    if t < n_large:
+                        data = np.random.default_rng([seed, 72, t]).bytes(QT_LARGE)
+                        where = "f1" if t % 2 == 0 else "f2"
+                        path = f"/qt/{tag}/large{t}?collection=victim"
+                        status, hdrs, out = request_full(conns[where], "PUT", path, data, OCTET)
+                        if status in (429, 503):
+                            shed.append(f"{where} PUT {path} -> {status}")
+                            return
+                        if status != 201 or \
+                                json.loads(out)["md5"] != hashlib.md5(data).hexdigest():
+                            errors.append(f"{where} PUT {path} -> {status}: {out[:200]!r}")
+                            return
+                        written[t].append((where, path, data))
+                finally:
+                    for c in conns.values():
+                        c.close()
+
+            def read(t: int) -> None:
+                conns = {k: Client(u) for k, u in urls.items()}
+                try:
+                    for where, path, data in written[t]:
+                        status, _, out = request_full(conns[where], "GET", path)
+                        if status in (429, 503):
+                            shed.append(f"{where} GET {path} -> {status}")
+                        elif status != 200 or out != data:
+                            errors.append(f"{where} GET {path} -> {status}, {len(out)} B")
+                            return
+                finally:
+                    for c in conns.values():
+                        c.close()
+
+            write_s = run_threads(write, QT_THREADS)
+            check(not errors, f"victim {tag} writes: {errors[:3]}")
+            check(not shed, f"victim {tag}: {len(shed)} write(s) shed: {shed[:3]}")
+            read_s = run_threads(read, QT_THREADS)
+            check(not errors, f"victim {tag} reads: {errors[:3]}")
+            check(not shed, f"victim {tag}: {len(shed)} read(s) shed: {shed[:3]}")
+            small = [x for ls in lat for x in ls]
+            return dict(files=n_files, large=min(n_large, QT_THREADS), write_s=write_s,
+                        read_s=read_s, files_per_s=n_files / write_s,
+                        reads=sum(len(w) for w in written),
+                        **{f"put_{k}": v for k, v in _pcts(small).items()})
+
+        # (a) the victim alone
+        l0 = read_launches()
+        res["victim_alone"] = victim_run("alone")
+
+        def flood(stage: str, seconds: float) -> dict:
+            outcomes, errors, ends = [], [], []
+            deadline = time.perf_counter() + seconds
+
+            def abuse(t: int) -> None:
+                conns = {k: Client(u) for k, u in urls.items()}
+                data = np.random.default_rng([seed, 73, t]).bytes(QT_SMALL)
+                n = 0
+                try:
+                    while time.perf_counter() < deadline:
+                        if n % QT_S3_EVERY == QT_S3_EVERY - 1:
+                            where, path = "s3", f"/abuser/{stage}/t{t}/{n}"
+                        else:
+                            where = "f1" if (t + n) % 2 == 0 else "f2"
+                            path = f"/qt/abuse/{stage}/t{t}/{n}?collection=abuser"
+                        status, hdrs, out = request_full(conns[where], "PUT", path, data, OCTET)
+                        n += 1
+                        if status == (200 if where == "s3" else 201):
+                            outcomes.append((where, "admitted"))
+                            continue
+                        reason = typed_shed("s3" if where == "s3" else "filer", status,
+                                            hdrs, out)
+                        if reason is None:
+                            errors.append(f"{where} PUT {path} -> {status} {hdrs}"
+                                          f" {out[:200]!r}")
+                            return
+                        outcomes.append((where, reason))
+                finally:
+                    ends.append(time.perf_counter())
+                    for c in conns.values():
+                        c.close()
+
+            threads = [threading.Thread(target=abuse, args=(t,)) for t in range(QT_THREADS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            return {"threads": threads, "t0": t0, "outcomes": outcomes, "errors": errors,
+                    "ends": ends}
+
+        def flood_done(fl: dict, limit: tuple) -> dict:
+            for th in fl["threads"]:
+                th.join()
+            # from the first request to the last answer: every admission lies inside
+            span = max(fl["ends"]) - fl["t0"]
+            check(not fl["errors"], f"abuser: untyped answers {fl['errors'][:3]}")
+            admitted = sum(1 for _, o in fl["outcomes"] if o == "admitted")
+            bound = limit[0] * (span + ctl.queue_wait) + limit[1]
+            by = collections.Counter(f"{w}:{o}" for w, o in fl["outcomes"])
+            check(admitted <= bound,
+                  f"abuser admitted {admitted} in {span:.2f} s, past rate x (T + queue_wait)"
+                  f" + burst = {bound:.1f}")
+            check(admitted < len(fl["outcomes"]), "the abuser's flood was never shed")
+            return dict(span_s=span, ops=len(fl["outcomes"]), admitted=admitted,
+                        admitted_bound=bound, by_gateway_and_outcome=dict(sorted(by.items())),
+                        shed_by_reason=dict(collections.Counter(
+                            o for _, o in fl["outcomes"] if o != "admitted")))
+
+        # (b) the flood, and the victim again under it
+        fl = flood("one", flood_s)
+        res["victim_under_flood"] = victim_run("flood")
+        res["abuser_before"] = flood_done(fl, QT_ABUSER)
+        res["victim_under_flood"]["flood_s"] = res["abuser_before"]["span_s"]
+        # (c) the live limit through the shell, then more flood
+        out = run_command(env, f"cluster.qos -limit '{QT_LIVE_LIMIT}' -include {s3.url}")
+        check("applied" in out
+              and list(ctl.status()["limits"].get("abuser", ())) == list(QT_LIVE),
+              f"cluster.qos -limit: {out}; limits {ctl.status()['limits']}")
+        res["qos_set"] = out.splitlines()
+        res["abuser_after"] = flood_done(flood("two", QT_AFTER_S), QT_LIVE)
+        launches = {k: v - l0[k] for k, v in read_launches().items()}
+        # every sender's frames at the master, and the merged abuser count
+        deadline = time.perf_counter() + QT_SENDER_WAIT_S
+        while True:
+            tele = get_json(f"{master.url}/debug/cluster/telemetry")
+            roles = collections.Counter(s["role"] for s in tele["senders"].values())
+            if all(roles[r] >= (2 if r in ("volume", "filer") else 1)
+                   for r in QT_SENDER_ROLES) or time.perf_counter() > deadline:
+                break
+            time.sleep(0.25)
+        check(all(roles[r] >= (2 if r in ("volume", "filer") else 1) for r in QT_SENDER_ROLES),
+              f"senders at the master by role: {dict(roles)}")
+        check(s3._telemetry_pusher.push_once(), "the S3 pusher's last frame was refused")
+        tele = get_json(f"{master.url}/debug/cluster/telemetry")
+        local, procs = 0.0, set()
+        for gw in (filers[0].url, filers[1].url, s3.url):
+            u = get_json(f"{gw}/debug/usage")
+            if u["proc"] in procs:
+                continue  # one process, one accountant: counted once
+            procs.add(u["proc"])
+            local += next((r["requests"] for r in u["tenants"]
+                           if r["collection"] == "abuser"), 0.0)
+        merged = next((r for r in tele["usage"]["tenants"] if r["collection"] == "abuser"), None)
+        check(merged is not None, f"the abuser is not in the merged tenants: {tele['usage']}")
+        bound = max(float(merged.get("requests_err", 0.0)),
+                    float(tele["usage"].get("error_bound", 0.0)))
+        check(abs(merged["requests"] - local) <= bound,
+              f"merged abuser count {merged['requests']:g} against {local:g} at the gateways,"
+              f" error bound {bound:g}")
+        res["telemetry"] = dict(
+            senders={n: dict(role=s["role"], frames=s["frames"], frame_bytes=s["frame_bytes"],
+                             stale=s["stale"]) for n, s in sorted(tele["senders"].items())},
+            frames_total=tele["frames_total"], frames_rejected=tele["frames_rejected"],
+            bytes_total=tele["bytes_total"], merge_seconds=tele["merge_seconds"],
+            abuser_merged=merged["requests"], abuser_local=local, error_bound=bound,
+            rates=tele["rates"])
+        # (e) the operator's views
+        heat = run_command(env, "cluster.heat -n 8")
+        check("abuser" in heat and "victim" in heat, f"cluster.heat -n 8: {heat}")
+        qos_show = run_command(env, f"cluster.qos -include {s3.url}")
+        live = f"abuser={QT_LIVE[0]:g}:{QT_LIVE[1]:g}"
+        check("armed" in qos_show and live in qos_show and "shed:" in qos_show,
+              f"cluster.qos: {qos_show}")
+        res.update(heat=heat.splitlines(), qos=qos_show.splitlines(),
+                   controller=dict(admitted={f"{c}/{k}": n for (c, k), n
+                                             in sorted(ctl.admitted_total.items())},
+                                   shed={"/".join(k): n for k, n
+                                         in sorted(ctl.shed_total.items())}))
+        # (d) one filer stopped, the process's spool closed: the post-mortem
+        filers[1].stop()
+        filers.pop()
+        store_mod.disable()
+        info = store_mod.spool_info(spools["master"])
+        evs = store_mod.read_events(spools["master"])
+        series = store_mod.read_series(spools["master"], "SeaweedFS_http_request_total")
+        check(evs and series, f"the spool read back {len(evs)} events and {len(series)} series")
+        check(all(not os.listdir(spools[n]) if os.path.isdir(spools[n]) else True
+                  for n in ("f1", "f2")),
+              "a filer's own telemetry_dir holds a spool beside the process's")
+        top = run_command(env, f"cluster.top -once -spool {spools['master']}")
+        check("post-mortem spool" in top and "filer=" in top, f"cluster.top -spool: {top}")
+        why = run_command(env, f"cluster.why abuser -spool {spools['master']}")
+        check("qos_shed" in why, f"cluster.why abuser -spool: {why[:2000]}")
+        res.update(spool=dict(dir="the master's", tiers=info,
+                              total_bytes=sum(t["bytes"] for t in info.values()),
+                              events=len(evs), request_series=len(series),
+                              event_types=dict(collections.Counter(e["type"] for e in evs))),
+                   top_spool=[ln for ln in top.splitlines() if "spool" in ln or "req/s" in ln],
+                   why_rows=len(why.splitlines()) - 1, launches=launches)
+    finally:
+        store_mod.disable()
+        for server in ([dav, s3] + filers[::-1] + servers):
+            if server is not None:
+                server.stop()
+        master.stop()
+        act_mod.reset()
+        qos_mod.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    res.update(wall_s=wall, wall_limit_s=QT_WALL_LIMIT_S, over_wall_limit=wall > QT_WALL_LIMIT_S,
+               cuts=QT_CUTS, note="every role in one process: one controller, accountant, spool")
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -6862,11 +7281,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--volume-mib", type=int, default=1024)
-    ap.add_argument("--upload-blobs", type=int, default=1 << 16)
+    ap.add_argument("--upload-blobs", type=int, default=1 << 15)
     ap.add_argument("--chunked-mib", type=int, default=1024)
-    ap.add_argument("--cdc-uploads", type=int, default=64)
+    ap.add_argument("--cdc-uploads", type=int, default=32)
     ap.add_argument("--stream-mib", type=int, default=1024)
-    ap.add_argument("--dedup-gib", type=int, default=4)
+    ap.add_argument("--dedup-gib", type=int, default=2)
     ap.add_argument("--online-mib", type=int, default=1024)
     ap.add_argument("--cluster-mib", type=int, default=1024)
     ap.add_argument("--mesh-volumes", type=int, default=32)
@@ -6891,12 +7310,15 @@ def main() -> int:
     ap.add_argument("--gw-remote-mib", type=int, default=256)
     ap.add_argument("--sync-files", type=int, default=128)
     ap.add_argument("--mq-messages", type=int, default=4096)
-    ap.add_argument("--ha-files", type=int, default=2048)
+    ap.add_argument("--ha-files", type=int, default=1024)
     ap.add_argument("--ha-large-mib", type=int, default=64)
     ap.add_argument("--ha-ec-mib", type=int, default=256)
     ap.add_argument("--obs-files", type=int, default=1024)
     ap.add_argument("--obs-large", type=int, default=16)
     ap.add_argument("--obs-ec-mib", type=int, default=256)
+    ap.add_argument("--qt-files", type=int, default=512)
+    ap.add_argument("--qt-large", type=int, default=8)
+    ap.add_argument("--qt-flood-s", type=float, default=8.0)
     ap.add_argument("--offset5-child", metavar="DIR",
                     help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
@@ -7094,6 +7516,15 @@ def main() -> int:
     for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
         check(ob["launches"][name] > 0, f"the observe phase launched no {name} kernel")
         launches[name] += ob["launches"][name]
+
+    # telemetry, usage and QoS on two filer gateways under a tenant's flood; its own count
+    qt = qos_telemetry_phase(dev, args.qt_files, args.qt_large, args.qt_flood_s, args.seed)
+    emit("qos_telemetry", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(),
+         **qt)
+    for name in ("crc32c_batch", "md5_batch"):
+        check(qt["launches"][name] > 0, f"the qos_telemetry phase launched no {name} kernel")
+    for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
+        launches[name] += qt["launches"][name]
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

@@ -278,10 +278,20 @@ class RaftNode:
     def _ticker(self) -> None:
         while not self._stop.is_set():
             timeout = random.uniform(*self.election_timeout)
-            time.sleep(self.heartbeat_interval / 2)
+            nap = self.heartbeat_interval / 2
+            napped_at = time.monotonic()
+            time.sleep(nap)
             with self.mu:
+                now = time.monotonic()
+                stalled = now - napped_at - nap
+                if stalled > self.heartbeat_interval:
+                    # this process stood still (a full collection, a stopped
+                    # host): the leader's beats sent meanwhile wait unread, so
+                    # the stall is not counted against it; without this every
+                    # node of a paused process campaigns as it resumes
+                    self._last_heartbeat = min(now, self._last_heartbeat + stalled)
                 role = self.role
-                since = time.monotonic() - self._last_heartbeat
+                since = now - self._last_heartbeat
             if role == "leader":
                 self._broadcast_heartbeats()
                 time.sleep(self.heartbeat_interval / 2)

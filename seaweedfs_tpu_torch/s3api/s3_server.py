@@ -24,10 +24,18 @@ ETags (an object's MD5, a multipart upload's MD5 of its parts' MD5s) are
 The service is metered as role "s3" (no `/metrics` route: the bucket
 namespace is a catch-all); `slow_ms` is its `-slowMs` span threshold.
 
+Tenants and QoS (`stats/usage.py`, `qos/`): the bucket is the collection.
+`_dispatch` passes QoS admission before auth or any body bytes, and a shed
+is a typed `SlowDown` (429) or `ServiceUnavailable` (503) with Retry-After
+and `X-Sw-Qos-Reason`; every request with a bucket is then recorded in the
+process's usage accountant. `qos_limits` (`-qos.limits`) arms admission
+and starts the burn actuator; `telemetry_dir` (`-telemetry.dir`) turns on
+the durable spool; `master_url` starts a `TelemetryPusher`, the gateway's
+only link to the master's telemetry aggregate.
+
 Not ported: the native front (the engine relay, its per-bucket flags and
-upload registry, `url`'s engine branch; ROADMAP 10a-3), QoS admission,
-usage accounting, the telemetry spool and the `TelemetryPusher` (10d-4c);
-the constructor takes none of their options. The
+upload registry, their revocation while a bucket's QoS bucket is in
+deficit, `url`'s engine branch; ROADMAP 10a-3). The
 `s3-meta-objects` marker an x-amz-meta PUT writes on its bucket entry is
 kept, so a store written here reads the same to a gateway that has the
 native front.
@@ -47,7 +55,12 @@ from xml.sax.saxutils import escape
 from ..filer.filer_client import FilerClient
 from ..filer.meta_aggregator import MetaSubscriber
 from ..server.httpd import HTTPService, Request, Response
+from ..qos import actuator as qos_act
+from ..qos import admission as qos_mod
+from ..stats import aggregate as agg_mod
+from ..stats import store as store_mod
 from ..stats import trace
+from ..stats import usage as usage_mod
 from ..util import faults
 
 from . import policy as bucket_policy
@@ -104,9 +117,19 @@ class S3Server:
         circuit_breaker: CircuitBreaker | None = None,
         faults_spec: str | None = None,
         slow_ms: float | None = None,
+        master_url: str | None = None,
+        telemetry_dir: str | None = None,
+        telemetry_retention_mb: float | None = None,
+        qos_limits: str | None = None,
     ) -> None:
         faults.opt_in(faults_spec)  # the -faults flag
         self.fc = FilerClient(filer_url)
+        # the gateway has no heartbeat/register link of its own, so an
+        # optional master_url starts a TelemetryPusher (stats/aggregate):
+        # without it this process's tenant sketches and 5xx never reach
+        # the cluster aggregate
+        self.master_url = master_url
+        self._telemetry_pusher = None
         self.iam = IdentityAccessManagement()
         if config:
             self.iam.load_config(config)
@@ -115,8 +138,19 @@ class S3Server:
         self._sweep_stop = None
         self.service = HTTPService(host, port)
         self.service.enable_metrics("s3", serve_route=False)
+        # -telemetry.dir: durable history/event spool (stats/store.py)
+        if telemetry_dir:
+            store_mod.enable(telemetry_dir, telemetry_retention_mb)
         if slow_ms is not None:  # -slowMs: the role's slow-span threshold
             trace.set_slow_threshold_ms(slow_ms, role="s3")
+        # -qos.limits: arm admission control (qos/) + the burn actuator;
+        # the bucket IS the collection on the S3 surface, so the same
+        # tenant limit holds here and on the filer front door
+        if qos_limits is not None:
+            limits, default = qos_mod.parse_limits_spec(qos_limits)
+            qos_mod.controller().set_limits(limits=limits, default=default)
+            qos_mod.enable()
+            qos_act.start(master_url=master_url)
         self._iam_subscriber = None
         # buckets this gateway has marked as holding x-amz-meta objects
         self._meta_dirty: set[str] = set()
@@ -141,8 +175,15 @@ class S3Server:
                         pass
 
             threading.Thread(target=sweeper, daemon=True).start()
+        if self.master_url:
+            self._telemetry_pusher = agg_mod.TelemetryPusher(
+                "s3", lambda: self.url, self.master_url)
+            self._telemetry_pusher.start()
 
     def stop(self) -> None:
+        if self._telemetry_pusher is not None:
+            self._telemetry_pusher.stop()
+            self._telemetry_pusher = None
         if self._sweep_stop is not None:
             self._sweep_stop.set()
         if self._iam_subscriber is not None:
@@ -221,6 +262,10 @@ class S3Server:
         pairs = self._query_pairs(req)
         q = dict(pairs)
         resource = f"/{bucket}/{key}" if key else f"/{bucket}"
+        if bucket and qos_mod.controller().armed:
+            shed = self._admit(req, bucket, key, resource)
+            if shed is not None:
+                return shed
         if (
             req.method == "POST"
             and bucket
@@ -294,6 +339,46 @@ class S3Server:
             resp = error_response(err("InternalError", str(e)), resource)
         if bucket:
             self._apply_cors_headers(req, bucket, resp)
+            # tenant accounting (stats/usage.py): the bucket IS the
+            # collection on the S3 surface
+            try:
+                usage_mod.accountant().record(
+                    bucket,
+                    bytes_in=float(
+                        int(req.headers.get("Content-Length") or 0)
+                        if req.method in ("PUT", "POST") else 0),
+                    bytes_out=float(len(resp.body)
+                                    if req.method == "GET" else 0),
+                    error=resp.status >= 500,
+                )
+            except Exception:  # accounting must never fail a request
+                pass
+        return resp
+
+    def _admit(self, req: Request, bucket: str, key: str,
+               resource: str) -> Response | None:
+        """QoS admission (qos/admission.py) before auth or body bytes: the
+        bucket IS the collection. None = admitted; a shed is a typed S3
+        error — SlowDown (429, tenant-caused) / ServiceUnavailable (503,
+        capacity) — with Retry-After + machine-readable reason."""
+        try:
+            cls = qos_mod.classify(
+                req.method, req.headers,
+                background_hint=(req.method == "GET" and not key))
+            d = qos_mod.admit(bucket, cls)
+        except Exception:
+            d = None  # admission must never fail a request untyped
+        if d is None:
+            return None
+        code = "SlowDown" if d.status == 429 else "ServiceUnavailable"
+        resp = error_response(
+            S3ApiError(code,
+                       f"qos {d.reason}: request shed;"
+                       f" retry after {d.retry_after:.1f}s",
+                       d.status),
+            resource)
+        resp.headers.update(d.headers())
+        self._apply_cors_headers(req, bucket, resp)
         return resp
 
     @staticmethod

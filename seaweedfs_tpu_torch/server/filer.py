@@ -72,10 +72,20 @@ that port) serves `/metrics` and the debug routes on a `MetricsService`
 service feeds `SeaweedFS_filer_hash_seconds` under the port's kernel
 labels.
 
+Tenants and QoS (`stats/usage.py`, `qos/`): every GET, HEAD, POST, PUT and
+DELETE on the namespace passes QoS admission before any bytes move (a shed
+is a typed 429/503 with Retry-After and `X-Sw-Qos-Reason`; unarmed, the
+check is one attribute load) and is then recorded in the process's usage
+accountant under its collection. `qos_limits` (`-qos.limits`, e.g.
+`'a=100,b=50:200,*=25'`) arms admission and starts the burn actuator, which
+reads the master's cluster telemetry. `telemetry_dir` (`-telemetry.dir`)
+turns on the durable spool, and a telemetry frame rides every
+registration beat.
+
 Not ported: the native fastlane front door (`_fl_*`, and with it the
-`lease_churn` and `fallback_fastlane` events, ROADMAP 10a-3), and qos
-admission, usage accounting and telemetry (10d-4c). The registration beat
-carries no telemetry frame and charges no fastlane qos usage.
+`lease_churn` and `fallback_fastlane` events, the fid-lease sharding by
+the gateway ordinal of the registration's answer, and the fastlane's qos
+charge on the beat; ROADMAP 10a-3).
 """
 
 from __future__ import annotations
@@ -101,7 +111,12 @@ from ..filer.filer_conf import FILER_CONF_PATH, FilerConf
 from ..filer.filerstore import make_store
 from ..filer.wdclient import WeedClient
 from ..ops import cdc
+from ..qos import actuator as qos_act
+from ..qos import admission as qos_mod
+from ..stats import aggregate as agg_mod
+from ..stats import store as store_mod
 from ..stats import trace
+from ..stats import usage as usage_mod
 from ..remote_storage import (
     CONF_FILE,
     MOUNT_FILE,
@@ -155,6 +170,9 @@ class FilerServer:
         security: SecurityConfig | None = None,
         metrics_port: int = -1,
         slow_ms: float | None = None,
+        telemetry_dir: str | None = None,
+        telemetry_retention_mb: float | None = None,
+        qos_limits: str | None = None,
     ) -> None:
         self.device = resolve_device(device)
         self.security = security or SecurityConfig()
@@ -184,8 +202,19 @@ class FilerServer:
         # the filer's namespace is a catch-all (any path may be a file, incl.
         # /metrics), so metrics get their own listener (`-metricsPort`)
         self.service.enable_metrics("filer", serve_route=False)
+        # -telemetry.dir: durable history/event spool (stats/store.py)
+        if telemetry_dir:
+            store_mod.enable(telemetry_dir, telemetry_retention_mb)
         if slow_ms is not None:  # -slowMs: the role's slow-span threshold
             trace.set_slow_threshold_ms(slow_ms, role="filer")
+        # -qos.limits: arm admission control (qos/) + the burn actuator;
+        # without the flag the per-request check is one attribute read
+        if qos_limits is not None:
+            limits, default = qos_mod.parse_limits_spec(qos_limits)
+            qos_mod.controller().set_limits(limits=limits, default=default)
+            qos_mod.enable()
+            master = getattr(client, "master_url", "")
+            qos_act.start(master_url=master or None)
         self.metrics_service = (
             MetricsService(host, max(metrics_port, 0)) if metrics_port != 0 else None
         )
@@ -270,16 +299,22 @@ class FilerServer:
     def _register_once(self) -> None:
         """Announce to the master's cluster membership (`cluster.go` rides
         KeepConnected; here the equivalent periodic POST). A master that is
-        not up yet is retried by the loop. The JAX beat also carries a
-        telemetry frame (10d-4) and reads a fastlane shard from the answer
-        (10a-3); neither is ported."""
+        not up yet is retried by the loop. The cluster telemetry frame
+        rides the beat, as it rides the volume heartbeat: no extra
+        connection."""
         master_url = getattr(self.client, "master_url", "")
         if not master_url:
             return
+        payload = {"type": "filer", "address": self.url}
+        try:
+            payload["telemetry"] = agg_mod.build_frame(
+                "filer", self.url, interval=5.0)
+        except Exception:  # a frame must never stop the registration
+            pass
         try:
             http_request(
                 "POST", master_url + "/cluster/register",
-                body=json.dumps({"type": "filer", "address": self.url}).encode(),
+                body=json.dumps(payload).encode(),
                 headers={"Content-Type": "application/json"}, timeout=5,
             )
         except OSError as e:
@@ -1018,30 +1053,68 @@ class FilerServer:
                 }
             )
 
-        @svc.route("GET", path_re)
-        def read(req: Request) -> Response:
-            return self._do_read(req, head=False)
+        def front_door(do, bytes_in: bool = False, bytes_out: bool = False):
+            """A path handler behind QoS admission and tenant accounting,
+            with the tenant resolved once for both."""
+            def handler(req: Request) -> Response:
+                try:
+                    coll = self._resolve_collection(req)
+                except Exception:  # neither may fail a request
+                    coll = None
+                shed = self._admit(req, coll)
+                if shed is not None:
+                    return shed
+                resp = do(req)
+                self._account_usage(
+                    coll, resp,
+                    bytes_in=int(req.headers.get("Content-Length") or 0) if bytes_in else 0,
+                    bytes_out=len(resp.body) if bytes_out else 0)
+                return resp
+            return handler
 
-        @svc.route("HEAD", path_re)
-        def head(req: Request) -> Response:
-            return self._do_read(req, head=True)
+        svc.route("GET", path_re)(front_door(
+            lambda req: self._do_read(req, head=False), bytes_out=True))
+        svc.route("HEAD", path_re)(front_door(
+            lambda req: self._do_read(req, head=True)))
+        svc.route("POST", path_re)(front_door(self._do_write, bytes_in=True))
+        svc.route("PUT", path_re)(front_door(self._do_write, bytes_in=True))
+        svc.route("DELETE", path_re)(front_door(self._do_delete))
 
-        @svc.route("POST", path_re)
-        def post(req: Request) -> Response:
-            return self._do_write(req)
+    def _admit(self, req: Request, coll: str | None) -> Response | None:
+        """QoS admission at the front door (qos/admission.py), BEFORE any
+        bytes move. None = admitted; otherwise a typed 429/503 with
+        Retry-After and a machine-readable reason — never an untyped
+        failure. Unarmed, this is one attribute load."""
+        if not qos_mod.controller().armed or coll is None:
+            return None
+        try:
+            cls = qos_mod.classify(req.method, req.headers)
+            d = qos_mod.admit(coll, cls)
+        except Exception:  # admission must never fail a request untyped
+            return None
+        if d is None:
+            return None
+        return Response(d.to_dict(), d.status, headers=d.headers())
 
-        @svc.route("PUT", path_re)
-        def put(req: Request) -> Response:
-            return self._do_write(req)
-
-        @svc.route("DELETE", path_re)
-        def delete(req: Request) -> Response:
-            return self._do_delete(req)
+    def _account_usage(self, coll: str | None, resp: Response,
+                       bytes_in: int = 0, bytes_out: int = 0) -> None:
+        """Tenant accounting of the front door (stats/usage.py)."""
+        if coll is None:
+            return
+        try:
+            usage_mod.accountant().record(
+                coll,
+                bytes_in=float(bytes_in), bytes_out=float(bytes_out),
+                error=resp.status >= 500,
+            )
+        except Exception:  # accounting must never fail a request
+            pass
 
     def _resolve_collection(self, req: Request) -> str:
-        """The tenant dimension, resolved exactly like the write path's
-        placement: explicit ?collection=, then the fs.configure rule, then
-        the filer default."""
+        """The tenant dimension both usage accounting AND qos admission
+        key on — resolved exactly like the write path's placement:
+        explicit ?collection=, then the fs.configure rule, then the filer
+        default."""
         path = normalize(urllib.parse.unquote(req.path))
         coll = req.query.get("collection")
         if not coll and not path.startswith("/etc/"):

@@ -48,8 +48,12 @@ activity), `/debug/metrics/history`, `/debug/alerts` and `/debug/events`.
 `http_request` and `PooledHTTP` carry the active span's trace headers
 (`X-Sw-Trace-Id`, `X-Sw-Span`) to the next hop.
 
-Not ported: usage and heat accounting, `/debug/usage`, `/debug/heat`,
-`/qos/limits` and `/debug/qos` (ROADMAP 10d-4c).
+Tenants and QoS (`stats/{usage,heat}.py`, `qos/`): `enable_metrics` also
+registers the process's usage accountant and heat engine, and the debug
+routes serve `/debug/usage` and `/debug/heat` (?n= caps the rows),
+`GET /qos/limits` (= `/debug/qos`: the admission controller's state and
+the burn actuator's level) and `POST /qos/limits` (replace the limit
+table at runtime; arms admission).
 """
 
 from __future__ import annotations
@@ -72,13 +76,17 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
 from .. import __version__
+from ..qos import actuator as act_mod
+from ..qos import admission as qos_mod
 from ..security import tls as _tls
 from ..stats import alerts as alerts_mod
 from ..stats import default_registry
 from ..stats import events as events_mod
+from ..stats import heat as heat_mod
 from ..stats import history as history_mod
 from ..stats import profiler as prof_mod
 from ..stats import trace as trace_mod
+from ..stats import usage as usage_mod
 from ..stats.metrics import PROCESS_START_TIME
 from ..util import faults as faults_mod
 
@@ -255,6 +263,8 @@ class HTTPService:
         history_mod.default_history().start()
         alerts_mod.engine()
         events_mod.enable()
+        usage_mod.enable()
+        heat_mod.enable()
         self.enable_tracing(role)
 
     def enable_tracing(self, role: str) -> None:
@@ -571,9 +581,11 @@ def _register_debug_routes(service: HTTPService) -> None:
     `/debug/pprof/device`: a gzipped Chrome trace of the process's CUDA
     activity, 501 without CUDA, 429 while a capture runs),
     `/debug/metrics/history` (?family= & ?window= & ?samples= & ?since=),
-    `/debug/alerts` (?window=) and `/debug/events` (?type= & ?volume= &
-    ?trace= & ?since= & ?limit=). On a catch-all namespace (the filer) they
-    shadow same-named file paths. A malformed number is a 400."""
+    `/debug/alerts` (?window=), `/debug/events` (?type= & ?volume= &
+    ?trace= & ?since= & ?limit=), `/debug/usage` and `/debug/heat` (?n=),
+    and `/qos/limits` (GET = `/debug/qos`, POST). On a catch-all namespace
+    (the filer) they shadow same-named file paths. A malformed number is a
+    400."""
     col = trace_mod.collector()
 
     def role():
@@ -728,6 +740,96 @@ def _register_debug_routes(service: HTTPService) -> None:
                                  collection=q.get("collection") or None,
                                  limit=limit),
         })
+
+    def n_param(query: dict):
+        n = int(query["n"]) if "n" in query else None
+        if n is not None and n < 1:
+            raise ValueError(n)
+        return n
+
+    @service.route("GET", r"/debug/usage")
+    def debug_usage(req: Request) -> Response:
+        """The bounded-cardinality tenant accountant (stats/usage.py):
+        top-K collections by requests/bytes/errors, the `_other` fold,
+        and the sketch's exported error bound. ?n= caps the tenant rows."""
+        try:
+            n = n_param(req.query)
+        except ValueError:
+            return Response({"error": "n must be a positive integer"}, 400)
+        out = usage_mod.accountant().snapshot(n=n)
+        out["proc"] = prof_mod.PROCESS_TOKEN
+        out["role"] = role()
+        return Response(out)
+
+    @service.route("GET", r"/debug/heat")
+    def debug_heat(req: Request) -> Response:
+        """The heat engine's view (stats/heat.py): per-volume heat
+        scores, per-node/dir days-to-full forecasts, and — on a master —
+        the heartbeat-fed collection/node rollup. ?n= caps each list."""
+        try:
+            n = n_param(req.query)
+        except ValueError:
+            return Response({"error": "n must be a positive integer"}, 400)
+        out = heat_mod.engine().snapshot()
+        rollup_colls, rollup_nodes = [], []
+        for ru in heat_mod.rollups():
+            snap = ru.snapshot()
+            rollup_colls.extend(snap["collections"])
+            rollup_nodes.extend(snap["nodes"])
+        if rollup_colls or rollup_nodes:
+            out["collections"] = rollup_colls
+            out["nodes"] = rollup_nodes
+        if n is not None:
+            for k in ("volumes", "forecast", "collections", "nodes"):
+                if k in out:
+                    out[k] = out[k][:n]
+        out["proc"] = prof_mod.PROCESS_TOKEN
+        out["role"] = role()
+        return Response(out)
+
+    @service.route("GET", r"/qos/limits")
+    def qos_limits_get(req: Request) -> Response:
+        """This process's admission-control state (qos/admission.py):
+        limits, gates, queue bounds, admitted/queued/shed counters and
+        live bucket levels. `/debug/qos` is the same payload."""
+        out = qos_mod.controller().status()
+        a = act_mod.actuator()
+        out["actuator"] = None if a is None else {
+            "level": a.level, "burn": round(a.last_burn, 3),
+            "fast_burn": a.fast_burn,
+        }
+        out["proc"] = prof_mod.PROCESS_TOKEN
+        out["role"] = role()
+        return Response(out)
+
+    service.route("GET", r"/debug/qos")(qos_limits_get)
+
+    @service.route("POST", r"/qos/limits")
+    def qos_limits_post(req: Request) -> Response:
+        """Runtime limit updates for THIS process — the cluster.qos verb
+        fans this out across discovered gateways. Body (all optional):
+          {"limits": {"tenant-a": 100, "tenant-b": [50, 200]},
+           "default": 25, "queue_depth": 32, "queue_wait": 0.25,
+           "spec": "tenant-a=100,*=25"}
+        `limits`/`spec` replace the whole table (declarative, like the
+        CLI flag); values are rps or [rps, burst]. Posting any config
+        arms admission on a metered server."""
+        p = req.json()
+        ctl = qos_mod.controller()
+        try:
+            limits, default = p.get("limits"), p.get("default")
+            if "spec" in p:
+                limits, default = qos_mod.parse_limits_spec(p["spec"])
+            ctl.set_limits(limits=limits, default=default,
+                           queue_depth=p.get("queue_depth"),
+                           queue_wait=p.get("queue_wait"))
+            qos_mod.enable()
+        except (ValueError, TypeError) as e:
+            return Response({"error": str(e)}, 400)
+        status = ctl.status()
+        return Response({"ok": True, "armed": ctl.armed,
+                         "limits": status["limits"],
+                         "default": status["default"]})
 
     @service.route("GET", r"/debug/pprof/device")
     def debug_pprof_device(req: Request) -> Response:

@@ -50,7 +50,8 @@ servers demand; `security.white_list` puts a `Guard` on the service.
 Filers and brokers announce themselves through `/cluster/register` (the
 member registry `_members`, first-seen order deciding each group's
 leader); `/cluster/ps` lists the live ones and `/cluster/leader` names a
-group's leader. The registration carries no telemetry frame here.
+group's leader. The answer names the member's ordinal among its live group;
+the filer that shards its fid leases by it comes with the native fastlane.
 
 `faults_spec` is the `-faults` flag: "" opts the process into runtime
 fault arming (`POST /debug/faults`), a spec string also arms it
@@ -63,8 +64,17 @@ exports the heartbeat-fed topology gauges (`MASTER_METRIC_FAMILIES`) and
 journals `heartbeat_stale`/`heartbeat_rejoin` edges; growth and the vacuum
 check record spans; `/ui` is the status page.
 
-Not ported: the native fastlane front door, telemetry
-(`/cluster/telemetry`) and heat (ROADMAP 10d-4c).
+Telemetry (`stats/{heat,aggregate,store}.py`): a `HeatRollup` turns the
+heartbeats' per-volume op counters into collection and node rates (the
+counters come from the native fastlane engine, so without it every rate
+of the rollup reads 0), and a `TelemetryAggregator` merges the frames that ride
+heartbeats, `/cluster/register` payloads and `POST /cluster/telemetry`
+(leader-only) with the master's own frame, fed on the pulse. `GET
+/debug/cluster/telemetry` serves the merged view in one fetch.
+`telemetry_dir` (`-telemetry.dir`) turns on the process's durable spool,
+`telemetry_retention_mb` its size.
+
+Not ported: the native fastlane front door (ROADMAP 10a-3).
 """
 
 from __future__ import annotations
@@ -75,8 +85,12 @@ import time
 from ..raft import NotLeader, RaftNode
 from ..security import Guard, SecurityConfig
 from ..security.jwt import gen_write_jwt
+from ..stats import aggregate as agg_mod
 from ..stats import default_registry
 from ..stats import events as events_mod
+from ..stats import heat as heat_mod
+from ..stats import profiler as prof_mod
+from ..stats import store as store_mod
 from ..stats import trace
 from ..stats.metrics import _fmt_labels
 from ..storage.types import TTL, ReplicaPlacement
@@ -112,6 +126,8 @@ class MasterServer:
         peers: list[str] | None = None,
         raft_dir: str | None = None,
         slow_ms: float | None = None,
+        telemetry_dir: str | None = None,
+        telemetry_retention_mb: float | None = None,
     ) -> None:
         faults.opt_in(faults_spec)  # the -faults flag
         seq = MemorySequencer(f"{meta_dir}/sequence.json" if meta_dir else None)
@@ -135,9 +151,18 @@ class MasterServer:
         if self.security.white_list:
             self.service.guard = Guard(self.security.white_list)
         self.service.enable_metrics("master")
+        # -telemetry.dir: durable spool — replay the pre-crash tail into
+        # the history/event rings, then flush them to disk continuously
+        if telemetry_dir:
+            store_mod.enable(telemetry_dir, telemetry_retention_mb)
         if slow_ms is not None:  # -slowMs: the role's slow-span threshold
             trace.set_slow_threshold_ms(slow_ms, role="master")
         self._metrics_collector = None
+        self.heat_rollup: heat_mod.HeatRollup | None = None
+        self._heat_collector = None
+        self.telemetry: agg_mod.TelemetryAggregator | None = None
+        self._telemetry_collector = None
+        self._telemetry_self_ts = 0.0
         self._stale_nodes: set = set()
         # raft HA: created at start() once the listen port is known (or by
         # enable_raft); None = single-master mode
@@ -266,6 +291,20 @@ class MasterServer:
         self._metrics_collector = default_registry().register_collector(
             self._metrics_lines, names=self.MASTER_METRIC_FAMILIES,
         )
+        # cluster heat rollup: heartbeat-fed per-collection/per-node
+        # access rates only the master can assemble
+        self.heat_rollup = heat_mod.HeatRollup()
+        heat_mod.register_rollup(self.heat_rollup)
+        self._heat_collector = default_registry().register_collector(
+            self.heat_rollup.lines, names=heat_mod.ROLLUP_FAMILIES,
+        )
+        # cluster telemetry plane: frames ride heartbeats / register
+        # payloads / POST /cluster/telemetry into the leader's aggregator;
+        # one GET /debug/cluster/telemetry serves the merged view
+        self.telemetry = agg_mod.TelemetryAggregator()
+        self._telemetry_collector = default_registry().register_collector(
+            self.telemetry.lines, names=agg_mod.CLUSTER_FAMILIES,
+        )
         if self._peer_config:
             self.enable_raft(
                 [p.rstrip("/") for p in self._peer_config
@@ -331,6 +370,15 @@ class MasterServer:
         if self._metrics_collector is not None:
             default_registry().unregister_collector(self._metrics_collector)
             self._metrics_collector = None
+        if self._heat_collector is not None:
+            default_registry().unregister_collector(self._heat_collector)
+            self._heat_collector = None
+            heat_mod.unregister_rollup(self.heat_rollup)
+            self.heat_rollup = None
+        if self._telemetry_collector is not None:
+            default_registry().unregister_collector(self._telemetry_collector)
+            self._telemetry_collector = None
+            self.telemetry = None
         if self.raft is not None:
             self.raft.stop()
         self.service.stop()
@@ -342,10 +390,38 @@ class MasterServer:
     def _pulse_loop(self) -> None:
         while not self._stop.wait(self.topo.pulse_seconds):
             self.topo.expire_dead_nodes()
+            self._telemetry_self_feed()
             try:
                 self._vacuum_check()
             except Exception:
                 pass
+
+    def _ingest_frame(self, frame) -> None:
+        """A frame that rode a heartbeat or a registration."""
+        tele = self.telemetry
+        if frame and tele is not None:
+            tele.ingest(frame)
+
+    def _telemetry_self_feed(self) -> None:
+        """The master is a telemetry sender too — its own frame (role
+        'master') enters the aggregator on the pulse cadence, so the
+        cluster view covers the control plane without a network hop.
+        Rate-limited: the debug handler also calls this on demand."""
+        tele = self.telemetry
+        if tele is None:
+            return
+        now = time.time()
+        interval = max(float(self.topo.pulse_seconds), 1.0)
+        if now - self._telemetry_self_ts < interval:
+            return
+        self._telemetry_self_ts = now
+        try:
+            tele.ingest(agg_mod.build_frame(
+                "master", f"{self.service.host}:{self.service.port}",
+                interval=interval,
+            ), now=now)
+        except Exception:
+            pass
 
     # --- vacuum ----------------------------------------------------------------
     def _vacuum_check(self) -> None:
@@ -518,7 +594,15 @@ class MasterServer:
                 # volume servers re-target to the leader (KeepConnected
                 # redirect semantics, `master_grpc_server.go`)
                 return self._not_leader_response()
-            self.topo.sync_heartbeat(req.json())
+            hb = req.json()
+            self.topo.sync_heartbeat(hb)
+            rollup = self.heat_rollup
+            if rollup is not None:
+                rollup.feed(
+                    f"{hb.get('ip', '')}:{hb.get('port', '')}",
+                    hb.get("volumes") or (),
+                )
+            self._ingest_frame(hb.get("telemetry"))
             return Response(
                 {
                     "volume_size_limit": self.topo.volume_size_limit,
@@ -746,6 +830,7 @@ class MasterServer:
                 # longest-lived member leads its group)
                 "created_ts": prev["created_ts"] if prev else time.time(),
             }
+            self._ingest_frame(p.get("telemetry"))
             # answer with the member's position among its live peer group
             # (ordered by first-seen, like group leadership)
             now = time.time()
@@ -759,6 +844,41 @@ class MasterServer:
             out = {"ok": True, "leader": self.url, "gateways": len(addrs)}
             if p["address"] in addrs:
                 out["ordinal"] = addrs.index(p["address"])
+            return Response(out)
+
+        @svc.route("POST", r"/cluster/telemetry")
+        def cluster_telemetry_push(req: Request) -> Response:
+            """Telemetry frames from roles with no other master link (S3,
+            WebDAV, tests). Leader-only like the heartbeat — the response
+            names the leader so pushers re-target."""
+            trace.annotate(noise=True)  # periodic push chatter
+            if not self._is_leader():
+                return self._not_leader_response()
+            tele = self.telemetry
+            if tele is None:
+                return Response({"error": "telemetry not started"}, 503)
+            if not tele.ingest(req.json()):
+                return Response(
+                    {"error": "malformed or replayed frame",
+                     "leader": self.leader_url()}, 400)
+            return Response({"ok": True, "leader": self.leader_url()})
+
+        @svc.route("GET", r"/debug/cluster/telemetry")
+        def cluster_telemetry_get(req: Request) -> Response:
+            """The one-fetch cluster state: merged tenants + error bound,
+            per-role rates, cluster SLO burn, per-sender staleness."""
+            tele = self.telemetry
+            if tele is None:
+                return Response({"error": "telemetry not started"}, 503)
+            self._telemetry_self_feed()
+            n = req.query.get("n")
+            try:
+                n = int(n) if n else None
+            except ValueError:
+                return Response({"error": "bad n"}, 400)
+            out = tele.snapshot(n=n)
+            out["leader"] = self.leader_url()
+            out["proc"] = prof_mod.PROCESS_TOKEN
             return Response(out)
 
         @svc.route("GET", r"/cluster/leader")

@@ -80,10 +80,13 @@ exports each data directory's used and free bytes under the server's
 `server` label; every twelfth heartbeat (the first included) is a
 `volume.heartbeat` span, so the master's handler joins its trace; the
 partial-rebuild routes annotate their spans with the hop; `/ui` is the
-status page.
+status page. `telemetry_dir` (`-telemetry.dir`) turns on the process's
+durable spool (`stats/store.py`), and a telemetry frame
+(`stats/aggregate.build_frame`) rides the heartbeat at most once a pulse.
 
 Not ported: the native fastlane (and with it the fastlane metric
-families), telemetry and the retry policy of the copy stream (a failed
+families and the per-volume op counters of the beat, which feed the
+master's heat rollup) and the retry policy of the copy stream (a failed
 range fails the copy).
 """
 
@@ -104,7 +107,9 @@ from ..ops.rs_kernel import RSCodec, resolve_device
 from ..query import query_csv, query_json_lines
 from ..security import Guard, SecurityConfig
 from ..security.jwt import token_from_request, verify_file_jwt
+from ..stats import aggregate as agg_mod
 from ..stats import default_registry
+from ..stats import store as store_mod
 from ..stats import trace
 from ..stats.metrics import _fmt_labels
 from ..storage import crc as crc_mod
@@ -184,6 +189,8 @@ class VolumeServer:
         faults_spec: str | None = None,
         security: SecurityConfig | None = None,
         slow_ms: float | None = None,
+        telemetry_dir: str | None = None,
+        telemetry_retention_mb: float | None = None,
     ) -> None:
         self.device = resolve_device(device)
         faults.opt_in(faults_spec)  # the -faults flag
@@ -198,10 +205,16 @@ class VolumeServer:
         if self.security.white_list:
             self.service.guard = Guard(self.security.white_list)
         self.service.enable_metrics("volume")
+        # -telemetry.dir: durable spool — pre-crash history/events replay
+        # into the rings before traffic starts, so /debug/metrics/history
+        # and /debug/events survive a kill -9
+        if telemetry_dir:
+            store_mod.enable(telemetry_dir, telemetry_retention_mb)
         if slow_ms is not None:  # -slowMs: the role's slow-span threshold
             trace.set_slow_threshold_ms(slow_ms, role="volume")
         self._metrics_collector = None
         self._hb_count = 0
+        self._telemetry_ts = 0.0
         self.store: Store | None = None
         self._dirs = directories
         self._host = host
@@ -426,6 +439,9 @@ class VolumeServer:
             # and the volumes a pass holds, so the master's vacuum waits
             hb["scrub_findings"] = self.scrubber.unresolved()[:64]
             hb["scrub_active"] = self.scrubber.active_volumes()
+        tele = self._telemetry_frame()
+        if tele is not None:
+            hb["telemetry"] = tele
         body = json.dumps(hb).encode()
         rotation = [u for u in self.master_urls if u != self.master_url]
         for _ in range(len(self.master_urls) + 1):
@@ -453,6 +469,23 @@ class VolumeServer:
                 self.master_url = rotation.pop(0)
                 continue
             return
+
+    def _telemetry_frame(self):
+        """The cluster telemetry frame riding the heartbeat body.
+        Rate-limited to the pulse: heartbeat_once also fires on state
+        changes (mounts, vacuum, rebuilds), and a churn burst must not pay
+        sketch serialization per event."""
+        now = time.time()
+        interval = max(float(self.pulse_seconds), 2.0)
+        if now - self._telemetry_ts < interval:
+            return None
+        self._telemetry_ts = now
+        try:
+            return agg_mod.build_frame(
+                "volume", self.node_id, interval=interval, now=now,
+            )
+        except Exception:
+            return None
 
     def _attach_shard_fetcher(self, ev) -> None:
         """Give an EcVolume remote shard sourcing: master ec_lookup for

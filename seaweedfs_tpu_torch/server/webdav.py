@@ -14,9 +14,9 @@ The port's copy of `seaweedfs_tpu/server/webdav.py`, over the port's
 `FilerClient` and `HTTPService`: a PUT's chunks are hashed by the port
 filer's device, and a file's `getetag` is the MD5 its hash service gave.
 The service is metered as role "webdav" (no `/metrics` route: every path
-is a file); `slow_ms` is its `-slowMs` span threshold. Not ported: the
-telemetry pusher (`master_url`; ROADMAP 10d-4c), so the constructor takes
-no master.
+is a file); `slow_ms` is its `-slowMs` span threshold. Like the S3
+gateway it has no master link of its own, so `master_url` starts a
+`TelemetryPusher` that ships its frames to the master's aggregate.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from xml.sax.saxutils import escape
 
 from ..filer.filer_client import FilerClient
 
+from ..stats import aggregate as agg_mod
 from ..stats import trace
 from .httpd import HTTPService, Request, Response
 
@@ -46,9 +47,12 @@ def _iso8601(ts: float) -> str:
 class WebDavServer:
     def __init__(self, filer_url: str, host: str = "127.0.0.1",
                  port: int = 7333, read_only: bool = False,
-                 slow_ms: float | None = None) -> None:
+                 slow_ms: float | None = None,
+                 master_url: str | None = None) -> None:
         self.fc = FilerClient(filer_url)
         self.read_only = read_only
+        self.master_url = master_url
+        self._telemetry_pusher = None
         self.service = HTTPService(host, port)
         self.service.enable_metrics("webdav", serve_route=False)
         if slow_ms is not None:  # -slowMs: the role's slow-span threshold
@@ -63,8 +67,15 @@ class WebDavServer:
 
     def start(self) -> None:
         self.service.start()
+        if self.master_url:
+            self._telemetry_pusher = agg_mod.TelemetryPusher(
+                "webdav", lambda: self.url, self.master_url)
+            self._telemetry_pusher.start()
 
     def stop(self) -> None:
+        if self._telemetry_pusher is not None:
+            self._telemetry_pusher.stop()
+            self._telemetry_pusher = None
         self.service.stop()
         self.fc.close()
 

@@ -4,12 +4,13 @@ driven over master/volume RPC; here over their HTTP admin APIs).
 The port's copy of `seaweedfs_tpu/shell/` with the commands of
 `commands_cluster` (`lock`, `unlock`, `cluster.ps`, `collection.list`,
 `collection.delete`, `volume.list`, `volume.status`, `cluster.scrub`,
-`cluster.faults`, `mount.configure`, and the `mq.*` verbs), `commands_ec` (`ec.encode`,
+`cluster.faults`, `cluster.{check,top,trace,profile,why,heat,qos}`,
+`cluster.raft.*`, `mount.configure`, and the `mq.*` verbs), `commands_ec` (`ec.encode`,
 `ec.decode`, `ec.rebuild`, `ec.balance`), `commands_fs` (every `fs.*` verb,
 over a filer), `commands_maintenance` (`cluster.maintenance`),
 `commands_remote` (every `remote.*` verb, over a filer), `commands_s3`
 (every `s3.*` verb, over a filer) and `commands_volume` (every `volume.*`
-verb). Not ported: the rest of `commands_cluster.py`.
+verb): every verb the JAX shell registers.
 
 Usage:
     from seaweedfs_tpu_torch.shell import CommandEnv, run_command

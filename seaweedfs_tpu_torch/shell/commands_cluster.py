@@ -11,16 +11,17 @@ filers and brokers that registered with the master (`/cluster/register`).
 `cluster.faults` arms, disarms and lists fault injection over every
 discovered node's `/debug/faults` (the master, the volume servers of the
 topology, the registered filers, the shell's filer and `-include`d urls).
-`cluster.check`, `cluster.top`, `cluster.trace`, `cluster.profile` and
-`cluster.why` read every discovered node's `/metrics` and debug routes
-(`/debug/{alerts,traces,pprof/profile,metrics/history,events}`), fetched
-concurrently where a window must be simultaneous. Their output is the JAX
-verbs' over the same answers. The JAX verbs first try the master's
-one-fetch telemetry aggregate and, with `-spool`, a dead process's
-telemetry spool; both come with ROADMAP 10d-4c, so these verbs always take
-the endpoint fan-out (the JAX verbs' path when the aggregate answers
-nothing), and `-spool` raises. Not ported: `cluster.heat` and
-`cluster.qos` (10d-4c).
+`cluster.check`, `cluster.top`, `cluster.trace`, `cluster.profile`,
+`cluster.why` and `cluster.heat` read every discovered node's `/metrics`
+and debug routes (`/debug/{alerts,traces,pprof/profile,metrics/history,
+events,usage,heat}`), fetched concurrently where a window must be
+simultaneous; `cluster.check` and `cluster.top` first try the master's
+one-fetch telemetry aggregate (`/debug/cluster/telemetry`) and fan out
+when it answers nothing. `cluster.top -spool` and `cluster.why -spool`
+read a dead process's telemetry spool off its segment files
+(`stats/store.py`). `cluster.qos` shows every gateway's admission state
+(`/debug/qos`) or sets its limits (`POST /qos/limits`). Their output is
+the JAX verbs' over the same answers.
 `mount.configure` reads and sets a running mount's quota over its admin
 socket (`mount.start_admin_service`). `mq.topic.list`, `mq.topic.create`,
 `mq.topic.describe`, `mq.topic.configure` and `mq.balance` speak to the
@@ -36,9 +37,11 @@ import json
 import time
 import urllib.parse
 
+from ..qos import PRIORITY_CLASSES
 from ..server.httpd import http_request, peer_url
 from ..stats import parse_exposition
 from ..stats import profiler as prof_mod
+from ..stats import store as store_mod
 from ..stats.history import quantile_from_bucket_rates
 from .env import CommandEnv, ShellError
 from .registry import command, parse_flags
@@ -71,16 +74,22 @@ def cmd_cluster_ps(env: CommandEnv, args: list[str]) -> str:
     return "\n".join(lines)
 
 
-# the qos admission classes, in render order (the JAX package's
-# qos/admission.py; qos comes with ROADMAP 10d-4c)
-QOS_PRIORITY_CLASSES = ("interactive", "write", "background")
-
-_SPOOL_NOT_PORTED = ("-spool reads a telemetry spool, which comes with"
-                     " ROADMAP 10d-4c (stats/store.py); not ported yet")
-
-
 def _fmt_gb(n: float) -> str:
     return f"{n / 1024**3:.1f}GB"
+
+
+def _fetch_cluster_telemetry(env: CommandEnv, timeout: float = 10):
+    """The master's one-fetch cluster aggregate (stats/aggregate.py), or
+    None when the aggregator isn't live (no senders yet) — callers fall
+    back to the N-endpoint fan-out."""
+    try:
+        out = env.get(f"{env.master_url}/debug/cluster/telemetry",
+                      timeout=timeout)
+    except Exception:
+        return None
+    if not isinstance(out, dict) or not out.get("senders"):
+        return None
+    return out
 
 
 @command("collection.list", "list collections")
@@ -372,24 +381,43 @@ def cmd_cluster_check(env: CommandEnv, args: list[str]) -> str:
             f" ({native:g} native / {proxied:g} proxied)"
         )
 
-    # alerts fire per PROCESS: in a multi-process cluster the filer and s3
-    # engines are separate, so fan /debug/alerts out across every other
-    # discovered endpoint (the filer's catch-all main port has no
-    # /metrics, but its debug routes shadow file paths). The JAX verb
-    # first tries the master's one-fetch telemetry aggregate (ROADMAP
-    # 10d-4c) and takes this same path when it answers nothing.
-    seen = {env.master_url} | {sv.http for sv in servers}
-    for ep in sorted(_discover_endpoints(env, flags.get("include", ""),
-                                         servers=servers) - seen):
-        try:
-            out = env.get(f"{ep}/debug/alerts", timeout=10)
-        except Exception:
-            continue  # an unreachable gateway must not sink the check
-        for a in out.get("alerts", []):
-            if a.get("firing"):
-                name = a.get("name", "?")
+    # alerts fire per PROCESS: in a multi-process cluster the filer/s3
+    # engines are separate. When the master's telemetry aggregator is
+    # live, ONE fetch covers them all — every sender's frame carries its
+    # current alert edges, and the cluster-scope rules (merged SLO burn,
+    # stale senders) only exist there. Fall back to fanning out
+    # /debug/alerts across every discovered endpoint otherwise (the
+    # filer's catch-all main port has no /metrics, but its debug routes
+    # shadow file paths).
+    tele = _fetch_cluster_telemetry(env)
+    if tele is not None:
+        senders = tele.get("senders") or {}
+        stale = sorted(n for n, s in senders.items() if s.get("stale"))
+        lines.append(
+            f"telemetry: one-fetch master aggregate, {len(senders)}"
+            f" sender(s)" + (f", {len(stale)} stale ({', '.join(stale)})"
+                             if stale else ""))
+        for name, info in (tele.get("alerts") or {}).items():
+            if firing_alerts.get(name) != "critical":
+                firing_alerts[name] = info.get("severity", "warning")
+        for s in senders.values():
+            for a in s.get("alerts") or ():
+                name = a.get("alert", "?")
                 if firing_alerts.get(name) != "critical":
                     firing_alerts[name] = a.get("severity", "warning")
+    else:
+        seen = {env.master_url} | {sv.http for sv in servers}
+        for ep in sorted(_discover_endpoints(env, flags.get("include", ""),
+                                             servers=servers) - seen):
+            try:
+                out = env.get(f"{ep}/debug/alerts", timeout=10)
+            except Exception:
+                continue  # an unreachable gateway must not sink the check
+            for a in out.get("alerts", []):
+                if a.get("firing"):
+                    name = a.get("name", "?")
+                    if firing_alerts.get(name) != "critical":
+                        firing_alerts[name] = a.get("severity", "warning")
 
     for alert, sev in sorted(firing_alerts.items()):
         if sev == "critical":
@@ -631,11 +659,12 @@ def _fmt_uptime(sec: float | None) -> str:
 
 @command("cluster.top",
          "[-once] [-interval 2] [-window 60] [-count n] [-include url,url]"
-         " [-snapshot file] — live dashboard: per-role"
+         " [-spool dir] [-snapshot file] — live dashboard: per-role"
          " request rates, 5xx%, p99, bytes/s, front-door native ratio,"
          " uptime and firing alerts from every node's history ring. -once"
-         " renders a single frame and returns; -snapshot dumps one"
-         " frame's cluster state as JSON")
+         " renders a single frame and returns; -spool appends a dead"
+         " process's rate history from its telemetry spool; -snapshot"
+         " dumps one frame's cluster state as JSON")
 def cmd_cluster_top(env: CommandEnv, args: list[str]) -> str:
     """The rates-over-time view cluster.check can't give: every reachable
     node serves its self-scraped history ring (/debug/metrics/history)
@@ -663,10 +692,9 @@ def cmd_cluster_top(env: CommandEnv, args: list[str]) -> str:
             "usage: cluster.top [-once] [-interval n] [-window n]"
             " [-count n] [-include url,url]"
         )
-    if "spool" in flags:
-        raise ShellError(_SPOOL_NOT_PORTED)
     # -snapshot implies -once: the JSON artifact is one frame's state
     once = "once" in flags or "snapshot" in flags
+    spool_dir = flags.get("spool", "").strip()
 
     # endpoint discovery is cached ACROSS watch frames: re-walking
     # /dir/status + /cluster/ps every redraw turns a 30-node watch
@@ -701,8 +729,14 @@ def cmd_cluster_top(env: CommandEnv, args: list[str]) -> str:
         _fetch_concurrently(endpoints, fetch)
         if len(hist_res) < len(endpoints):
             cache["endpoints"] = None  # refetch topology next frame
-        if not hist_res:
+        if not hist_res and not spool_dir:
             raise ShellError("no /debug/metrics/history endpoint reachable")
+
+        # cluster-rollup header: the master aggregate's merged view
+        # (global rates, top tenants WITH error bars, burning cluster
+        # SLOs) — one extra fetch, not one per node (skipped in
+        # spool-only post-mortem mode: the cluster is dead)
+        tele = _fetch_cluster_telemetry(env) if hist_res else None
 
         # one representative endpoint per process (cluster.profile's dedup)
         by_proc: dict[str, str] = {}
@@ -855,8 +889,7 @@ def cmd_cluster_top(env: CommandEnv, args: list[str]) -> str:
             "window": window,
             "processes": len(by_proc),
             "endpoints": len(hist_res),
-            # the master's one-fetch aggregate comes with ROADMAP 10d-4c
-            "cluster_telemetry": None,
+            "cluster_telemetry": tele,
             "roles": {},
             "tenants": tenants,
             "heat": [
@@ -885,6 +918,30 @@ def cmd_cluster_top(env: CommandEnv, args: list[str]) -> str:
             f"cluster.top @ {env.master_url}  window={window:g}s  "
             f"{len(by_proc)} process(es), {len(hist_res)} endpoint(s)",
         ]
+        if tele is not None:
+            rates = tele.get("rates") or {}
+            total_req = sum(r.get("req_rate", 0.0) for r in rates.values())
+            total_err = sum(r.get("err_rate", 0.0) for r in rates.values())
+            err_pct = 100.0 * total_err / total_req if total_req else 0.0
+            senders = tele.get("senders") or {}
+            n_stale = sum(1 for s in senders.values() if s.get("stale"))
+            bits = [
+                f"cluster: {total_req:.1f} req/s  5xx {err_pct:.2f}%  "
+                f"senders {len(senders)}"
+                + (f" ({n_stale} stale)" if n_stale else "")
+            ]
+            top3 = (tele.get("usage") or {}).get("tenants") or []
+            if top3:
+                bits.append("top tenants: " + ", ".join(
+                    f"{t['collection']}"
+                    f" {t.get('requests', 0):.0f}"
+                    f"±{t.get('requests_err', 0):.0f}"
+                    for t in top3[:3]))
+            burning = sorted(
+                name for name in (tele.get("alerts") or {})
+                if name.startswith("cluster_slo_burn"))
+            bits.append("burning: " + (", ".join(burning) or "none"))
+            lines.append("  ".join(bits))
         lines.append(
             f"{'role':<10} {'req/s':>9} {'5xx%':>7} {'p99 ms':>9}"
             f" {'bytes/s':>10} {'front%':>7} {'uptime':>8}  version"
@@ -946,8 +1003,8 @@ def cmd_cluster_top(env: CommandEnv, args: list[str]) -> str:
                 )
         if qos_cls:
             lines.append("qos (admitted/queued/shed per class):")
-            order = [c for c in QOS_PRIORITY_CLASSES if c in qos_cls] + sorted(
-                c for c in qos_cls if c not in QOS_PRIORITY_CLASSES)
+            order = [c for c in PRIORITY_CLASSES if c in qos_cls] + sorted(
+                c for c in qos_cls if c not in PRIORITY_CLASSES)
             for cls in order:
                 q = qos_cls[cls]
                 lines.append(
@@ -994,6 +1051,49 @@ def cmd_cluster_top(env: CommandEnv, args: list[str]) -> str:
                 )
         else:
             lines.append("no alerts firing")
+        if spool_dir:
+            # post-mortem: the dead process's rate history, straight off
+            # its telemetry spool's segment files — no live endpoint
+            try:
+                info = store_mod.spool_info(spool_dir)
+                series = store_mod.read_series(
+                    spool_dir, "SeaweedFS_http_request_total",
+                    tiers=("raw", "1m"))
+            except OSError as e:
+                raise ShellError(f"spool {spool_dir}: {e}")
+            total = sum(t.get("bytes", 0) for t in info.values())
+            rates: dict[str, float] = {}
+            t_lo = t_hi = None
+            for (_fam, labels), pts in sorted(series.items()):
+                if len(pts) < 2:
+                    continue
+                (ta, va), (tb, vb) = pts[0], pts[-1]
+                t_lo = ta if t_lo is None else min(t_lo, ta)
+                t_hi = tb if t_hi is None else max(t_hi, tb)
+                if tb > ta and vb >= va:  # counter reset inside: skip
+                    role = dict(labels).get("role", "?")
+                    rates[role] = rates.get(role, 0.0) \
+                        + (vb - va) / (tb - ta)
+            lines.append(
+                f"post-mortem spool {spool_dir}: " + "  ".join(
+                    f"{t}={info[t]['bytes']}B/{info[t]['segments']}seg"
+                    for t, _, _ in store_mod.TIERS)
+                + f"  total={total}B")
+            if t_lo is not None:
+                lines.append(
+                    f"  request counters cover {t_hi - t_lo:.0f}s;"
+                    " req/s by role: "
+                    + (", ".join(f"{role}={v:.2f}"
+                                 for role, v in sorted(rates.items()))
+                       or "n/a"))
+            else:
+                lines.append("  no request-counter history in spool")
+            snap["spool"] = {
+                "dir": spool_dir, "tiers": info, "total_bytes": total,
+                "req_rates": rates,
+                "covers_seconds": (t_hi - t_lo) if t_lo is not None
+                else 0.0,
+            }
         return "\n".join(lines)
 
     if once:
@@ -1029,6 +1129,165 @@ def cmd_cluster_top(env: CommandEnv, args: list[str]) -> str:
     return f"cluster.top stopped after {shown} frame(s)"
 
 
+@command("cluster.heat",
+         "[-n 10] [-include url,url] [-out path] — the cluster's thermal"
+         " picture: top-K tenants from the bounded usage sketch (with its"
+         " error bound), hottest/coldest volumes by heat score, collection"
+         "/node rollups, per-node days-to-full forecasts")
+def cmd_cluster_heat(env: CommandEnv, args: list[str]) -> str:
+    """Who is using the cluster and where the heat is: every node serves
+    its bounded-cardinality tenant sketch (/debug/usage) and heat/forecast
+    view (/debug/heat); this fetches all of them concurrently, dedups
+    endpoints sharing a process, sums tenant counts across processes
+    (each process sketches its own traffic), and renders one report.
+    Sketch counts are approximate above the exported error bound — the
+    header says by how much."""
+    flags = parse_flags(args)
+    try:
+        n = int(flags.get("n", 10))
+        if n < 1:
+            raise ValueError(n)
+    except ValueError:
+        raise ShellError(
+            "usage: cluster.heat [-n k] [-include url,url] [-out path]")
+
+    endpoints = _discover_endpoints(env, flags.get("include", ""))
+    usage_res: dict[str, dict] = {}
+    heat_res: dict[str, dict] = {}
+
+    def fetch(ep: str) -> None:
+        try:
+            usage_res[ep] = env.get(f"{ep}/debug/usage", timeout=10)
+        except Exception:
+            return  # an unreachable node must not sink the view
+        try:
+            heat_res[ep] = env.get(f"{ep}/debug/heat", timeout=10)
+        except Exception:
+            pass
+
+    _fetch_concurrently(endpoints, fetch)
+    if not usage_res:
+        raise ShellError("no /debug/usage endpoint reachable")
+
+    dims = ("requests", "bytes_in", "bytes_out", "errors")
+    tenants: dict[str, dict] = {}
+    other = {d: 0.0 for d in dims}
+    error_bound, k, evictions = 0.0, None, 0
+    seen: set[str] = set()
+    for ep in sorted(usage_res):
+        out = usage_res[ep]
+        token = out.get("proc") or ep
+        if token in seen:
+            continue
+        seen.add(token)
+        for row in out.get("tenants", []):
+            t = tenants.setdefault(
+                row.get("collection", "?"),
+                {d: 0.0 for d in dims} | {d + "_err": 0.0 for d in dims})
+            for d in dims:
+                t[d] += float(row.get(d, 0) or 0)
+                t[d + "_err"] += float(row.get(d + "_err", 0) or 0)
+        for d, v in (out.get("other") or {}).items():
+            if d in other:
+                other[d] += float(v or 0)
+        error_bound = max(error_bound, float(out.get("error_bound") or 0))
+        evictions += int(out.get("evictions") or 0)
+        k = out.get("k", k)
+
+    vols: dict[tuple, dict] = {}
+    forecast: dict[tuple, float] = {}
+    coll_scores: dict[str, float] = {}
+    node_scores: dict[str, float] = {}
+    seen_heat: set[str] = set()
+    for ep in sorted(heat_res):
+        out = heat_res[ep]
+        token = out.get("proc") or ep
+        if token in seen_heat:
+            continue
+        seen_heat.add(token)
+        for v in out.get("volumes", []):
+            key = (v.get("server", "?"), str(v.get("volume", "?")))
+            cur = vols.get(key)
+            if cur is None or v.get("score", 0) > cur.get("score", 0):
+                vols[key] = v
+        for f in out.get("forecast", []):
+            key = (f.get("node", "?"), f.get("dir", "?"))
+            d = float(f.get("days_to_full", 0) or 0)
+            forecast[key] = min(forecast.get(key, d), d)
+        for c in out.get("collections", []):
+            name = c.get("collection", "?")
+            coll_scores[name] = max(coll_scores.get(name, 0.0),
+                                    float(c.get("score", 0) or 0))
+        for nd in out.get("nodes", []):
+            name = nd.get("node", "?")
+            node_scores[name] = max(node_scores.get(name, 0.0),
+                                    float(nd.get("score", 0) or 0))
+
+    lines = [
+        f"cluster.heat @ {env.master_url}  {len(seen)} process(es),"
+        f" {len(usage_res)} endpoint(s)"
+        + (f"  sketch K={k}" if k is not None else "")
+        + f"  error bound <= {error_bound:g}"
+        + (f"  ({evictions} eviction(s) into _other)" if evictions else ""),
+        f"tenants (top {n} by requests; counts approximate above the"
+        f" error bound):",
+        f"  {'collection':<20} {'requests':>12} {'bytes in':>12}"
+        f" {'bytes out':>12} {'errors':>8}",
+    ]
+    top = sorted(tenants.items(), key=lambda kv: -kv[1]["requests"])[:n]
+    for coll, t in top:
+        err = t["requests_err"]
+        req = f"{t['requests']:g}" + (f"±{err:g}" if err else "")
+        lines.append(
+            f"  {coll:<20} {req:>12} {t['bytes_in']:>12g}"
+            f" {t['bytes_out']:>12g} {t['errors']:>8g}")
+    if any(other.values()):
+        lines.append(
+            f"  {'_other':<20} {other['requests']:>12g}"
+            f" {other['bytes_in']:>12g} {other['bytes_out']:>12g}"
+            f" {other['errors']:>8g}")
+    if not tenants:
+        lines.append("  (no tenant traffic accounted yet)")
+
+    if vols:
+        ranked = sorted(vols.values(), key=lambda v: -v.get("score", 0))
+        lines.append(f"hottest volumes (of {len(ranked)} scored):")
+        for v in ranked[:n]:
+            lines.append(
+                f"  {v.get('server', '?')} v{v.get('volume', '?')}"
+                f" score={v.get('score', 0):g}"
+                + ("  HOT" if v.get("hot") else ""))
+        coldest = [v for v in reversed(ranked)][:min(n, 3)]
+        if len(ranked) > n:
+            lines.append("coldest:")
+            for v in coldest:
+                lines.append(
+                    f"  {v.get('server', '?')} v{v.get('volume', '?')}"
+                    f" score={v.get('score', 0):g}")
+    if coll_scores:
+        lines.append("collection heat (master rollup, ops/s):")
+        for name, score in sorted(coll_scores.items(),
+                                  key=lambda kv: -kv[1])[:n]:
+            lines.append(f"  {name:<20} {score:g}")
+    if node_scores:
+        lines.append("node heat (ops/s): " + "  ".join(
+            f"{name}={score:g}" for name, score in sorted(
+                node_scores.items(), key=lambda kv: -kv[1])[:n]))
+    if forecast:
+        lines.append("days-to-full (linear fit over the disk-usage ring):")
+        for (node, d), days in sorted(forecast.items(),
+                                      key=lambda kv: kv[1])[:n]:
+            lines.append(f"  {node} {d}: {days:.1f}d")
+    else:
+        lines.append("days-to-full: no positive fill trend"
+                     " (nothing filling up)")
+
+    body = "\n".join(lines)
+    if "out" in flags:
+        with open(flags["out"], "w") as f:
+            f.write(body + "\n")
+        return lines[0] + f"\nreport written to {flags['out']}"
+    return body
 
 
 def _why_describe(ev: dict) -> str:
@@ -1046,11 +1305,12 @@ def _why_describe(ev: dict) -> str:
 
 @command("cluster.why",
          "<trace-id|volume-id|collection> [-window 600] [-limit 2048]"
-         " [-include url,url] [-out file] — assemble one"
+         " [-include url,url] [-spool dir,dir] [-out file] — assemble one"
          " causally-ordered cross-node timeline from every node's flight"
          " recorder (/debug/events) + trace ring: request span, degraded"
          " read, injected fault, alert edges, repair task lifecycle, heal."
-         " -out dumps the timeline as JSON for a bug report")
+         " -spool folds in a dead process's on-disk journal; -out dumps"
+         " the timeline as JSON for a bug report")
 def cmd_cluster_why(env: CommandEnv, args: list[str]) -> str:
     """The question the disconnected counters never answered: WHY was
     this read degraded / WHAT healed this volume. Given a trace id, the
@@ -1066,14 +1326,14 @@ def cmd_cluster_why(env: CommandEnv, args: list[str]) -> str:
     are deduped by (process token, seq) — single-process test clusters
     expose one ring at every port.
 
-    A `-spool` (the post-mortem journal of a dead process) comes with
-    the telemetry spool, ROADMAP 10d-4c; until then it raises."""
+    Post-mortem: `-spool <dir>` reads a telemetry spool's event journal
+    straight off its segment files (stats/store.py), so the timeline of
+    a process that is still DEAD — crashed, not restarted — assembles
+    next to whatever the live nodes remember."""
     import math
     import re as _re
 
     flags = parse_flags(args)
-    if "spool" in flags:
-        raise ShellError(_SPOOL_NOT_PORTED)
     target = flags.get("", "").strip()
     if not target:
         raise ShellError(
@@ -1113,8 +1373,10 @@ def cmd_cluster_why(env: CommandEnv, args: list[str]) -> str:
             except Exception:
                 pass
 
+    spool_dirs = [d.strip() for d in flags.get("spool", "").split(",")
+                  if d.strip()]
     _fetch_concurrently(endpoints, fetch)
-    if not ev_res:
+    if not ev_res and not spool_dirs:
         raise ShellError("no /debug/events endpoint reachable")
 
     # dedup: one ring per process, exposed at every one of its ports
@@ -1131,6 +1393,35 @@ def cmd_cluster_why(env: CommandEnv, args: list[str]) -> str:
             seen.add(key)
             procs.add(token)
             events.append(ev)
+
+    # post-mortem spools: the dead process has no /debug/events port, so
+    # its journal comes straight off the segment files. A RESTARTED
+    # process replays the same journal into its live ring — the
+    # (ts, seq, type) key keeps those events from appearing twice (the
+    # proc token changes across a restart, so the live dedup can't).
+    if spool_dirs:
+        live_keys = {(round(ev.get("ts", 0.0), 6), ev.get("seq"),
+                      ev.get("type")) for ev in events}
+        for d in spool_dirs:
+            try:
+                replayed = store_mod.read_events(d, limit=limit)
+            except OSError as e:
+                raise ShellError(f"spool {d}: {e}")
+            fresh = 0
+            for ev in replayed:
+                key = (round(ev.get("ts", 0.0), 6), ev.get("seq"),
+                       ev.get("type"))
+                if key in live_keys:
+                    continue
+                live_keys.add(key)
+                events.append(ev)
+                fresh += 1
+            if fresh:
+                procs.add(f"spool:{d}")
+    if not events and not ev_res:
+        raise ShellError(
+            "no events: every endpoint unreachable and the spool(s)"
+            f" {spool_dirs} hold no journal records")
 
     spans: dict[str, dict] = {}
     for ep in sorted(tr_res):
@@ -1187,7 +1478,7 @@ def cmd_cluster_why(env: CommandEnv, args: list[str]) -> str:
         if not picked:
             raise ShellError(
                 f"{what}: no events found on {len(ev_res)} endpoint(s)"
-                )
+                + (f" + {len(spool_dirs)} spool(s)" if spool_dirs else ""))
         # pull the request traces the volume's events name (the span side
         # of the story: which reads were degraded, how slow they were) —
         # ONE fan-out with all lookups batched per endpoint, so a single
@@ -1242,7 +1533,7 @@ def cmd_cluster_why(env: CommandEnv, args: list[str]) -> str:
                      else "volume"),
             "window": window,
             "processes": sorted(procs),
-            "spools": [],
+            "spools": spool_dirs,
             "head": head,
             "events": sorted(picked, key=lambda e: e.get("ts", 0.0)),
             "spans": sorted(spans.values(), key=lambda s: s["start"]),
@@ -1338,6 +1629,104 @@ def cmd_cluster_faults(env: CommandEnv, args: list[str]) -> str:
     if len(seen) == 0:
         lines.append("  (no seams registered yet — servers not started?)")
     return "\n".join(lines)
+
+
+@command("cluster.qos",
+         "[-show] | [-limit 'coll=rps[:burst],…,*=rps'] [-default rps]"
+         " [-queueDepth n] [-queueWait s] [-node url] [-include url,url]"
+         " — show or set token-bucket admission limits across gateways")
+def cmd_cluster_qos(env: CommandEnv, args: list[str]) -> str:
+    """The admission-control switchboard (qos/admission.py): with no
+    flags, fan out GET /debug/qos across every discovered endpoint and
+    render armed state, per-collection limits, class gates and shed
+    counters. With -limit/-default/-queueDepth/-queueWait, POST the new
+    configuration to every gateway (filers and S3, plus -include'd
+    endpoints) so the whole admission plane moves together. -node
+    scopes either direction to one endpoint. Sheds show up in
+    cluster.top's qos block and as qos_shed events in cluster.why."""
+    flags = parse_flags(args)
+    endpoints = _discover_endpoints(env, flags.get("include", ""))
+    if "node" in flags:
+        endpoints = {peer_url(flags["node"].rstrip("/"))}
+
+    setters = {"limit", "default", "queueDepth", "queueWait"}
+    if setters & flags.keys():
+        body: dict = {}
+        try:
+            if "limit" in flags:
+                body["spec"] = flags["limit"]
+            if "default" in flags:
+                body["default"] = float(flags["default"])
+            if "queueDepth" in flags:
+                body["queue_depth"] = int(flags["queueDepth"])
+            if "queueWait" in flags:
+                body["queue_wait"] = float(flags["queueWait"])
+        except ValueError as e:
+            raise ShellError(f"bad numeric flag: {e}")
+        ok, failed = [], []
+        armed_n = 0
+        for ep in sorted(endpoints):
+            try:
+                out = env.post(f"{ep}/qos/limits", body, timeout=10)
+                ok.append(ep)
+                if out.get("armed"):
+                    armed_n += 1
+            except Exception as e:
+                failed.append(f"{ep} ({e})")
+        lines = [
+            f"qos limits applied on {len(ok)}/{len(endpoints)}"
+            f" endpoint(s), {armed_n} armed"
+        ]
+        lines.extend(f"  failed: {f}" for f in failed)
+        if not ok:
+            raise ShellError("\n".join(lines))
+        return "\n".join(lines)
+
+    # default: -show — per-endpoint admission state
+    lines = []
+    reached = 0
+    for ep in sorted(endpoints):
+        try:
+            out = env.get(f"{ep}/debug/qos", timeout=10)
+        except Exception:
+            continue
+        reached += 1
+        armed = "armed" if out.get("armed") else "disarmed"
+        role = out.get("role", "?")
+        lines.append(f"  {ep} [{role}]: {armed}")
+        limits = out.get("limits") or {}
+        default = out.get("default")
+        if limits or default is not None:
+            parts = [
+                f"{c}={v[0]:g}:{v[1]:g}" for c, v in sorted(limits.items())
+            ]
+            if default is not None:
+                parts.append(f"*={default[0]:g}:{default[1]:g}")
+            lines.append(f"    limits: {', '.join(parts)}")
+        gates = out.get("gates") or {}
+        tightened = {c: g for c, g in gates.items() if g < 1.0}
+        if tightened:
+            act = out.get("actuator") or {}
+            lines.append(
+                "    gates: " + ", ".join(
+                    f"{c}={g:g}" for c, g in sorted(tightened.items()))
+                + f" (actuator level {act.get('level', '?')},"
+                  f" burn {act.get('burn', 0):.2f})"
+            )
+        # shed is {class: {"reason:collection": n}} — flatten for display
+        flat = {
+            f"{cls}/{key}": n
+            for cls, by_key in (out.get("shed") or {}).items()
+            for key, n in by_key.items()
+        }
+        if flat:
+            top = sorted(flat.items(), key=lambda kv: -kv[1])[:4]
+            lines.append(
+                "    shed: " + ", ".join(f"{k}={int(v)}" for k, v in top))
+    if not reached:
+        raise ShellError("no /debug/qos endpoint reachable")
+    return "\n".join(
+        [f"qos admission state across {reached} endpoint(s):"] + lines)
 
 
 @command("mount.configure",

@@ -65,6 +65,20 @@ class _Metric:
         self.label_names = tuple(label_names)
         self._lock = threading.Lock()
 
+    def samples(self) -> list[tuple]:
+        """(sample name, label values, extra label or None, value) for each
+        line of the exposition, in its order; the extra label is a
+        histogram bucket's ("le", bound) as the text writes it. `render`
+        and the telemetry frames (stats/aggregate.py) both read it."""
+        raise NotImplementedError
+
+    def render(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.kind}"]
+        for name, key, extra, val in self.samples():
+            le = f'{extra[0]}="{extra[1]}"' if extra else ""
+            out.append(f"{name}{_fmt_labels(self.label_names, key, le)} {_fmt_value(val)}")
+        return out
+
 
 class Counter(_Metric):
     kind = "counter"
@@ -83,16 +97,12 @@ class Counter(_Metric):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
-    def render(self) -> list[str]:
-        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.kind}"]
+    def samples(self) -> list[tuple]:
+        """The family's series as the exposition lists them (see
+        `_Metric.render`)."""
         with self._lock:
             items = sorted(self._values.items())
-        for key, val in items:
-            out.append(
-                f"{self.name}{_fmt_labels(self.label_names, key)}"
-                f" {_fmt_value(val)}"
-            )
-        return out
+        return [(self.name, key, None, val) for key, val in items]
 
 
 class _CounterChild:
@@ -131,8 +141,9 @@ class Gauge(_Metric):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
-    def render(self) -> list[str]:
-        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.kind}"]
+    def samples(self) -> list[tuple]:
+        """The set values and the functions' answers (see
+        `_Metric.render`)."""
         with self._lock:
             merged = dict(self._values)
             for key, fn in self._fns.items():
@@ -141,12 +152,7 @@ class Gauge(_Metric):
                 except Exception:
                     pass
             items = sorted(merged.items())
-        for key, val in items:
-            out.append(
-                f"{self.name}{_fmt_labels(self.label_names, key)}"
-                f" {_fmt_value(val)}"
-            )
-        return out
+        return [(self.name, key, None, val) for key, val in items]
 
 
 class _GaugeChild:
@@ -183,6 +189,7 @@ class Histogram(_Metric):
                  buckets=DEFAULT_BUCKETS, exemplars=False):
         super().__init__(name, help_text, label_names)
         self.buckets = tuple(sorted(buckets))
+        self._les = tuple("{:g}".format(ub) for ub in self.buckets) + ("+Inf",)
         self._counts: dict[tuple, list[int]] = {}
         self._sums: dict[tuple, float] = {}
         self._totals: dict[tuple, int] = {}
@@ -242,31 +249,20 @@ class Histogram(_Metric):
                 })
         return out
 
-    def render(self) -> list[str]:
-        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.kind}"]
+    def samples(self) -> list[tuple]:
+        """Each series' buckets, then its _sum and _count (see
+        `_Metric.render`)."""
         with self._lock:
             items = sorted(self._counts.items())
             sums = dict(self._sums)
             totals = dict(self._totals)
+        bucket, sum_, count = (self.name + s for s in ("_bucket", "_sum", "_count"))
+        out = []
         for key, counts in items:
-            for ub, c in zip(self.buckets, counts):
-                le = 'le="{:g}"'.format(ub)
-                out.append(
-                    f"{self.name}_bucket"
-                    f"{_fmt_labels(self.label_names, key, le)} {c}"
-                )
-            inf = 'le="+Inf"'
-            out.append(
-                f"{self.name}_bucket"
-                f"{_fmt_labels(self.label_names, key, inf)} {totals[key]}"
-            )
-            out.append(
-                f"{self.name}_sum{_fmt_labels(self.label_names, key)}"
-                f" {_fmt_value(sums[key])}"
-            )
-            out.append(
-                f"{self.name}_count{_fmt_labels(self.label_names, key)} {totals[key]}"
-            )
+            for le, c in zip(self._les, (*counts, totals[key])):
+                out.append((bucket, key, ("le", le), c))
+            out.append((sum_, key, None, sums[key]))
+            out.append((count, key, None, totals[key]))
         return out
 
 
@@ -352,6 +348,11 @@ class Registry:
             if not isinstance(m, cls):
                 raise TypeError(f"{name} already registered as {type(m).__name__}")
             return m
+
+    def get(self, name: str) -> _Metric | None:
+        """The registered metric of that family name, if any."""
+        with self._lock:
+            return self._metrics.get(name)
 
     def register_collector(self, fn, names: Iterable[str] = ()) -> Collector:
         """Attach a scrape-time line source (see Collector). Returns the

@@ -23,10 +23,9 @@ plus the reason, state, event-type and fault-point vocabularies.
 `exposition_violations(text)` lints the families a role's `/metrics`
 actually renders.
 
-Left out until their modules are ported: the fastlane's front-door reasons
-(ROADMAP 10a-3), and the usage, heat, cluster-telemetry, spool and qos
-contracts (10d-4c); `NOT_PORTED_EVENTS` names the event types whose seams
-come with those slices.
+plus the usage/heat, cluster-telemetry, spool and qos contracts. Left out
+until the native fastlane is ported: its front-door reasons and families;
+`NOT_PORTED_EVENTS` names the event types whose seams come with it.
 
     python -m seaweedfs_tpu_torch.tools.check_metric_names
 """
@@ -58,12 +57,9 @@ ALERT_SEVERITIES = {"critical", "warning"}
 
 HISTOGRAM_UNITS = ("_seconds", "_bytes")
 
-# event types whose seams come with later slices: the native fastlane's
-# lease and front door (ROADMAP 10a-3); usage, heat and qos (10d-4c)
-NOT_PORTED_EVENTS = {
-    "lease_churn", "fallback_fastlane", "tenant_overflow",
-    "heat_promoted", "heat_demoted", "qos_shed",
-}
+# event types whose seams come with the native fastlane's lease and front
+# door, not ported yet
+NOT_PORTED_EVENTS = {"lease_churn", "fallback_fastlane"}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TESTS = os.path.join(os.path.dirname(_PKG), "tests")
@@ -84,6 +80,7 @@ def _read_tests(names) -> tuple[str, list[str]]:
 def collect() -> tuple[dict[str, str], list[str]]:
     """-> ({family: kind} for registry-backed metrics, [collector names])."""
     from seaweedfs_tpu_torch import maintenance
+    from seaweedfs_tpu_torch.qos import admission as qos_mod
     from seaweedfs_tpu_torch.maintenance import scheduler as sched_mod
     from seaweedfs_tpu_torch.maintenance import scrub as scrub_mod
     from seaweedfs_tpu_torch.server.httpd import HTTPService
@@ -91,7 +88,11 @@ def collect() -> tuple[dict[str, str], list[str]]:
     from seaweedfs_tpu_torch.server.volume import VolumeServer
     from seaweedfs_tpu_torch.stats import alerts, default_registry, history, \
         profiler, trace
+    from seaweedfs_tpu_torch.stats import aggregate as aggregate_mod
     from seaweedfs_tpu_torch.stats import events as events_mod
+    from seaweedfs_tpu_torch.stats import heat as heat_mod
+    from seaweedfs_tpu_torch.stats import store as store_mod
+    from seaweedfs_tpu_torch.stats import usage as usage_mod
     from seaweedfs_tpu_torch.storage import crc
     from seaweedfs_tpu_torch.storage.erasure_coding import decoder as ec_decoder
     from seaweedfs_tpu_torch.storage.erasure_coding import encoder as ec_encoder
@@ -110,6 +111,7 @@ def collect() -> tuple[dict[str, str], list[str]]:
     maintenance.ensure_metrics()
     sched_mod.lazy_batch_counter()
     scrub_mod.ensure_metrics()
+    store_mod.ensure_metrics()
     faults_mod._injected_counter()
     degraded_reads_counter()
     svc = HTTPService(port=0)  # never started: registration side effect only
@@ -133,6 +135,11 @@ def collect() -> tuple[dict[str, str], list[str]]:
         | set(alerts.SLO_FAMILIES)
         | set(events_mod.EVENT_FAMILIES)
         | set(maintenance.MAINTENANCE_FAMILIES)
+        | set(usage_mod.USAGE_FAMILIES)
+        | set(heat_mod.HEAT_FAMILIES)
+        | set(heat_mod.ROLLUP_FAMILIES)
+        | set(aggregate_mod.CLUSTER_FAMILIES)
+        | set(qos_mod.QOS_FAMILIES)
     )
     return kinds, collector_names
 
@@ -278,14 +285,16 @@ def event_type_violations() -> list[str]:
                        - NOT_PORTED_EVENTS):
         bad.append(f"event type {name!r}: declared but no seam emits it")
     test_src, missing = _read_tests(("test_torch_events.py",
-                                     "test_torch_chaos.py"))
+                                     "test_torch_chaos.py",
+                                     "test_torch_usage_heat.py",
+                                     "test_torch_qos.py"))
     for tf in missing:
         bad.append(f"tests/{tf} missing: the event registry must be"
                    f" exercised by the suite")
     for name in sorted(set(events_mod.EVENT_TYPES) - NOT_PORTED_EVENTS):
         if name not in test_src:
             bad.append(f"event type {name!r}: not exercised by"
-                       f" tests/test_torch_events.py or test_torch_chaos.py")
+                       f" tests/test_torch_{{events,chaos,usage_heat,qos}}.py")
     return bad
 
 
@@ -454,6 +463,199 @@ def degraded_reason_violations() -> list[str]:
     return bad
 
 
+def usage_heat_violations() -> list[str]:
+    """The tenant/heat telemetry contract: every usage/heat family
+    declared, the sketch's _other sentinel reserved (a real collection
+    named `_other` would alias the overflow row), the three heat/usage
+    event types registered, and the capacity-forecast alert pair present
+    with the right severities — so a renamed gauge can't silently
+    un-wire cluster.check's days-to-full failure mode."""
+    from seaweedfs_tpu_torch.stats import alerts
+    from seaweedfs_tpu_torch.stats import events as events_mod
+    from seaweedfs_tpu_torch.stats import heat as heat_mod
+    from seaweedfs_tpu_torch.stats import usage as usage_mod
+
+    bad: list[str] = []
+    for fam in (*usage_mod.USAGE_FAMILIES, *heat_mod.HEAT_FAMILIES,
+                *heat_mod.ROLLUP_FAMILIES):
+        if fam in SPECIAL_NAMES:
+            continue
+        if not NAME_RE.match(fam):
+            bad.append(f"usage/heat family {fam!r}: does not match"
+                       f" SeaweedFS_<subsystem>_<snake_case>")
+    if not usage_mod.OTHER.startswith("_"):
+        bad.append(f"usage overflow sentinel {usage_mod.OTHER!r}: must"
+                   f" start with '_' (real collections are snake_case)")
+    if usage_mod.DEFAULT_K < 1:
+        bad.append(f"usage DEFAULT_K {usage_mod.DEFAULT_K}: must be >= 1")
+    for ev in ("tenant_overflow", "heat_promoted", "heat_demoted"):
+        if ev not in events_mod.EVENT_TYPES:
+            bad.append(f"event type {ev!r}: missing from the flight"
+                       f" recorder registry")
+    severities = {r.name: r.severity for r in alerts.default_rules()}
+    if severities.get("capacity_forecast") != "warning":
+        bad.append("alert rule capacity_forecast: missing or not warning")
+    if severities.get("capacity_forecast_critical") != "critical":
+        bad.append("alert rule capacity_forecast_critical: missing or"
+                   " not critical")
+    return bad
+
+
+def cluster_telemetry_violations() -> list[str]:
+    """The cluster telemetry plane's contract (stats/aggregate.py): every
+    `cluster` family well-formed, the staleness + self-observability
+    families present (a renamed stale gauge would silently un-wire the
+    "gateway went quiet" finding), and the cluster-scope alert rule names
+    unique snake_case with known severities — they become the `alert`
+    label of SeaweedFS_cluster_alerts_firing."""
+    from seaweedfs_tpu_torch.stats import aggregate as aggregate_mod
+
+    bad: list[str] = []
+    fams = aggregate_mod.CLUSTER_FAMILIES
+    for fam in fams:
+        if not NAME_RE.match(fam):
+            bad.append(f"cluster family {fam!r}: does not match"
+                       f" SeaweedFS_<subsystem>_<snake_case>")
+        elif not fam.startswith("SeaweedFS_cluster_"):
+            bad.append(f"cluster family {fam!r}: must live in the"
+                       f" `cluster` subsystem")
+    for required in ("SeaweedFS_cluster_telemetry_stale",
+                     "SeaweedFS_cluster_telemetry_senders",
+                     "SeaweedFS_cluster_telemetry_frames_total",
+                     "SeaweedFS_cluster_telemetry_frame_age_seconds",
+                     "SeaweedFS_cluster_usage_error_bound",
+                     "SeaweedFS_cluster_slo_burn_rate",
+                     "SeaweedFS_cluster_alerts_firing"):
+        if required not in fams:
+            bad.append(f"cluster family {required!r}: missing from"
+                       f" CLUSTER_FAMILIES")
+    seen: set[str] = set()
+    for name, severity in aggregate_mod.CLUSTER_RULES:
+        if name in seen:
+            bad.append(f"cluster rule {name!r}: duplicate name")
+        seen.add(name)
+        if not name.startswith("cluster_"):
+            bad.append(f"cluster rule {name!r}: must carry the cluster_"
+                       f" prefix (dashboards must tell cluster-scope"
+                       f" firing from per-process slo_burn_*)")
+        if not ALERT_RULE_RE.match(name):
+            bad.append(f"cluster rule {name!r}: not snake_case")
+        if severity not in ALERT_SEVERITIES:
+            bad.append(f"cluster rule {name!r}: severity {severity!r}"
+                       f" not in {sorted(ALERT_SEVERITIES)}")
+    return bad
+
+
+def telemetry_violations() -> list[str]:
+    """The durable-telemetry contract (stats/store.py): every spool
+    family declared, in the `telemetry` subsystem, with the spool gauge
+    + cap pair both present (the near-cap alert divides one by the
+    other, so a renamed gauge would silently un-wire it), the flush and
+    replay timers present, and the telemetry_spool_near_cap rule a
+    warning — eviction is an ops heads-up, never an incident page."""
+    from seaweedfs_tpu_torch.stats import alerts
+    from seaweedfs_tpu_torch.stats import store as store_mod
+
+    bad: list[str] = []
+    fams = store_mod.TELEMETRY_FAMILIES
+    for fam in fams:
+        if not NAME_RE.match(fam):
+            bad.append(f"telemetry family {fam!r}: does not match"
+                       f" SeaweedFS_<subsystem>_<snake_case>")
+        elif not fam.startswith("SeaweedFS_telemetry_"):
+            bad.append(f"telemetry family {fam!r}: must live in the"
+                       f" `telemetry` subsystem")
+    for required in ("SeaweedFS_telemetry_spool_bytes",
+                     "SeaweedFS_telemetry_spool_cap_bytes",
+                     "SeaweedFS_telemetry_flush_seconds",
+                     "SeaweedFS_telemetry_replay_seconds",
+                     "SeaweedFS_telemetry_segments_evicted_total"):
+        if required not in fams:
+            bad.append(f"telemetry family {required!r}: missing from"
+                       f" TELEMETRY_FAMILIES")
+    tiers = {t for t, _, _ in store_mod.TIERS}
+    for required_tier in ("raw", "1m", "10m", "events"):
+        if required_tier not in tiers:
+            bad.append(f"telemetry tier {required_tier!r}: missing from"
+                       f" store.TIERS (the spool gauge's tier label set)")
+    shares = sum(share for _, _, share in store_mod.TIERS)
+    if not 0.99 <= shares <= 1.01:
+        bad.append(f"telemetry tier shares sum to {shares:g}: the"
+                   f" -telemetry.retention budget must be fully carved")
+    severities = {r.name: r.severity for r in alerts.default_rules()}
+    if severities.get("telemetry_spool_near_cap") != "warning":
+        bad.append("alert rule telemetry_spool_near_cap: missing or"
+                   " not warning")
+    return bad
+
+
+def qos_violations() -> list[str]:
+    """The admission-control contract (qos/admission.py): every QoS
+    family declared in the `qos` subsystem, the shed-reason and
+    priority-class vocabularies closed (unique snake_case — they become
+    the `reason`/`class` labels of SeaweedFS_qos_shed_total and the
+    machine-readable 429/503 bodies clients retry on), every reason
+    mapped to a 429 or 503, the qos_shed event registered AND emitted
+    by the admission seam, and the qos_shed_interactive rule critical —
+    sustained interactive-class shedding is exactly what cluster.check
+    -fail must exit nonzero on."""
+    from seaweedfs_tpu_torch.qos import admission as qos_mod
+    from seaweedfs_tpu_torch.stats import alerts
+    from seaweedfs_tpu_torch.stats import events as events_mod
+
+    bad: list[str] = []
+    for fam in qos_mod.QOS_FAMILIES:
+        if not NAME_RE.match(fam):
+            bad.append(f"qos family {fam!r}: does not match"
+                       f" SeaweedFS_<subsystem>_<snake_case>")
+        elif not fam.startswith("SeaweedFS_qos_"):
+            bad.append(f"qos family {fam!r}: must live in the `qos`"
+                       f" subsystem")
+    for required in ("SeaweedFS_qos_admitted_total",
+                     "SeaweedFS_qos_shed_total",
+                     "SeaweedFS_qos_queued_total"):
+        if required not in qos_mod.QOS_FAMILIES:
+            bad.append(f"qos family {required!r}: missing from"
+                       f" QOS_FAMILIES")
+    for label, names in (
+        ("qos shed reason", qos_mod.SHED_REASONS),
+        ("qos priority class", qos_mod.PRIORITY_CLASSES),
+    ):
+        seen: set[str] = set()
+        for name in names:
+            if not ALERT_RULE_RE.match(name):
+                bad.append(f"{label} {name!r}: not snake_case")
+            if name in seen:
+                bad.append(f"{label} {name!r}: duplicate")
+            seen.add(name)
+    for reason in qos_mod.SHED_REASONS:
+        status = qos_mod._REASON_STATUS.get(reason)
+        if status not in (429, 503):
+            bad.append(f"qos shed reason {reason!r}: no 429/503 status"
+                       f" mapping (clients can't type the rejection)")
+    for reason in qos_mod._REASON_STATUS:
+        if reason not in qos_mod.SHED_REASONS:
+            bad.append(f"qos status mapping {reason!r}: not a declared"
+                       f" shed reason")
+    if "qos_shed" not in events_mod.EVENT_TYPES:
+        bad.append("event type 'qos_shed': missing from the flight"
+                   " recorder registry")
+    adm = os.path.join(_PKG, "qos", "admission.py")
+    try:
+        with open(adm) as f:
+            adm_src = f.read()
+    except OSError:
+        adm_src = ""
+    if '"qos_shed"' not in adm_src and "'qos_shed'" not in adm_src:
+        bad.append("event type 'qos_shed': not emitted by"
+                   " qos/admission.py (the shed seam must journal)")
+    severities = {r.name: r.severity for r in alerts.default_rules()}
+    if severities.get("qos_shed_interactive") != "critical":
+        bad.append("alert rule qos_shed_interactive: missing or not"
+                   " critical")
+    return bad
+
+
 def violations(kinds: dict[str, str], collector_names: list[str]) -> list[str]:
     bad: list[str] = []
     for name in sorted(set(kinds) | set(collector_names)):
@@ -492,7 +694,9 @@ def all_violations() -> tuple[int, list[str]]:
         + task_type_violations() + ec_online_reason_violations() \
         + fault_point_violations() + degraded_reason_violations() \
         + repair_reason_violations() + stream_lazy_violations() \
-        + event_type_violations() + slo_violations() + scrub_violations()
+        + event_type_violations() + slo_violations() + scrub_violations() \
+        + usage_heat_violations() + cluster_telemetry_violations() \
+        + telemetry_violations() + qos_violations()
     return len(set(kinds) | set(collector_names)), bad
 
 

@@ -8,6 +8,7 @@ import torch
 
 from seaweedfs_tpu.ops import cdc as ref_cdc
 from seaweedfs_tpu_torch.ops import cdc
+from tests._threads import stop_history_loops  # noqa: F401
 
 # the cases of tests/test_hash_kernels.py::test_native_scan_bit_identical_to_numpy,
 # then the filer's dedup settings (server/filer.py: avg_bits 16, 16 KiB, 512 KiB)

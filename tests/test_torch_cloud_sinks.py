@@ -29,6 +29,7 @@ from seaweedfs_tpu.replication import Replicator as RefReplicator
 from seaweedfs_tpu.replication import cloud_sinks as ref_sinks
 from seaweedfs_tpu_torch.replication import Replicator
 from seaweedfs_tpu_torch.replication import cloud_sinks
+from tests._threads import stop_history_loops  # noqa: F401
 
 AZ_ACCOUNT = "testaccount"
 AZ_KEY = base64.b64encode(b"0123456789abcdef0123456789abcdef").decode()

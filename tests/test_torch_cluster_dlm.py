@@ -30,6 +30,7 @@ from seaweedfs_tpu_torch import cluster as port_cluster
 from seaweedfs_tpu_torch.server.httpd import get_json, http_request, post_json
 
 from .test_torch_filer_meta import Norm, twin
+from ._threads import stop_history_loops  # noqa: F401
 
 PKGS = pytest.mark.parametrize("pkg", [ref_cluster, port_cluster], ids=["ref", "port"])
 SERVERS = ["http://10.0.0.1:8888", "http://10.0.0.2:8888", "http://10.0.0.3:8888",

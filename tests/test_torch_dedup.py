@@ -26,6 +26,7 @@ from seaweedfs_tpu_torch.ops.hash_service import HashService
 from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.storage import crc as crc_cpu
 from seaweedfs_tpu_torch.util import compression
+from tests._threads import stop_history_loops  # noqa: F401
 
 # tests/test_hash_kernels.py::TestFast128.GOLDENS: the stability contract
 GOLDENS = {

@@ -33,6 +33,7 @@ from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.server.httpd import http_request
 
 from .test_torch_dedup import DEDUP_KW, _pin_seed, _ref_lib, _stream
+from ._threads import stop_history_loops  # noqa: F401
 
 SIZE = 128 * 1024
 

@@ -20,6 +20,7 @@ from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometr
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume, NeedleNotFound
 from seaweedfs_tpu_torch.storage.needle import FLAG_HAS_NAME, Needle
 from seaweedfs_tpu_torch.storage.volume import Volume
+from tests._threads import stop_history_loops  # noqa: F401
 
 LARGE = 10000
 SMALL = 100

@@ -14,11 +14,12 @@ from seaweedfs_tpu_torch.ops import _build
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec, resolve_device
 from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
+from tests._threads import stop_history_loops  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "seaweedfs_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "kernel_turns.py", REPO / "s3_stall_probe.py",
-    REPO / "metering_cost.py"]
+    REPO / "metering_cost.py", REPO / "gc_pauses.py"]
 
 
 def test_entry_equals_reference():
@@ -348,6 +349,52 @@ def test_security_slice_modules_import_alone():
         "seaweedfs_tpu_torch.server.master", "seaweedfs_tpu_torch.server.volume",
         "seaweedfs_tpu_torch.server.filer", "seaweedfs_tpu_torch.shell"]
     code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'seaweedfs_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+NEW_IN_TELEMETRY_SLICE = [
+    "seaweedfs_tpu_torch/stats/usage.py",
+    "seaweedfs_tpu_torch/stats/heat.py",
+    "seaweedfs_tpu_torch/stats/aggregate.py",
+    "seaweedfs_tpu_torch/stats/store.py",
+    "seaweedfs_tpu_torch/qos/__init__.py",
+    "seaweedfs_tpu_torch/qos/admission.py",
+    "seaweedfs_tpu_torch/qos/actuator.py",
+]
+
+
+@pytest.mark.parametrize("rel", NEW_IN_TELEMETRY_SLICE)
+def test_telemetry_slice_modules_are_scanned(rel):
+    """Each new module of `stats/` and `qos/` is in the import scan above
+    and imports here."""
+    import importlib
+
+    assert REPO / rel in PORT_FILES
+    assert not [n for n in _imports(REPO / rel)
+                if n.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu")]
+    importlib.import_module(rel[:-3].replace("/", ".").removesuffix(".__init__"))
+
+
+def test_telemetry_slice_modules_import_alone():
+    """The usage, heat, telemetry and qos modules, and the roles and shell
+    that use them, import with neither `jax` nor `seaweedfs_tpu` loaded by
+    them; the spool's CRC is the port's own `storage/crc.py`."""
+    import subprocess
+    import sys
+
+    mods = [rel[:-3].replace("/", ".").removesuffix(".__init__")
+            for rel in NEW_IN_TELEMETRY_SLICE] + [
+        "seaweedfs_tpu_torch.server.httpd", "seaweedfs_tpu_torch.server.master",
+        "seaweedfs_tpu_torch.server.volume", "seaweedfs_tpu_torch.server.filer",
+        "seaweedfs_tpu_torch.server.webdav", "seaweedfs_tpu_torch.s3api.s3_server",
+        "seaweedfs_tpu_torch.shell"]
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
+            "from seaweedfs_tpu_torch.stats import store; "
+            "assert store.crc_mod.__name__ == 'seaweedfs_tpu_torch.storage.crc'; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'seaweedfs_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -1,6 +1,7 @@
 """Cluster flight recorder (stats/events.py) + trace exemplars + SLO
 burn-rate alerting of the port: the JAX package's tests/test_events.py over
-seaweedfs_tpu_torch, less its qos and fastlane-lease cases (not ported).
+seaweedfs_tpu_torch, less its qos-shed case (in tests/test_torch_qos.py) and
+its fastlane-lease case (the native fastlane is not ported).
 
 Covers: the closed typed-event registry and its bounded ring, the
 disabled-path overhead guard (one attribute check, like the faults

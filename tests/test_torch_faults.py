@@ -44,6 +44,7 @@ from seaweedfs_tpu_torch.util import faults
 from tests.test_torch_scrub import assert_same_pass, clock, pair  # noqa: F401
 from tests.test_torch_shell_volume import Shells
 from tests.test_torch_volume_admin import allocate, fid, pinned_clock, twin, write
+from tests._threads import stop_history_loops  # noqa: F401
 
 PORT_POINTS = [p for p in ref_faults.ALL_POINTS if p != "volume.fastlane.drain"]
 

@@ -43,6 +43,7 @@ from seaweedfs_tpu_torch.server.filer import SMALL_CONTENT_LIMIT, FilerServer
 from seaweedfs_tpu_torch.server.httpd import get_json, http_request
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
+from tests._threads import stop_history_loops  # noqa: F401
 
 CHUNK = 4096
 VOLATILE_HEADERS = ("Date", "Last-Modified", "X-Sw-Trace-Id")

@@ -41,6 +41,7 @@ from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.server.httpd import get_json, http_request, post_json
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
+from tests._threads import stop_history_loops  # noqa: F401
 
 CHUNK = 4096
 VOLATILE = {"mtime", "crtime", "ts_ns", "modified_ts_ns", "next_ts_ns",

@@ -33,6 +33,7 @@ from seaweedfs_tpu_torch.ftpd import FtpServer
 
 from .test_torch_filer_meta import CHUNK, Norm, twin
 from .test_torch_s3 import entries
+from ._threads import stop_history_loops  # noqa: F401
 
 PASV = re.compile(r"\(127,0,0,1,\d+,\d+\)")
 LIST_TIME = re.compile(r"(weed weed +\d+) \w{3} \d{2} \d{2}:\d{2} ")

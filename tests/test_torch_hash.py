@@ -19,6 +19,7 @@ from seaweedfs_tpu_torch.ops import crc32c_kernel as crc_mod
 from seaweedfs_tpu_torch.ops import md5_kernel as md5_mod
 from seaweedfs_tpu_torch.ops.hash_service import HashService
 from seaweedfs_tpu_torch.storage import crc as crc_cpu
+from tests._threads import stop_history_loops  # noqa: F401
 
 
 # the CRC kernel's geometry is emulated for an H100 SXM's SM count; on the

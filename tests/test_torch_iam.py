@@ -44,6 +44,7 @@ from seaweedfs_tpu_torch.server.httpd import http_request
 
 from .test_torch_filer_meta import Side, seeded
 from .test_torch_s3 import S3Pair, S3Side, s3_twin
+from ._threads import stop_history_loops  # noqa: F401
 
 ADMIN_POLICY = ('{"Version":"2012-10-17","Statement":[{"Effect":"Allow",'
                 '"Action":"s3:*","Resource":"arn:aws:s3:::*"}]}')

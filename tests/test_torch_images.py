@@ -31,6 +31,7 @@ from tests.test_torch_volume_admin import (
     same_bytes,
     twin,
 )
+from tests._threads import stop_history_loops  # noqa: F401
 
 Image = pytest.importorskip("PIL.Image")
 

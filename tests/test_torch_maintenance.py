@@ -48,6 +48,7 @@ from seaweedfs_tpu_torch.shell import CommandEnv, ShellError, run_command
 from seaweedfs_tpu_torch.shell import commands_maintenance as port_cm
 from seaweedfs_tpu_torch.topology import Topology as PortTopology
 from tests.test_torch_shell import assert_equal_oracle, encode_one, fid_of
+from tests._threads import stop_history_loops  # noqa: F401
 
 
 class Pkg:

@@ -53,6 +53,7 @@ from seaweedfs_tpu_torch.shell import CommandEnv, run_command
 
 from .test_torch_filer_meta import Norm, twin
 from .test_torch_s3 import entries
+from ._threads import stop_history_loops  # noqa: F401
 
 MOUNT_CHUNK = 64 * 1024
 PKGS = (  # (WFS, kernel, fuse_proto, MetaCache, admin service, CommandEnv, run_command)

@@ -28,6 +28,7 @@ import time
 import pytest
 
 from seaweedfs_tpu_torch.server.httpd import http_request
+from tests._threads import stop_history_loops  # noqa: F401
 
 
 def _post(url, payload):
@@ -1044,6 +1045,30 @@ def test_broker_dying_mid_answer_is_an_mq_error(pkg):
     srv.listen(8)
     stop = threading.Event()
 
+    def read_request(conn):
+        """The whole request: headers to the blank line, then
+        Content-Length bytes of body. The client writes headers and body
+        separately, and a close with body bytes unread answers with an RST
+        that the client would see before the half answer."""
+        conn.settimeout(5)
+        data = b""
+        while b"\r\n\r\n" not in data:
+            chunk = conn.recv(65536)
+            if not chunk:
+                return
+            data += chunk
+        head, _, body = data.partition(b"\r\n\r\n")
+        length = 0
+        for line in head.split(b"\r\n")[1:]:
+            name, _, value = line.partition(b":")
+            if name.strip().lower() == b"content-length":
+                length = int(value.strip())
+        while len(body) < length:
+            chunk = conn.recv(65536)
+            if not chunk:
+                return
+            body += chunk
+
     def serve():
         srv.settimeout(0.2)
         while not stop.is_set():
@@ -1051,9 +1076,12 @@ def test_broker_dying_mid_answer_is_an_mq_error(pkg):
                 conn, _ = srv.accept()
             except OSError:
                 continue
-            conn.recv(65536)
-            conn.sendall(b"HTTP/1.1 200 OK\r\nContent-Length: 69\r\n\r\n{")
-            conn.close()
+            try:
+                read_request(conn)
+                conn.sendall(
+                    b"HTTP/1.1 200 OK\r\nContent-Length: 69\r\n\r\n{")
+            finally:
+                conn.close()
 
     t = threading.Thread(target=serve, daemon=True)
     t.start()

@@ -32,6 +32,7 @@ from seaweedfs_tpu_torch.filer import Entry, Filer
 from seaweedfs_tpu_torch.s3api.auth import canonical_request, signing_key, string_to_sign
 from tests.test_torch_cloud_sinks import FROZEN_TIME, _QuietHandler, _start, _stop
 from tests.test_torch_filer_meta import Norm, history, twin
+from tests._threads import stop_history_loops  # noqa: F401
 
 FROZEN_DAY = time.gmtime(FROZEN_TIME)
 

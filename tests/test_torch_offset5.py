@@ -34,6 +34,7 @@ from seaweedfs_tpu.storage.volume import Volume as RefVolume
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
 from seaweedfs_tpu_torch.storage.erasure_coding import encoder
 from tests.test_torch_volume_admin import pinned_clock
+from tests._threads import stop_history_loops  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOST = (1, 4, 7, 9)

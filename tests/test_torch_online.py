@@ -43,6 +43,7 @@ from seaweedfs_tpu_torch.storage.erasure_coding.online import (
 )
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.volume import Volume
+from tests._threads import stop_history_loops  # noqa: F401
 
 BLOCK = 4096  # 40 KiB stripe rows keep the tests quick
 OPEN_FILES = (".dat", ".idx", ".ec10", ".ec11", ".ec12", ".ec13", ".ecp", ".vif")

@@ -27,6 +27,7 @@ from seaweedfs_tpu_torch.parallel import (
     sharded_md5,
 )
 from seaweedfs_tpu_torch.storage import crc as crc_port
+from tests._threads import stop_history_loops  # noqa: F401
 
 D = 8
 

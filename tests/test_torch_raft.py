@@ -23,6 +23,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import sys
 import time
 
 import pytest
@@ -34,6 +35,7 @@ from seaweedfs_tpu.shell import run_command as ref_run
 from seaweedfs_tpu_torch.raft import NotLeader, RaftNode
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.shell import CommandEnv, ShellError, run_command
+from tests._threads import stop_history_loops  # noqa: F401
 
 KINDS = {"port": ("port", "port", "port"), "mixed": ("jax", "jax", "port")}
 
@@ -162,6 +164,44 @@ def test_leader_failover_preserves_log(group):
         wait_for(lambda: all(len(applied[s]) == 2 for s in survivors), what="apply")
         for nid in survivors:
             assert values(applied[nid]) == ["before", "after"], nid
+    finally:
+        for n in nodes:
+            n.stop()
+
+
+def hold_gil(seconds: float) -> None:
+    """Stand the whole process still for `seconds`, the GIL held, as a full
+    collection of a big heap does: the switch interval is raised past the
+    stall, so no waiting thread forces a switch."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(seconds * 10)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            pass
+    finally:
+        sys.setswitchinterval(old)
+
+
+def test_process_stall_keeps_leader():
+    """A pause of the whole process longer than the election timeout (a
+    full collection over a big heap) turns no leader over: every node's
+    ticker sees that it overslept, and the leader's beats sent meanwhile
+    wait unread, so the stall is not counted against the leader. The
+    masters' timers (0.08 s beats, 0.3-0.6 s timeout); five 0.8 s stalls."""
+    tr, nodes, applied, _ = make_cluster(KINDS["port"])
+    for n in nodes:
+        n.heartbeat_interval, n.election_timeout = 0.08, (0.3, 0.6)
+        n.start()
+    try:
+        leader = wait_leader(nodes)
+        term = leader.term()
+        for _ in range(5):
+            hold_gil(0.8)
+            time.sleep(0.3)
+        assert [(n.id, n.term(), n.is_leader()) for n in nodes] == \
+            [(n.id, term, n is leader) for n in nodes]
+        assert leader.propose({"type": "set", "value": 1}) == 1
     finally:
         for n in nodes:
             n.stop()

@@ -42,6 +42,7 @@ from seaweedfs_tpu_torch.server.httpd import get_json, http_request
 from seaweedfs_tpu_torch.shell import CommandEnv, run_command
 
 from .test_torch_filer_meta import CHUNK, Norm, twin
+from ._threads import stop_history_loops  # noqa: F401
 
 MTIME = 1_700_000_000.0
 PKGS = (  # (local vendor, factory, CommandEnv, run_command, write-back, FilerServer)

@@ -55,6 +55,7 @@ from tests.test_torch_shell import (
     status_nodes,
     write_blobs,
 )
+from tests._threads import stop_history_loops  # noqa: F401
 
 POINT = "repair.partial_fetch"
 

@@ -47,6 +47,7 @@ from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from tests.test_torch_filer_meta import twin
+from tests._threads import stop_history_loops  # noqa: F401
 
 CHUNK = 4096
 

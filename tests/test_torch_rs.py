@@ -14,6 +14,7 @@ from seaweedfs_tpu.ops.rs_kernel import gf_matmul_jax
 from seaweedfs_tpu_torch.compat import from_reference_matrix
 from seaweedfs_tpu_torch.ops import gf256, rs_cuda
 from seaweedfs_tpu_torch.ops.rs_kernel import RSCodec
+from tests._threads import stop_history_loops  # noqa: F401
 
 SHAPES = [(4, 10), (1, 10), (3, 7), (14, 14)]
 LENGTHS = [1, 17, 8191, 8193]

@@ -48,6 +48,7 @@ from seaweedfs_tpu_torch.s3api.sigv4_client import S3Error
 from seaweedfs_tpu_torch.server.httpd import get_json, http_request
 
 from .test_torch_filer_meta import CHUNK, Norm, seeded, twin
+from ._threads import stop_history_loops  # noqa: F401
 
 IDENTITIES = {
     "identities": [

@@ -25,6 +25,7 @@ from seaweedfs_tpu_torch.s3api import acl as port_acl
 from seaweedfs_tpu_torch.s3api import auth as port_auth
 
 from .test_torch_s3 import s3_twin
+from ._threads import stop_history_loops  # noqa: F401
 
 AKID, SECRET = "adminKey", "adminSecret"
 IDENTITIES = {"identities": [{"name": "admin",

@@ -32,6 +32,7 @@ from seaweedfs_tpu_torch.server.httpd import Request
 
 from .test_torch_filer_meta import seeded
 from .test_torch_s3 import bucket_name, drop_bucket, make_bucket, s3_twin
+from ._threads import stop_history_loops  # noqa: F401
 
 IDENTITIES = {
     "identities": [

@@ -46,6 +46,7 @@ from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.types import NEEDLE_HEADER_SIZE
 from seaweedfs_tpu_torch.topology import Topology
+from tests._threads import stop_history_loops  # noqa: F401
 
 BLOCK = 4096
 EQUAL = 1500  # the equal-length group's data size

@@ -49,6 +49,7 @@ from seaweedfs_tpu_torch.security.jwt import (
 from seaweedfs_tpu_torch.server.httpd import get_json, http_request
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
+from tests._threads import stop_history_loops  # noqa: F401
 
 FROZEN = 1_790_000_000
 

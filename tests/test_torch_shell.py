@@ -51,6 +51,7 @@ from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometr
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.volume import Volume
+from tests._threads import stop_history_loops  # noqa: F401
 
 EC_EXTS = [geometry.to_ext(s) for s in range(14)] + [".ecx", ".vif"]
 BLOB = 2000
@@ -180,8 +181,8 @@ def test_run_command_help_unknown_and_lock():
         "volume.tier.info", "volume.tier.move", "volume.tier.upload", "volume.unmount",
         "volume.vacuum", "volume.vacuum.disable", "volume.vacuum.enable"]
     cluster_verbs = [
-        "cluster.check", "cluster.faults", "cluster.maintenance", "cluster.profile",
-        "cluster.ps", "cluster.raft.add", "cluster.raft.ps", "cluster.raft.remove",
+        "cluster.check", "cluster.faults", "cluster.heat", "cluster.maintenance",
+        "cluster.profile", "cluster.ps", "cluster.qos", "cluster.raft.add", "cluster.raft.ps", "cluster.raft.remove",
         "cluster.scrub", "cluster.top", "cluster.trace", "cluster.why",
         "collection.delete", "collection.list", "mount.configure", "mq.balance",
         "mq.topic.configure", "mq.topic.create", "mq.topic.describe", "mq.topic.list",
@@ -203,7 +204,7 @@ def test_run_command_help_unknown_and_lock():
     assert "rebuild" in run_command(env, "help ec.rebuild")
     assert run_command(env, "") == ""
     with pytest.raises(ShellError, match="unknown command"):
-        run_command(env, "cluster.heat")
+        run_command(env, "cluster.nosuchverb")
     for verb in ("ec.encode -collection x", "ec.decode -volumeId 1",
                  "ec.rebuild -volumeId 1", "ec.balance"):
         with pytest.raises(ShellError, match="admin lock"):

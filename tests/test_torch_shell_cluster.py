@@ -30,6 +30,7 @@ from tests.test_torch_volume_admin import (
     twin,
     write,
 )
+from tests._threads import stop_history_loops  # noqa: F401
 
 
 @pytest.fixture

@@ -27,6 +27,7 @@ from seaweedfs_tpu_torch.shell import CommandEnv, ShellError, run_command
 from seaweedfs_tpu_torch.shell.shell import run_shell
 
 from .test_torch_filer_meta import CHUNK, Norm, Queue, bodies, history, seeded, twin
+from ._threads import stop_history_loops  # noqa: F401
 
 DEDUP = dict(dedup=True, dedup_avg_bits=10, dedup_min=1024, dedup_max=8192)
 

@@ -29,6 +29,7 @@ from seaweedfs_tpu_torch.shell.shell import run_shell
 
 from .test_torch_filer_meta import seeded
 from .test_torch_s3 import s3_twin
+from ._threads import stop_history_loops  # noqa: F401
 
 ADMIN_ONLY = {"identities": [{"name": "admin",
                               "credentials": [{"accessKey": "adminKey",

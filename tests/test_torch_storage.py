@@ -14,6 +14,7 @@ from seaweedfs_tpu_torch.storage import crc, idx, needle
 from seaweedfs_tpu_torch.storage.super_block import SuperBlock
 from seaweedfs_tpu_torch.storage.types import TTL, ReplicaPlacement
 from seaweedfs_tpu_torch.storage.volume import Volume
+from tests._threads import stop_history_loops  # noqa: F401
 
 
 def _needle_fields(seed: int) -> dict:

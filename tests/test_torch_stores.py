@@ -37,6 +37,7 @@ from seaweedfs_tpu_torch.filer import stores_gated as port_gated
 from .fake_dbapi import install
 from .fake_etcd import FakeEtcd
 from .fake_redis import FakeRedis
+from ._threads import stop_history_loops  # noqa: F401
 
 KINDS = ["leveldb", "lsm", "etcd", "redis", "mysql", "postgres", "memory", "sqlite"]
 

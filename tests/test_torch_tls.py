@@ -42,6 +42,7 @@ from seaweedfs_tpu_torch.server.httpd import (
     peer_url,
 )
 from tests.test_tls import _issue, _make_ca
+from tests._threads import stop_history_loops  # noqa: F401
 
 
 @contextlib.contextmanager

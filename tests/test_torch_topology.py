@@ -36,6 +36,7 @@ from seaweedfs_tpu_torch.topology import volume_growth
 from seaweedfs_tpu_torch.topology.node import VolumeInfo
 from seaweedfs_tpu_torch.topology.topology import Topology
 from seaweedfs_tpu_torch.topology.volume_layout import NoWritableVolume, VolumeLayout
+from tests._threads import stop_history_loops  # noqa: F401
 
 PLACEMENTS = ("000", "001", "010", "100", "200")
 DCS = ("dc1", "dc2", "dc3")

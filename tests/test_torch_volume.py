@@ -43,6 +43,7 @@ from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.types import TTL
 from seaweedfs_tpu_torch.storage.volume import NotFound, Volume
+from tests._threads import stop_history_loops  # noqa: F401
 
 BLOCK = 4096
 LAST_MODIFIED = 1_700_000_000

@@ -36,6 +36,7 @@ from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from seaweedfs_tpu_torch.storage import file_id
 from seaweedfs_tpu_torch.util import faults
+from tests._threads import stop_history_loops  # noqa: F401
 
 OCTET = {"Content-Type": "application/octet-stream"}
 COOKIE = 0x1234

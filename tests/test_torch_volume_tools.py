@@ -26,6 +26,7 @@ from seaweedfs_tpu.storage.volume import Volume as RefVolume
 from seaweedfs_tpu_torch.command import fix, volume_tools
 from tests.test_torch_shell_volume import base
 from tests.test_torch_volume_admin import allocate, delete, pinned_clock, twin, write
+from tests._threads import stop_history_loops  # noqa: F401
 
 
 def read(path: str) -> bytes:

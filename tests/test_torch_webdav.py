@@ -36,6 +36,7 @@ from seaweedfs_tpu_torch.server.webdav import WebDavServer
 
 from .test_torch_filer_meta import CHUNK, Norm, seeded, twin
 from .test_torch_s3 import entries
+from ._threads import stop_history_loops  # noqa: F401
 
 NS = {"D": "DAV:"}
 LOCKINFO = (b'<?xml version="1.0"?><D:lockinfo xmlns:D="DAV:">'
