@@ -14,7 +14,8 @@
                           [--sync-files N] [--mq-messages N] [--ha-files N]
                           [--ha-large-mib MIB] [--ha-ec-mib MIB] [--obs-files N]
                           [--obs-large N] [--obs-ec-mib MIB] [--qt-files N]
-                          [--qt-large N] [--qt-flood-s S]
+                          [--qt-large N] [--qt-flood-s S] [--cli-files N]
+                          [--cli-bench-n N] [--cli-upload-mib MIB] [--cli-ec-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -73,9 +74,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               hashlib, sampled span keys against SW128 alone, exact repeats
               fully deduped, shifted repeats at 90 % of their bytes or more
   9. online   the volume server's online-EC path (BASELINE config 1's volume
-              at 1 GiB): a port VolumeServer on the card with no master,
+              at 512 MiB): a port VolumeServer on the card with no master,
               one ecOnline volume at the default 1 MiB block, --online-mib
-              (1024) MiB of seeded needles (log-uniform 1 KiB to 4 MiB)
+              (512; 1024 until the cli phase took room in the run) MiB of
+              seeded needles (log-uniform 1 KiB to 4 MiB)
               POSTed from 4 threads, each write pumping the stripe writer
               through gf256_matmul, the pulse flushing the aged tail row;
               256 sampled GETs equal; /admin/ec/shard of shards 12 and 0 on
@@ -90,9 +92,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               phase's launches and the kernel at a drain tick's (1, 10, 1 MiB)
  10. cluster  BASELINE configs 1 and 2 as shell verbs over a port cluster: one
               MasterServer and four VolumeServers on the card (racks r1-r4,
-              pulse 1 s, one process); --cluster-mib (1024) MiB of seeded
-              needles (log-uniform 1 KiB to 4 MiB) through /dir/assign and
-              POSTs from 4 threads into the 7 volumes the master grows; lock,
+              pulse 1 s, one process); --cluster-mib (512; 1024 until the cli
+              phase took room in the run) MiB of seeded needles (log-uniform
+              1 KiB to 4 MiB) through /dir/assign and POSTs from 4 threads
+              into the volumes the master grows; lock,
               ec.encode -collection ec (14 shards a volume spread 4/4/3/3, no
               replica left, every parity row equal to the plain version on the
               card over the saved .dat); 256 sampled GETs at the assigned urls
@@ -369,7 +372,25 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               p50/p99 alone and under the flood, the abuser's admitted and shed
               by reason, frames and bytes by sender, spool bytes by tier, the
               wall (limit 30 s)
- 23. entry    entry() on the card equal to the CPU codec
+ 23. cli      the port's CLI as a deployment runs it, each role in a process of
+              its own on the card (no -device flag): child A `python -m
+              seaweedfs_tpu_torch.command.main server -filer -s3` and child B
+              `volume -mserver A`, on ephemeral ports, their output in
+              chiprun_out/cli/. (a) `benchmark -n --cli-bench-n (4,096) -size
+              4096 -c 16` as its own process, its JSON report kept; (b)
+              --cli-files (1,024) 4 KiB and 8 x 4 MiB files PUT to A's filer
+              from 8 waiting threads, read back equal, every chunk's bytes
+              through A's batch-cuda hash batches (A's master-port /metrics:
+              md5_batch and crc32c_batch ran inside A); (c) `upload` of
+              --cli-upload-mib (64) MiB, then `download`, equal; (d)
+              --cli-ec-mib (256) MiB of 1 MiB needles in one volume on B,
+              `shell` running `ec.encode` as its own process, 32 GETs equal,
+              B's encode count up by one (gf256_matmul ran inside B); (e)
+              SIGTERM to B, then A, each exiting 0 within 15 s; no child
+              compiles a kernel. Each child's start seconds, the report,
+              files/s and PUT p50/p99, 4 MiB GB/s, upload and download GB/s,
+              the `ec.encode` wall, the exit seconds, the wall (limit 60 s)
+ 24. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -393,6 +414,7 @@ import logging
 import os
 import re
 import shutil
+import signal
 import socket
 import ssl
 import subprocess
@@ -6580,6 +6602,13 @@ OBS_CUTS = ("(a) --obs-files (1,024) 4 KiB files and --obs-large (16) 4 MiB file
             " in one process, so they share one registry, trace ring and journal")
 
 
+def scrape(url: str) -> str:
+    """A role's /metrics text."""
+    status, _, body = http_request("GET", url + "/metrics")
+    check(status == 200, f"GET {url}/metrics -> {status}")
+    return body.decode()
+
+
 def metric_value(text: str, family: str, **labels) -> float:
     """The sum of a family's samples whose labels include `labels`."""
     return sum(v for name, lb, v in parse_exposition(text)
@@ -6730,11 +6759,6 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
         metrics_url = filer.metrics_url
         label = "batch-" + dev.type
 
-        def filer_metrics() -> str:
-            status, _, body = http_request("GET", metrics_url + "/metrics")
-            check(status == 200, f"GET the filer's /metrics -> {status}")
-            return body.decode()
-
         # 5a. every node healthy before the loss
         out = run_command(env, "cluster.check")
         check(out.endswith("cluster is healthy")
@@ -6742,7 +6766,7 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
               f"cluster.check before the loss: {out}")
         res["check_before"] = out.splitlines()
         # (a) small files from 8 waiting threads
-        h0, b0 = metric_value(filer_metrics(), "SeaweedFS_filer_hash_seconds_count",
+        h0, b0 = metric_value(scrape(metrics_url), "SeaweedFS_filer_hash_seconds_count",
                               kernel=label), svc.batches
         per = [n_files // OBS_THREADS + (t < n_files % OBS_THREADS) for t in range(OBS_THREADS)]
         rngs = [np.random.default_rng([seed, 42, t]) for t in range(OBS_THREADS)]
@@ -6820,7 +6844,7 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
             marker = resp.getheader(trace_mod.TRACE_HEADER)
         finally:
             c.close()
-        h1, b1 = metric_value(filer_metrics(), "SeaweedFS_filer_hash_seconds_count",
+        h1, b1 = metric_value(scrape(metrics_url), "SeaweedFS_filer_hash_seconds_count",
                               kernel=label), svc.batches
         # 1. one observation a batch
         check(b1 > b0 and h1 - h0 == b1 - b0,
@@ -6845,11 +6869,11 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
               f"cluster.trace of the marker {marker}: {line!r}")
         res["marker_trace"] = out[out.index(line):].split("\ntrace ")[0].splitlines()
         # (b) the EC sequence, with the kernel histograms around it
-        text = filer_metrics()
+        text = scrape(metrics_url)
         e0 = metric_value(text, "SeaweedFS_volume_ec_encode_seconds_count")
         d0 = metric_value(text, "SeaweedFS_volume_ec_decode_seconds_count")
         ec = observe_ec_sequence(env, servers, OBS_EC_VID, ec_bytes, seed)
-        text = filer_metrics()
+        text = scrape(metrics_url)
         e1 = metric_value(text, "SeaweedFS_volume_ec_encode_seconds_count")
         d1 = metric_value(text, "SeaweedFS_volume_ec_decode_seconds_count")
         # 2. one encode and one rebuild
@@ -6870,9 +6894,7 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
         # 7. every role's exposition passes the port's name lint
         bad = []
         for url in [master.url] + [vs.url for vs in servers] + [metrics_url]:
-            status, _, body = http_request("GET", url + "/metrics")
-            check(status == 200, f"GET {url}/metrics -> {status}")
-            bad += exposition_violations(body.decode())
+            bad += exposition_violations(scrape(url))
         check(not bad, f"metric-name lint: {bad[:5]}")
         t0 = time.perf_counter()
         hist.scrape_once()
@@ -7254,6 +7276,341 @@ def qos_telemetry_phase(dev: torch.device, n_files: int, n_large: int, flood_s: 
     return res
 
 
+# --- phase 23: the CLI, each role in a process of its own ---------------------------
+CLI_THREADS = 8  # filer clients, each waiting for its answer
+CLI_SMALL = 4096
+CLI_LARGE = 4 * MIB
+CLI_LARGE_FILES = 8  # one a thread
+CLI_EC_VID = 971  # past the ids the master grows
+CLI_EC_NEEDLE = MIB
+CLI_EC_WRITERS = 4
+CLI_EC_GETS = 32
+CLI_BENCH_SIZE, CLI_BENCH_C = 4096, 16  # `weed benchmark -c 16` (BASELINE.md config 3)
+CLI_START_LIMIT_S = 60  # a server child to its last "listening" line
+CLI_EXIT_LIMIT_S = 15  # SIGTERM to exit
+CLI_VERB_LIMIT_S = 120  # a verb's process to its end
+CLI_WALL_LIMIT_S = 60
+CLI_OUT = REPO / "chiprun_out" / "cli"  # each child's stdout and stderr
+CLI_CUTS = ("--cli-files (1,024) 4 KiB and 8 x 4 MiB filer files, --cli-bench-n (4,096) benchmark"
+            " files, one --cli-upload-mib (64) MiB upload, one --cli-ec-mib (256) MiB volume:"
+            " the depths of the one-process filer and observe phases, in a 60 s wall",)
+
+
+class CliChild:
+    """`python -m seaweedfs_tpu_torch.command.main <args>` in a process of
+    its own, run from the checkout's root; its stdout and stderr go to
+    CLI_OUT/<name>.out and .err."""
+
+    def __init__(self, name: str, args: list) -> None:
+        CLI_OUT.mkdir(parents=True, exist_ok=True)
+        self.name = name
+        self.out_path, self.err_path = CLI_OUT / f"{name}.out", CLI_OUT / f"{name}.err"
+        self._out, self._err = open(self.out_path, "w"), open(self.err_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.command.main", *args], cwd=REPO,
+            stdin=subprocess.DEVNULL, stdout=self._out, stderr=self._err)
+        self.urls: dict = {}
+        self.start_s = None
+
+    def err_tail(self, n: int = 3000) -> str:
+        self._err.flush()
+        return self.err_path.read_text(errors="replace")[-n:]
+
+    def listening(self, roles: tuple) -> dict:
+        """Wait for each role's "<role> listening at <url>" line; -> {role:
+        url}. Fails past CLI_START_LIMIT_S or when the child exits first."""
+        while True:
+            for line in self.out_path.read_text(errors="replace").splitlines():
+                if " listening at " in line:
+                    role, url = line.split(" listening at ", 1)
+                    self.urls[role.strip()] = url.strip()
+            if all(r in self.urls for r in roles):
+                self.start_s = time.perf_counter() - self.t0
+                return self.urls
+            check(self.proc.poll() is None,
+                  f"cli {self.name} exited {self.proc.returncode}: {self.err_tail()}")
+            check(time.perf_counter() - self.t0 < CLI_START_LIMIT_S,
+                  f"cli {self.name}: no {roles} in {CLI_START_LIMIT_S} s: {self.err_tail()}")
+            time.sleep(0.05)
+
+    def terminate(self) -> float:
+        """SIGTERM; the child must exit 0 within CLI_EXIT_LIMIT_S. -> seconds."""
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(CLI_EXIT_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        secs = time.perf_counter() - t0
+        check(rc == 0, f"cli {self.name}: exit {rc} {secs:.1f} s after SIGTERM: {self.err_tail()}")
+        return secs
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._out.close()
+        self._err.close()
+
+
+def cli_verb(name: str, args: list) -> tuple[str, float]:
+    """One verb run to its end in a process of its own (exit 0);
+    -> (its stdout, its wall)."""
+    CLI_OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.command.main", *args],
+                         cwd=REPO, stdin=subprocess.DEVNULL, capture_output=True, text=True,
+                         timeout=CLI_VERB_LIMIT_S)
+    wall = time.perf_counter() - t0
+    (CLI_OUT / f"{name}.out").write_text(out.stdout)
+    (CLI_OUT / f"{name}.err").write_text(out.stderr)
+    check(out.returncode == 0,
+          f"cli {name}: exit {out.returncode}: {out.stdout[-1000:]} {out.stderr[-2000:]}")
+    return out.stdout, wall
+
+
+def cli_phase(dev: torch.device, n_files: int, bench_n: int, upload_bytes: int, ec_bytes: int,
+              seed: int) -> dict:
+    """Each role in a process of its own, started through the port's CLI on
+    the card: child A `server -filer -s3` and child B `volume -mserver A`
+    on ephemeral ports. (a) `benchmark -n bench_n -size 4096 -c 16` as its
+    own process, its JSON report kept; (b) n_files 4 KiB and 8 x 4 MiB
+    files PUT to A's filer from 8 waiting threads and read back equal,
+    `SeaweedFS_filer_hash_seconds{kernel="batch-cuda"}` on A's master-port
+    /metrics (the process's registry) grown by every chunk's bytes: md5_batch
+    and crc32c_batch ran inside A; (c) `upload` of upload_bytes, then
+    `download`, equal; (d) ec_bytes of 1 MiB needles POSTed into one volume
+    on B, `shell` running `ec.encode` as its own process, 32 GETs equal,
+    `SeaweedFS_volume_ec_encode_seconds_count` on B's /metrics up by one:
+    gf256_matmul ran inside B; (e) SIGTERM to B, then A, each exiting 0
+    within 15 s. No child compiles a kernel: the libraries this script built
+    are loaded as they are. Returns each child's start seconds, the report,
+    files/s and PUT p50/p99, 4 MiB GB/s, upload and download GB/s (each
+    verb's process wall, its interpreter start included), the `ec.encode`
+    wall, the exit seconds, and the kernels' calls inside the children."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-cli-", dir=REPO / "build")
+    # the CPU rehearsal asks for the CPU; on the card no child is told its device
+    dev_args = ["-device", "cpu"] if dev.type == "cpu" else []
+    hash_label, ec_label = f"batch-{dev.type}", f"pipeline-{dev.type}"
+    libs_before = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("lib*.so")}
+    children = []
+    res = {}
+    try:
+        # both start at once: B is told A's master port, free now, and its
+        # heartbeats reach the master from the first pulse after it listens
+        (mport,) = free_ports(1)
+        a = CliChild("A", ["server", "-filer", "-s3", "-dir", os.path.join(root, "a"),
+                           "-master.port", str(mport), "-volume.port", "0", "-filer.port", "0",
+                           "-s3.port", "0", *dev_args])
+        children.append(a)
+        b = CliChild("B", ["volume", "-mserver", f"127.0.0.1:{mport}", "-dir",
+                           os.path.join(root, "b"), "-port", "0", "-pulseSeconds", "1",
+                           *dev_args])
+        children.append(b)
+        master, filer = (a.listening(("master", "volume server", "filer", "s3 gateway"))[r]
+                         for r in ("master", "filer"))
+        vol_b = b.listening(("volume server",))["volume server"]
+        res["start_s"] = {"A": a.start_s, "B": b.start_s}
+
+        # (a) the benchmark verb against A's master
+        out, bench_wall = cli_verb("benchmark", [
+            "benchmark", "-n", str(bench_n), "-size", str(CLI_BENCH_SIZE),
+            "-c", str(CLI_BENCH_C), "-master", master])
+        bench = json.loads(out)
+        check(bench["write"]["requests"] == bench_n == bench["read"]["requests"],
+              f"benchmark report: {bench}")
+        res.update(benchmark=bench, benchmark_wall_s=bench_wall)
+
+        # (b) small and 4 MiB files through A's filer from 8 waiting threads
+        def hash_totals() -> tuple:
+            """A's batch hashes so far: (batches, bytes, seconds, {le: batches})."""
+            text = scrape(master)
+            return tuple(metric_value(text, f"SeaweedFS_filer_hash_{fam}", kernel=hash_label)
+                         for fam in ("seconds_count", "bytes_total", "seconds_sum")) + (
+                {lb["le"]: v for name, lb, v in parse_exposition(text)
+                 if name == "SeaweedFS_filer_hash_seconds_bucket"
+                 and lb.get("kernel") == hash_label},)
+
+        h0 = hash_totals()
+        raw = np.random.default_rng([seed, 61]).bytes(n_files * CLI_SMALL)
+        small = [raw[i * CLI_SMALL : (i + 1) * CLI_SMALL] for i in range(n_files)]
+        large = [np.random.default_rng([seed, 62, k]).bytes(CLI_LARGE)
+                 for k in range(CLI_LARGE_FILES)]
+        errors = []
+        put_lat = [[] for _ in range(CLI_THREADS)]
+
+        def put(t: int, items) -> None:
+            c = Client(filer)
+            try:
+                for path, data in items:
+                    t0 = time.perf_counter()
+                    status, body = c.request("PUT", path, data, OCTET)
+                    put_lat[t].append(time.perf_counter() - t0)
+                    if status != 201 or json.loads(body)["md5"] != hashlib.md5(data).hexdigest():
+                        errors.append(f"PUT {path} -> {status}: {body[:200]!r}")
+                        return
+            except BaseException as e:  # re-raised on the main thread
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        small_s = run_threads(lambda t: put(t, [(f"/cli/s/{i:05d}", small[i])
+                                                for i in range(t, n_files, CLI_THREADS)]),
+                              CLI_THREADS)
+        check(not errors, f"cli small PUTs: {errors[:3]}")
+        small_lat = [x for lat in put_lat for x in lat]
+        h_mid = hash_totals()
+        large_s = run_threads(lambda t: put(t, [(f"/cli/l/{k}", large[k])
+                                                for k in range(t, CLI_LARGE_FILES, CLI_THREADS)]),
+                              CLI_THREADS)
+        check(not errors, f"cli 4 MiB PUTs: {errors[:3]}")
+
+        def get(t: int) -> None:
+            c = Client(filer)
+            try:
+                for i in range(t, n_files + CLI_LARGE_FILES, CLI_THREADS):
+                    path, data = ((f"/cli/s/{i:05d}", small[i]) if i < n_files
+                                  else (f"/cli/l/{i - n_files}", large[i - n_files]))
+                    status, got = c.request("GET", path)
+                    if status != 200 or got != data:
+                        errors.append(f"GET {path} -> {status}, {len(got)} bytes")
+                        return
+            except BaseException as e:
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        get_s = run_threads(get, CLI_THREADS)
+        check(not errors, f"cli GETs: {errors[:3]}")
+        h1 = hash_totals()
+        hashed = n_files * CLI_SMALL + CLI_LARGE_FILES * CLI_LARGE
+        check(h1[0] > h0[0], f"A's filer ran no {hash_label} hash batch: {h0} -> {h1}")
+        check(h1[1] - h0[1] == hashed,
+              f"A's {hash_label} batches hashed {h1[1] - h0[1]:.0f} bytes, not every chunk's"
+              f" {hashed}")
+        res.update(files=n_files, file_bytes=CLI_SMALL, threads=CLI_THREADS,
+                   small_s=small_s, files_per_s=n_files / small_s,
+                   **{f"put_{k}": v for k, v in _pcts(small_lat).items()},
+                   large_files=CLI_LARGE_FILES, large_bytes=CLI_LARGE, large_s=large_s,
+                   large_gbps=CLI_LARGE_FILES * CLI_LARGE / large_s / 1e9,
+                   get_s=get_s, hash_batches=int(h1[0] - h0[0]),
+                   hashed_bytes=int(h1[1] - h0[1]),
+                   # each batch's mean time inside A, 4 KiB files then 4 MiB ones
+                   hash_batches_small=int(h_mid[0] - h0[0]),
+                   batch_hash_mean_ms_small=(h_mid[2] - h0[2]) / max(h_mid[0] - h0[0], 1) * 1e3,
+                   batch_hash_buckets_small={le: int(v - h0[3].get(le, 0.0))
+                                             for le, v in h_mid[3].items()},
+                   hash_batches_large=int(h1[0] - h_mid[0]),
+                   batch_hash_mean_ms_large=(h1[2] - h_mid[2]) / max(h1[0] - h_mid[0], 1) * 1e3)
+
+        # (c) upload, then download, each its own process
+        src = os.path.join(root, "upload.bin")
+        with open(src, "wb") as f:
+            f.write(np.random.default_rng([seed, 63]).bytes(upload_bytes))
+        out, up_wall = cli_verb("upload", ["upload", "-master", master, src])
+        (rec,) = json.loads(out)
+        check(rec["size"] == upload_bytes, f"upload: {rec}")
+        dl = os.path.join(root, "dl")
+        os.makedirs(dl)
+        out, down_wall = cli_verb("download", ["download", "-master", master, "-dir", dl,
+                                               rec["fid"]])
+        check(same_file(src, os.path.join(dl, rec["fid"].replace(",", "_"))),
+              "the downloaded file differs from the uploaded one")
+        res.update(upload_bytes=upload_bytes, upload_wall_s=up_wall,
+                   upload_gbps=upload_bytes / up_wall / 1e9, download_wall_s=down_wall,
+                   download_gbps=upload_bytes / down_wall / 1e9)
+
+        # (d) one volume of 1 MiB needles on B, ec.encode through the shell verb
+        Client(vol_b).json("/admin/allocate_volume", {"volume": CLI_EC_VID})
+        n = max(1, ec_bytes // CLI_EC_NEEDLE)
+        pool = memoryview(np.random.default_rng([seed, 64]).bytes(n * CLI_EC_NEEDLE))
+        cookie = 0x0C11C0DE
+        fids = [f"{CLI_EC_VID},{i + 1:x}{cookie:08x}" for i in range(n)]
+
+        def post(t: int) -> None:
+            c = Client(vol_b)
+            try:
+                for i in range(t, n, CLI_EC_WRITERS):
+                    status, body = c.request(
+                        "POST", f"/{fids[i]}",
+                        pool[i * CLI_EC_NEEDLE : (i + 1) * CLI_EC_NEEDLE], OCTET)
+                    if status != 201:
+                        errors.append(f"POST {fids[i]} -> {status}: {body[:200]!r}")
+                        return
+            except BaseException as e:
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        ingest_s = run_threads(post, CLI_EC_WRITERS)
+        check(not errors, f"cli EC ingest: {errors[:3]}")
+        def encodes() -> tuple:
+            """B's encodes so far: (count, seconds)."""
+            text = scrape(vol_b)
+            return tuple(metric_value(text, f"SeaweedFS_volume_ec_encode_seconds_{fam}",
+                                      kernel=ec_label) for fam in ("count", "sum"))
+
+        e0, t_enc = encodes(), time.time()
+        out, encode_wall = cli_verb("shell", [
+            "shell", "-master", master, f"lock; ec.encode -volumeId {CLI_EC_VID}; unlock"])
+        check("shards spread" in out, f"ec.encode: {out[-500:]}")
+        e1 = encodes()
+        check(e1[0] - e0[0] == 1, f"B's {ec_label} encodes went {e0} -> {e1}, not up by one")
+        # the verb's wall split: the admin routes it drove, by process and
+        # route; the rest is the shell's own process (its interpreter and
+        # imports, torch among them) and its lookups
+        split = collections.Counter()
+        for who, url in (("A", master), ("B", vol_b)):
+            for tr in get_json(f"{url}/debug/traces?limit=200&min_ms=1")["traces"]:
+                ids = {sp["span_id"] for sp in tr["spans"]}
+                for sp in tr["spans"]:  # the process's outermost spans
+                    if sp["start"] >= t_enc and sp["parent_id"] not in ids \
+                            and " /admin/" in sp["name"]:
+                        split[f"{who} {sp['name']}"] += sp["duration_ms"]
+        pick = np.random.default_rng([seed, 65]).choice(n, size=min(CLI_EC_GETS, n),
+                                                        replace=False)
+        c = Client(vol_b)
+        ec_lat = []
+        try:
+            for i in pick:
+                t0 = time.perf_counter()
+                status, got = c.request("GET", f"/{fids[i]}")
+                ec_lat.append(time.perf_counter() - t0)
+                check(status == 200 and got == pool[i * CLI_EC_NEEDLE : (i + 1) * CLI_EC_NEEDLE],
+                      f"GET {fids[i]} from B after the encode -> {status}")
+        finally:
+            c.close()
+        res.update(ec_volume=CLI_EC_VID, ec_needles=n, ec_ingest_s=ingest_s,
+                   ec_ingest_gbps=n * CLI_EC_NEEDLE / ingest_s / 1e9, ec_encode_wall_s=encode_wall,
+                   ec_encode_in_b_s=e1[1] - e0[1],
+                   ec_encode_admin_ms={k: round(v, 1) for k, v in split.most_common()},
+                   ec_encode_shell_s=encode_wall - sum(split.values()) / 1e3,
+                   ec_encode_out=out.strip().splitlines()[-3:], ec_gets=len(ec_lat),
+                   **{f"ec_get_{k}": v for k, v in _pcts(ec_lat).items()})
+
+        # (e) SIGTERM: B first, then A
+        res["exit_s"] = {"B": b.terminate(), "A": a.terminate()}
+    finally:
+        for ch in children:
+            ch.close()
+        shutil.rmtree(root, ignore_errors=True)
+    libs_after = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("lib*.so")}
+    check(libs_after == libs_before, "a child compiled a kernel library")
+    wall = time.perf_counter() - t_phase
+    res.update(children_built_nothing=True,
+               child_kernels={"md5_batch": res["hash_batches"],
+                              "crc32c_batch": res["hash_batches"],
+                              "gf256_matmul_encodes": 1,
+                              "how": "A's batch-cuda hash batches (one md5_batch and one"
+                                     " crc32c_batch launch each) and B's ec.encode count,"
+                                     " read off the children's /metrics"},
+               logs=str(CLI_OUT.relative_to(REPO)), wall_s=wall, wall_limit_s=CLI_WALL_LIMIT_S,
+               over_wall_limit=wall > CLI_WALL_LIMIT_S, cuts=CLI_CUTS)
+    return res
+
+
 HASH_WRAPPERS = {
     "crc32c_batch": crc32c_batch_kernel,
     "md5_batch": md5_batch_kernel,
@@ -7286,8 +7643,8 @@ def main() -> int:
     ap.add_argument("--cdc-uploads", type=int, default=32)
     ap.add_argument("--stream-mib", type=int, default=1024)
     ap.add_argument("--dedup-gib", type=int, default=2)
-    ap.add_argument("--online-mib", type=int, default=1024)
-    ap.add_argument("--cluster-mib", type=int, default=1024)
+    ap.add_argument("--online-mib", type=int, default=512)
+    ap.add_argument("--cluster-mib", type=int, default=512)
     ap.add_argument("--mesh-volumes", type=int, default=32)
     ap.add_argument("--mesh-mib", type=int, default=4)
     ap.add_argument("--filer-files", type=int, default=2048)
@@ -7319,6 +7676,10 @@ def main() -> int:
     ap.add_argument("--qt-files", type=int, default=512)
     ap.add_argument("--qt-large", type=int, default=8)
     ap.add_argument("--qt-flood-s", type=float, default=8.0)
+    ap.add_argument("--cli-files", type=int, default=1024)
+    ap.add_argument("--cli-bench-n", type=int, default=4096)
+    ap.add_argument("--cli-upload-mib", type=int, default=64)
+    ap.add_argument("--cli-ec-mib", type=int, default=256)
     ap.add_argument("--offset5-child", metavar="DIR",
                     help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
@@ -7525,6 +7886,12 @@ def main() -> int:
         check(qt["launches"][name] > 0, f"the qos_telemetry phase launched no {name} kernel")
     for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
         launches[name] += qt["launches"][name]
+
+    # the CLI: each role in a process of its own on the card; the kernels run
+    # in the children, whose /metrics show it (no launch here to count)
+    cl = cli_phase(dev, args.cli_files, args.cli_bench_n, args.cli_upload_mib * MIB,
+                   args.cli_ec_mib * MIB, args.seed)
+    emit("cli", nvidia_smi=nvidia_smi(), **cl)
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

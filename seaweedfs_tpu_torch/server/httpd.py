@@ -331,6 +331,9 @@ class HTTPService:
                 try:
                     resp = fn(req)
                 except Exception as e:  # uniform JSON error surface
+                    from ..util.sentry import capture_exception
+
+                    capture_exception(e, path=path, method=handler.command)
                     resp = Response({"error": str(e)}, status=500)
                 break
             else:

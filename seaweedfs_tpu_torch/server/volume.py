@@ -93,6 +93,7 @@ range fails the copy).
 from __future__ import annotations
 
 import json
+import logging
 import os
 import queue
 import re
@@ -132,6 +133,8 @@ from ..util import faults
 from ..util.compression import decompress_data
 from ..util.retry import READ_POLICY
 from .httpd import HTTPService, Request, Response, get_json, http_request, peer_url
+
+log = logging.getLogger(__name__)
 
 FID_RE = r"/(\d+),([0-9a-fA-F_]+)(?:\.[^/]*)?"
 _SAFE_EXT_RE = re.compile(r"\.(dat|idx|vif|ecx|ecj|ec\d\d)")
@@ -191,6 +194,7 @@ class VolumeServer:
         slow_ms: float | None = None,
         telemetry_dir: str | None = None,
         telemetry_retention_mb: float | None = None,
+        local_socket: str | None = None,
     ) -> None:
         self.device = resolve_device(device)
         faults.opt_in(faults_spec)  # the -faults flag
@@ -251,10 +255,13 @@ class VolumeServer:
         self.scrub_rate_mb = float(scrub_rate_mb)
         self._scrub_thread: threading.Thread | None = None
         self._leaving = False  # volume.server.leave: up, but no heartbeats
+        self.local_socket = local_socket  # same-host unix listener
         self._routes()
 
     def start(self) -> None:
         self.service.start()
+        if self.local_socket:
+            self.service.enable_unix_socket(self.local_socket)
         self.store = Store(
             self._dirs,
             ip=self._host,
@@ -348,7 +355,10 @@ class VolumeServer:
                 self._teardown_stream(st)
             if self._leaving:
                 continue  # volume.server.leave: stay up, stop heartbeating
-            self.heartbeat_once()
+            try:
+                self.heartbeat_once()
+            except Exception:  # one lost beat; the pulse must keep beating
+                log.warning("volume %s: heartbeat failed", self.node_id, exc_info=True)
 
     def _scrub_loop(self) -> None:
         while not self._stop.wait(self.scrub_interval):

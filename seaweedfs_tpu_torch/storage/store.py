@@ -345,11 +345,14 @@ class Store:
 
     # --- heartbeat ------------------------------------------------------------
     def collect_heartbeat(self) -> dict:
-        """Message shape mirrors master_pb.Heartbeat (`store.go:249`)."""
+        """Message shape mirrors master_pb.Heartbeat (`store.go:249`). It
+        walks snapshots of each location's volume maps: a handler that adds
+        or drops a volume while the pulse collects must not end the beat
+        (iterating the live dict raised "dictionary changed size")."""
         volumes = []
         max_file_key = 0
         for loc in self.locations:
-            for v in loc.volumes.values():
+            for v in list(loc.volumes.values()):
                 max_file_key = max(max_file_key, v.max_needle_id())
                 volumes.append(
                     {
@@ -387,7 +390,7 @@ class Store:
                 )
         ec_shards = []
         for loc in self.locations:
-            for ev in loc.ec_volumes.values():
+            for ev in list(loc.ec_volumes.values()):
                 ec_shards.append(
                     {
                         "id": ev.volume_id,

@@ -24,6 +24,8 @@ from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from seaweedfs_tpu_torch.shell import CommandEnv, ShellError, run_command
 from seaweedfs_tpu_torch.stats import aggregate as agg_mod
+from seaweedfs_tpu_torch.stats import alerts as alerts_mod
+from seaweedfs_tpu_torch.stats import history as history_mod
 from seaweedfs_tpu_torch.stats import usage as usage_mod
 from seaweedfs_tpu_torch.stats.history import MetricsHistory
 from seaweedfs_tpu_torch.stats.metrics import Registry
@@ -402,6 +404,12 @@ def cluster(tmp_path, monkeypatch):
     # don't merge into (and outrank) this cluster's telemetry
     monkeypatch.setattr(usage_mod, "_accountant",
                         usage_mod.UsageAccountant())
+    # the process's history ring and alert state start with this cluster,
+    # as chip_smoke.py's observe phase starts them: 5xx that an earlier
+    # file in this process served inside the fast window would otherwise
+    # fire the master's own slo_burn_fast (and ride its frames)
+    history_mod.default_history().clear()
+    alerts_mod.engine().evaluate()
     master = MasterServer(port=0, pulse_seconds=1, volume_size_limit_mb=64)
     master.start()
     vs = VolumeServer([str(tmp_path / "v0")], master.url, port=0,
@@ -505,8 +513,6 @@ import seaweedfs_tpu.stats.alerts as ref_alerts  # noqa: E402
 import seaweedfs_tpu.stats.metrics as ref_metrics  # noqa: E402
 import seaweedfs_tpu.stats.usage as ref_usage  # noqa: E402
 
-from seaweedfs_tpu_torch.stats import alerts as alerts_mod  # noqa: E402
-from seaweedfs_tpu_torch.stats import history as history_mod  # noqa: E402
 from seaweedfs_tpu_torch.stats import metrics as metrics_mod  # noqa: E402
 
 SEED = 20261018

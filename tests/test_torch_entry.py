@@ -19,7 +19,7 @@ from tests._threads import stop_history_loops  # noqa: F401
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "seaweedfs_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "kernel_turns.py", REPO / "s3_stall_probe.py",
-    REPO / "metering_cost.py", REPO / "gc_pauses.py"]
+    REPO / "metering_cost.py", REPO / "gc_pauses.py", REPO / "depth_turns.py"]
 
 
 def test_entry_equals_reference():
@@ -395,6 +395,51 @@ def test_telemetry_slice_modules_import_alone():
     code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
             "from seaweedfs_tpu_torch.stats import store; "
             "assert store.crc_mod.__name__ == 'seaweedfs_tpu_torch.storage.crc'; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'seaweedfs_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+NEW_IN_CLI_SLICE = [
+    "seaweedfs_tpu_torch/command/main.py",
+    "seaweedfs_tpu_torch/command/server_cmds.py",
+    "seaweedfs_tpu_torch/command/benchmark.py",
+    "seaweedfs_tpu_torch/command/upload.py",
+    "seaweedfs_tpu_torch/command/scaffold.py",
+    "seaweedfs_tpu_torch/command/version.py",
+    "seaweedfs_tpu_torch/util/config.py",
+    "seaweedfs_tpu_torch/util/grace.py",
+    "seaweedfs_tpu_torch/util/sentry.py",
+]
+
+
+@pytest.mark.parametrize("rel", NEW_IN_CLI_SLICE)
+def test_cli_slice_modules_are_scanned(rel):
+    """Each module of the CLI slice is in the import scan above and imports
+    here."""
+    import importlib
+
+    assert REPO / rel in PORT_FILES
+    assert not [n for n in _imports(REPO / rel)
+                if n.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu")]
+    importlib.import_module(rel[:-3].replace("/", ".").removesuffix(".__init__"))
+
+
+def test_cli_verbs_import_alone():
+    """Every module a verb of the port's `main.COMMANDS` names, with the
+    CLI slice's own, imports with neither `jax` nor `seaweedfs_tpu` loaded
+    by it."""
+    import subprocess
+    import sys
+
+    from seaweedfs_tpu_torch.command.main import COMMANDS
+
+    mods = sorted({m for m, _, _ in COMMANDS.values()} | {
+        rel[:-3].replace("/", ".") for rel in NEW_IN_CLI_SLICE})
+    assert all(m.startswith("seaweedfs_tpu_torch.") for m in mods)
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'seaweedfs_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

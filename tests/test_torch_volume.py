@@ -528,3 +528,63 @@ def test_no_cuda_raises_and_writes_no_shard(tmp_path, monkeypatch):
     finally:
         v.close()
     assert sorted(os.listdir(tmp_path)) == ["1.dat", "1.idx"]
+
+
+# --- the heartbeat while volumes come and go ------------------------------------
+def _grow_during_collect(store, loc, vid: int, make) -> None:
+    """Make the first volume's size() add volume `vid` to `loc`, as a
+    handler thread's allocation landing mid-collect does."""
+    first = next(iter(loc.volumes.values()))
+    real = first.size
+
+    def size():
+        if vid not in loc.volumes:
+            loc.volumes[vid] = make(vid)
+        return real()
+
+    first.size = size
+
+
+def test_heartbeat_collects_while_a_volume_is_added(tmp_path):
+    """A volume allocated while the pulse collects its beat: the port's
+    Store walks snapshots and reports the volumes it saw; the JAX Store
+    iterates the live dict and raises (a shared fault, which ended the
+    port's pulse thread on the card: ROADMAP Queue 3)."""
+    port = Store([str(tmp_path / "port")], device="cpu")
+    ref = RefStore([str(tmp_path / "ref")])
+    for store in (port, ref):
+        store.add_volume(1)
+    try:
+        _grow_during_collect(port, port.locations[0], 2,
+                             lambda vid: Volume(str(tmp_path / "port"), "", vid))
+        _grow_during_collect(ref, ref.locations[0], 2,
+                             lambda vid: RefVolume(str(tmp_path / "ref"), "", vid))
+        hb = port.collect_heartbeat()
+        assert [v["id"] for v in hb["volumes"]] == [1]
+        assert [v["id"] for v in port.collect_heartbeat()["volumes"]] == [1, 2]
+        with pytest.raises(RuntimeError, match="dictionary changed size"):
+            ref.collect_heartbeat()
+    finally:
+        port.close()
+        ref.close()
+
+
+def test_pulse_survives_a_failed_heartbeat(tmp_path, monkeypatch):
+    """One beat that raises costs one beat: the pulse thread keeps beating."""
+    vs = VolumeServer([str(tmp_path / "v")], port=0, pulse_seconds=0.05, device="cpu")
+    beats = []
+
+    def beat():
+        beats.append(time.monotonic())
+        if len(beats) == 1:
+            raise RuntimeError("dictionary changed size during iteration")
+
+    vs.start()
+    try:
+        monkeypatch.setattr(vs, "heartbeat_once", beat)
+        deadline = time.monotonic() + 10
+        while len(beats) < 3 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert len(beats) >= 3 and vs._pulse.is_alive()
+    finally:
+        vs.stop()
