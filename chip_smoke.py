@@ -16,6 +16,8 @@
                           [--obs-large N] [--obs-ec-mib MIB] [--qt-files N]
                           [--qt-large N] [--qt-flood-s S] [--cli-files N]
                           [--cli-bench-n N] [--cli-upload-mib MIB] [--cli-ec-mib MIB]
+                          [--fl-files N] [--fl-assign-files N] [--fl-python-files N]
+                          [--fl-online-mib MIB]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -60,7 +62,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               the full chunks on the card through both kernels, CRC equal to
               its plain version, MD5 to hashlib
   7. cdc      find_boundaries at the filer's dedup settings over
-              --cdc-uploads (32) seeded 64 MiB uploads, and chunk_stream at
+              --cdc-uploads (16) seeded 64 MiB uploads, and chunk_stream at
               its defaults over --stream-mib (1 GiB); cuts equal the plain
               version's on the card, the first upload's the numpy oracle's
   8. dedup    the filer's CDC dedup write path (BASELINE config 4):
@@ -252,7 +254,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               volume servers and a FilerServer (4 MiB chunks, a local socket under
               build/) on the card, a WebDavServer, an FtpServer and a WFS over the
               filer's unix socket through VirtualFuseKernel, one process. (a) WebDAV:
-              --gw-dav-files (256) files (log-uniform 1 KiB-8 MiB, about 0.23 GB) PUT
+              --gw-dav-files (128) files (log-uniform 1 KiB-8 MiB, about 0.12 GB) PUT
               from 8 keep-alive clients into 8 collections, PROPFIND Depth 1 listing
               each with its size and a getetag equal to hashlib's MD5, every GET
               equal, COPY then MOVE of a collection, a LOCK enforced (423 without the
@@ -263,7 +265,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               1 MiB overwritten across the middle chunk edge, --gw-small-files (256)
               files of 4 KiB, READDIR, a directory rename, an HTTP write seen through
               the meta cache, `mount.configure -quotaMB 1` then ENOSPC; (d) remote:
-              --gw-remote-mib (256) MiB of objects (log-uniform 1 KiB-4 MiB) in two
+              --gw-remote-mib (128) MiB of objects (log-uniform 1 KiB-4 MiB) in two
               buckets of a local remote, `remote.configure`, `remote.mount.buckets`
               (stubs, no chunks), 64 read-through GETs, `remote.cache` (every md5
               hashlib's), `remote.uncache` then a GET, 16 new objects through
@@ -287,7 +289,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               (b) filer.replicate -once -sink.local over the spool and
               filer.backup -once of A, each equal to A's /sync by SHA-256.
               (c) two BrokerServers over A's filer, topic of 4 partitions at
-              replication 1, 4 Publishers sending --mq-messages (4,096) keyed 1
+              replication 1, 4 Publishers sending --mq-messages (2,048) keyed 1
               KiB messages while a group of 2 Consumers polls and commits; the
               second broker crashed halfway with no flush, the ring healed; no
               acked message lost, every value its key's, offsets in order a
@@ -337,8 +339,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               warm-up capture). Checks: SeaweedFS_filer_hash_seconds
               {kernel="batch-cuda"} grew by the hash service's batches; the EC
               encode and decode histograms by one each; the last PUT's
-              X-Sw-Trace-Id is a cluster.trace tree of the filer, master and
-              volume roles; cluster.why <vid> lists OBS_WHY_EVENTS;
+              X-Sw-Trace-Id is a cluster.trace tree of the filer, master
+              (its assign profiles cleared first: an engine-minted fid has no
+              span) and volume (the drain's fastlane.append) roles; cluster.why
+              <vid> lists OBS_WHY_EVENTS (and at most the heat engine's edges
+              beside them);
               cluster.check lists every node healthy before the loss and
               cluster.top -once has a row a role; the device trace is a gzip
               of a Chrome trace holding CUDA kernel events of the port's
@@ -361,7 +366,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               -limit 'abuser=5:10' live and 3 s more of flood; (d) one filer
               stopped, the spool closed and read post-mortem by cluster.top
               -once -spool and cluster.why abuser -spool; (e) cluster.heat -n 8
-              and cluster.qos. Checks: no victim request shed; the abuser
+              and cluster.qos. Checks: no victim request shed; a heat rate of
+              the master's rollup above 0 (the volume engines' op counters); the abuser
               refused only with typed 429/503 (S3 SlowDown/ServiceUnavailable)
               and admitted at most rate x (T + queue_wait) + burst a stage;
               the master's /debug/cluster/telemetry holds every sender (two
@@ -390,7 +396,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               compiles a kernel. Each child's start seconds, the report,
               files/s and PUT p50/p99, 4 MiB GB/s, upload and download GB/s,
               the `ec.encode` wall, the exit seconds, the wall (limit 60 s)
- 24. entry    entry() on the card equal to the CPU codec
+ 24. fastlane the native fastlane engine (csrc/fastlane.cpp) in front of a
+              master and a volume server on the card, as every earlier
+              phase's masters and volume servers run too: BASELINE config 3
+              (1 KiB files at -c 16) through the native loadgen, --fl-files
+              (32,768) written and read back shuffled, --fl-assign-files
+              (8,192) through per-file native assigns, and --fl-python-files
+              (4,096) through a master and volume server started with
+              SEAWEEDFS_TPU_DISABLE_FASTLANE=1 (the Python path); then
+              --fl-online-mib (128) MiB of 1 MiB needles appended natively to
+              an ecOnline volume, every parity row against the plain version
+              and gf256_matmul launched; the heat rollup above 0 off the
+              beats' native op counters. Fails on an error or a short run, a
+              sampled read not equal, a native share under 99 %, a repeated
+              fid, no launch or a heat rate of 0. Req/s of every run, the
+              engine's p50/p99, the native share, online GB/s, the wall
+              (limit 30 s)
+ 25. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -1829,7 +1851,9 @@ def online_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
     """The volume server's online-EC path on the card: a port VolumeServer
     (no master) allocates one ecOnline volume at the default 1 MiB block;
     4 client threads POST `nbytes` of seeded needles, each write pumping
-    the stripe writer (parity through gf256_matmul); a seeded sample reads
+    the stripe writer (parity through gf256_matmul; behind the fastlane
+    engine, from its drain loop, which must cover every full row); a
+    seeded sample reads
     back equal; the open shards served over /admin/ec/shard equal the files,
     and every parity row on disk equals the plain version run on the card
     over the same .dat rows; /admin/ec/generate seals without re-encoding
@@ -1880,7 +1904,15 @@ def online_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
         check(not errors, f"ingest: {errors[:3]}")
         check(w.active, f"the writer degraded during ingest ({w.fallback_reason})")
         dat_size = v.size()
-        # the pulse flushes the aged tail row (trickle_flush); nothing after
+        # the engine acks a native append before its row is encoded: the
+        # drain loop pumps every full row, then flushes the aged tail row
+        # (trickle_flush); nothing after
+        full = dat_size // w.stripe * w.stripe
+        deadline = time.monotonic() + 60
+        while w.watermark < full and time.monotonic() < deadline:
+            time.sleep(0.005)
+        encode_lag_s = time.perf_counter() - t0 - ingest_s
+        check(w.watermark >= full, f"the drain loop encoded {w.watermark} of {full} bytes")
         time.sleep(2.0 + 2 * PULSE_S)
         stats = dict(w.stats())
         check(w._partial == dat_size % w.stripe and w.watermark + w._partial == dat_size,
@@ -1967,7 +1999,7 @@ def online_phase(dev: torch.device, nbytes: int, seed: int) -> dict:
         lat_ms = np.array(lat) * 1e3
         res = dict(
             needles=len(plan), payload_bytes=nbytes, dat_bytes=dat_size, threads=ONLINE_THREADS,
-            ingest_s=ingest_s, ingest_gbps=nbytes / ingest_s / 1e9,
+            ingest_s=ingest_s, ingest_gbps=nbytes / ingest_s / 1e9, encode_lag_s=encode_lag_s,
             ec_online_encode_gbps=final["encoded_bytes"] / final["encode_seconds"] / 1e9,
             encoded_bytes=final["encoded_bytes"], encode_seconds=final["encode_seconds"],
             write_amplification=(dat_size + final["parity_bytes"]) / dat_size,
@@ -4760,9 +4792,10 @@ DAV_NS = {"D": "DAV:"}
 LOCK_INFO = (b'<?xml version="1.0"?><D:lockinfo xmlns:D="DAV:"><D:lockscope><D:exclusive/>'
              b"</D:lockscope><D:locktype><D:write/></D:locktype></D:lockinfo>")
 GW_WALL_LIMIT_S = 150
-GW_CUTS = ("(a) --gw-dav-files (256) files, about 0.23 GB, and (d) --gw-remote-mib (256) MiB of"
-           " remote objects (512 each until the sync_mq phase took room), a quarter of 1,024"
-           " and of 1 GiB; at half of each the phase took 117.5 s and the run"
+GW_CUTS = ("(a) --gw-dav-files (128) files, about 0.12 GB, and (d) --gw-remote-mib (128) MiB of"
+           " remote objects (512 each until the sync_mq phase took room, 256 until the"
+           " fastlane phase did), an eighth of 1,024 and of 1 GiB; at 512 each the phase"
+           " took 117.5 s and the run"
            " 922 s on an H100 80GB HBM3 at 700 W, past the run's 900 s (WebDAV PUTs and"
            " remote.cache wait on one serial md5_batch chain a chunk, each of its own length)",
            "(b) --gw-ftp-files (256) files of 1 MiB and one of --gw-ftp-large-mib (256) MiB",
@@ -5312,9 +5345,9 @@ SYNC_MQ_WALL_LIMIT_S = 150
 SYNC_MQ_CUTS = ("(a) --sync-files (128) files a side, log-uniform 1 KiB-8 MiB (about 0.22 GiB in"
                 " all; 256 until the secure_ha phase took room in the run), of the compose"
                 " deployments' unbounded trees",
-                "(c) --mq-messages (4,096) of 1 KiB over 4 partitions, 8 segments of 512: a"
-                " quarter of 16,384, at which the phase took 165 s of its 150 on an H100 80GB"
-                " HBM3 at 700 W (178 msgs/s: every publish a few Python HTTP hops in one"
+                "(c) --mq-messages (2,048) of 1 KiB over 4 partitions, 4 segments of 512 (4,096"
+                " until the fastlane phase took room in the run): an eighth of 16,384, at which"
+                " the phase took 165 s of its 150 on an H100 80GB HBM3 at 700 W (178 msgs/s: every publish a few Python HTTP hops in one"
                 " process); 8,192 until the secure_ha phase took room in the run",
                 "both clusters, the syncers, both brokers and every client share one process"
                 " and one GIL")
@@ -6593,6 +6626,10 @@ OBS_PROFILE_S = 1.0  # cluster.profile's window
 # -mode classic), as tests/test_torch_observe.py establishes on the CPU for
 # both packages
 OBS_WHY_EVENTS = ("degraded_read", "remount_swap", "volume_state")
+# the heat engine's edges, which the volume engine's per-volume op counters
+# set off when a history scrape lands in the native write burst: allowed,
+# not required
+OBS_WHY_HEAT = ("heat_promoted", "heat_demoted")
 OBS_ROLES = ("filer", "master", "volume")
 OBS_KERNEL_NAMES = ("gf256_matmul", "md5_batch", "crc32c_batch", "gear_hash")
 OBS_WALL_LIMIT_S = 45
@@ -6722,8 +6759,10 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
     grew by its hash service's batches over (a); (2) the EC encode and
     decode histograms grew by the one encode and the one rebuild of (b);
     (3) the last PUT's X-Sw-Trace-Id names a `cluster.trace` tree with the
-    filer, master and volume roles; (4) `cluster.why <vid>` lists
-    OBS_WHY_EVENTS; (5) `cluster.check` lists every node healthy before the
+    filer, master and volume roles (the master's assign profiles cleared
+    first, so its Python handler answers; the volume's span synthesized by
+    the fastlane drain); (4) `cluster.why <vid>` lists
+    OBS_WHY_EVENTS, and beside them at most OBS_WHY_HEAT; (5) `cluster.check` lists every node healthy before the
     loss and `cluster.top -once` has a row for every role; (6) the device
     trace is a gzip of a Chrome trace with CUDA kernel events of the port's
     kernels, and `cluster.profile` returns stacks; (7) every role's
@@ -6834,7 +6873,12 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
         large_s = run_threads(put_large, OBS_THREADS)
         th.join()
         check(not errors, f"observe large PUTs: {errors[:3]}")
-        # the marker PUT: its trace id, for cluster.trace
+        # the marker PUT: its trace id, for cluster.trace. The master's engine
+        # answers an assign it holds a profile for with no span, as in the
+        # JAX package: clear its profiles, so the Python handler answers the
+        # marker's assign and joins the trace; the volume's span is the one
+        # the drain synthesizes from the engine's append (fastlane.append)
+        master.fastlane.assign_clear()
         c = Client(filer.url)
         try:
             c.conn.request("PUT", "/obs/marker", b"m" * OBS_SMALL, OCTET)
@@ -6881,8 +6925,9 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
               f"ec histograms grew by {e1 - e0:g} encodes and {d1 - d0:g} decodes, not 1 and 1")
         # 4. the journal's story of the volume
         why = run_command(env, f"cluster.why {OBS_EC_VID}")
-        check(why_event_types(why) == sorted(OBS_WHY_EVENTS),
-              f"cluster.why {OBS_EC_VID} lists {why_event_types(why)}: {why[:2000]}")
+        types = set(why_event_types(why))
+        check(set(OBS_WHY_EVENTS) <= types <= set(OBS_WHY_EVENTS + OBS_WHY_HEAT),
+              f"cluster.why {OBS_EC_VID} lists {sorted(types)}: {why[:2000]}")
         # 5b. a row for every role
         top = run_command(env, "cluster.top -once")
         rows = {ln.split()[0] for ln in top.splitlines()[2:] if ln and not ln.startswith(" ")}
@@ -6990,7 +7035,8 @@ def qos_telemetry_phase(dev: torch.device, n_files: int, n_large: int, flood_s: 
     through S3; (c) `cluster.qos -limit QT_LIVE_LIMIT` live, then QT_AFTER_S
     s more of flood; (d) one filer stopped and the process's spool closed,
     then `cluster.top -once -spool` and `cluster.why -spool abuser` read it
-    post-mortem; (e) `cluster.heat -n 8` and `cluster.qos` rendered.
+    post-mortem; (e) `cluster.heat -n 8` and `cluster.qos` rendered, and a
+    collection's rate in the master's heat rollup above 0.
     Checks: no victim request shed; the abuser refused only with typed
     sheds, admitted at most rate x (T + queue_wait) + burst in each stage
     (the bucket may run queue_wait into deficit, and a changed limit
@@ -7231,6 +7277,12 @@ def qos_telemetry_phase(dev: torch.device, n_files: int, n_large: int, flood_s: 
         # (e) the operator's views
         heat = run_command(env, "cluster.heat -n 8")
         check("abuser" in heat and "victim" in heat, f"cluster.heat -n 8: {heat}")
+        # the master's rollup, fed by the volume engines' per-volume op counters
+        scores = {lb.get("collection"): v for n, lb, v in parse_exposition(scrape(master.url))
+                  if n == "SeaweedFS_heat_collection_score"}
+        check(any(v > 0 for v in scores.values()),
+              f"the master's heat rollup reads 0 for every collection: {scores}")
+        res["heat_collection_scores"] = scores
         qos_show = run_command(env, f"cluster.qos -include {s3.url}")
         live = f"abuser={QT_LIVE[0]:g}:{QT_LIVE[1]:g}"
         check("armed" in qos_show and live in qos_show and "shed:" in qos_show,
@@ -7625,6 +7677,277 @@ KERNEL_ROWS = {  # name -> (source, the JAX device function it replaces, what it
 }
 
 
+FL_FILE = 1024  # BASELINE config 3: `weed benchmark`'s 1 KiB files
+FL_CONNS = 16  # ... at its -c 16
+FL_BODIES = 8  # seeded bodies, one loadgen run each over an eighth of the fids
+FL_SAMPLE = 1024  # needles read back through a Python client and compared
+FL_MINTED = 1024  # /dir/assign answers checked for unique fids
+FL_ONLINE_VID = 901
+FL_COLLECTION = "fl"
+FL_WALL_LIMIT_S = 30.0
+FL_CUTS = ("--fl-files (32,768) of `weed benchmark`'s default -n 1,048,576 1 KiB files, with"
+           " --fl-assign-files (8,192) and --fl-python-files (4,096): at 131,072, 32,768 and"
+           " 16,384 the phase took 85.3 s of its 30 at the script's end on an H100 80GB HBM3"
+           " at 700 W (the engine 6,029 writes/s and 8,297 reads/s, the Python path 880 and"
+           " 1,095)",
+           "--fl-online-mib (128) MiB of 1 MiB needles in one ecOnline volume",
+           "the master, the volume server, the loadgen's thread and the drain loop share one"
+           " process with every earlier phase's leftovers")
+
+
+@contextlib.contextmanager
+def fastlane_off():
+    """SEAWEEDFS_TPU_DISABLE_FASTLANE=1 while servers start: the Python path."""
+    old = os.environ.get("SEAWEEDFS_TPU_DISABLE_FASTLANE")
+    os.environ["SEAWEEDFS_TPU_DISABLE_FASTLANE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("SEAWEEDFS_TPU_DISABLE_FASTLANE")
+        else:
+            os.environ["SEAWEEDFS_TPU_DISABLE_FASTLANE"] = old
+
+
+def op_quantiles(before: dict, after: dict, op: str) -> dict:
+    """p50 and p99 of one op over a window, from the engine's own latency
+    histogram (sw_fl_get_metrics): the upper bound, in ms, of the bucket in
+    which each quantile falls (None past the last finite bound)."""
+    bounds = after["bounds_s"]
+    counts = [a - b for a, b in zip(after["ops"][op]["buckets"], before["ops"][op]["buckets"])]
+    total = sum(counts)
+    out = {"count": total}
+    for name, q in (("p50_le_ms", 0.5), ("p99_le_ms", 0.99)):
+        cum, out[name] = 0, None
+        for i, c in enumerate(counts):
+            cum += c
+            if total and cum >= q * total:
+                out[name] = bounds[i] * 1e3 if i < len(bounds) else None
+                break
+    return out
+
+
+def fl_served(text: str) -> tuple[float, float]:
+    """(requests the volume engine served natively, requests it proxied)."""
+    return (metric_value(text, "SeaweedFS_volume_fastlane_requests_total"),
+            metric_value(text, "SeaweedFS_volume_fastlane_proxied_total"))
+
+
+def loadgen_files(port: int, paths: list, bodies: list, errors: list) -> dict:
+    """POST `paths` through the native loadgen, the i-th eighth with bodies[i];
+    GET them back in a seeded shuffled order. {write, read}: ok, errors,
+    seconds and req/s of each run."""
+    out = {}
+    parts = np.array_split(np.arange(len(paths)), len(bodies))
+    runs = [native.loadgen("127.0.0.1", port, FL_CONNS, "POST", [paths[i] for i in part],
+                           body) for part, body in zip(parts, bodies)]
+    ok = sum(r["ok"] for r in runs)
+    secs = sum(r["seconds"] for r in runs)
+    out["write"] = dict(ok=ok, errors=sum(r["errors"] for r in runs), seconds=secs,
+                        req_per_sec=ok / secs)
+    order = np.random.default_rng(len(paths)).permutation(len(paths))
+    out["read"] = native.loadgen("127.0.0.1", port, FL_CONNS, "GET", [paths[i] for i in order])
+    for what, r in out.items():
+        if r["ok"] != len(paths) or r["errors"] or r.get("error"):
+            errors.append(f"{what}: {r}")
+    return out
+
+
+def fastlane_phase(dev: torch.device, n_files: int, n_assign_write: int, n_python: int,
+                   online_bytes: int, seed: int) -> dict:
+    """The native fastlane engine in front of the port's master and volume
+    server, as a deployment serves its data plane: a MasterServer (pulse 1 s)
+    and a VolumeServer on the card, one process, each behind its engine.
+    (a) BASELINE config 3 (`weed benchmark`: 1 KiB files at -c 16): one
+    `?count=` assign of `n_files` fids (collection fl), POSTed through the
+    native loadgen over 16 keep-alive connections (eight seeded bodies, one
+    an eighth of the fids), then read back through it in a shuffled order;
+    `n_assign_write` files through `loadgen_assign_write`, each paying a
+    native /dir/assign on the master's engine and a native POST; FL_MINTED
+    assigns from a Python client, the engine's profile cleared halfway, so
+    both engine- and Python-minted fids are among them. The same write and
+    read runs at `n_python` files through a second master and volume server
+    started with SEAWEEDFS_TPU_DISABLE_FASTLANE=1: the Python path on the
+    same card and host. (b) online EC through the engine: `online_bytes` of
+    1 MiB needles POSTed natively into one ecOnline volume (default 1 MiB
+    block); the drain loop pumps every full row through gf256_matmul, and
+    every parity row on disk equals the plain version over the same .dat
+    rows. (c) the heat rollup: the beats carry each volume's native
+    read_ops and write_ops, and the master's collection and node rates are
+    above 0. Checks: both servers fronted by an engine; zero errors and ok
+    equal to the count in every loadgen run; FL_SAMPLE seeded needles read
+    back equal through a Python client; at least 99 % of (a)'s volume
+    requests served natively (SeaweedFS_volume_fastlane_requests_total
+    against _proxied_total); unique fids over engine- and Python-minted
+    assigns; gf256_matmul launched in (b); a heat rate above 0. Req/s of
+    every run, the engine's per-op p50/p99 (its histogram's bucket bounds),
+    the native share, online ingest GB/s, the wall (limit 30 s)."""
+    t_phase = time.perf_counter()
+    (REPO / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke-fastlane-", dir=REPO / "build")
+    started = []
+    res = {}
+    errors: list = []
+    try:
+        master = MasterServer(port=0, pulse_seconds=PULSE_S)
+        master.start()
+        started.append(master)
+        vs = VolumeServer([os.path.join(root, "v")], master.url, pulse_seconds=PULSE_S,
+                          max_volume_count=64, device=dev)
+        vs.start()
+        started.append(vs)
+        check(master.fastlane is not None and vs.fastlane is not None,
+              "the fastlane engine does not front the master and the volume server")
+        check(vs.device.type == dev.type, "the fastlane phase's volume server is off the card")
+        rng = np.random.default_rng([seed, 70])
+        bodies = [rng.bytes(FL_FILE) for _ in range(FL_BODIES)]
+
+        # (a) per-file writes and reads through the engine
+        text0 = scrape(vs.service.url)
+        m0 = vs.fastlane.metrics()
+        a = get_json(f"{master.url}/dir/assign?count={n_files}&collection={FL_COLLECTION}")
+        check(a["count"] == n_files, f"assign count={n_files}: {a}")
+        paths = [f"/{a['fid']}"] + [f"/{a['fid']}_{i}" for i in range(1, n_files)]
+        runs = loadgen_files(vs.fastlane.port, paths, bodies, errors)
+        m1 = vs.fastlane.metrics()
+        aw = native.loadgen_assign_write("127.0.0.1", master.fastlane.port, FL_CONNS,
+                                         n_assign_write, bodies[0])
+        if aw["ok"] != n_assign_write or aw["errors"] or aw.get("error"):
+            errors.append(f"assign_write: {aw}")
+        check(not errors, f"engine loadgen runs: {errors}")
+        native_n, proxied_n = (x - y for x, y in zip(fl_served(scrape(vs.service.url)),
+                                                     fl_served(text0)))
+        native_ratio = native_n / max(1.0, native_n + proxied_n)
+        check(native_ratio >= 0.99, f"the engine served {native_ratio:.4f} of the volume "
+                                    f"requests ({native_n} native, {proxied_n} proxied)")
+        # each op's histogram counts that op alone
+        lat = {op: op_quantiles(m0, m1, op) for op in ("write", "read")}
+        # a seeded sample back through a Python client, byte for byte
+        parts = np.array_split(np.arange(n_files), FL_BODIES)
+        body_of = np.concatenate([np.full(len(p), i) for i, p in enumerate(parts)])
+        c = Client(vs.url)
+        try:
+            for i in rng.choice(n_files, size=min(FL_SAMPLE, n_files), replace=False):
+                status, out = c.request("GET", paths[i])
+                check(status == 200 and out == bodies[body_of[i]], f"GET {paths[i]}")
+        finally:
+            c.close()
+        # engine- and Python-minted fids: one set, no repeat
+        before_assigns = master.fastlane.stats()["native_assigns"]
+        minted = []
+        for i in range(FL_MINTED):
+            if i == FL_MINTED // 2:
+                master.fastlane.assign_clear()  # the next answer is Python's
+            minted.append(get_json(f"{master.url}/dir/assign")["fid"])
+        native_minted = master.fastlane.stats()["native_assigns"] - before_assigns
+        check(len(set(minted)) == len(minted), "an assign fid repeated")
+        check(0 < native_minted < FL_MINTED,
+              f"{native_minted} of {FL_MINTED} assigns minted by the engine")
+        res.update(files=n_files, file_bytes=FL_FILE, conns=FL_CONNS,
+                   engine_write=runs["write"], engine_read=runs["read"], assign_write=aw,
+                   engine_latency=lat, native_requests=native_n, proxied_requests=proxied_n,
+                   native_ratio=native_ratio, sampled_reads_equal=min(FL_SAMPLE, n_files),
+                   minted=len(minted), native_minted=native_minted)
+
+        # (c) the heat rollup reads the engine's counters off the beats
+        rollup = master.heat_rollup
+        beats = []
+        feed = rollup.feed
+
+        def capture(node, volumes, now=None):
+            beats.append([dict(v) for v in volumes])
+            return feed(node, volumes, now)
+
+        rollup.feed = capture
+        try:
+            vs.heartbeat_once()
+            time.sleep(PULSE_S)
+            native.loadgen("127.0.0.1", vs.fastlane.port, FL_CONNS, "GET", paths[:4096])
+            vs.heartbeat_once()
+        finally:
+            rollup.feed = feed
+        mine = [v for v in beats[-1] if v.get("collection") == FL_COLLECTION]
+        check(mine and all("read_ops" in v and "write_ops" in v for v in mine),
+              f"the beat carries no native op counters: {beats[-1][:2]}")
+        heat = parse_exposition("\n".join(rollup.lines()))
+        coll_rate = sum(v for n, lb, v in heat if n == "SeaweedFS_heat_collection_score"
+                        and lb.get("collection") == FL_COLLECTION)
+        node_rate = sum(v for n, lb, v in heat if n == "SeaweedFS_heat_node_score"
+                        and lb.get("node") == vs.node_id)
+        check(coll_rate > 0 and node_rate > 0,
+              f"heat rates {coll_rate} (collection) and {node_rate} (node), not above 0")
+        res.update(heat_collection_rate=coll_rate, heat_node_rate=node_rate,
+                   beat_read_ops=sum(v["read_ops"] for v in mine),
+                   beat_write_ops=sum(v["write_ops"] for v in mine))
+
+        # (b) online EC: native appends drained into gf256_matmul
+        check(post_json(f"{vs.url}/admin/allocate_volume",
+                        {"volume": FL_ONLINE_VID, "collection": "flec", "ecOnline": True})
+              == {"ok": True}, "allocate the online volume")
+        v = vs.store.get_volume(FL_ONLINE_VID)
+        w = v.online_ec
+        check(w is not None and w.block == geometry.SMALL_BLOCK_SIZE
+              and vs.fastlane.ec_online_pending(FL_ONLINE_VID) is not None,
+              "the online writer and the engine's stripe accumulator")
+        n_online = online_bytes // MIB
+        onl = [f"/{FL_ONLINE_VID},{file_id.format_needle_id_cookie(i + 1, 0xEC0 + i)}"
+               for i in range(n_online)]
+        zero_launches()
+        t0 = time.perf_counter()
+        halves = np.array_split(np.arange(n_online), 2)
+        for h, part in enumerate(halves):  # two seeded 1 MiB bodies
+            r = native.loadgen("127.0.0.1", vs.fastlane.port, FL_CONNS, "POST",
+                               [onl[i] for i in part], rng.bytes(MIB))
+            check(r["ok"] == len(part) and not r["errors"], f"online POSTs: {r}")
+        dat_size = v.size()
+        full = dat_size // w.stripe * w.stripe
+        deadline = time.monotonic() + 30
+        while w.watermark < full and time.monotonic() < deadline:
+            time.sleep(0.005)
+        ingest_s = time.perf_counter() - t0
+        online_launches = read_launches()["gf256_matmul"]
+        check(w.watermark >= full, f"the drain loop encoded {w.watermark} of {full} bytes")
+        check(w.active, f"the writer degraded ({w.fallback_reason})")
+        bad = {r: n for r, n in w.stats()["fallbacks"].items() if r in PATHOLOGICAL_REASONS}
+        check(not bad, f"pathological fallbacks {bad}")
+        check(online_launches > 0, "the fastlane online path launched no gf256_matmul kernel")
+        check(vs.fastlane.stats()["native_writes"] >= n_files + n_assign_write + n_online,
+              "the online POSTs were not all native")
+        base = v.base_name
+        rows = full // w.stripe
+        check_parity_rows(dev, base + ".dat", [base + geometry.to_ext(10 + p) for p in range(4)],
+                          w.block, rows, "fastlane online")
+        res.update(online_needles=n_online, online_bytes=n_online * MIB, online_rows=rows,
+                   online_ingest_s=ingest_s, online_ingest_gbps=n_online * MIB / ingest_s / 1e9,
+                   launches=online_launches, parity_rows_equal_plain=rows)
+
+        # the Python path on the same card and host
+        with fastlane_off():
+            pm = MasterServer(port=0, pulse_seconds=PULSE_S)
+            pm.start()
+            started.append(pm)
+            pvs = VolumeServer([os.path.join(root, "p")], pm.url, pulse_seconds=PULSE_S,
+                               device=dev)
+            pvs.start()
+            started.append(pvs)
+        check(pm.fastlane is None and pvs.fastlane is None, "the opt-out left an engine")
+        pa = get_json(f"{pm.url}/dir/assign?count={n_python}&collection={FL_COLLECTION}")
+        ppaths = [f"/{pa['fid']}"] + [f"/{pa['fid']}_{i}" for i in range(1, n_python)]
+        py = loadgen_files(pvs.service.port, ppaths, bodies, errors)
+        check(not errors, f"Python-path loadgen runs: {errors}")
+        res.update(python_files=n_python, python_write=py["write"], python_read=py["read"],
+                   write_speedup=runs["write"]["req_per_sec"] / py["write"]["req_per_sec"],
+                   read_speedup=runs["read"]["req_per_sec"] / py["read"]["req_per_sec"])
+    finally:
+        for srv in reversed(started):
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    res.update(wall_s=wall, wall_limit_s=FL_WALL_LIMIT_S, over_wall_limit=wall > FL_WALL_LIMIT_S,
+               cuts=FL_CUTS, nvidia_smi=nvidia_smi())
+    return res
+
+
 def zero_launches() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
@@ -7640,7 +7963,7 @@ def main() -> int:
     ap.add_argument("--volume-mib", type=int, default=1024)
     ap.add_argument("--upload-blobs", type=int, default=1 << 15)
     ap.add_argument("--chunked-mib", type=int, default=1024)
-    ap.add_argument("--cdc-uploads", type=int, default=32)
+    ap.add_argument("--cdc-uploads", type=int, default=16)
     ap.add_argument("--stream-mib", type=int, default=1024)
     ap.add_argument("--dedup-gib", type=int, default=2)
     ap.add_argument("--online-mib", type=int, default=512)
@@ -7659,14 +7982,14 @@ def main() -> int:
     ap.add_argument("--s3-clients", type=int, default=20)
     ap.add_argument("--s3-multipart-mib", type=int, default=64)
     ap.add_argument("--tier-mib", type=int, default=256)
-    ap.add_argument("--gw-dav-files", type=int, default=256)
+    ap.add_argument("--gw-dav-files", type=int, default=128)
     ap.add_argument("--gw-ftp-files", type=int, default=256)
     ap.add_argument("--gw-ftp-large-mib", type=int, default=256)
     ap.add_argument("--gw-mount-mib", type=int, default=512)
     ap.add_argument("--gw-small-files", type=int, default=256)
-    ap.add_argument("--gw-remote-mib", type=int, default=256)
+    ap.add_argument("--gw-remote-mib", type=int, default=128)
     ap.add_argument("--sync-files", type=int, default=128)
-    ap.add_argument("--mq-messages", type=int, default=4096)
+    ap.add_argument("--mq-messages", type=int, default=2048)
     ap.add_argument("--ha-files", type=int, default=1024)
     ap.add_argument("--ha-large-mib", type=int, default=64)
     ap.add_argument("--ha-ec-mib", type=int, default=256)
@@ -7680,6 +8003,10 @@ def main() -> int:
     ap.add_argument("--cli-bench-n", type=int, default=4096)
     ap.add_argument("--cli-upload-mib", type=int, default=64)
     ap.add_argument("--cli-ec-mib", type=int, default=256)
+    ap.add_argument("--fl-files", type=int, default=1 << 15)
+    ap.add_argument("--fl-assign-files", type=int, default=1 << 13)
+    ap.add_argument("--fl-python-files", type=int, default=1 << 12)
+    ap.add_argument("--fl-online-mib", type=int, default=128)
     ap.add_argument("--offset5-child", metavar="DIR",
                     help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
@@ -7718,7 +8045,7 @@ def main() -> int:
           f"gf256_matmul_kernel<4, 10>'s unit loop holds {gf_unit['lds']} shared-memory loads, "
           f"not {GF_UNIT_LDS} (one a byte for 10 columns x 16 bytes)")
     emit("build", seconds=time.perf_counter() - t0,
-         sources=[s.file for s in _build.SOURCES],
+         sources={s.name: list(s.files) for s in _build.SOURCES},
          ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in logs.items()},
          md5_block_sass=md5_block, gf256_unit_sass=gf_unit)
@@ -7892,6 +8219,12 @@ def main() -> int:
     cl = cli_phase(dev, args.cli_files, args.cli_bench_n, args.cli_upload_mib * MIB,
                    args.cli_ec_mib * MIB, args.seed)
     emit("cli", nvidia_smi=nvidia_smi(), **cl)
+
+    # the native fastlane in front of the master and the volume server; its own count
+    fp = fastlane_phase(dev, args.fl_files, args.fl_assign_files, args.fl_python_files,
+                        args.fl_online_mib * MIB, args.seed)
+    emit("fastlane", **fp)
+    launches["gf256_matmul"] += fp["launches"]
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

@@ -1,8 +1,9 @@
 // CRC32-Castagnoli on the host, matching Go hash/crc32 Update semantics
 // (the needle checksum of weed/storage/needle/crc.go). Host code, not a
 // device kernel: the port's own copy of the JAX package's native
-// sw_crc32c_update. Uses the SSE4.2 crc32 instruction where the compiler
-// targets it (-march=native on x86-64), else slice-by-8 tables.
+// sw_crc32c_update, which the fastlane engine links against too. Uses the
+// SSE4.2 crc32 instruction where the compiler targets it (-march=native on
+// x86-64), else slice-by-8 tables.
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -35,7 +36,7 @@ void init_tables() {
 
 }  // namespace
 
-extern "C" uint32_t crc32c_update(uint32_t crc, const unsigned char* data, size_t n) {
+extern "C" uint32_t sw_crc32c_update(uint32_t crc, const unsigned char* data, size_t n) {
     uint32_t c = ~crc;
 #if defined(__SSE4_2__)
     while (n >= 8) {
@@ -70,5 +71,5 @@ extern "C" uint32_t crc32c_update(uint32_t crc, const unsigned char* data, size_
 // output; spans are hashed one after another.
 extern "C" void sw_crc32c_batch_spans(const unsigned char* base, const size_t* offs,
                                       const size_t* lens, size_t n, uint32_t* out) {
-    for (size_t i = 0; i < n; i++) out[i] = crc32c_update(0, base + offs[i], lens[i]);
+    for (size_t i = 0; i < n; i++) out[i] = sw_crc32c_update(0, base + offs[i], lens[i]);
 }

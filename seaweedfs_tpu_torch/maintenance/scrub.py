@@ -575,6 +575,11 @@ class VolumeScrubber:
             if batch_bytes >= self.batch_bytes:
                 flush()
         flush()
+        if self.store.get_volume(v.id) is not v:
+            # the volume left this server mid-scan (moved, deleted or
+            # unmounted: its files closed under the scan), so what failed
+            # to read is EBADF noise, not rot
+            return []
         return findings
 
     # --- online-EC parity scrub -----------------------------------------------

@@ -101,6 +101,7 @@ class Request:
         self.match = match
         parsed = urllib.parse.urlparse(handler.path)
         self.path = parsed.path
+        self.raw_query = parsed.query  # exact bytes: fastlane profile keys
         self.query = {
             k: v[0] for k, v in urllib.parse.parse_qs(parsed.query).items()
         }
@@ -519,7 +520,10 @@ def _register_fault_routes(service: HTTPService) -> None:
           {"action": "arm", "point": ..., "mode": ...,
            "rate"/"ms"/"frac"/"count"/"key"/"after": ...}
           {"action": "disarm", "point": ...}
-          {"action": "disarm_all"}"""
+          {"action": "disarm_all"}
+        The fastlane engine has no injection ABI of its own, so
+        engine-side injection is the Python-side drain seam,
+        `volume.fastlane.drain`."""
         if not faults_mod.runtime_arming_enabled():
             # a reachable port must not be enough to arm torn writes on a
             # production server

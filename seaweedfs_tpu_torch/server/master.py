@@ -39,9 +39,9 @@ answers 409 `raft.not.leader` naming the leader, which the volume servers'
 heartbeats and `WeedClient` follow. `/raft/{request_vote,append_entries,
 install_snapshot}` carry the raft RPCs, `GET /raft/status` shows this node,
 and `POST /raft/{add,remove}` change the membership through the log
-(leader-only; `cluster.raft.add`, `cluster.raft.remove`). The JAX master's
-demote hook clears the native fastlane's assign profiles; the port has no
-fastlane, so its raft node gets no demote hook.
+(leader-only; `cluster.raft.add`, `cluster.raft.remove`). The raft node's
+demote hook clears the native fastlane's assign profiles the instant
+leadership is lost, and the pulse clears them on a follower too.
 
 Security (`security/`): with `security.write_key` set, `/dir/assign`
 answers with `auth`, a write token bound to the fid that the volume
@@ -51,7 +51,8 @@ Filers and brokers announce themselves through `/cluster/register` (the
 member registry `_members`, first-seen order deciding each group's
 leader); `/cluster/ps` lists the live ones and `/cluster/leader` names a
 group's leader. The answer names the member's ordinal among its live group;
-the filer that shards its fid leases by it comes with the native fastlane.
+the filer that shards its fid leases by it comes with the filer's fastlane
+front.
 
 `faults_spec` is the `-faults` flag: "" opts the process into runtime
 fault arming (`POST /debug/faults`), a spec string also arms it
@@ -66,19 +67,32 @@ check record spans; `/ui` is the status page.
 
 Telemetry (`stats/{heat,aggregate,store}.py`): a `HeatRollup` turns the
 heartbeats' per-volume op counters into collection and node rates (the
-counters come from the native fastlane engine, so without it every rate
-of the rollup reads 0), and a `TelemetryAggregator` merges the frames that ride
+counters come from the volume servers' fastlane engines, so a volume
+server without one reports none and its rates read 0), and a
+`TelemetryAggregator` merges the frames that ride
 heartbeats, `/cluster/register` payloads and `POST /cluster/telemetry`
 (leader-only) with the master's own frame, fed on the pulse. `GET
 /debug/cluster/telemetry` serves the merged view in one fetch.
 `telemetry_dir` (`-telemetry.dir`) turns on the process's durable spool,
 `telemetry_retention_mb` its size.
 
-Not ported: the native fastlane front door (ROADMAP 10a-3).
+The native fastlane (`storage/fastlane.py`) fronts the service unless its
+gates say no (5-byte offsets, SEAWEEDFS_TPU_DISABLE_FASTLANE=1, a white
+list, or `security.write_key`: assigns then mint per-fid JWTs, which only
+the Python handler signs; mTLS does not bail, the engine terminates it).
+After each Python-served `count=1` assign on the leader, the master
+installs a profile for that exact query (the layout's writable volumes,
+with the node urls of each) and leases the engine a range of 20000 file
+keys from the sequencer: the engine then answers the same query natively,
+and anything else proxies here. Every heartbeat, `/col/delete`,
+`/vol/vacuum` and loss of leadership clear every profile. The pulse folds
+the engine's native assigns into the request counter. `url` names the
+engine's port.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 
@@ -93,6 +107,7 @@ from ..stats import profiler as prof_mod
 from ..stats import store as store_mod
 from ..stats import trace
 from ..stats.metrics import _fmt_labels
+from ..storage import fastlane as fl_mod
 from ..storage.types import TTL, ReplicaPlacement
 from ..topology import Topology
 from ..topology.node import VolumeInfo
@@ -158,6 +173,8 @@ class MasterServer:
         if slow_ms is not None:  # -slowMs: the role's slow-span threshold
             trace.set_slow_threshold_ms(slow_ms, role="master")
         self._metrics_collector = None
+        self.fastlane: fl_mod.Fastlane | None = None  # native /dir/assign front
+        self._native_assigns = 0  # engine assigns already folded into metrics
         self.heat_rollup: heat_mod.HeatRollup | None = None
         self._heat_collector = None
         self.telemetry: agg_mod.TelemetryAggregator | None = None
@@ -216,8 +233,8 @@ class MasterServer:
         # (raft test clusters) — same role the volume collector's `server`
         # label plays; without it their series would collide. Advertise the
         # public port (the engine front when present, not the loopback
-        # backend the Python service binds behind it; the port has none)
-        me = f"{self.service.host}:{self.service.port}"
+        # backend the Python service binds behind it)
+        me = f"{self.service.host}:{self.data_port}"
 
         def sample(family: str, labels: dict, value) -> None:
             labels = {"master": me, **labels}
@@ -286,8 +303,26 @@ class MasterServer:
                    missing)
         return lines
 
+    def _start_fastlane(self) -> None:
+        """Front the master with the native engine so /dir/assign is served
+        without the GIL: Python installs per-query volume-set profiles with
+        leased file-key ranges (do_assign), the engine mints fids from them,
+        and anything else (or a spent/missing profile) proxies back here."""
+        # write_key counts as a bail-out: assigns mint per-fid JWTs, which
+        # only the Python handler can sign. mTLS does NOT bail — the engine
+        # terminates it natively (front_service's TLS branch).
+        self.fastlane = fl_mod.front_service(
+            self.service,
+            guard_active=bool(self.security.white_list or self.security.write_key),
+        )
+
+    @property
+    def data_port(self) -> int:
+        """The port clients reach: the engine's, else the service's."""
+        return self.fastlane.port if self.fastlane else self.service.port
+
     def start(self) -> None:
-        self.service.start()
+        self._start_fastlane()
         self._metrics_collector = default_registry().register_collector(
             self._metrics_lines, names=self.MASTER_METRIC_FAMILIES,
         )
@@ -381,14 +416,23 @@ class MasterServer:
             self.telemetry = None
         if self.raft is not None:
             self.raft.stop()
+        if self.fastlane is not None:
+            self.fastlane.stop()
+            self.fastlane = None
         self.service.stop()
 
     @property
     def url(self) -> str:
+        if self.fastlane is not None:
+            scheme = "https" if self.fastlane.tls else "http"
+            return f"{scheme}://{self.service.host}:{self.fastlane.port}"
         return self.service.url
 
     def _pulse_loop(self) -> None:
         while not self._stop.wait(self.topo.pulse_seconds):
+            if self.raft is not None and not self.raft.is_leader():
+                self._fl_assign_clear()  # followers must not mint fids
+            self._fold_native_assigns()
             self.topo.expire_dead_nodes()
             self._telemetry_self_feed()
             try:
@@ -417,7 +461,7 @@ class MasterServer:
         self._telemetry_self_ts = now
         try:
             tele.ingest(agg_mod.build_frame(
-                "master", f"{self.service.host}:{self.service.port}",
+                "master", f"{self.service.host}:{self.data_port}",
                 interval=interval,
             ), now=now)
         except Exception:
@@ -448,11 +492,82 @@ class MasterServer:
             except Exception:
                 pass
 
+    # --- native assign profiles ---------------------------------------------------
+    def _fl_assign_install(self, req: Request, count: int, replication: str,
+                           collection: str, ttl: str, dc: str,
+                           shard: tuple[int, int] | None = None) -> None:
+        """After a Python-served assign: teach the engine this exact query.
+        The profile snapshot is the layout's current writable volume set;
+        any heartbeat clears every profile (sync is cheap, staleness isn't).
+        The profile keys on the raw query, so a gateway's `?shard=i:n`
+        lease slice gets its own profile — restricted to the slice's
+        vids (falling back to the full set when the slice is empty,
+        mirroring VolumeLayout.pick_for_write's soft constraint)."""
+        if self.fastlane is None or count != 1 or not self._is_leader():
+            return
+        rp = ReplicaPlacement.parse(replication)
+        lo = self.topo.layout(collection, rp, TTL.parse(ttl).to_u32())
+        entries = []
+        with lo._lock:
+            writables = list(lo.writables)
+            if shard is not None and shard[1] > 1:
+                sliced = [v for v in writables if v % shard[1] == shard[0]]
+                if sliced:
+                    writables = sliced
+            for vid in writables:
+                nodes = lo.locations.get(vid, [])
+                if not nodes:
+                    continue
+                if dc and all(n.dc_name() != dc for n in nodes):
+                    continue
+                main = nodes[0]
+                tail = (
+                    f'"url": {json.dumps(main.id)}, '
+                    f'"publicUrl": {json.dumps(main.url)}, "count": 1, '
+                    '"replicas": ['
+                    + ", ".join(
+                        f'{{"url": {json.dumps(n.id)}, '
+                        f'"publicUrl": {json.dumps(n.url)}}}'
+                        for n in nodes[1:]
+                    )
+                    + "]}"
+                )
+                entries.append((vid, tail))
+        if not entries:
+            return
+        lease = 20000
+        try:
+            self._ensure_sequence_lease(lease)
+        except (NotLeader, TimeoutError):
+            return  # raft flux: stay on the Python path
+        start = self.topo.sequencer.next_file_id(lease)
+        self.fastlane.assign_set(req.raw_query, entries, start, start + lease)
+
+    def _fl_assign_clear(self) -> None:
+        if self.fastlane is not None:
+            self.fastlane.assign_clear()
+
+    def _fold_native_assigns(self) -> None:
+        """Native assigns bypass the instrumented Python handler: fold the
+        engine's count into the request counter."""
+        if self.fastlane is None:
+            return
+        n = self.fastlane.stats()["native_assigns"]
+        if n > self._native_assigns:
+            self.service._m_total.labels(
+                self.service.metrics_role, "GET", "200"
+            ).inc(n - self._native_assigns)
+            self._native_assigns = n
+
     # --- raft HA ------------------------------------------------------------------
     def enable_raft(self, peer_urls: list[str]) -> None:
         self.raft = RaftNode(
             self.url, peer_urls, self._raft_apply, state_dir=self._raft_dir,
             snapshot_fn=self._raft_snapshot, restore_fn=self._raft_restore,
+            # clear native assign profiles the instant leadership is lost —
+            # waiting for the next pulse would let the engine keep minting
+            # fids from stale topology for up to pulse_seconds
+            on_demote=self._fl_assign_clear,
         )
         self.topo.vid_allocator = lambda: self.raft.propose(
             {"type": "next_volume_id"}
@@ -603,6 +718,9 @@ class MasterServer:
                     hb.get("volumes") or (),
                 )
             self._ingest_frame(hb.get("telemetry"))
+            # any topology delta may change the writable set: drop every
+            # assign profile, the next Python-served assign reinstalls
+            self._fl_assign_clear()
             return Response(
                 {
                     "volume_size_limit": self.topo.volume_size_limit,
@@ -726,6 +844,9 @@ class MasterServer:
                 out["auth"] = gen_write_jwt(
                     self.security.write_key, fid, self.security.write_expires_sec
                 )
+            else:
+                self._fl_assign_install(req, count, replication, collection,
+                                        ttl, dc, shard=shard)
             return Response(out)
 
         svc.route("GET", r"/dir/assign")(do_assign)
@@ -957,6 +1078,7 @@ class MasterServer:
         def col_delete(req: Request) -> Response:
             """Drop every volume of a collection on every server
             (`master_server_handlers_admin.go collectionDeleteHandler`)."""
+            self._fl_assign_clear()
             name = req.query.get("collection", "")
             if not name:
                 try:
@@ -1083,6 +1205,7 @@ class MasterServer:
 
         @svc.route("GET", r"/vol/vacuum")
         def vol_vacuum(req: Request) -> Response:
+            self._fl_assign_clear()  # volumes flip readonly during compaction
             threshold = float(req.query.get("garbageThreshold", self.garbage_threshold))
             old = self.garbage_threshold
             self.garbage_threshold = threshold

@@ -84,10 +84,28 @@ status page. `telemetry_dir` (`-telemetry.dir`) turns on the process's
 durable spool (`stats/store.py`), and a telemetry frame
 (`stats/aggregate.build_frame`) rides the heartbeat at most once a pulse.
 
-Not ported: the native fastlane (and with it the fastlane metric
-families and the per-volume op counters of the beat, which feed the
-master's heat rollup) and the retry policy of the copy stream (a failed
-range fails the copy).
+The native fastlane (`storage/fastlane.py`, `csrc/fastlane.cpp`) fronts
+the service unless its gates say no (5-byte offsets,
+SEAWEEDFS_TPU_DISABLE_FASTLANE=1, a white list): the engine serves the
+needle GET/HEAD/POST/PUT/DELETE of every registered volume across all
+cores, verifies read and write JWTs itself, terminates mTLS itself when
+the process has it, and proxies everything else (the admin plane,
+replicated writes, overwrites, refused tokens) to the Python service on a
+loopback port. Every volume is registered with the engine at start and
+after allocate, mount, copy, vacuum, tiering and the EC seal and decode
+hand it back; each is unregistered first where its files change under
+it. A drain loop (every 20 ms) applies the engine's appends and deletes
+to the Python needle maps, synthesizes `fastlane.append`/`.delete`
+spans, pumps the online-EC writers the engine appended to (readiness
+from the engine's stripe accumulator), reconciles flags and folds the
+engine's counts into the request counter every second. The engine's
+per-op counters and histograms are the `SeaweedFS_volume_fastlane_*`
+families, and its per-volume op counters ride the beat (`read_ops`,
+`write_ops`, `read_bytes`, `write_bytes`) for the master's heat rollup.
+`data_port` (and `url`, `node_id`) name the engine's port.
+
+Not ported: the retry policy of the copy stream (a failed range fails
+the copy).
 """
 
 from __future__ import annotations
@@ -123,6 +141,8 @@ from ..storage.erasure_coding.ec_volume import (
     PartialDeclined,
     ec_shard_file_name,
 )
+from ..stats import usage as usage_mod
+from ..storage import fastlane as fl_mod
 from ..storage.file_id import parse_key_hash_with_delta
 from ..storage.needle import Needle
 from ..storage.store import Store, _attach_online_ec
@@ -256,16 +276,38 @@ class VolumeServer:
         self._scrub_thread: threading.Thread | None = None
         self._leaving = False  # volume.server.leave: up, but no heartbeats
         self.local_socket = local_socket  # same-host unix listener
+        self.fastlane: fl_mod.Fastlane | None = None  # the native front door
+        self._fl_thread: threading.Thread | None = None
         self._routes()
 
+    def _start_fastlane(self) -> None:
+        """Put the native epoll engine (storage/fastlane.py) in front of the
+        Python service: it serves data-plane GET/POST/PUT/DELETE across all
+        cores and proxies everything else here."""
+        # the signing keys ride into sw_fl_start so they are in place before
+        # the engine accepts its first connection: reads/writes stay native
+        # when the token verifies; invalid/missing tokens proxy to Python
+        # for the exact 401
+        self.fastlane = fl_mod.front_service(
+            self.service, guard_active=bool(self.security.white_list),
+            jwt_write_key=self.security.write_key or "",
+            jwt_read_key=self.security.read_key or "",
+            secure_reads=bool(self.security.read_key),
+        )
+
+    @property
+    def data_port(self) -> int:
+        """The port clients reach: the engine's, else the service's."""
+        return self.fastlane.port if self.fastlane else self.service.port
+
     def start(self) -> None:
-        self.service.start()
+        self._start_fastlane()
         if self.local_socket:
             self.service.enable_unix_socket(self.local_socket)
         self.store = Store(
             self._dirs,
             ip=self._host,
-            port=self.service.port,
+            port=self.data_port,
             public_url=self._public_url,
             device=self.device,
         )
@@ -273,6 +315,16 @@ class VolumeServer:
             loc.max_volume_count = self.max_volume_count
             for ev in loc.ec_volumes.values():
                 self._attach_shard_fetcher(ev)
+        if self.fastlane:
+            for vid in self.store.volume_ids():
+                self._fl_register(vid)
+            self._fl_thread = threading.Thread(
+                target=self._fl_drain_loop, name="volume-fastlane-drain", daemon=True)
+            self._fl_thread.start()
+            # tenant accounting: native ops never reach a Python handler,
+            # so the accountant folds the engine's per-collection counter
+            # deltas in at scrape time
+            usage_mod.accountant().attach_engine(self.fastlane)
         self._metrics_collector = default_registry().register_collector(
             self._metrics_lines, names=self.METRIC_FAMILIES,
         )
@@ -295,6 +347,14 @@ class VolumeServer:
         if self._metrics_collector is not None:
             default_registry().unregister_collector(self._metrics_collector)
             self._metrics_collector = None
+        if self._fl_thread is not None:
+            self._fl_thread.join()
+            self._fl_thread = None
+        if self.fastlane:
+            usage_mod.accountant().detach_engine(self.fastlane)
+            self.fastlane.drain()
+            self.fastlane.stop()
+            self.fastlane = None
         self.service.stop()
         if self._pulse is not None:
             self._pulse.join()
@@ -317,36 +377,133 @@ class VolumeServer:
 
     @property
     def url(self) -> str:
+        if self.fastlane:
+            scheme = "https" if self.fastlane.tls else "http"
+            return f"{scheme}://{self._host}:{self.fastlane.port}"
         return self.service.url
 
     @property
     def node_id(self) -> str:
         """host:port, as the master's topology and the rebuild chain name
         this server (and as a fault spec's `key` scopes it)."""
-        return f"{self._host}:{self.service.port}"
+        return f"{self._host}:{self.data_port}"
+
+    # --- fastlane lifecycle -------------------------------------------------------
+    def _fl_forward_writes(self, v) -> bool:
+        """Writes the engine must hand to Python: replicated volumes (the
+        fan-out runs here) — see _do_write. Online-EC volumes ack on local
+        durability + parity emit, so they stay native even when their
+        placement nominally demands replicas."""
+        if v.online_ec is not None and v.online_ec.active:
+            return False
+        rp = v.super_block.replica_placement
+        return rp is not None and rp.copy_count() > 1
+
+    def _fl_register(self, vid: int) -> None:
+        if not self.fastlane:
+            return
+        v = self.store.get_volume(vid)
+        if v is not None:
+            if self.fastlane.register_volume(v, self._fl_forward_writes(v)) \
+                    and v.online_ec is not None:
+                # arm the engine's O(1) stripe accumulator: the drain
+                # loop polls readiness instead of re-checking tails
+                self.fastlane.ec_online_arm(
+                    vid, v.online_ec.stripe, v.online_ec.watermark
+                )
+
+    def _fl_unregister(self, vid: int) -> None:
+        if self.fastlane:
+            self.fastlane.unregister_volume(vid)  # waits in-flight + drains
+
+    def _fl_sync_flags(self, vid: int) -> None:
+        if not self.fastlane:
+            return
+        v = self.store.get_volume(vid)
+        if v is not None:
+            self.fastlane.set_flags(vid, v.readonly, self._fl_forward_writes(v))
+
+    def _fl_drain(self) -> None:
+        """Apply the engine's appends before Python reads or rewrites
+        what they touched (no-op without an engine)."""
+        if self.fastlane:
+            self.fastlane.drain()
+
+    def _fl_drain_loop(self) -> None:
+        tick = 0
+        last = {"native_reads": 0, "native_writes": 0, "native_deletes": 0}
+        while not self._stop.is_set():
+            try:
+                self.fastlane.drain()
+                self._pump_online_ec()
+                tick += 1
+                if tick % 50 == 0:  # ~1 s flag reconcile (low-disk readonly...)
+                    for vid in list(self.fastlane._volumes):
+                        self._fl_sync_flags(vid)
+                    self._fl_fold_metrics(last)
+            except Exception:  # the loop must outlive one bad tick
+                log.warning("volume %s: fastlane drain tick failed", self.node_id,
+                            exc_info=True)
+            self._stop.wait(0.02)
+
+    def _fl_fold_metrics(self, last: dict) -> None:
+        """Natively-served requests never reach the instrumented Python
+        handlers; fold the engine's counters into the request counter so
+        request-rate dashboards keep seeing the data plane. (Latency
+        histograms stay Python-path-only; the engine's own are the
+        SeaweedFS_volume_fastlane_request_seconds family.)"""
+        svc = self.service
+        stats = self.fastlane.stats()
+        for key, method, code in (
+            ("native_reads", "GET", "200"),
+            ("native_writes", "POST", "201"),
+            ("native_deletes", "DELETE", "202"),
+        ):
+            delta = stats[key] - last[key]
+            if delta > 0:
+                svc._m_total.labels(svc.metrics_role, method, code).inc(delta)
+            last[key] = stats[key]
 
     def _codec(self) -> RSCodec:
         return RSCodec(device=self.device)
 
     # --- pulse: online-EC pumps and heartbeats ------------------------------------
     def _pump_online_ec(self) -> None:
-        """The aging backstop of the online-EC stripe writers: writes pump
-        inline, and this pump lets a partial row's timed trickle flush
-        fire when no write follows."""
+        """Stream appended bytes through the online RS encoders. Python-path
+        writes pump inline; engine appends never touch a Python handler, so
+        the drain loop is their encode hook (the engine's stripe
+        accumulator answers readiness in O(1): only a full stripe or an
+        aged partial row, the timed trickle flush, runs the encode).
+        Without an engine the pulse calls this as the aging backstop."""
         if self.store is None:
             return
+        fl = self.fastlane
         for loc in self.store.locations:
             for v in list(loc.volumes.values()):
                 w = v.online_ec
-                if w is not None and w.active and not w.sealed:
-                    w.pump()
+                if w is None or not w.active or w.sealed:
+                    continue
+                pend = fl.ec_online_pending(v.id) if fl else None
+                if pend is not None:
+                    full_stripes, tail = pend
+                    if full_stripes <= 0 and tail <= w.watermark and \
+                            w._pending_since is None:
+                        continue  # nothing new, nothing aging out
+                w.pump()
+                if pend is not None:
+                    # unconditional re-sync: a Python-path handler pump
+                    # advances the watermark without touching the engine,
+                    # and a stale armed watermark would report 'pending'
+                    # forever (defeating this very skip)
+                    fl.ec_online_advance(v.id, w.watermark)
 
     def _pulse_loop(self) -> None:
         while not self._stop.wait(self.pulse_seconds):
-            try:
-                self._pump_online_ec()
-            except Exception:
-                pass
+            if self.fastlane is None:  # else the drain loop pumps
+                try:
+                    self._pump_online_ec()
+                except Exception:
+                    pass
             # age out streaming sessions a dead orchestrator never closed:
             # each holds a forwarder thread and up to a window of chunks
             with self._stream_lock:
@@ -362,6 +519,7 @@ class VolumeServer:
 
     def _scrub_loop(self) -> None:
         while not self._stop.wait(self.scrub_interval):
+            self._fl_drain()  # scrub the engine's appends too
             try:
                 found = self.scrubber.scrub_pass()
             except ScrubCodecFailed:
@@ -382,26 +540,87 @@ class VolumeServer:
             }
 
     # --- metrics collector ------------------------------------------------------
-    # the JAX server's FL_FAMILIES less the fastlane's (ROADMAP 10a-3)
+    # the JAX server's FL_FAMILIES
     METRIC_FAMILIES = (
+        "SeaweedFS_volume_fastlane_requests_total",
+        "SeaweedFS_volume_fastlane_request_seconds",
+        "SeaweedFS_volume_fastlane_bytes_total",
+        "SeaweedFS_volume_fastlane_proxied_total",
+        "SeaweedFS_volume_fastlane_volume_requests_total",
+        "SeaweedFS_volume_fastlane_volume_bytes_total",
         "SeaweedFS_volume_disk_used_bytes",
         "SeaweedFS_volume_disk_free_bytes",
     )
 
     def _metrics_lines(self) -> list[str]:
-        """Scrape-time per-directory disk gauges. The `server` label tells
-        apart servers sharing one process registry (test clusters)."""
+        """Scrape-time exporter for the series the Python registry cannot
+        count itself: the fastlane engine's per-op histograms and byte
+        counters (C-side atomics, read through sw_fl_get_metrics) and the
+        per-directory disk gauges. The `server` label tells apart servers
+        sharing one process registry (test clusters)."""
         server = self.node_id
         lines: list[str] = []
 
-        def sample(family: str, labels: dict, value) -> None:
-            # integers render exactly: '{:g}' would clip large byte counts
+        def sample(family: str, labels: dict, value, suffix: str = "") -> None:
+            # integers render exactly: '{:g}' would clip large byte counters
+            # to 6 significant digits and flatline rate() between scrapes
             v = str(int(value)) if float(value).is_integer() else f"{value:g}"
             lines.append(
-                f"{family}{_fmt_labels(tuple(labels), tuple(labels.values()))}"
+                f"{family}{suffix}"
+                f"{_fmt_labels(tuple(labels), tuple(labels.values()))}"
                 f" {v}"
             )
 
+        fl = self.fastlane
+        m = fl.metrics() if fl is not None else None
+        if m is not None:
+            lines.append("# HELP SeaweedFS_volume_fastlane_requests_total "
+                         "requests served natively by the fastlane engine")
+            lines.append("# TYPE SeaweedFS_volume_fastlane_requests_total counter")
+            for op, st in m["ops"].items():
+                if op == "proxied":
+                    continue
+                sample("SeaweedFS_volume_fastlane_requests_total",
+                       {"server": server, "op": op}, st["count"])
+            lines.append("# TYPE SeaweedFS_volume_fastlane_proxied_total counter")
+            sample("SeaweedFS_volume_fastlane_proxied_total",
+                   {"server": server}, m["ops"]["proxied"]["count"])
+            lines.append("# TYPE SeaweedFS_volume_fastlane_bytes_total counter")
+            for op, st in m["ops"].items():
+                sample("SeaweedFS_volume_fastlane_bytes_total",
+                       {"server": server, "op": op}, st["bytes"])
+            lines.append("# TYPE SeaweedFS_volume_fastlane_request_seconds histogram")
+            for op, st in m["ops"].items():
+                cum = 0
+                for bound, c in zip(m["bounds_s"], st["buckets"]):
+                    cum += c
+                    sample("SeaweedFS_volume_fastlane_request_seconds",
+                           {"server": server, "op": op,
+                            "le": "{:g}".format(bound)}, cum, "_bucket")
+                # +Inf and _count come from the buckets themselves (the
+                # engine's overflow slot included), not the separately-read
+                # count: relaxed-atomic snapshots taken mid-observe would
+                # otherwise yield a non-monotonic histogram
+                cum += st["buckets"][-1]
+                sample("SeaweedFS_volume_fastlane_request_seconds",
+                       {"server": server, "op": op, "le": "+Inf"}, cum, "_bucket")
+                sample("SeaweedFS_volume_fastlane_request_seconds",
+                       {"server": server, "op": op}, st["seconds_sum"], "_sum")
+                sample("SeaweedFS_volume_fastlane_request_seconds",
+                       {"server": server, "op": op}, cum, "_count")
+            lines.append("# TYPE SeaweedFS_volume_fastlane_volume_requests_total counter")
+            for vid in sorted(fl._volumes):
+                vm = fl.volume_metrics(vid)
+                if vm is None:
+                    continue
+                for op, cnt in (("read", vm["reads"]), ("write", vm["writes"]),
+                                ("delete", vm["deletes"])):
+                    sample("SeaweedFS_volume_fastlane_volume_requests_total",
+                           {"server": server, "volume": vid, "op": op}, cnt)
+                for op, nb in (("read", vm["read_bytes"]),
+                               ("write", vm["write_bytes"])):
+                    sample("SeaweedFS_volume_fastlane_volume_bytes_total",
+                           {"server": server, "volume": vid, "op": op}, nb)
         store = self.store
         if store is not None:
             lines.append("# TYPE SeaweedFS_volume_disk_used_bytes gauge")
@@ -439,7 +658,21 @@ class VolumeServer:
             _FP_HEARTBEAT.hit(key=self.node_id)
         except (faults.FaultInjected, ConnectionError, OSError):
             return  # partitioned from the master: the beat just vanishes
+        self._fl_drain()  # report the engine's appends, not a stale view
         hb = self.store.collect_heartbeat()
+        if self.fastlane:
+            # per-volume cumulative op counters ride the beat: the master's
+            # heat rollup (stats/heat.py) turns consecutive beats into
+            # per-collection/per-node access rates. Cumulative, not deltas —
+            # a dropped beat then costs resolution, not correctness.
+            for v in hb.get("volumes", ()):
+                vm = self.fastlane.volume_metrics(int(v.get("id", 0)))
+                if vm is None:
+                    continue
+                v["read_ops"] = vm["reads"]
+                v["write_ops"] = vm["writes"] + vm["deletes"]
+                v["read_bytes"] = vm["read_bytes"]
+                v["write_bytes"] = vm["write_bytes"]
         hb["data_center"] = self.data_center
         hb["rack"] = self.rack
         hb["max_volume_count"] = self.max_volume_count
@@ -875,6 +1108,8 @@ class VolumeServer:
             }
             if online:
                 out["ec_online"] = online
+            if self.fastlane:
+                out["fastlane"] = self.fastlane.stats()
             return Response(out)
 
         @svc.route("POST", r"/admin/allocate_volume")
@@ -890,10 +1125,12 @@ class VolumeServer:
                     int(p["ecOnlineBlock"]) if p.get("ecOnlineBlock") else None
                 ),
             )
+            self._fl_register(int(p["volume"]))
             return Response({"ok": True})
 
         @svc.route("POST", r"/admin/delete_volume")
         def delete_volume(req: Request) -> Response:
+            self._fl_unregister(int(req.json()["volume"]))
             self.store.delete_volume(int(req.json()["volume"]))
             self.heartbeat_once()  # master forgets this replica promptly
             return Response({"ok": True})
@@ -905,8 +1142,14 @@ class VolumeServer:
             if v is None:
                 return Response({"error": f"volume {vid} not found"}, 404)
             garbage = v.garbage_level()
-            v.compact()
-            v.commit_compact()
+            # the commit swaps .dat/.idx files: the engine's fds would go
+            # stale, so it hands the volume back to Python for the duration
+            self._fl_unregister(vid)
+            try:
+                v.compact()
+                v.commit_compact()
+            finally:
+                self._fl_register(vid)
             self.heartbeat_once()
             return Response({"ok": True, "garbage_was": garbage})
 
@@ -914,6 +1157,7 @@ class VolumeServer:
         def readonly(req: Request) -> Response:
             p = req.json()
             self.store.mark_readonly(int(p["volume"]), bool(p.get("readonly", True)))
+            self._fl_sync_flags(int(p["volume"]))
             return Response({"ok": True})
 
         @svc.route("GET", r"/ui")
@@ -956,6 +1200,7 @@ class VolumeServer:
             except (ValueError, KeyError) as e:
                 return Response({"error": str(e)}, 400)
             v.configure_replication(rp)
+            self._fl_sync_flags(vid)
             return Response({"ok": True, "replication": str(rp)})
 
         # --- tiering (volume_grpc_tier_upload.go / _download.go) ---
@@ -975,11 +1220,13 @@ class VolumeServer:
             v = self.store.get_volume(vid)
             if v is None:
                 return Response({"error": f"volume {vid} not found"}, 404)
+            self._fl_unregister(vid)
             try:
                 size = v.tier_to_remote(
                     p["backend"], keep_local=bool(p.get("keepLocal", False))
                 )
             except (VolumeError, BackendError) as e:
+                self._fl_register(vid)
                 return Response({"error": str(e)}, 409)
             return Response({"ok": True, "size": size})
 
@@ -993,6 +1240,7 @@ class VolumeServer:
                 v.tier_to_local()
             except (VolumeError, BackendError) as e:
                 return Response({"error": str(e)}, 409)
+            self._fl_register(vid)
             return Response({"ok": True})
 
         @svc.route("GET", r"/admin/volume/tier_info")
@@ -1008,6 +1256,7 @@ class VolumeServer:
             """The .dat bytes of the needles appended after since_ns
             (`volume_backup.go:66`), read through the volume's file (a
             tiered volume's through its backend)."""
+            self._fl_drain()  # the tail must see the engine's appends
             vid = int(req.query["volume"])
             since_ns = int(req.query.get("since_ns", 0))
             v = self.store.get_volume(vid)
@@ -1037,7 +1286,7 @@ class VolumeServer:
             if not self._file_jwt_ok(req, self.security.read_key, fid):
                 return Response({"error": "unauthorized"}, 401)
             try:
-                n = self.store.read(vid, key, cookie=cookie)
+                n = self._store_read(vid, key, cookie)
             except (NotFound, VolumeError) as e:
                 return Response({"error": str(e)}, 404)
             data = decompress_data(n.data) if n.is_compressed() else n.data
@@ -1086,6 +1335,7 @@ class VolumeServer:
         def volume_raw(req: Request) -> Response:
             """Raw byte range of one volume/EC file — the copy stream
             (`VolumeCopy`/`CopyFile` stream in volume_server.proto)."""
+            self._fl_drain()  # copy streams must see the engine's appends
             vid = int(req.query["volume"])
             ext = req.query["ext"]
             collection = req.query.get("collection", "")
@@ -1148,6 +1398,9 @@ class VolumeServer:
                 if v.online_ec is not None:
                     v.online_ec.close()
                     v.online_ec = None
+            # hand the received volume to the engine (its accumulator armed
+            # at the re-armed watermark), as ec_to_volume does
+            self._fl_register(vid)
             self.heartbeat_once()
             out = {"ok": True, "volume": vid, "size": v.size(),
                    "last_append_at_ns": v.last_append_at_ns}
@@ -1159,11 +1412,14 @@ class VolumeServer:
         def volume_mount(req: Request) -> Response:
             p = req.json()
             v = self.store.mount_volume(int(p["volume"]), p.get("collection", ""))
+            self._fl_register(int(p["volume"]))  # native plane resumes
             self.heartbeat_once()
             return Response({"ok": True, "size": v.size()})
 
         @svc.route("POST", r"/admin/volume/unmount")
         def volume_unmount(req: Request) -> Response:
+            # the engine must not go on serving files the store closed
+            self._fl_unregister(int(req.json()["volume"]))
             self.store.unmount_volume(int(req.json()["volume"]))
             self.heartbeat_once()
             return Response({"ok": True})
@@ -1251,6 +1507,7 @@ class VolumeServer:
             except ValueError:
                 p = {}
             vid = int(p["volume"]) if p.get("volume") is not None else None
+            self._fl_drain()  # the scrub must see the engine's appends
             try:
                 found = self.scrubber.scrub_pass(volume_id=vid)
             except ScrubCodecFailed as e:
@@ -1365,6 +1622,7 @@ class VolumeServer:
             v = self.store.get_volume(vid)
             if v is None:
                 return Response({"error": f"volume {vid} not found"}, 404)
+            self._fl_drain()
             listing = get_json(
                 f"{source}/admin/volume/needles?volume={vid}", timeout=300)
             theirs = {int(n["id"]): n for n in listing.get("needles", [])}
@@ -1417,19 +1675,26 @@ class VolumeServer:
             if v is None:
                 return Response({"error": f"volume {vid} not found"}, 404)
             v.readonly = True
+            # a native append already past the engine's readonly check could
+            # still be mid-pwrite; unregister waits it out so the encoder
+            # reads a quiescent .dat/.idx
+            self._fl_unregister(vid)
             sealed_online = False
             base = v.base_name
-            if v.online_ec is not None and v.online_ec.active:
-                # ingest already paid the GF math: the seal flushes the
-                # tail row and copies the data shards — no re-encode
-                try:
-                    v.online_ec.seal()
-                    sealed_online = True
-                except RuntimeError:
-                    pass  # degraded mid-seal: classic encode below
-            if not sealed_online:
-                ec_encoder.write_ec_files(base, codec=self._codec())
-            ec_encoder.write_sorted_file_from_idx(base)
+            try:
+                if v.online_ec is not None and v.online_ec.active:
+                    # ingest already paid the GF math: the seal flushes the
+                    # tail row and copies the data shards — no re-encode
+                    try:
+                        v.online_ec.seal()
+                        sealed_online = True
+                    except RuntimeError:
+                        pass  # degraded mid-seal: classic encode below
+                if not sealed_online:
+                    ec_encoder.write_ec_files(base, codec=self._codec())
+                ec_encoder.write_sorted_file_from_idx(base)
+            finally:
+                self._fl_register(vid)  # readonly: native reads, proxied writes
             if not sealed_online:
                 # classic path: the shards now belong to the EC volume —
                 # detach any (degraded) stripe writer so a later destroy
@@ -1494,7 +1759,10 @@ class VolumeServer:
                 return Response(
                     {"error": f"volume {vid} has no online-EC striper"}, 404
                 )
+            self._fl_drain()  # the re-encode must cover the engine's appends
             rows = v.online_ec.rearm()
+            if self.fastlane and vid in self.fastlane._volumes:
+                self.fastlane.ec_online_advance(vid, v.online_ec.watermark)
             self.heartbeat_once()  # the parity-damage count clears now
             return Response({
                 "ok": True, "rows": rows,
@@ -1506,7 +1774,9 @@ class VolumeServer:
         def ec_delete(req: Request) -> Response:
             """Delete the original volume files after EC spread
             (`command_ec_encode.go` deletes source replicas)."""
-            self.store.delete_volume(int(req.json()["volume"]))
+            vid = int(req.json()["volume"])
+            self._fl_unregister(vid)  # EC serving runs in Python from here on
+            self.store.delete_volume(vid)
             self.heartbeat_once()
             return Response({"ok": True})
 
@@ -1553,6 +1823,7 @@ class VolumeServer:
             )
             ec_decoder.write_idx_file_from_ec_index(base)
             v = self.store.mount_volume(vid, collection)
+            self._fl_register(vid)
             self.heartbeat_once()
             return Response({"ok": True, "size": v.size()})
 
@@ -2130,6 +2401,20 @@ class VolumeServer:
         fid = f"{req.match.group(1)},{req.match.group(2)}"
         return self._file_jwt_ok(req, self.security.write_key, fid)
 
+    def _store_read(self, vid: int, key: int, cookie: int | None):
+        """store.read with one drain-and-retry on miss: a needle the
+        fastlane engine just wrote may not be in the Python map yet."""
+        try:
+            return self.store.read(vid, key, cookie=cookie)
+        except NotFound:
+            if not self.fastlane:
+                raise
+            # retry unconditionally after the drain: the background drain
+            # loop may have applied the missing event between our miss and
+            # our drain() returning 0
+            self.fastlane.drain()
+            return self.store.read(vid, key, cookie=cookie)
+
     def _do_read(self, req: Request, head: bool) -> Response:
         try:
             vid, key, cookie = self._parse_fid(req)
@@ -2137,8 +2422,15 @@ class VolumeServer:
             return Response({"error": str(e)}, 400)
         if not self._check_read_jwt(req):
             return Response({"error": "unauthorized"}, 401)
+        # cross-core delete fence: this handler only sees reads the engine
+        # proxied (query params, multi-range, secure reads), and a native
+        # DELETE acked up to one drain tick earlier may not be in the
+        # Python needle map yet — a stale hit would serve a deleted needle.
+        # Drain before the lookup so read-your-deletes holds on EVERY path.
+        if self.fastlane is not None and vid in self.fastlane._volumes:
+            self.fastlane.drain()
         try:
-            n = self.store.read(vid, key, cookie=cookie)
+            n = self._store_read(vid, key, cookie)
         except NotFound:
             return Response(b"", 404)
         except VolumeError as e:
@@ -2202,6 +2494,7 @@ class VolumeServer:
         return Response(data, status, headers, content_type=mime)
 
     def _do_write(self, req: Request) -> Response:
+        self._fl_drain()  # overwrite checks need the engine's appends applied
         try:
             vid, key, cookie = self._parse_fid(req)
         except ValueError as e:
@@ -2245,6 +2538,8 @@ class VolumeServer:
         try:
             self.store.write(vid, n, check_cookie=not is_replicate)
         except VolumeError as e:
+            log.warning("volume %s: write of %d,%x failed: %s",
+                        self.node_id, vid, key, e)
             return Response({"error": str(e)}, 500)
         if not is_replicate:
             v = self.store.get_volume(vid)
@@ -2283,6 +2578,7 @@ class VolumeServer:
         )
 
     def _do_delete(self, req: Request) -> Response:
+        self._fl_drain()
         try:
             vid, key, cookie = self._parse_fid(req)
         except ValueError as e:

@@ -303,18 +303,13 @@ def _check_trace_drops(hist, now, p):
     return None
 
 
-# the fastlane's broken fallback reasons (JAX `storage/fastlane.py`); the
-# port keeps its own copy until the native fastlane is ported
-PATHOLOGICAL_REASONS = (
-    "no_lease", "lease_spent", "backpressure", "upstream",
-)
-
-
 def _check_fastlane_fallback(hist, now, p):
     """A front-door engine silently falling back to the Python path for a
     BROKEN reason (the filer lease rejected/spent, drain backpressure, the
     upstream volume hop failing) — distinct from expected gate fallbacks
     like cache misses or auth'd requests, which are business as usual."""
+    from ..storage.fastlane import PATHOLOGICAL_REASONS
+
     bad = set(PATHOLOGICAL_REASONS)
     details, worst = [], None
     for family, role in (

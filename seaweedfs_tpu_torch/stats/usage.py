@@ -17,7 +17,7 @@ Feeds:
   the sketch is O(1) per offer, no sorting on the hot path);
 - fastlane native ops bypass Python entirely, so the collector folds in
   counter DELTAS from the engine's per-collection usage ABI
-  (`sw_fl_get_usage`, hasattr-gated; stale .so → Python-path only).
+  (`sw_fl_get_usage`, attached by each volume server that runs one).
 
 Evicting a tenant from the sketch emits a `tenant_overflow` journal event
 (deduplicated per tenant per process) so `cluster.why <collection>` can

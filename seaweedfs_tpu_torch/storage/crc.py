@@ -45,7 +45,7 @@ def update_numpy(crc: int, data) -> int:
 
 
 def _lib_update():
-    fn = _build.load(_build.CRC32C_HOST).crc32c_update
+    fn = _build.load(_build.CRC32C_HOST).sw_crc32c_update
     if fn.argtypes is None:
         fn.argtypes = (ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t)
         fn.restype = ctypes.c_uint32

@@ -25,8 +25,7 @@ Three implementations behind one interface:
 
 The port's copy of `seaweedfs_tpu/storage/needle_map.py`, for 16-byte
 entries and, under SEAWEEDFS_TPU_OFFSET_BYTES=5, 17-byte ones. Not
-ported: the fastlane engine's memory-only updates and the memory-footprint
-probe.
+ported: the memory-footprint probe.
 """
 
 from __future__ import annotations
@@ -111,6 +110,14 @@ class NeedleMap:
                 idx_mod.entry_to_bytes(key, tombstone_offset, TOMBSTONE_FILE_SIZE)
             )
             self._idx_file.flush()
+
+    # memory-only variants: the fastlane engine already appended the .idx
+    # entry; only the in-process view needs the update (storage/fastlane.py)
+    def apply_external(self, key: int, offset: int, size: int) -> None:
+        self._apply(key, offset, size)
+
+    def apply_external_delete(self, key: int, freed: int) -> None:
+        self._apply(key, 0, TOMBSTONE_FILE_SIZE)
 
     def ascending_visit(self):
         for key in sorted(self._map):
@@ -309,6 +316,23 @@ class CompactNeedleMap:
                     )
                 )
                 self._idx_file.flush()
+
+    # memory-only variants: the fastlane engine already appended the .idx
+    # entry; only the in-process view needs the update (storage/fastlane.py)
+    def apply_external(self, key: int, offset: int, size: int) -> None:
+        with self._mu:
+            self.metrics.maximum_key = max(self.metrics.maximum_key, key)
+            if offset > 0 and size_is_valid(size):
+                if not self._set_live(key, offset, size):
+                    self.metrics.file_count += 1
+                    self._live += 1
+            else:
+                self._delete_state(key)
+
+    def apply_external_delete(self, key: int, freed: int) -> None:
+        with self._mu:
+            self.metrics.maximum_key = max(self.metrics.maximum_key, key)
+            self._delete_state(key)
 
     def ascending_visit(self):
         with self._mu:

@@ -32,7 +32,11 @@ the JAX package counts 16 bytes there (ROADMAP Queue 3).
 
 A degraded read counts `SeaweedFS_volume_degraded_reads_total{reason}`
 and journals a `degraded_read` event (`stats/`), as the JAX volume does.
-Not ported: the native fastlane hook.
+
+While the fastlane engine fronts a volume (`storage/fastlane.py`), its
+`_fl_hook` is set: the engine's tail is authoritative for `size()`, and
+Python's own appends borrow the engine's per-volume lock and tail
+(`_append_lock`) and mirror their map updates into the engine's map.
 Thread-safety: one writer lock; reads use positional os.pread.
 """
 
@@ -42,6 +46,7 @@ import json
 import os
 import threading
 import time
+from contextlib import contextmanager
 
 from ..stats import default_registry
 from ..stats import events as events_mod
@@ -135,6 +140,7 @@ class Volume:
         self.online_ec = None
         self.readonly = False
         self.last_append_at_ns = 0
+        self._fl_hook = None  # set while the fastlane engine fronts this volume
         # bumped by commit_compact's swap: readers that straddle it retry
         # against the post-swap (nm, dat) pair instead of failing spuriously
         self._compact_gen = 0
@@ -242,6 +248,11 @@ class Volume:
 
     # --- stats ---------------------------------------------------------------
     def size(self) -> int:
+        h = self._fl_hook
+        if h is not None:
+            # the engine's tail is authoritative while it fronts this
+            # volume; the event drain catches _size up asynchronously
+            return max(self._size, h.tail_get())
         return self._size
 
     def file_count(self) -> int:
@@ -281,6 +292,28 @@ class Volume:
         return digest
 
     # --- write path ----------------------------------------------------------
+    def _record_size(self, size: int) -> int:
+        return get_actual_size(size, self.version())
+
+    @contextmanager
+    def _append_lock(self):
+        """Python-side append critical section. With the fastlane engine
+        fronting this volume, its per-volume lock serializes against the
+        engine's own appenders and its tail is authoritative — borrow both
+        (storage/fastlane.py VolumeHook)."""
+        with self._write_lock:
+            h = self._fl_hook
+            if h is None:
+                yield None
+                return
+            h.lock()
+            try:
+                self._size = max(self._size, h.tail_get())
+                yield h
+            finally:
+                h.tail_set(self._size, self.last_append_at_ns)
+                h.unlock()
+
     def _is_unchanged(self, n: Needle) -> bool:
         """Duplicate-write suppression (`volume_write.go:32`): same id, same
         cookie, same checksum+data."""
@@ -303,7 +336,7 @@ class Volume:
         """Append a needle; returns (offset, size). (`volume_write.go:137`)"""
         if self.readonly:
             raise VolumeError(f"volume {self.id} is read only")
-        with self._write_lock:
+        with self._append_lock() as h:
             if check_cookie:
                 nv = self.nm.get(n.id)
                 if nv is not None and size_is_valid(nv[1]):
@@ -317,6 +350,8 @@ class Volume:
             self.last_append_at_ns = n.append_at_ns
             if n.size > 0 or self.version() == 1:
                 self.nm.put(n.id, offset, n.size)
+                if h is not None:
+                    h.map_put(n.id, offset, n.size)
             return offset, n.size
 
     def _append(self, n: Needle) -> int:
@@ -339,7 +374,7 @@ class Volume:
         """Returns the freed size, 0 if absent (`volume_write.go:216`)."""
         if self.readonly:
             raise VolumeError(f"volume {self.id} is read only")
-        with self._write_lock:
+        with self._append_lock() as h:
             nv = self.nm.get(n.id)
             if nv is None or not size_is_valid(nv[1]):
                 return 0
@@ -349,6 +384,8 @@ class Volume:
             offset = self._append(n)
             self.last_append_at_ns = n.append_at_ns
             self.nm.delete(n.id, offset)
+            if h is not None:
+                h.map_del(n.id)
             return freed
 
     # --- read path -----------------------------------------------------------

@@ -23,9 +23,9 @@ plus the reason, state, event-type and fault-point vocabularies.
 `exposition_violations(text)` lints the families a role's `/metrics`
 actually renders.
 
-plus the usage/heat, cluster-telemetry, spool and qos contracts. Left out
-until the native fastlane is ported: its front-door reasons and families;
-`NOT_PORTED_EVENTS` names the event types whose seams come with it.
+plus the usage/heat, cluster-telemetry, spool and qos contracts, and the
+fastlane's front-door reasons. `NOT_PORTED_EVENTS` names the event types
+whose seams come with the filer's and S3's fastlane fronts.
 
     python -m seaweedfs_tpu_torch.tools.check_metric_names
 """
@@ -57,8 +57,8 @@ ALERT_SEVERITIES = {"critical", "warning"}
 
 HISTOGRAM_UNITS = ("_seconds", "_bytes")
 
-# event types whose seams come with the native fastlane's lease and front
-# door, not ported yet
+# event types whose seams come with the filer's and S3's fastlane fronts
+# (the filer's fid lease and front door), not ported yet
 NOT_PORTED_EVENTS = {"lease_churn", "fallback_fastlane"}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -193,6 +193,32 @@ def task_type_violations() -> list[str]:
     return bad
 
 
+def front_reason_violations() -> list[str]:
+    """Front-door fallback reasons ride into the `reason` label of the
+    SeaweedFS_{filer,s3}_fastlane_fallback_total families — lint them
+    (unique snake_case) and require the alert's pathological subset to be
+    a real subset, so a renamed reason can't silently un-wire the
+    fastlane_fallback rule."""
+    from seaweedfs_tpu_torch.storage import fastlane
+
+    bad: list[str] = []
+    seen: set[str] = set()
+    for name in fastlane.FALLBACK_REASONS:
+        if not ALERT_RULE_RE.match(name):
+            bad.append(f"fallback reason {name!r}: not snake_case")
+        if name in seen:
+            bad.append(f"fallback reason {name!r}: duplicate")
+        seen.add(name)
+    for name in fastlane.PATHOLOGICAL_REASONS:
+        if name not in seen:
+            bad.append(f"pathological reason {name!r}: not a declared"
+                       f" fallback reason")
+    for name in fastlane.FRONT_OPS:
+        if not ALERT_RULE_RE.match(name):
+            bad.append(f"front op {name!r}: not snake_case")
+    return bad
+
+
 def ec_online_reason_violations() -> list[str]:
     """Online-EC degrade reasons ride into the `reason` label of
     SeaweedFS_volume_ec_online_fallbacks_total — lint them like the
@@ -237,6 +263,7 @@ def fault_point_violations() -> list[str]:
     import seaweedfs_tpu_torch.server.volume  # noqa: F401
     import seaweedfs_tpu_torch.storage.erasure_coding.ec_volume  # noqa: F401
     import seaweedfs_tpu_torch.storage.erasure_coding.online  # noqa: F401
+    import seaweedfs_tpu_torch.storage.fastlane  # noqa: F401
     import seaweedfs_tpu_torch.storage.volume  # noqa: F401
 
     registered = set(faults.registered_points())
@@ -691,7 +718,8 @@ def all_violations() -> tuple[int, list[str]]:
     """-> (families checked, every violation of every rule above)."""
     kinds, collector_names = collect()
     bad = violations(kinds, collector_names) + alert_rule_violations() \
-        + task_type_violations() + ec_online_reason_violations() \
+        + task_type_violations() + front_reason_violations() \
+        + ec_online_reason_violations() \
         + fault_point_violations() + degraded_reason_violations() \
         + repair_reason_violations() + stream_lazy_violations() \
         + event_type_violations() + slo_violations() + scrub_violations() \

@@ -32,8 +32,6 @@ Seam API:
 A firing fault counts `SeaweedFS_faults_injected_total{point,mode}` and
 journals a `fault_injected` event (`stats/`) with its key and the
 `volume=` a seam passes, so `cluster.why <volume>` shows the injection.
-Not ported: the `volume.fastlane.drain` point (the native fastlane is not
-ported).
 """
 
 from __future__ import annotations
@@ -60,6 +58,7 @@ ALL_POINTS = (
     "filer.chunk.read",       # filer -> volume chunk relay (WeedClient.fetch)
     "volume.replicate.fanout",  # a replicated write's push to the other
                                 # holders: error = the write is not acked
+    "volume.fastlane.drain",  # the fastlane engine's event drain
     "repair.partial_fetch",   # pipelined-rebuild partial-sum hop (/admin/ec/
                               # partial*): error = a chain hop dies mid-rebuild
 )

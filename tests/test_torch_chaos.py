@@ -2,8 +2,8 @@
 
 The port's counterpart of tests/test_chaos.py: the same scenarios and
 assertions over the port's master, volume servers (device="cpu") and
-shell. The native fastlane is not ported, so its `volume.fastlane.drain`
-point is neither declared nor driven here.
+shell. The volume servers run behind the native fastlane engine, as a
+deployment does, and `volume.fastlane.drain` fires through its drain.
 
 Every scenario here injects through util/faults.py (the `-faults` /
 POST /debug/faults / cluster.faults switchboard) and asserts the
@@ -20,7 +20,7 @@ firing counts at runtime:
     volume.read.dat volume.read.idx volume.write.dat
     volume.ec.shard.read volume.ec.parity.write volume.heartbeat.send
     master.assign master.lookup filer.chunk.read
-    volume.replicate.fanout repair.partial_fetch
+    volume.replicate.fanout volume.fastlane.drain repair.partial_fetch
 
 The `corrupt` fault mode (silent bit flips) is exercised by the
 scrub scenario (TestSilentCorruptionScrubHeal), also lint-enforced.
@@ -183,6 +183,11 @@ class TestEveryPointFires:
             b"",
         )
         assert st == 200 and len(body) == 64
+
+        # volume.fastlane.drain — the engine event drain (a Python seam:
+        # the engine has no injection ABI of its own)
+        faults.arm("volume.fastlane.drain", "latency", ms=1)
+        vols[0].fastlane.drain()
 
         faults.disarm_all()
         for p in faults.ALL_POINTS:

@@ -3,6 +3,7 @@ no JAX or seaweedfs_tpu import, and no quiet CPU run without CUDA."""
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -45,6 +46,36 @@ def test_no_jax_or_reference_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "seaweedfs_tpu"), f"{path}: imports {name}"
+
+
+CSRC_FILES = sorted(p for p in (REPO / "seaweedfs_tpu_torch" / "csrc").rglob("*")
+                    if p.is_file())
+
+
+@pytest.mark.parametrize("path", PORT_FILES + CSRC_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_reference_native_path(path):
+    """No port module or source reads or names the JAX package's native
+    sources: the port builds its own copies."""
+    assert "seaweedfs_tpu/native" not in path.read_text(errors="replace")
+
+
+def test_loaded_build_sources_live_in_csrc():
+    """Every library a port module loads through `_build` is one of its
+    SOURCES, built from files under seaweedfs_tpu_torch/csrc/ alone."""
+    csrc = (REPO / "seaweedfs_tpu_torch" / "csrc").resolve()
+    assert _build.CSRC_DIR.resolve() == csrc
+    named = set()
+    for path in PORT_FILES:
+        named.update(re.findall(r"_build\.([A-Z][A-Z0-9_]+)\b", path.read_text()))
+    loaded = {n for n in named if isinstance(getattr(_build, n), _build.Source)}
+    assert {"FASTLANE", "LOADGEN", "CRC32C_HOST"} <= loaded
+    for name in loaded:
+        assert getattr(_build, name) in _build.SOURCES, name
+    for src in _build.SOURCES:
+        for f in src.files:
+            path = (_build.CSRC_DIR / f).resolve()
+            assert path.is_file() and path.parent == csrc, (src.name, f)
 
 
 def test_no_device_without_cuda_raises(monkeypatch, tmp_path):
@@ -266,8 +297,8 @@ def test_library_names_follow_sources():
     assert set(cuda) < set(_build.SOURCES)
     assert len({_build.library_path(s) for s in _build.SOURCES}) == len(_build.SOURCES)
     for src in cuda:
-        assert src.compiler == "nvcc" and src.file.endswith(".cu")
-        assert (_build.CSRC_DIR / src.file).is_file()
+        assert src.compiler == "nvcc" and src.files == (src.name + ".cu",)
+        assert (_build.CSRC_DIR / src.files[0]).is_file()
         assert "-gencode" in src.flags
         assert "arch=compute_90a,code=sm_90a" in src.flags
 

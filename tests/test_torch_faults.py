@@ -46,7 +46,7 @@ from tests.test_torch_shell_volume import Shells
 from tests.test_torch_volume_admin import allocate, fid, pinned_clock, twin, write
 from tests._threads import stop_history_loops  # noqa: F401
 
-PORT_POINTS = [p for p in ref_faults.ALL_POINTS if p != "volume.fastlane.drain"]
+PORT_POINTS = list(ref_faults.ALL_POINTS)
 
 
 @pytest.fixture(autouse=True)
@@ -70,8 +70,9 @@ def outcome(fn):
 def test_points_and_modes_equal_reference():
     assert faults.MODES == ref_faults.MODES
     assert list(faults.ALL_POINTS) == PORT_POINTS
+    assert faults.register("volume.fastlane.drain").name == "volume.fastlane.drain"
     with pytest.raises(ValueError, match="undeclared"):
-        faults.register("volume.fastlane.drain")
+        faults.register("volume.fastlane.undeclared")
 
 
 @pytest.mark.parametrize("seed", range(6))

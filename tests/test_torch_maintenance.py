@@ -847,6 +847,9 @@ def test_corrupt_needle_found_by_scrub_is_healed(cluster):
     """A flipped byte in one replica's needle, found by that server's scrub
     pass, is re-copied from the good replica by the daemon's scrub task."""
     master, servers, env = cluster
+    # two volumes a server: no balance task moves one while the test reads
+    allocate_evenly(master, servers, {1: [0, 1], 2: [1, 2], 3: [2, 0]},
+                    replication="010")
     blobs = write_blobs(master.url, 6, size=1500, seed=5, replication="010")
     url = next(iter(blobs))
     vid = int(fid_of(url).split(",")[0])
@@ -864,7 +867,11 @@ def test_corrupt_needle_found_by_scrub_is_healed(cluster):
     found = post_json(bad.url + "/admin/scrub/run", {})["findings"]
     assert [f["kind"] for f in found] == ["corrupt_needle"]
     post_json(f"{master.url}/maintenance/enable")
-    scrubbed = wait_until(lambda: done(master, "scrub"), msg="scrub task done")
+    # this volume's task: a transient digest divergence between two beats
+    # can queue a scrub of another volume that completes first
+    scrubbed = wait_until(
+        lambda: [h for h in done(master, "scrub") if h["task"]["volume_id"] == vid],
+        msg=f"scrub task of volume {vid} done")
     assert scrubbed[0]["applied"]
     assert post_json(bad.url + "/admin/scrub/run", {})["findings"] == []
     for vs in holders:

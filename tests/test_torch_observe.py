@@ -682,7 +682,10 @@ def test_cluster_check_fail_mode_equal_reference(stub):
 @contextlib.contextmanager
 def _cluster(pkg: str, tmp, security=None):
     """master + volume server + filer (metrics port) + WebDAV + S3 + IAM of
-    one package, in this process."""
+    one package, in this process. The master and the volume server run
+    behind their fastlane engines, as a deployment does; the others start
+    with the front door off (the filer's and S3's engine fronts are not
+    ported)."""
     if pkg == "ref":
         from seaweedfs_tpu.iamapi.iam_server import IamServer
         from seaweedfs_tpu.s3api.s3_server import S3Server
@@ -702,7 +705,6 @@ def _cluster(pkg: str, tmp, security=None):
     sec = {"security": security} if security is not None else {}
     started = []
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SEAWEEDFS_TPU_DISABLE_FASTLANE", "1")
         try:
             m = MasterServer(port=0, pulse_seconds=1, **sec)
             m.start()
@@ -711,6 +713,8 @@ def _cluster(pkg: str, tmp, security=None):
                              max_volume_count=10, **dev, **sec)
             v.start()
             started.append(v)
+            assert m.fastlane is not None and v.fastlane is not None
+            mp.setenv("SEAWEEDFS_TPU_DISABLE_FASTLANE", "1")
             f = FilerServer(m.url, port=0, metrics_port=-1, **dev)
             f.start()
             started.append(f)
@@ -751,10 +755,11 @@ def _request_script(c, request) -> None:
 # agree on them here: usage, heat and days-to-full, qos, the telemetry
 # spool and the cluster aggregate (their shapes are held against the JAX
 # package in tests/test_torch_{usage_heat,qos,telemetry_store,
-# cluster_telemetry}.py); and the native fastlane's, not ported
+# cluster_telemetry}.py); and the filer's and S3's fastlane fronts', not
+# ported
 EXCLUDED_FAMILIES = re.compile(
     r"^SeaweedFS_(usage|heat|node_days|qos|telemetry|cluster)_"
-    r"|^SeaweedFS_volume_heat_|_fastlane_"
+    r"|^SeaweedFS_volume_heat_|^SeaweedFS_(filer|s3)_fastlane_"
 )
 
 
@@ -776,13 +781,33 @@ def _families(text: str, reg) -> dict:
             for f, k in kinds.items() if not EXCLUDED_FAMILIES.search(f)}
 
 
+def _fresh_sample_state() -> None:
+    """Both packages' process-wide state that decides whether a collector
+    family has samples at all, and so which label names a scrape shows
+    for it, set back to a fresh process's: the SLO burn cache
+    (`SeaweedFS_slo_burn_rate{slo,window}`) and the event counts by type
+    (`SeaweedFS_events_recorded_total{type}`). Another test file in the
+    same worker fills one package's and not the other's, before this test
+    or, through servers it left running, during it (the script records
+    no event and burns no SLO in a fresh process)."""
+    for alerts_mod, events_mod in ((ref_alerts, ref_events), (alerts, events)):
+        eng = alerts_mod.engine()
+        with eng._lock:
+            eng._slo_burns = {}
+        rec = events_mod.recorder()
+        with rec._lock:
+            rec.recorded_by_type.clear()
+
+
 def test_roles_expose_the_same_families_as_reference(tmp_path):
     """The same script against a JAX and a port cluster (master, volume
     server, filer, WebDAV, S3, IAM) leaves /metrics with the same set of
     (family, label names), apart from EXCLUDED_FAMILIES. Both registries
     are forced to hold every lazily-created family first (each package's
-    lint), so what other tests in this process touched cannot tell them
-    apart."""
+    lint), the history ring the alert engine reads starts empty in both,
+    and the state that decides whether a collector family has samples is
+    a fresh process's in both before each scrape (`_fresh_sample_state`),
+    so what other tests in this process touched cannot tell them apart."""
     from seaweedfs_tpu.server.httpd import http_request as ref_http_request
 
     import sys
@@ -792,17 +817,22 @@ def test_roles_expose_the_same_families_as_reference(tmp_path):
 
     ref_lint.collect()
     port_lint.collect()
+    ref_history.default_history().clear()
+    history.default_history().clear()
     out = {}
     for pkg, request, reg in (("ref", ref_http_request, ref_metrics.default_registry()),
                               ("port", http_request, metrics.default_registry())):
         with _cluster(pkg, tmp_path) as c:
             _request_script(c, request)
+            _fresh_sample_state()
             st, _, body = request("GET", c["master"].url + "/metrics")
             assert st == 200
             out[pkg] = _families(body.decode(), reg)
             st, _, fbody = request("GET", c["filer"].metrics_service.url + "/metrics")
             assert st == 200 and _families(fbody.decode(), reg).keys() == out[pkg].keys()
-    assert out["port"] == out["ref"]
+    diff = set(out["port"].items()) ^ set(out["ref"].items())
+    assert out["port"] == out["ref"], sorted(
+        (f, kl, "port" if out["port"].get(f) == kl else "ref") for f, kl in diff)
     roles = {"master", "volume", "filer", "webdav", "s3", "iam"}
     assert out["port"]["SeaweedFS_build_info"] == ("gauge", ("role", "version"))
     text = metrics.default_registry().render()

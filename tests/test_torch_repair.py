@@ -165,7 +165,7 @@ def test_fault_registry_sequence_equals_reference(seed):
         assert (port_p.spec is None) == (ref_p.spec is None)
     assert faults.disarm_all() == ref_faults.disarm_all()
     with pytest.raises(ValueError, match="undeclared"):
-        faults.register("volume.fastlane.drain")
+        faults.register("volume.fastlane.undeclared")
     with pytest.raises(ValueError):
         faults.arm(POINT, "bogus")
 

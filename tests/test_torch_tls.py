@@ -102,7 +102,10 @@ def test_mtls_cluster_end_to_end(pki, tmp_path):
     filer.start()
     fc = FilerClient(filer.url)
     try:
-        assert vol.service.url.startswith("https://") and filer.url.startswith("https://")
+        # the engines in front of the master and the volume server terminate
+        # mTLS themselves; their Python services listen plain on loopback
+        assert master.fastlane.tls and vol.fastlane.tls
+        assert vol.url.startswith("https://") and filer.url.startswith("https://")
         # the whole write/read path over mTLS (filer -> master assign -> volume)
         payload = os.urandom(3000)  # past the inline limit: a volume hop
         fc.put("/tls/a.bin", payload)

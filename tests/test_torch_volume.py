@@ -377,8 +377,10 @@ def test_store_online_volume_reattaches_after_restart(tmp_path, clock):
 # --- VolumeServer over HTTP ----------------------------------------------------
 @pytest.fixture
 def server(tmp_path, clock, monkeypatch):
-    # the server stamps last_modified with time.time(): pin it
+    # the server stamps last_modified with time.time(): pin it, and keep the
+    # writes on the Python path (the fastlane engine stamps from the C clock)
     monkeypatch.setattr(server_mod, "time", types.SimpleNamespace(time=lambda: LAST_MODIFIED))
+    monkeypatch.setenv("SEAWEEDFS_TPU_DISABLE_FASTLANE", "1")
     d = tmp_path / "port"
     d.mkdir()
     vs = VolumeServer([str(d)], device="cpu", pulse_seconds=3600)

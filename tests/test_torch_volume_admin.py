@@ -7,9 +7,11 @@ servers' `last_modified`) and `time.time_ns` (every needle module's append
 stamp, which then counts up from one value per volume) for the writes, so
 two replicas that see the same writes in the same order hold byte-equal
 `.dat` and `.idx` files, and so does a JAX `Volume` given the same
-history. Where a JAX server answers beside the port's (`twin()`: a JAX
-master and volume servers with the native front door off,
-`SEAWEEDFS_TPU_DISABLE_FASTLANE=1`, so its Python handlers answer), the
+history. Both sides run with the native front door off
+(`SEAWEEDFS_TPU_DISABLE_FASTLANE=1`), so their Python handlers answer: the
+engine stamps needles from the C clock, which `pinned_clock()` cannot
+reach, and `tests/test_torch_fastlane.py` holds the two engines against
+each other. Where a JAX server answers beside the port's (`twin()`), the
 same requests go to both and the answers are compared with each server's
 address replaced by its index. Tolerance 0 throughout.
 """
@@ -101,15 +103,17 @@ class Side:
 
 
 def port_side(racks, master_kw=None, **vs_kw) -> Side:
-    m = MasterServer(port=0, pulse_seconds=1, **(master_kw or {}))
-    m.start()
-    servers = []
-    for rack in racks:
-        vs = VolumeServer([tempfile.mkdtemp()], m.url, port=0, rack=rack,
-                          pulse_seconds=1, max_volume_count=20, scrub_rate_mb=0,
-                          device="cpu", **vs_kw)
-        vs.start()
-        servers.append(vs)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SEAWEEDFS_TPU_DISABLE_FASTLANE", "1")
+        m = MasterServer(port=0, pulse_seconds=1, **(master_kw or {}))
+        m.start()
+        servers = []
+        for rack in racks:
+            vs = VolumeServer([tempfile.mkdtemp()], m.url, port=0, rack=rack,
+                              pulse_seconds=1, max_volume_count=20, scrub_rate_mb=0,
+                              device="cpu", **vs_kw)
+            vs.start()
+            servers.append(vs)
     return Side(m, servers)
 
 
