@@ -133,16 +133,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               launches, and each device's launch timed beside its byte bound
  12. filer    BASELINE config 3 as the filer takes it: a port master (pulse
               1 s), two volume servers and a FilerServer on the card, one
-              process; --filer-files (2,048) seeded 4 KiB files PUT from 16
-              threads, each waiting for its response (one chunk, one assign,
-              one needle POST, one ETag through the filer's hash service);
-              4 uploads of --filer-large-mib (256) MiB from 4 threads (64
-              chunks of 4 MiB, one batched assign); one overwritten, one
-              deleted; every large file read whole, 256 ranged GETs across
-              chunk boundaries, 1,024 small-file GETs, a conditional GET
-              (304), the freed fids 404; every body, response md5 and chunk
-              ETag equal to hashlib; batch_blobs equal to the chunk ETags
-              made, no blob hashed on the host or failed, no per-chunk
+              process, the filer behind its engine; --filer-files (2,048)
+              seeded 4 KiB files PUT from 16 threads, each waiting for its
+              response (served natively: a leased fid, one needle POST, the
+              MD5 in C++); 4 uploads of --filer-large-mib (256) MiB from 4
+              threads (64 chunks of 4 MiB, proxied to Python, one batched
+              assign); one overwritten, one deleted; every large file read
+              whole, 256 ranged GETs across chunk boundaries, 1,024
+              small-file GETs, a conditional GET (304), the freed fids 404;
+              every body, response md5 and chunk ETag equal to hashlib;
+              batch_blobs equal to the chunk ETags of what the engine handed
+              to Python (front metrics: write fallbacks), no blob hashed on
+              the host or failed, no per-chunk
               assign fallback; files/s, PUT and GET p50/p99, large-upload
               GB/s, hash batches by length, launches, the wall (limit 240 s)
  13. scrub    the volume integrity plane: a port master and three volume
@@ -331,15 +333,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               master (pulse 1 s), four volume servers and a FilerServer with
               its metrics port, every role metered, the process's history and
               alert state cleared first. (a) --obs-files (1,024) 4 KiB and
-              --obs-large (16) 4 MiB files through the filer from 8 waiting
-              threads; (b) --obs-ec-mib (256) MiB of 1 MiB needles POSTed into
-              one volume, ec.encode, data shards 2 and 7 deleted, 64 degraded
-              GETs, ec.rebuild -mode classic; (c) during the 4 MiB PUTs,
+              --obs-large (16) 8 MiB files (two chunks: proxied to Python, so
+              hashed by the kernels) through the filer, behind its engine, from
+              8 waiting threads; (b) --obs-ec-mib (256) MiB of 1 MiB needles
+              POSTed into one volume, ec.encode, data shards 2 and 7 deleted,
+              64 degraded GETs, ec.rebuild -mode classic; (c) during the 8 MiB
+              PUTs,
               GET /debug/pprof/device?seconds=2 on the metrics port (after one
               warm-up capture). Checks: SeaweedFS_filer_hash_seconds
               {kernel="batch-cuda"} grew by the hash service's batches; the EC
-              encode and decode histograms by one each; the last PUT's
-              X-Sw-Trace-Id is a cluster.trace tree of the filer, master
+              encode and decode histograms by one each; a marker PUT's (a query
+              sends it to Python) X-Sw-Trace-Id is a cluster.trace tree of the
+              filer, master
               (its assign profiles cleared first: an engine-minted fid has no
               span) and volume (the drain's fastlane.append) roles; cluster.why
               <vid> lists OBS_WHY_EVENTS (and at most the heat engine's edges
@@ -384,17 +389,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               `volume -mserver A`, on ephemeral ports, their output in
               chiprun_out/cli/. (a) `benchmark -n --cli-bench-n (4,096) -size
               4096 -c 16` as its own process, its JSON report kept; (b)
-              --cli-files (1,024) 4 KiB and 8 x 4 MiB files PUT to A's filer
-              from 8 waiting threads, read back equal, every chunk's bytes
-              through A's batch-cuda hash batches (A's master-port /metrics:
-              md5_batch and crc32c_batch ran inside A); (c) `upload` of
+              --cli-files (1,024) 4 KiB and 8 x 8 MiB files PUT to A's filer
+              (behind its engine) from 8 waiting threads, read back equal,
+              the bytes of every chunk the engine handed to Python (the 8 MiB
+              files' and A's small write fallbacks) through A's batch-cuda
+              hash batches (A's master-port /metrics: md5_batch and
+              crc32c_batch ran inside A); (c) `upload` of
               --cli-upload-mib (64) MiB, then `download`, equal; (d)
               --cli-ec-mib (256) MiB of 1 MiB needles in one volume on B,
               `shell` running `ec.encode` as its own process, 32 GETs equal,
               B's encode count up by one (gf256_matmul ran inside B); (e)
               SIGTERM to B, then A, each exiting 0 within 15 s; no child
               compiles a kernel. Each child's start seconds, the report,
-              files/s and PUT p50/p99, 4 MiB GB/s, upload and download GB/s,
+              files/s and PUT p50/p99, 8 MiB GB/s, upload and download GB/s,
               the `ec.encode` wall, the exit seconds, the wall (limit 60 s)
  24. fastlane the native fastlane engine (csrc/fastlane.cpp) in front of a
               master and a volume server on the card, as every earlier
@@ -406,11 +413,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               SEAWEEDFS_TPU_DISABLE_FASTLANE=1 (the Python path); then
               --fl-online-mib (128) MiB of 1 MiB needles appended natively to
               an ecOnline volume, every parity row against the plain version
-              and gf256_matmul launched; the heat rollup above 0 off the
+              and gf256_matmul launched; (c) the filer's front: a FilerServer
+              (leveldb) behind its engine, --fl-filer-files (8,192) files at
+              1 KiB (inline entries) and at 4 KiB (leased chunks) through the
+              loadgen, read back shuffled, 4 x --fl-filer-large-mib (64) MiB
+              multi-chunk PUTs (md5_batch and crc32c_batch launched), 1,024
+              files acked under a stalled drain, a restart replaying the
+              journal, every file read back; the heat rollup above 0 off the
               beats' native op counters. Fails on an error or a short run, a
-              sampled read not equal, a native share under 99 %, a repeated
+              sampled read not equal, a native share under 99 % (the
+              volume's requests; the filer's 1 and 4 KiB writes and reads), a
+              pathological filer fallback, an md5 or ETag not hashlib's, a
+              file missing from its listing or from the replay, a repeated
               fid, no launch or a heat rate of 0. Req/s of every run, the
-              engine's p50/p99, the native share, online GB/s, the wall
+              engine's p50/p99, the native shares, online GB/s, the wall
               (limit 30 s)
  25. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
@@ -499,6 +515,7 @@ from seaweedfs_tpu_torch.stats import store as store_mod
 from seaweedfs_tpu_torch.stats import usage as usage_mod
 from seaweedfs_tpu_torch.stats import trace as trace_mod
 from seaweedfs_tpu_torch.storage import crc, file_id
+from seaweedfs_tpu_torch.storage import fastlane as fl_mod
 from seaweedfs_tpu_torch.storage.erasure_coding import decoder, encoder, geometry
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
 from seaweedfs_tpu_torch.storage.erasure_coding.online import PATHOLOGICAL_REASONS
@@ -2603,17 +2620,21 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
                 seed: int) -> dict:
     """BASELINE config 3 as the filer takes it: a port MasterServer (pulse
     1 s), two VolumeServers and a FilerServer, all on the card, in this
-    process. n_files seeded 4 KiB files PUT from 16 threads, each waiting
-    for its response (one chunk, one assign, one needle POST and one ETag
-    through the filer's hash service each); 4 uploads of large_bytes from 4
-    threads (4 MiB chunks, one batched assign each); one overwritten, one
-    deleted. The hash launches are counted over those writes. Reads: every
-    large file whole, 256 ranged GETs across chunk boundaries, 1,024 small
-    files, one conditional GET (304); the freed fids answer 404. Checks:
-    every body equal, every response md5 and chunk ETag equal to hashlib,
-    batch_blobs equal to the chunk ETags made, no host-hashed or failed
-    blob, no per-chunk assign fallback. Then the hash kernels timed at the
-    phase's commonest batch shapes."""
+    process, the filer behind its engine. n_files seeded 4 KiB files PUT
+    from 16 threads, each waiting for its response (the engine serves each
+    natively: a leased fid, one needle POST to the volume's engine, the MD5
+    in C++; a file it proxies takes one assign, one needle POST and one ETag
+    through the filer's hash service); 4 uploads of large_bytes from 4
+    threads (4 MiB chunks, proxied to Python, one batched assign each); one
+    overwritten, one deleted. The hash launches are counted over those
+    writes. Reads: every large file whole, 256 ranged GETs across chunk
+    boundaries, 1,024 small files, one conditional GET (304); the freed fids
+    answer 404. Checks: every body equal, every response md5 and chunk ETag
+    equal to hashlib, batch_blobs equal to the chunk ETags of the uploads the
+    engine proxied (the large files' chunks and the small files its front
+    metrics count as write fallbacks), no host-hashed or failed blob, no
+    per-chunk assign fallback. Then the hash kernels timed at the phase's
+    commonest batch shapes."""
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke-filer-", dir=REPO / "build")
     master = MasterServer(port=0, pulse_seconds=1)
@@ -2650,6 +2671,7 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
             return f"/small/t{t:02d}/f{i:06d}"
 
         zero_launches()
+        fm0 = filer.fastlane.front_metrics()
         # 1. small files from 16 waiting threads
         put_lat = [[] for _ in range(FILER_THREADS)]
 
@@ -2700,9 +2722,16 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
         launches = read_launches()
         del svc._batch_hash
         chunks_per_large = -(-large_bytes // filer.chunk_size)
-        etags = n_files + (FILER_LARGE + 1) * chunks_per_large
+        # the engine serves the small files natively (their MD5 in C++);
+        # what it proxied reached the hash service: the large uploads (one
+        # multi-chunk PUT each) and any small file it handed to Python
+        _, fb = filer_front_counts(fm0, filer.fastlane.front_metrics(), "write")
+        proxied_small = sum(fb.values()) - (FILER_LARGE + 1)
+        check(proxied_small >= 0, f"write fallbacks {fb} fewer than the large uploads")
+        etags = proxied_small + (FILER_LARGE + 1) * chunks_per_large
         check(svc.batch_blobs == etags,
-              f"batch_blobs {svc.batch_blobs} != the {etags} chunk ETags the uploads made")
+              f"batch_blobs {svc.batch_blobs} != the {etags} chunk ETags of the proxied uploads"
+              f" ({proxied_small} small files, {FILER_LARGE + 1} large)")
         check(svc.host_blobs == 0, f"{svc.host_blobs} blobs hashed on the host")
         check(svc.failed_blobs == 0, "the hash service failed a batch")
         check(filer.assign_batch_fallbacks == 0,
@@ -2752,6 +2781,7 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
             (url,) = filer.client.lookup_file_id(fid)
             check(http_request("GET", url)[0] == 404, f"freed fid {fid} still answers")
         # 4. every chunk ETag against hashlib (the store, in process)
+        filer._fl_filer_drain()
         for t in range(FILER_THREADS):
             for i, data in enumerate(small[t]):
                 e = filer.filer.find_entry(small_path(t, i))
@@ -2787,6 +2817,7 @@ def filer_phase(dev: torch.device, n_files: int, large_bytes: int, md5_ops_per_b
         small_gets=len(get_lat), **{f"get_{k}": v for k, v in _pcts(get_lat).items()},
         conditional_get=304,
         freed_fids_404=len(freed), chunk_etags=etags, batch_blobs=svc.batch_blobs,
+        small_proxied=proxied_small, small_native=n_files - proxied_small, write_fallbacks=fb,
         host_blobs=svc.host_blobs, failed_blobs=svc.failed_blobs,
         assign_batch_fallbacks=filer.assign_batch_fallbacks,
         hash_batches=len(batches), hash_buckets=buckets, launches=launches,
@@ -6613,13 +6644,13 @@ def secure_ha_phase(dev: torch.device, n_files: int, large_bytes: int, ec_bytes:
 OBS_RACKS = ("r1", "r2", "r3", "r4")
 OBS_THREADS = 8  # filer clients, each waiting for its answer
 OBS_SMALL = 4096
-OBS_LARGE = 4 * MIB
+OBS_LARGE = 8 * MIB  # two 4 MiB chunks: the engine proxies the PUT, whose ETags the kernels take
 OBS_EC_VID = 951  # past the ids the master grows
 OBS_EC_NEEDLE = MIB  # the EC volume's needles, POSTed to one server
 OBS_EC_WRITERS = 4
 OBS_LOST = (2, 7)  # the data shards deleted before the degraded reads
 OBS_DEGRADED = 64
-OBS_DEVICE_S = 2.0  # the device trace's window, during the 4 MiB PUTs
+OBS_DEVICE_S = 2.0  # the device trace's window, during the 8 MiB PUTs
 OBS_PROFILE_S = 1.0  # cluster.profile's window
 # the event types `cluster.why <vid>` lists for the EC sequence (allocate,
 # POSTs, ec.encode, two data shards deleted, degraded GETs, ec.rebuild
@@ -6633,7 +6664,7 @@ OBS_WHY_HEAT = ("heat_promoted", "heat_demoted")
 OBS_ROLES = ("filer", "master", "volume")
 OBS_KERNEL_NAMES = ("gf256_matmul", "md5_batch", "crc32c_batch", "gear_hash")
 OBS_WALL_LIMIT_S = 45
-OBS_CUTS = ("(a) --obs-files (1,024) 4 KiB files and --obs-large (16) 4 MiB files through"
+OBS_CUTS = ("(a) --obs-files (1,024) 4 KiB files and --obs-large (16) 8 MiB files through"
             " one filer from 8 waiting threads, beside the filer phase's 1,024 from 16; (b)"
             " --obs-ec-mib (256) MiB in one volume of the 30 GB volume limit; every role"
             " in one process, so they share one registry, trace ring and journal")
@@ -6750,18 +6781,21 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
                   seed: int) -> dict:
     """The stats core and the debug plane on a loaded cluster: a port master
     (pulse 1 s, maintenance off), four volume servers and a filer with its
-    metrics port, every role metered as constructed. (a) n_files seeded
-    4 KiB and n_large 4 MiB files through the filer from 8 waiting threads,
-    the 4 MiB PUTs going on until (c) returns; (b) observe_ec_sequence over
-    ec_bytes; (c) during the 4 MiB PUTs, `GET /debug/pprof/device` on the
-    filer's metrics port. Checks: (1) the
+    metrics port, every role metered as constructed, the filer behind its
+    engine. (a) n_files seeded 4 KiB files (served natively) and n_large
+    8 MiB files (two chunks each: the engine hands them to Python, whose
+    chunk ETags the hash kernels take) through the filer from 8 waiting
+    threads, the 8 MiB PUTs going on until (c) returns; (b)
+    observe_ec_sequence over ec_bytes; (c) during the 8 MiB PUTs, `GET
+    /debug/pprof/device` on the filer's metrics port. Checks: (1) the
     filer's `SeaweedFS_filer_hash_seconds{kernel="batch-cuda"}` observations
     grew by its hash service's batches over (a); (2) the EC encode and
     decode histograms grew by the one encode and the one rebuild of (b);
-    (3) the last PUT's X-Sw-Trace-Id names a `cluster.trace` tree with the
-    filer, master and volume roles (the master's assign profiles cleared
-    first, so its Python handler answers; the volume's span synthesized by
-    the fastlane drain); (4) `cluster.why <vid>` lists
+    (3) a marker PUT's X-Sw-Trace-Id names a `cluster.trace` tree with the
+    filer, master and volume roles (a query sends it to the filer's Python
+    handler; the master's assign profiles cleared first, so its Python
+    handler answers; the volume's span synthesized by the fastlane
+    drain); (4) `cluster.why <vid>` lists
     OBS_WHY_EVENTS, and beside them at most OBS_WHY_HEAT; (5) `cluster.check` lists every node healthy before the
     loss and `cluster.top -once` has a row for every role; (6) the device
     trace is a gzip of a Chrome trace with CUDA kernel events of the port's
@@ -6828,8 +6862,9 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
 
         small_s = run_threads(put_small, OBS_THREADS)
         check(not errors, f"observe small PUTs: {errors[:3]}")
-        # (c) the profiler's first capture pays its set-up; then the 4 MiB
-        # PUTs run inside the timed capture
+        # (c) the profiler's first capture pays its set-up; then the 8 MiB
+        # PUTs (proxied by the filer's engine: two chunks each) run inside
+        # the timed capture
         t0 = time.perf_counter()
         status, _, _ = http_request("GET", metrics_url + "/debug/pprof/device?seconds=0.05",
                                     timeout=120)
@@ -6873,15 +6908,18 @@ def observe_phase(dev: torch.device, n_files: int, n_large: int, ec_bytes: int,
         large_s = run_threads(put_large, OBS_THREADS)
         th.join()
         check(not errors, f"observe large PUTs: {errors[:3]}")
-        # the marker PUT: its trace id, for cluster.trace. The master's engine
-        # answers an assign it holds a profile for with no span, as in the
-        # JAX package: clear its profiles, so the Python handler answers the
-        # marker's assign and joins the trace; the volume's span is the one
-        # the drain synthesizes from the engine's append (fastlane.append)
+        # the marker PUT: its trace id, for cluster.trace. The filer's engine
+        # hands a write with a query to the Python handler, whose span
+        # starts the trace (a native write mints its fid from the lease and
+        # leaves the volume's span alone). The master's engine answers an
+        # assign it holds a profile for with no span, as in the JAX package:
+        # clear its profiles, so the Python handler answers the marker's
+        # assign and joins the trace; the volume's span is the one the drain
+        # synthesizes from the engine's append (fastlane.append)
         master.fastlane.assign_clear()
         c = Client(filer.url)
         try:
-            c.conn.request("PUT", "/obs/marker", b"m" * OBS_SMALL, OCTET)
+            c.conn.request("PUT", "/obs/marker?replication=000", b"m" * OBS_SMALL, OCTET)
             resp = c.conn.getresponse()
             resp.read()
             check(resp.status == 201, f"marker PUT -> {resp.status}")
@@ -7331,7 +7369,7 @@ def qos_telemetry_phase(dev: torch.device, n_files: int, n_large: int, flood_s: 
 # --- phase 23: the CLI, each role in a process of its own ---------------------------
 CLI_THREADS = 8  # filer clients, each waiting for its answer
 CLI_SMALL = 4096
-CLI_LARGE = 4 * MIB
+CLI_LARGE = 8 * MIB  # two 4 MiB chunks: A's filer engine proxies them to Python
 CLI_LARGE_FILES = 8  # one a thread
 CLI_EC_VID = 971  # past the ids the master grows
 CLI_EC_NEEDLE = MIB
@@ -7343,7 +7381,7 @@ CLI_EXIT_LIMIT_S = 15  # SIGTERM to exit
 CLI_VERB_LIMIT_S = 120  # a verb's process to its end
 CLI_WALL_LIMIT_S = 60
 CLI_OUT = REPO / "chiprun_out" / "cli"  # each child's stdout and stderr
-CLI_CUTS = ("--cli-files (1,024) 4 KiB and 8 x 4 MiB filer files, --cli-bench-n (4,096) benchmark"
+CLI_CUTS = ("--cli-files (1,024) 4 KiB and 8 x 8 MiB filer files, --cli-bench-n (4,096) benchmark"
             " files, one --cli-upload-mib (64) MiB upload, one --cli-ec-mib (256) MiB volume:"
             " the depths of the one-process filer and observe phases, in a 60 s wall",)
 
@@ -7427,18 +7465,20 @@ def cli_phase(dev: torch.device, n_files: int, bench_n: int, upload_bytes: int, 
     """Each role in a process of its own, started through the port's CLI on
     the card: child A `server -filer -s3` and child B `volume -mserver A`
     on ephemeral ports. (a) `benchmark -n bench_n -size 4096 -c 16` as its
-    own process, its JSON report kept; (b) n_files 4 KiB and 8 x 4 MiB
+    own process, its JSON report kept; (b) n_files 4 KiB and 8 x 8 MiB
     files PUT to A's filer from 8 waiting threads and read back equal,
     `SeaweedFS_filer_hash_seconds{kernel="batch-cuda"}` on A's master-port
-    /metrics (the process's registry) grown by every chunk's bytes: md5_batch
-    and crc32c_batch ran inside A; (c) `upload` of upload_bytes, then
+    /metrics (the process's registry) grown by the bytes of every chunk A's
+    filer engine handed to Python (each 8 MiB file's two, and any small
+    file its front metrics count as a write fallback; the engine takes the
+    other small files' MD5 itself): md5_batch and crc32c_batch ran inside A; (c) `upload` of upload_bytes, then
     `download`, equal; (d) ec_bytes of 1 MiB needles POSTed into one volume
     on B, `shell` running `ec.encode` as its own process, 32 GETs equal,
     `SeaweedFS_volume_ec_encode_seconds_count` on B's /metrics up by one:
     gf256_matmul ran inside B; (e) SIGTERM to B, then A, each exiting 0
     within 15 s. No child compiles a kernel: the libraries this script built
     are loaded as they are. Returns each child's start seconds, the report,
-    files/s and PUT p50/p99, 4 MiB GB/s, upload and download GB/s (each
+    files/s and PUT p50/p99, 8 MiB GB/s, upload and download GB/s (each
     verb's process wall, its interpreter start included), the `ec.encode`
     wall, the exit seconds, and the kernels' calls inside the children."""
     t_phase = time.perf_counter()
@@ -7475,7 +7515,7 @@ def cli_phase(dev: torch.device, n_files: int, bench_n: int, upload_bytes: int, 
               f"benchmark report: {bench}")
         res.update(benchmark=bench, benchmark_wall_s=bench_wall)
 
-        # (b) small and 4 MiB files through A's filer from 8 waiting threads
+        # (b) small and 8 MiB files through A's filer from 8 waiting threads
         def hash_totals() -> tuple:
             """A's batch hashes so far: (batches, bytes, seconds, {le: batches})."""
             text = scrape(master)
@@ -7485,7 +7525,12 @@ def cli_phase(dev: torch.device, n_files: int, bench_n: int, upload_bytes: int, 
                  if name == "SeaweedFS_filer_hash_seconds_bucket"
                  and lb.get("kernel") == hash_label},)
 
-        h0 = hash_totals()
+        def write_fallbacks() -> float:
+            """Writes A's filer engine handed to Python (its front metrics)."""
+            return metric_value(scrape(master), "SeaweedFS_filer_fastlane_fallback_total",
+                                op="write")
+
+        h0, fb0 = hash_totals(), write_fallbacks()
         raw = np.random.default_rng([seed, 61]).bytes(n_files * CLI_SMALL)
         small = [raw[i * CLI_SMALL : (i + 1) * CLI_SMALL] for i in range(n_files)]
         large = [np.random.default_rng([seed, 62, k]).bytes(CLI_LARGE)
@@ -7513,11 +7558,15 @@ def cli_phase(dev: torch.device, n_files: int, bench_n: int, upload_bytes: int, 
                               CLI_THREADS)
         check(not errors, f"cli small PUTs: {errors[:3]}")
         small_lat = [x for lat in put_lat for x in lat]
-        h_mid = hash_totals()
+        h_mid, fb_mid = hash_totals(), write_fallbacks()
         large_s = run_threads(lambda t: put(t, [(f"/cli/l/{k}", large[k])
                                                 for k in range(t, CLI_LARGE_FILES, CLI_THREADS)]),
                               CLI_THREADS)
-        check(not errors, f"cli 4 MiB PUTs: {errors[:3]}")
+        check(not errors, f"cli 8 MiB PUTs: {errors[:3]}")
+        fb_large = write_fallbacks() - fb_mid
+        check(fb_large == CLI_LARGE_FILES,
+              f"A's filer engine handed {fb_large:g} of the {CLI_LARGE_FILES} multi-chunk PUTs"
+              " to Python")
 
         def get(t: int) -> None:
             c = Client(filer)
@@ -7537,7 +7586,11 @@ def cli_phase(dev: torch.device, n_files: int, bench_n: int, upload_bytes: int, 
         get_s = run_threads(get, CLI_THREADS)
         check(not errors, f"cli GETs: {errors[:3]}")
         h1 = hash_totals()
-        hashed = n_files * CLI_SMALL + CLI_LARGE_FILES * CLI_LARGE
+        # the engine takes a small file's MD5 itself: the hash batches hold
+        # the chunks of what it handed to Python, every 8 MiB file's and the
+        # small files its front metrics count as write fallbacks
+        small_proxied = int(fb_mid - fb0)
+        hashed = small_proxied * CLI_SMALL + CLI_LARGE_FILES * CLI_LARGE
         check(h1[0] > h0[0], f"A's filer ran no {hash_label} hash batch: {h0} -> {h1}")
         check(h1[1] - h0[1] == hashed,
               f"A's {hash_label} batches hashed {h1[1] - h0[1]:.0f} bytes, not every chunk's"
@@ -7547,7 +7600,7 @@ def cli_phase(dev: torch.device, n_files: int, bench_n: int, upload_bytes: int, 
                    **{f"put_{k}": v for k, v in _pcts(small_lat).items()},
                    large_files=CLI_LARGE_FILES, large_bytes=CLI_LARGE, large_s=large_s,
                    large_gbps=CLI_LARGE_FILES * CLI_LARGE / large_s / 1e9,
-                   get_s=get_s, hash_batches=int(h1[0] - h0[0]),
+                   get_s=get_s, hash_batches=int(h1[0] - h0[0]), small_proxied=small_proxied,
                    hashed_bytes=int(h1[1] - h0[1]),
                    # each batch's mean time inside A, 4 KiB files then 4 MiB ones
                    hash_batches_small=int(h_mid[0] - h0[0]),
@@ -7695,6 +7748,160 @@ FL_CUTS = ("--fl-files (32,768) of `weed benchmark`'s default -n 1,048,576 1 KiB
            " process with every earlier phase's leftovers")
 
 
+FL_FILER_SIZES = (1024, 4096)  # (i) inline entries, (ii) one leased chunk each
+FL_FILER_LARGE = 4  # (iii) multi-chunk files, proxied to the Python path
+FL_FILER_STALLED = 1024  # (iv) 1 KiB files acked while the drain is stalled
+FL_FILER_SAMPLE = 512  # files a size read back through a Python client
+FL_FILER_CUTS = ("(c) --fl-filer-files (8,192) files at 1 KiB and at 4 KiB: BASELINE config"
+                 " 3's 1 KiB size at 8,192 of its 1M blobs, and 4 x --fl-filer-large-mib (64)"
+                 " MiB multi-chunk files; the master, the volume server, the filer and the"
+                 " loadgen's thread share one process with every earlier phase's leftovers",)
+
+
+def filer_front_counts(before: dict, after: dict, op: str) -> tuple[int, dict]:
+    """(native, {reason: n}) of one op of a filer engine's front metrics
+    over a window."""
+    native_n = after[op]["native"] - before[op]["native"]
+    fb = {r: n - before[op]["fallback"][r] for r, n in after[op]["fallback"].items()
+          if n - before[op]["fallback"][r]}
+    return native_n, fb
+
+
+def fl_filer_part(dev: torch.device, master_url: str, root: str, n_files: int,
+                  large_bytes: int, seed: int) -> dict:
+    """(c) of the fastlane phase: a FilerServer (leveldb store) behind its
+    engine in front of the phase's master and volume server. n_files 1 KiB
+    files (inline entries) and n_files 4 KiB files (one leased chunk each)
+    PUT through the native loadgen at 16 connections to the filer's engine
+    port, then read back in a shuffled order; FL_FILER_LARGE multi-chunk
+    files of large_bytes PUT through a Python client (the engine proxies
+    them: their chunk ETags reach md5_batch and crc32c_batch through the
+    filer's hash service). Then the drain is stalled, FL_FILER_STALLED more
+    1 KiB files are acked (in the journal only), the filer stops, and a new
+    one on the same store replays the journal; every file is read back.
+    Checks: the filer on the card and in filer mode; every loadgen run
+    without error; at least 99 % of (i)'s and (ii)'s writes and reads
+    native and no pathological fallback; sampled bodies equal; every
+    entry's md5 (and every chunk ETag) equal to hashlib; every file in its
+    directory's listing; both hash kernels launched by the large PUTs; the
+    replayed filer holds every stalled file."""
+    res: dict = {}
+    errors: list = []
+    store = os.path.join(root, "filer_store")
+    filer = FilerServer(master_url, port=0, device=dev, store_kind="leveldb", store_path=store)
+    filers = [filer]
+    try:
+        filer.start()
+        check(filer.device.type == dev.type and filer.hash_service.device.type == dev.type,
+              "the fastlane phase's filer is off the card")
+        check(filer._fl_filer_on, "the filer's engine is not in filer mode")
+        rng = np.random.default_rng([seed, 71])
+        written = {}
+        for size in FL_FILER_SIZES:
+            bodies = [rng.bytes(size) for _ in range(FL_BODIES)]
+            paths = [f"/flc/s{size}/f{i:06d}" for i in range(n_files)]
+            fm0 = filer.fastlane.front_metrics()
+            runs = loadgen_files(filer.fastlane.port, paths, bodies, errors)
+            fm1 = filer.fastlane.front_metrics()
+            check(not errors, f"filer loadgen runs at {size} B: {errors}")
+            share = {}
+            for op in ("write", "read"):
+                native_n, fb = filer_front_counts(fm0, fm1, op)
+                share[op] = dict(native=native_n, fallback=fb,
+                                 native_share=native_n / max(1, native_n + sum(fb.values())))
+                check(share[op]["native_share"] >= 0.99,
+                      f"the filer engine served {share[op]['native_share']:.4f} of the"
+                      f" {size} B {op}s natively ({native_n} native, fallbacks {fb})")
+                bad = {r: n for r, n in fb.items() if r in fl_mod.PATHOLOGICAL_REASONS}
+                check(not bad, f"pathological filer fallbacks at {size} B {op}s: {bad}")
+            parts = np.array_split(np.arange(n_files), FL_BODIES)
+            body_of = np.concatenate([np.full(len(pt), i) for i, pt in enumerate(parts)])
+            written[size] = (paths, bodies, body_of)
+            c = Client(filer.url)
+            try:
+                for i in rng.choice(n_files, size=min(FL_FILER_SAMPLE, n_files), replace=False):
+                    status, out = c.request("GET", paths[i])
+                    check(status == 200 and out == bodies[body_of[i]], f"GET {paths[i]}")
+            finally:
+                c.close()
+            res[f"files_{size}"] = dict(files=n_files, write=runs["write"], read=runs["read"],
+                                        front=share)
+        # (iii) multi-chunk files: proxied to Python, whose chunk ETags the
+        # hash kernels take
+        large = [rng.bytes(large_bytes) for _ in range(FL_FILER_LARGE)]
+        zero_launches()
+        t0 = time.perf_counter()
+        c = Client(filer.url)
+        try:
+            for k, data in enumerate(large):
+                status, out = c.request("PUT", f"/flc/large/{k}", data, OCTET)
+                check(status == 201 and json.loads(out)["md5"] == hashlib.md5(data).hexdigest(),
+                      f"PUT /flc/large/{k} -> {status}: {out[:200]!r}")
+            large_s = time.perf_counter() - t0
+            large_launches = read_launches()
+            for k, data in enumerate(large):
+                status, out = c.request("GET", f"/flc/large/{k}")
+                check(status == 200 and out == data, f"GET /flc/large/{k}")
+        finally:
+            c.close()
+        for name in ("crc32c_batch", "md5_batch"):
+            check(large_launches[name] > 0, f"the filer's multi-chunk PUTs launched no {name}")
+        chunk = filer.chunk_size
+        # every entry in its listing, its md5 (and chunk ETags) equal to hashlib
+        filer._fl_filer_drain()
+        for size, (paths, bodies, body_of) in written.items():
+            names = {e.name for e in filer.filer.list_entries(f"/flc/s{size}", limit=1 << 31)}
+            check(names == {p.rsplit("/", 1)[1] for p in paths},
+                  f"the /flc/s{size} listing holds {len(names)} of {len(paths)} files")
+            md5s = [hashlib.md5(b).hexdigest() for b in bodies]
+            for i, path in enumerate(paths):
+                e = filer.filer.find_entry(path)
+                want = md5s[body_of[i]]
+                check(e.attributes.md5 == want and all(ch.etag == want for ch in e.chunks),
+                      f"{path}: md5 != hashlib")
+        for k, data in enumerate(large):
+            e = filer.filer.find_entry(f"/flc/large/{k}")
+            check([ch.etag for ch in e.chunks]
+                  == [hashlib.md5(data[o:o + chunk]).hexdigest()
+                      for o in range(0, len(data), chunk)], f"/flc/large/{k}: a chunk ETag")
+        res.update(large_files=FL_FILER_LARGE, large_bytes=large_bytes,
+                   chunks_per_large=-(-large_bytes // chunk), large_put_s=large_s,
+                   large_put_gbps=FL_FILER_LARGE * large_bytes / large_s / 1e9,
+                   large_launches=large_launches)
+        # (iv) a stalled drain, a stop, and the journal replayed at start
+        filer._fl_filer_drain = lambda *a, **k: 0  # the Python side stalls
+        stalled = [f"/flc/stalled/f{i:05d}" for i in range(FL_FILER_STALLED)]
+        body = rng.bytes(FL_FILER_SIZES[0])
+        r = native.loadgen("127.0.0.1", filer.fastlane.port, FL_CONNS, "POST", stalled, body)
+        check(r["ok"] == len(stalled) and not r["errors"], f"stalled POSTs: {r}")
+        check(filer.filer.find_entry(stalled[0]) is None, "the stalled write was applied")
+        journal = filer._fl_journal_path
+        journal_bytes = os.path.getsize(journal)
+        filer.stop()
+        filers.clear()
+        t0 = time.perf_counter()
+        filer = FilerServer(master_url, port=0, device=dev, store_kind="leveldb",
+                            store_path=store)
+        filers.append(filer)
+        filer.start()
+        restart_s = time.perf_counter() - t0
+        check(filer._fl_filer_on, "the restarted filer is not in filer mode")
+        check(all(filer.filer.find_entry(p) is not None for p in stalled),
+              "the journal replay lost a stalled write")
+        every = [p for size in FL_FILER_SIZES for p in written[size][0]] + stalled
+        fm0 = filer.fastlane.front_metrics()
+        rr = native.loadgen("127.0.0.1", filer.fastlane.port, FL_CONNS, "GET", every)
+        check(rr["ok"] == len(every) and not rr["errors"], f"reads after the restart: {rr}")
+        native_n, fb = filer_front_counts(fm0, filer.fastlane.front_metrics(), "read")
+        res.update(stalled_files=len(stalled), journal_bytes=journal_bytes,
+                   restart_s=restart_s, reads_after_restart=rr,
+                   reads_after_restart_front=dict(native=native_n, fallback=fb))
+    finally:
+        for f in filers:
+            f.stop()
+    return res
+
+
 @contextlib.contextmanager
 def fastlane_off():
     """SEAWEEDFS_TPU_DISABLE_FASTLANE=1 while servers start: the Python path."""
@@ -7754,7 +7961,8 @@ def loadgen_files(port: int, paths: list, bodies: list, errors: list) -> dict:
 
 
 def fastlane_phase(dev: torch.device, n_files: int, n_assign_write: int, n_python: int,
-                   online_bytes: int, seed: int) -> dict:
+                   online_bytes: int, filer_files: int, filer_large_bytes: int,
+                   seed: int) -> dict:
     """The native fastlane engine in front of the port's master and volume
     server, as a deployment serves its data plane: a MasterServer (pulse 1 s)
     and a VolumeServer on the card, one process, each behind its engine.
@@ -7772,9 +7980,10 @@ def fastlane_phase(dev: torch.device, n_files: int, n_assign_write: int, n_pytho
     1 MiB needles POSTed natively into one ecOnline volume (default 1 MiB
     block); the drain loop pumps every full row through gf256_matmul, and
     every parity row on disk equals the plain version over the same .dat
-    rows. (c) the heat rollup: the beats carry each volume's native
-    read_ops and write_ops, and the master's collection and node rates are
-    above 0. Checks: both servers fronted by an engine; zero errors and ok
+    rows. (c) the filer's front: `fl_filer_part`, a FilerServer behind its
+    engine over the same master and volume server. (d) the heat rollup: the
+    beats carry each volume's native read_ops and write_ops, and the
+    master's collection and node rates are above 0. Checks: both servers fronted by an engine; zero errors and ok
     equal to the count in every loadgen run; FL_SAMPLE seeded needles read
     back equal through a Python client; at least 99 % of (a)'s volume
     requests served natively (SeaweedFS_volume_fastlane_requests_total
@@ -7849,7 +8058,7 @@ def fastlane_phase(dev: torch.device, n_files: int, n_assign_write: int, n_pytho
                    native_ratio=native_ratio, sampled_reads_equal=min(FL_SAMPLE, n_files),
                    minted=len(minted), native_minted=native_minted)
 
-        # (c) the heat rollup reads the engine's counters off the beats
+        # (d) the heat rollup reads the engine's counters off the beats
         rollup = master.heat_rollup
         beats = []
         feed = rollup.feed
@@ -7921,6 +8130,11 @@ def fastlane_phase(dev: torch.device, n_files: int, n_assign_write: int, n_pytho
                    online_ingest_s=ingest_s, online_ingest_gbps=n_online * MIB / ingest_s / 1e9,
                    launches=online_launches, parity_rows_equal_plain=rows)
 
+        # (c) the filer's front door
+        t0 = time.perf_counter()
+        res["filer"] = fl_filer_part(dev, master.url, root, filer_files, filer_large_bytes, seed)
+        res["filer"]["wall_s"] = time.perf_counter() - t0
+
         # the Python path on the same card and host
         with fastlane_off():
             pm = MasterServer(port=0, pulse_seconds=PULSE_S)
@@ -7944,7 +8158,7 @@ def fastlane_phase(dev: torch.device, n_files: int, n_assign_write: int, n_pytho
         shutil.rmtree(root, ignore_errors=True)
     wall = time.perf_counter() - t_phase
     res.update(wall_s=wall, wall_limit_s=FL_WALL_LIMIT_S, over_wall_limit=wall > FL_WALL_LIMIT_S,
-               cuts=FL_CUTS, nvidia_smi=nvidia_smi())
+               cuts=FL_CUTS + FL_FILER_CUTS, nvidia_smi=nvidia_smi())
     return res
 
 
@@ -8007,6 +8221,8 @@ def main() -> int:
     ap.add_argument("--fl-assign-files", type=int, default=1 << 13)
     ap.add_argument("--fl-python-files", type=int, default=1 << 12)
     ap.add_argument("--fl-online-mib", type=int, default=128)
+    ap.add_argument("--fl-filer-files", type=int, default=1 << 13)
+    ap.add_argument("--fl-filer-large-mib", type=int, default=64)
     ap.add_argument("--offset5-child", metavar="DIR",
                     help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
@@ -8222,9 +8438,12 @@ def main() -> int:
 
     # the native fastlane in front of the master and the volume server; its own count
     fp = fastlane_phase(dev, args.fl_files, args.fl_assign_files, args.fl_python_files,
-                        args.fl_online_mib * MIB, args.seed)
+                        args.fl_online_mib * MIB, args.fl_filer_files,
+                        args.fl_filer_large_mib * MIB, args.seed)
     emit("fastlane", **fp)
     launches["gf256_matmul"] += fp["launches"]
+    for name in ("crc32c_batch", "md5_batch"):
+        launches[name] += fp["filer"]["large_launches"][name]
 
     fn, (example,) = entry()
     got = fn(example).cpu().numpy()

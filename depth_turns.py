@@ -33,7 +33,8 @@ PHASES = {
                                              n * cs.MIB, md5_ops, 0)),
     "cdc": ({"new": 16, "old": 32}, lambda n: cs.cdc_phase(dev, n, 1024 * cs.MIB, 0)),
     "fastlane": ({"new": 1 << 15, "old": 1 << 17},
-                 lambda n: cs.fastlane_phase(dev, n, n // 4, n // 8, 128 * cs.MIB, 0)),
+                 lambda n: cs.fastlane_phase(dev, n, n // 4, n // 8, 128 * cs.MIB, 1 << 13,
+                                             64 * cs.MIB, 0)),
 }
 names = sys.argv[1:] or list(PHASES)
 print(json.dumps({"smi": cs.nvidia_smi()}), flush=True)

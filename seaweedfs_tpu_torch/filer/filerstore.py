@@ -141,6 +141,7 @@ class SqliteStore(FilerStore):
     name = "sqlite"
 
     def __init__(self, path: str) -> None:
+        self.path = path
         self._conn = sqlite3.connect(path, check_same_thread=False)
         self._lock = threading.RLock()
         with self._lock:

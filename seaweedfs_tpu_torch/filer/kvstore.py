@@ -139,6 +139,7 @@ class LocalKVStore(FilerStore):
     name = "leveldb"
 
     def __init__(self, path: str) -> None:
+        self.path = path
         self.kv = LocalKV(os.path.join(path, "filermeta"))
         self.kv_extra = LocalKV(os.path.join(path, "filerkv"))
 

@@ -353,6 +353,7 @@ class LsmStore(FilerStore):
     _KV_PREFIX = b"@kv\x00"
 
     def __init__(self, path: str) -> None:
+        self.path = path
         self.kv = LsmKV(path)
 
     @staticmethod

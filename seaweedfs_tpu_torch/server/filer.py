@@ -82,20 +82,44 @@ reads the master's cluster telemetry. `telemetry_dir` (`-telemetry.dir`)
 turns on the durable spool, and a telemetry frame rides every
 registration beat.
 
-Not ported: the native fastlane front door (`_fl_*`, and with it the
-`lease_churn` and `fallback_fastlane` events, the fid-lease sharding by
-the gateway ordinal of the registration's answer, and the fastlane's qos
-charge on the beat; ROADMAP 10a-3).
+The native front door (`storage/fastlane.py`, filer mode of
+`csrc/fastlane.cpp`): `start()` puts the engine on the filer's port and
+`url` names it. The engine serves natively: writes of 2 KiB or less
+(`SMALL_CONTENT_LIMIT`) as inline entries, with the MD5 taken in C++ and a
+journal frame appended before the ack; larger single-chunk writes to a fid
+of its lease pool (`_fl_lease_refresh`: three volumes' fid ranges from
+the master, sharded by this filer's gateway ordinal from the
+registration's answer, with wildcard JWTs signed from the filer's keys),
+POSTed straight to the volume engine; deletes of cached entries; and reads
+of the path cache (inline bytes from memory, a single chunk relayed to its
+volume). Everything else proxies to the Python handlers below, at most two
+at a time: multi-chunk writes (whose chunk ETags reach `md5_batch` and
+`crc32c_batch`), paths under an `fs.configure` rule, queries, TTLs,
+listings, compressible mimes, and cache misses. `_fl_filer_loop` (20 ms)
+drains the engine's entry frames into the store, tops the lease pool up
+and truncates the journal; the Python handlers drain first, so they read
+their own writes; `_fl_on_meta` keeps the path cache coherent. The journal
+lies beside the store's path and is replayed at start (a memory store has
+none). Python serves everything when `SEAWEEDFS_TPU_DISABLE_FASTLANE=1`,
+behind the IP guard (`white_list`), and on a cipher or dedup filer (their
+chunk transforms are Python's); otherwise a filer mode the engine refuses
+raises. Lease churn journals `lease_churn` events and a rejected lease
+`fallback_fastlane`; the front's native and fallback counts by reason are
+`SeaweedFS_filer_fastlane_{native,fallback}_total`, and the beat charges
+natively served requests to QoS (`fl_mod.qos_charge_usage`).
 """
 
 from __future__ import annotations
 
 import base64
 import copy
+import ctypes
 import hashlib
 import json
 import logging
 import os
+import struct
+import tempfile
 import threading
 import time
 import urllib.parse
@@ -108,12 +132,15 @@ from ..filer.dedup import DEDUP_DIR, DedupIndex
 from ..filer.filechunks import maybe_manifestize, resolve_chunk_manifest, view_from_chunks
 from ..filer.filer import FilerError, normalize
 from ..filer.filer_conf import FILER_CONF_PATH, FilerConf
+from ..filer.filer_notify import SYSTEM_TREE_PREFIX
 from ..filer.filerstore import make_store
 from ..filer.wdclient import WeedClient
 from ..ops import cdc
 from ..qos import actuator as qos_act
 from ..qos import admission as qos_mod
 from ..stats import aggregate as agg_mod
+from ..stats import default_registry
+from ..stats import events as events_mod
 from ..stats import store as store_mod
 from ..stats import trace
 from ..stats import usage as usage_mod
@@ -128,7 +155,10 @@ from ..remote_storage import (
 )
 from ..ops.hash_service import HashService
 from ..security import Guard, SecurityConfig
+from ..security.jwt import encode_jwt
 from ..ops.rs_kernel import resolve_device
+from ..storage import fastlane as fl_mod
+from ..storage.file_id import parse_needle_id_cookie
 from ..storage.types import TTL
 from ..util import cipher as cipher_util
 from ..util import faults
@@ -257,6 +287,25 @@ class FilerServer:
         self.local_socket = local_socket
         self._register_stop = threading.Event()
         self._register_thread: threading.Thread | None = None
+        # the native front door (started in start()): filer mode serves
+        # inline and single-chunk files, off with cipher or dedup
+        self.fastlane: fl_mod.Fastlane | None = None
+        self._fl_filer_on = False
+        self._fl_thread: threading.Thread | None = None
+        self._fl_collector = None
+        self._fl_journal_path = ""
+        # set while _fl_apply stores an entry the engine journaled: the
+        # engine's path cache already holds it (see _fl_on_meta)
+        self._fl_applying = threading.local()
+        self._fl_lease_top_at = 0.0  # last pool top-up
+        self._fl_lease_small_until = 0.0  # pool under target: probe slower
+        self._fl_lease_backoff_until = 0.0  # rejected lease / master down
+        self._qos_usage_state: dict = {}
+        # gateway ordinal/count from the master's cluster registry
+        # (/cluster/register answer): shards the fid lease vid-space so N
+        # filer front doors never contend on the same volume
+        self._gateway_ordinal = 0
+        self._gateway_count = 1
         # per-path storage rules (`weed/filer/filer_conf.go`): loaded from
         # /etc/seaweedfs/filer.conf, hot-reloaded via the meta-log
         conf_entry = self.filer.find_entry(FILER_CONF_PATH)
@@ -280,11 +329,99 @@ class FilerServer:
             return
         content = ev.new_entry.content if ev.new_entry else b""
         self.filer_conf = FilerConf.from_bytes(bytes(content))
+        self._fl_push_rules()
+
+    # control-plane namespaces the native front door must always defer
+    # to Python — a query-less POST /qos/limits is a config update for
+    # the route table, not an inline file write
+    FL_RESERVED_PREFIXES = ("/qos/",)
+
+    def _fl_push_rules(self) -> None:
+        """Tell the engine which prefixes carry storage rules (their
+        writes must resolve collection/replication/ttl in Python)."""
+        if not self._fl_filer_on:
+            return
+        prefixes = list(self.FL_RESERVED_PREFIXES) + list(self.filer_conf.prefixes())
+        blob = b"".join(p.encode() + b"\0" for p in prefixes)
+        self.fastlane._lib.sw_fl_filer_rules_set(self.fastlane.handle, blob, len(prefixes))
+
+    def _start_fastlane(self) -> None:
+        """Front the filer with the engine. Proxied (Python) requests ride a
+        max_backend=2 concurrency governor; long-poll meta subscriptions
+        bypass the cap. Filer mode then serves the hot path natively
+        (`filer_server_handlers_write_autochunk.go:26-155`):
+          * writes <= SMALL_CONTENT_LIMIT: inline entry — md5 + journal
+            append + ack in C++, zero volume hops
+          * larger single-chunk writes: fid minted from a master lease the
+            Python side refreshes, chunk POSTed to the volume engine, entry
+            journaled before the ack
+          * reads: path -> location cache (inline bytes served from memory;
+            chunk-backed relayed to the volume engine with the entry's
+            ETag), invalidated/refreshed by the meta-log subscriber
+        The journal is replayed into the store first (crash safety), and
+        drained frames become real entries via Filer.create_entry. The
+        gates that keep Python serving: front_service's own (the opt-out,
+        the IP guard) and a cipher or dedup filer, whose chunk transforms
+        only Python implements. A filer mode the engine refuses raises."""
+        self.fastlane = fl_mod.front_service(
+            self.service, guard_active=self.service.guard is not None,
+            max_backend=2,
+        )
+        if self.fastlane is None or self.cipher or self.dedup:
+            return
+        if self.filer.store.__class__.__name__ == "MemoryStore":
+            journal = ""  # the store dies with the process; a WAL buys nothing
+        else:
+            # beside the store's path; a store with no local path (etcd,
+            # redis, the SQL servers) journals in the temp directory
+            base = getattr(self.filer.store, "path", None)
+            d = os.path.dirname(os.path.abspath(base)) if base else tempfile.gettempdir()
+            journal = os.path.join(d, "filer_native.journal")
+            self._fl_replay_journal(journal)
+        lib, h = self.fastlane._lib, self.fastlane.handle
+        rc = int(lib.sw_fl_filer_enable(h, journal.encode(), self.chunk_size,
+                                        1 if self.compress else 0))
+        if rc != 0:
+            self.fastlane.stop()
+            self.fastlane = None
+            self.service.stop()
+            raise RuntimeError(
+                f"fastlane filer mode refused (journal {journal!r}): "
+                f"{fl_mod.error_str(lib, rc)}")
+        self._fl_journal_path = journal
+        if journal:
+            lib.sw_fl_filer_journal_reset(h)
+        self._fl_filer_on = True
+        self._fl_drain_mu = threading.Lock()
+        self._fl_buf = ctypes.create_string_buffer(1 << 20)
+        self.filer.subscribe(self._fl_on_meta)
+        self._fl_push_rules()  # fs.configure prefixes defer to Python
+        self._register_front_collector()
+
+    FL_FRONT_FAMILIES = (
+        "SeaweedFS_filer_fastlane_native_total",
+        "SeaweedFS_filer_fastlane_fallback_total",
+    )
+
+    def _register_front_collector(self) -> None:
+        """Export the engine's front-door accounting, so a silent fall-back
+        regime (a rejected lease, say) is a rate on /metrics — and the
+        `fastlane_fallback` alert — instead of a log line."""
+
+        def lines() -> list[str]:
+            fl = self.fastlane
+            if fl is None or fl.stopped:
+                return []
+            return fl_mod.front_metric_lines(
+                fl, "SeaweedFS_filer_fastlane", f"{self.service.host}:{fl.port}")
+
+        self._fl_collector = default_registry().register_collector(
+            lines, names=self.FL_FRONT_FAMILIES)
 
     def start(self) -> None:
         # the flusher thread must run, or submit_many hashes on the host
         self.hash_service.start()
-        self.service.start()
+        self._start_fastlane()
         if self.metrics_service is not None:
             self.metrics_service.start()
         if self.local_socket:
@@ -295,6 +432,330 @@ class FilerServer:
         self._register_thread = threading.Thread(
             target=self._register_loop, daemon=True)
         self._register_thread.start()
+        if self._fl_filer_on:
+            try:
+                self._fl_lease_refresh()
+            except Exception:  # master not ready: the loop retries
+                pass
+            self._fl_thread = threading.Thread(target=self._fl_filer_loop, daemon=True)
+            self._fl_thread.start()
+
+    # --- native filer mode (engine-side writes/reads) -------------------------
+    # one entry frame as fastlane.cpp filer_frame() writes it: total, kind
+    # (0 chunk, 1 inline, 2 delete), size, mtime, md5 hex, then the
+    # lengths of path, fid, mime and content, which follow the header
+    _FL_FRAME_HDR = struct.Struct("<IB3xQQ32sHHHH")
+
+    def _fl_parse_frames(self, buf: bytes):
+        """Entry frames as written by fastlane.cpp filer_frame()."""
+        hdr = self._FL_FRAME_HDR
+        off = 0
+        while off + hdr.size <= len(buf):
+            (total, kind, size, mtime, md5, plen, flen, mlen,
+             clen) = hdr.unpack_from(buf, off)
+            if total < hdr.size or off + total > len(buf):
+                break  # torn tail (crash mid-append): stop cleanly
+            p = off + hdr.size
+            path = buf[p:p + plen].decode("utf-8", "replace")
+            p += plen
+            fid = buf[p:p + flen].decode()
+            p += flen
+            mime = buf[p:p + mlen].decode("utf-8", "replace")
+            p += mlen
+            content = bytes(buf[p:p + clen])
+            yield kind, size, mtime, md5.decode(), path, fid, mime, content
+            off += total
+
+    def _fl_replay_journal(self, path: str) -> None:
+        """Crash recovery: acked native writes whose entries never reached
+        the store (the process died before the drain) are re-applied from
+        the journal — the filer analog of .idx replay on volume load."""
+        try:
+            with open(path, "rb") as f:
+                buf = f.read()
+        except FileNotFoundError:
+            return
+        for frame in self._fl_parse_frames(buf):
+            self._fl_apply(*frame)
+
+    def _fl_apply(self, kind: int, size: int, mtime: int, md5: str,
+                  path: str, fid: str, mime: str, content: bytes) -> None:
+        if kind == 2:
+            # natively-acked DELETE (the engine tombstoned its cache and
+            # journaled this frame): apply to the store + reclaim chunks.
+            # Idempotent for journal replay — an already-gone path is fine.
+            try:
+                chunks = self.filer.delete_entry(path)
+            except FilerError:
+                return
+            self._reclaim_chunks(chunks)
+            return
+        entry = Entry(full_path=path)
+        entry.attributes.mime = mime
+        entry.attributes.file_size = size
+        entry.attributes.mtime = float(mtime)
+        entry.attributes.md5 = md5
+        if kind == 1:
+            entry.content = content
+        else:
+            entry.chunks = [FileChunk(
+                file_id=fid, offset=0, size=size, etag=md5,
+                modified_ts_ns=int(mtime * 1_000_000_000),
+            )]
+        # parents carry the WRITE's timestamp, not the drain's — a lazily
+        # applied entry must not make its directory look newer than its
+        # contents (age-based sweeps like s3.clean.uploads compare mtimes)
+        missing = []
+        p = path.rsplit("/", 1)[0] or "/"
+        while p != "/" and self.filer.find_entry(p) is None:
+            missing.append(p)
+            p = p.rsplit("/", 1)[0] or "/"
+        for d in reversed(missing):
+            de = Entry(full_path=d, is_directory=True, attributes=Attributes(mode=0o755))
+            de.attributes.mtime = de.attributes.crtime = float(mtime)
+            try:
+                self.filer.create_entry(de)
+            except FilerError:
+                break
+        old = self.filer.find_entry(path)
+        self._fl_applying.on = True
+        try:
+            freed = self.filer.create_entry(entry)
+        except FilerError:
+            # the store rejected an acked native write (the path is a
+            # directory, say): the engine cache must not keep serving a
+            # phantom — no meta event fires on a failed create, so purge
+            self.fastlane._lib.sw_fl_filer_cache_del(self.fastlane.handle, path.encode())
+            log.warning("native write to %s rejected by store; dropped", path)
+            return
+        finally:
+            self._fl_applying.on = False
+        # journal replay is idempotent: never reclaim the very chunk this
+        # frame records (a replayed frame sees itself as the old entry)
+        new_fids = {c.file_id for c in entry.chunks}
+        if old is not None and old.hard_link_id:
+            self._reclaim_chunks([c for c in freed if c.file_id not in new_fids])
+        elif old is not None and old.chunks:
+            self._reclaim_chunks([c for c in old.chunks if c.file_id not in new_fids])
+
+    def _fl_filer_drain(self, once: bool = False) -> int:
+        """Apply engine-journaled entries to the store (read-your-writes:
+        the Python read/write/delete handlers call this first). once=True
+        processes a single buffer so the caller can interleave other
+        housekeeping (lease refresh) during a heavy backlog."""
+        if not self._fl_filer_on:
+            return 0
+        total = 0
+        with self._fl_drain_mu:
+            while True:
+                n = int(self.fastlane._lib.sw_fl_filer_drain(
+                    self.fastlane.handle, ctypes.addressof(self._fl_buf),
+                    len(self._fl_buf)))
+                if n <= 0:
+                    break
+                for fr in self._fl_parse_frames(self._fl_buf.raw[:n]):
+                    self._fl_apply(*fr)
+                    total += 1
+                if once:
+                    break
+        return total
+
+    # how many volumes' leases the engine should hold at once: chunk
+    # writes round-robin across the pool, a spent/failed volume degrades
+    # throughput instead of zeroing it, and refreshes amortize N volumes
+    # per low-watermark instead of churning one
+    _FL_LEASE_POOL = 3
+
+    def _fl_lease_refresh(self, count: int = 20000) -> None:
+        """Top up the engine's lease POOL from the master: each assign
+        (count=N) leases one volume's fid range, and the engine round-robins
+        chunk writes across unspent ranges so a native write costs zero
+        master round-trips. Wildcard upload/read JWTs are minted from the
+        filer's key copies, as the reference filer signs its own volume
+        tokens. Never touches a stopped engine."""
+        fl = self.fastlane
+        if fl is None or fl.stopped or self._register_stop.is_set():
+            return
+        if not fl.tls_client_ok:
+            # mTLS without the engine's TLS client context: chunk uploads
+            # go through Python (inline writes stay native — no volume hop)
+            return
+        upload_auth = read_auth = ""
+        if self.security.write_key:
+            tok = encode_jwt(self.security.write_key,
+                             {"fid": "", "exp": int(time.time()) + 3600})
+            upload_auth = f"BEARER {tok}"
+        if self.security.read_key:
+            tok = encode_jwt(self.security.read_key,
+                             {"fid": "", "exp": int(time.time()) + 3600})
+            read_auth = f"BEARER {tok}"
+        live = fl.lease_count()
+        if live < 0:
+            return  # engine stopped between checks
+        self._fl_lease_top_at = time.monotonic()
+        for _ in range(max(1, self._FL_LEASE_POOL - live)):
+            if fl.stopped or self._register_stop.is_set():
+                return
+            a = self.client.assign(
+                count=count, replication=self.default_replication,
+                collection=self.collection,
+                # lease-pool vid-space sharding: with N registered filer
+                # gateways, this one only leases volumes in its slice (the
+                # master falls back to the whole space when the slice has
+                # no writables — correctness over partition)
+                shard=(f"{self._gateway_ordinal}:{self._gateway_count}"
+                       if self._gateway_count > 1 else ""),
+            )
+            if a.get("error"):
+                return
+            vid_s, _, key_hash = a["fid"].partition(",")
+            key, cookie = parse_needle_id_cookie(key_hash)
+            loc = a.get("publicUrl") or a.get("url")
+            host, _, port = loc.rpartition(":")
+            rc = int(fl._lib.sw_fl_filer_lease_set(
+                fl.handle, host.encode(), int(port), int(vid_s),
+                cookie, key, key + count, upload_auth.encode(),
+                read_auth.encode(),
+            ))
+            events_mod.emit(
+                "lease_churn", volume=int(vid_s), node=loc,
+                action=("leased" if rc == 0 else "kept" if rc == 1 else "rejected"),
+                rc=rc, count=count,
+            )
+            if rc == 1:
+                # the master granted a vid the engine already holds with a
+                # healthy unspent range (kept, endpoint + auth refreshed):
+                # the cluster has fewer writable volumes than the pool
+                # target, so probe again in ~60 s instead of burning a
+                # count=20000 assign every 5 s forever
+                self._fl_lease_small_until = time.monotonic() + 55.0
+                return
+            if rc != 0:
+                # e.g. the volume registered by hostname (the engine needs
+                # an IP): chunk writes stay on the Python path, and the
+                # 20 ms loop backs off instead of assigning every tick
+                self._fl_lease_backoff_until = time.monotonic() + 30.0
+                # this rejection IS the cause of pathological no_lease /
+                # lease_spent front-door fallbacks — journal it so
+                # cluster.why can name the root of a fallback regime
+                detail = fl_mod.error_str(fl._lib, rc)
+                events_mod.emit("fallback_fastlane", volume=int(vid_s), node=loc,
+                                reason="lease_rejected", detail=detail)
+                log.warning("filer native lease rejected by engine (volume %s): %s;"
+                            " chunk writes stay on the Python path", loc, detail)
+                return
+
+    def _fl_filer_loop(self) -> None:
+        while not self._register_stop.is_set():
+            try:
+                fl = self.fastlane
+                if fl is None or fl.stopped:
+                    return
+                applied = 0
+                while True:
+                    # lease first, one drain buffer at a time: a heavy
+                    # write backlog must not starve the fid lease (native
+                    # writes fall back to the slow proxy when it runs dry)
+                    live = fl.lease_count()
+                    if live < 0:
+                        return  # engine stopped: never re-lease against it
+                    rem = int(fl._lib.sw_fl_filer_lease_remaining(fl.handle))
+                    # top up when keys run low or the pool emptied; an
+                    # UNDER-TARGET pool (fewer writable volumes than the
+                    # target) re-tops only every 5 s, not per tick
+                    now = time.monotonic()
+                    want = (rem < 5000 or live == 0
+                            or (live < self._FL_LEASE_POOL
+                                and now >= self._fl_lease_top_at + 5.0
+                                and now >= self._fl_lease_small_until))
+                    if want and now >= self._fl_lease_backoff_until:
+                        try:
+                            self._fl_lease_refresh()
+                        except Exception:
+                            # master down/unreachable: the same 30 s backoff
+                            self._fl_lease_backoff_until = time.monotonic() + 30.0
+                    got = self._fl_filer_drain(once=True)
+                    applied += got
+                    if got == 0:
+                        break
+                if applied and self._fl_journal_path:
+                    # refuses (harmlessly) if new frames queued meanwhile
+                    fl._lib.sw_fl_filer_journal_reset(fl.handle)
+            except Exception:  # the loop must outlive one bad tick
+                log.warning("filer native loop tick failed", exc_info=True)
+            self._register_stop.wait(0.02)
+
+    def _fl_on_meta(self, ev) -> None:
+        """Meta-log subscriber keeping the engine's path cache coherent:
+        every local mutation re-puts (still natively servable) or deletes
+        (anything the native path cannot serve) the affected paths.
+
+        Runs SYNCHRONOUSLY under the Filer lock (_notify), so it must
+        never block on the network — volume locations come from the vid
+        cache only (peek). A peek miss just deletes the cache entry; the
+        first Python-served read re-populates it from outside the lock
+        (_fl_cache_push in _do_read).
+
+        An entry the drain applies from the engine's own journal is left
+        alone: the engine cached it when it acked the write (a chunk entry
+        with the lease's volume), and a later native write or delete of
+        the path replaced that. Re-pushing it would, on a cold vid cache,
+        delete a servable entry, and every first read of a natively
+        written chunk file would miss (the JAX filer does so)."""
+        if not self._fl_filer_on:
+            return
+        old, new = ev.old_entry, ev.new_entry
+        if old is not None and (new is None or old.full_path != new.full_path):
+            self.fastlane._lib.sw_fl_filer_cache_del(
+                self.fastlane.handle, old.full_path.encode())
+        if new is not None and not getattr(self._fl_applying, "on", False):
+            self._fl_cache_push(new, blocking_lookup=False)
+
+    def _fl_cache_push(self, entry, blocking_lookup: bool) -> None:
+        """Install (or purge) one entry in the engine's path cache.
+        blocking_lookup=True may resolve the chunk's volume over HTTP and
+        must only be used outside the Filer lock (the read path)."""
+        lib, h = self.fastlane._lib, self.fastlane.handle
+        path = entry.full_path
+        a = entry.attributes
+        if path.startswith(SYSTEM_TREE_PREFIX):
+            # the .system log tree emits no meta events (Filer._notify
+            # skips SYSTEM_LOG_DIR): a cached entry under it could never
+            # be invalidated, so never cache it — from the read path
+            # either (the native write path is gated in fastlane.cpp)
+            lib.sw_fl_filer_cache_del(h, path.encode())
+            return
+        if entry.is_directory or a.ttl_sec > 0 or entry.hard_link_id or not a.md5:
+            lib.sw_fl_filer_cache_del(h, path.encode())
+            return
+        if entry.content:
+            lib.sw_fl_filer_cache_put(
+                h, path.encode(), b"", 0, b"", (a.mime or "").encode(),
+                a.md5.encode(), len(entry.content), int(a.mtime),
+                bytes(entry.content), len(entry.content),
+            )
+            return
+        ch = entry.chunks[0] if len(entry.chunks) == 1 else None
+        if (ch is not None and not ch.cipher_key and not ch.is_compressed
+                and not ch.is_chunk_manifest and ch.offset == 0
+                and self.fastlane.tls_client_ok):  # the relay speaks mTLS too
+            try:
+                vid = int(ch.file_id.split(",")[0])
+                locs = self.client.lookup_cached(vid)
+                if locs is None and blocking_lookup:
+                    locs = self.client.lookup(vid)
+                if locs:
+                    host, _, port = locs[0].rpartition(":")
+                    rc = lib.sw_fl_filer_cache_put(
+                        h, path.encode(), host.encode(), int(port),
+                        ch.file_id.encode(), (a.mime or "").encode(),
+                        a.md5.encode(), ch.size, int(a.mtime), None, 0,
+                    )
+                    if rc == 0:
+                        return
+            except Exception:  # no location: the entry is served by Python
+                pass
+        lib.sw_fl_filer_cache_del(h, path.encode())
 
     def _register_once(self) -> None:
         """Announce to the master's cluster membership (`cluster.go` rides
@@ -312,23 +773,49 @@ class FilerServer:
         except Exception:  # a frame must never stop the registration
             pass
         try:
-            http_request(
+            _status, _hdrs, body = http_request(
                 "POST", master_url + "/cluster/register",
                 body=json.dumps(payload).encode(),
                 headers={"Content-Type": "application/json"}, timeout=5,
             )
         except OSError as e:
             log.debug("filer registration with %s failed: %s", master_url, e)
+            return
+        # the registry answers with this filer's position among the live
+        # filer group — the fid-lease shard key (each gateway leases only
+        # vids where vid % gateways == ordinal)
+        try:
+            out = json.loads(body)
+            n = int(out.get("gateways", 0))
+            i = int(out.get("ordinal", -1))
+        except (ValueError, TypeError, AttributeError):
+            return
+        if n >= 1 and 0 <= i < n:
+            self._gateway_ordinal, self._gateway_count = i, n
 
     def _register_loop(self) -> None:
         while not self._register_stop.wait(5.0):
             self._register_once()
             self.dlm.sweep()
+            # requests the engine served natively still debit the
+            # tenant's QoS bucket, through the usage ABI's deltas
+            self._qos_usage_state = fl_mod.qos_charge_usage(
+                self.fastlane, self._qos_usage_state)
 
     def stop(self) -> None:
         self._register_stop.set()
         if self._register_thread is not None:
             self._register_thread.join(timeout=10)
+        if self._fl_thread is not None:
+            self._fl_thread.join(timeout=10)
+        # frames not drained yet stay in the journal: the next start replays them
+        self._fl_filer_on = False
+        if self._fl_collector is not None:
+            default_registry().unregister_collector(self._fl_collector)
+            self._fl_collector = None
+        if self.fastlane is not None:
+            self.fastlane.stop()
+            self.fastlane = None
         self.service.stop()
         if self.metrics_service is not None:
             self.metrics_service.stop()
@@ -340,6 +827,10 @@ class FilerServer:
 
     @property
     def url(self) -> str:
+        """The front door: the engine's port when it fronts the filer."""
+        if self.fastlane is not None:
+            scheme = "https" if self.fastlane.tls else "http"
+            return f"{scheme}://{self.service.host}:{self.fastlane.port}"
         return self.service.url
 
     @property
@@ -829,6 +1320,8 @@ class FilerServer:
         @svc.route("GET", r"/__meta__/events")
         def meta_events(req: Request) -> Response:
             trace.annotate(long_poll=True)  # slow by design: skip slow-log
+            # native-write entries only become meta events when applied
+            self._fl_filer_drain()
             since = int(req.query.get("since_ns", 0))
             limit = int(req.query.get("limit", 1024))
             wait = float(req.query.get("wait", 0))
@@ -898,6 +1391,7 @@ class FilerServer:
             # `command_fs_meta_notify.go`: recursively (re)send every
             # entry under a directory to the notification queue so a
             # downstream replicator can bootstrap from existing data
+            self._fl_filer_drain()
             p = req.json()
             root = normalize(p.get("directory", "/"))
             if self.filer.notification_queue is None:
@@ -927,6 +1421,7 @@ class FilerServer:
             # relocated/renumbered (e.g. cross-cluster copies), rewrite
             # the volume id inside chunk fids under a directory. The
             # blobs themselves moved — freed-chunk reclaim must not run.
+            self._fl_filer_drain()
             p = req.json()
             root = normalize(p.get("directory", "/"))
             mapping = {str(k): str(v)
@@ -964,6 +1459,7 @@ class FilerServer:
             # existing fids only change their volume part) and rewrite
             # the metadata; dry-run unless apply. Old blobs are deleted
             # after their entry is updated.
+            self._fl_filer_drain()
             p = req.json()
             root = normalize(p.get("directory", "/"))
             from_vid = str(p.get("from_vid", ""))
@@ -1044,6 +1540,11 @@ class FilerServer:
 
         @svc.route("GET", r"/__meta__/info")
         def meta_info(req: Request) -> Response:
+            # latest_ts_ns covers every acked write, native ones too: a
+            # subscriber that starts its cursor after this answer must not
+            # see an older native write arrive as a newer event (the JAX
+            # filer does not drain here)
+            self._fl_filer_drain()
             return Response(
                 {
                     "signature": self.filer.signature,
@@ -1139,6 +1640,10 @@ class FilerServer:
         return out
 
     def _do_write(self, req: Request) -> Response:
+        # read-your-writes across the native/Python boundary: overwrite
+        # detection below must see entries the engine acked but Python
+        # has not applied yet (the same for reads and deletes)
+        self._fl_filer_drain()
         path = normalize(urllib.parse.unquote(req.path))
         signatures = self._parse_signatures(req)
         if "mv.from" in req.query:
@@ -1383,6 +1888,7 @@ class FilerServer:
         }
 
     def _do_read(self, req: Request, head: bool) -> Response:
+        self._fl_filer_drain()
         path = normalize(urllib.parse.unquote(req.path))
         entry = self.filer.find_entry(path)
         if entry is None:
@@ -1408,6 +1914,11 @@ class FilerServer:
                 entry = self._remote_cache_entry(entry)
             except (FilerError, OSError) as e:
                 return Response({"error": f"remote fetch: {e}"}, 502)
+        # a Python-served read is the out-of-lock chance to (re)populate
+        # the engine's path cache (the meta-log subscriber can only peek
+        # at volume locations; here a blocking lookup is safe)
+        if self._fl_filer_on:
+            self._fl_cache_push(entry, blocking_lookup=True)
         etag = entry.attributes.md5 or str(entry.attributes.mtime)
         headers = {
             "ETag": f'"{etag}"',
@@ -1561,6 +2072,7 @@ class FilerServer:
         )
 
     def _do_delete(self, req: Request) -> Response:
+        self._fl_filer_drain()
         path = normalize(urllib.parse.unquote(req.path))
         rule = {} if path.startswith("/etc/") else (
             self.filer_conf.match(path) or {})

@@ -1,9 +1,12 @@
-"""Fastlane: the native epoll front door for the volume data plane and the
-master's `/dir/assign`.
+"""Fastlane: the native epoll front door for the volume data plane, the
+master's `/dir/assign` and the filer's namespace.
 
 The C++ engine (`csrc/fastlane.cpp`) owns the hot HTTP path — GET/POST/PUT/
-DELETE of `/<vid>,<fid>` on a volume server, `/dir/assign` on a master —
-and proxies everything else to the Python HTTPService, mirroring how the
+DELETE of `/<vid>,<fid>` on a volume server, `/dir/assign` on a master,
+inline and single-chunk files on a filer (its filer mode: a journal of
+entry frames, a pool of leased fids and a path cache, driven from
+`server/filer.py`) — and proxies everything else to the Python
+HTTPService, mirroring how the
 reference serves its data plane from compiled code across all cores
 (`weed/server/volume_server_handlers_*.go`) while Python keeps volume
 lifecycle, admin plane, and replication. The port's copy of
@@ -17,6 +20,9 @@ Responsibilities of this wrapper:
     needle maps (memory-only: the engine already wrote the .idx entries)
   * lend Python's own rare appends the engine's per-volume lock + tail
     (`Volume._append_lock` uses the hook installed here)
+  * expose the filer front's accounting (`front_metrics`,
+    `front_metric_lines`) and charge natively served requests to QoS
+    (`qos_charge_usage`)
 
 The engine is built from the repo's own sources (`ops/_build.FASTLANE`,
 g++ at first use), so every symbol below is bound plainly: a missing one
@@ -89,6 +95,28 @@ _SIGNATURES = {
     )),
     "sw_fl_assign_clear": (_c.c_int, (_c.c_int,)),
     "sw_fl_error_str": (_c.c_char_p, (_c.c_int,)),
+    "sw_fl_tls_client_ok": (_c.c_int, (_c.c_int,)),
+    # filer mode
+    "sw_fl_filer_enable": (_c.c_int, (
+        _c.c_int, _c.c_char_p, _c.c_ulonglong, _c.c_int,  # journal, chunk size, compress
+    )),
+    "sw_fl_filer_lease_set": (_c.c_int, (
+        _c.c_int, _c.c_char_p, _c.c_int, _c.c_uint32,  # volume host, port, vid
+        _c.c_uint32, _c.c_ulonglong, _c.c_ulonglong,  # cookie, key range
+        _c.c_char_p, _c.c_char_p,  # upload / read auth
+    )),
+    "sw_fl_filer_lease_remaining": (_c.c_ulonglong, (_c.c_int,)),
+    "sw_fl_filer_lease_count": (_c.c_long, (_c.c_int,)),
+    "sw_fl_filer_cache_put": (_c.c_int, (
+        _c.c_int, _c.c_char_p, _c.c_char_p, _c.c_int,  # path, volume host, port
+        _c.c_char_p, _c.c_char_p, _c.c_char_p,  # fid, mime, md5
+        _c.c_ulonglong, _c.c_ulonglong, _c.c_char_p, _c.c_size_t,  # size, mtime, inline
+    )),
+    "sw_fl_filer_cache_del": (_c.c_int, (_c.c_int, _c.c_char_p)),
+    "sw_fl_filer_drain": (_c.c_long, (_c.c_int, _c.c_void_p, _c.c_size_t)),
+    "sw_fl_filer_journal_reset": (_c.c_long, (_c.c_int,)),
+    "sw_fl_filer_rules_set": (_c.c_int, (_c.c_int, _c.c_char_p, _c.c_size_t)),
+    "sw_fl_front_metrics": (_c.c_long, (_c.c_int, _c.c_void_p, _c.c_size_t)),
     # per-op metrics
     "sw_fl_get_metrics": (_c.c_long, (_c.c_int, _c.c_void_p, _c.c_size_t)),
     "sw_fl_get_volume_metrics": (_c.c_int, (_c.c_int, _c.c_uint32, _c.c_void_p)),
@@ -183,12 +211,68 @@ def error_str(lib, rc: int) -> str:
     return (lib.sw_fl_error_str(int(rc)) or b"").decode() or f"rc={rc}"
 
 
+def front_metric_lines(engine: "Fastlane", prefix: str, server: str) -> list[str]:
+    """Exposition lines for the front-door counters:
+    `<prefix>_native_total{op}` and `<prefix>_fallback_total{op,reason}` —
+    a silent fall-back regime (a rejected lease, say) becomes a visible
+    rate instead of a log line."""
+    from ..stats.metrics import _fmt_labels
+
+    fm = engine.front_metrics()
+    lines = [
+        f"# HELP {prefix}_native_total front-door requests served natively",
+        f"# TYPE {prefix}_native_total counter",
+    ]
+    if fm is None:
+        return lines
+    for op, st in fm.items():
+        lines.append(f"{prefix}_native_total"
+                     f"{_fmt_labels(('server', 'op'), (server, op))} {st['native']}")
+    lines.append(f"# TYPE {prefix}_fallback_total counter")
+    for op, st in fm.items():
+        for reason, n in st["fallback"].items():
+            lines.append(
+                f"{prefix}_fallback_total"
+                f"{_fmt_labels(('server', 'op', 'reason'), (server, op, reason))} {n}")
+    return lines
+
+
+def qos_charge_usage(engine: "Fastlane | None", state: dict) -> dict:
+    """Debit natively served requests to QoS after the fact: the engine
+    front door never blocks on Python, so the per-collection request
+    deltas of `usage_metrics` (against `state`, the caller's previous
+    snapshot) are charged to the admission controller's token buckets
+    (`qos/admission.py`), and the limit holds across both paths — once a
+    bucket runs dry the Python path sheds typed. Returns the snapshot to
+    hold for the next call. Charges nothing while the controller is
+    unarmed."""
+    from ..qos import admission as qos_mod
+
+    if engine is None or engine.stopped:
+        return state
+    snap = engine.usage_metrics()
+    if not snap:
+        return state
+    ctl = qos_mod.controller()
+    if ctl.armed:
+        for coll, row in snap.items():
+            prev = state.get(coll, {})
+            d_req = sum(max(0, row[f] - prev.get(f, 0))
+                        for f in ("reads", "writes", "deletes"))
+            if d_req > 0:
+                ctl.charge(coll or "default", float(d_req))
+    return snap
+
+
 class Fastlane:
     def __init__(self, lib, handle: int, tls: bool = False) -> None:
         self._lib = lib
         self.handle = handle
         self.stopped = False
         self.tls = tls  # engine terminates mTLS itself: URLs are https
+        # can the engine reach upstream (volume) engines natively? Under
+        # mTLS this needs the C++ TLS *client* context too
+        self.tls_client_ok = bool(lib.sw_fl_tls_client_ok(handle))
         self.port = int(lib.sw_fl_port(handle))
         self._volumes: dict[int, object] = {}  # vid -> Volume (drain target)
         # RLock: unregister_volume holds it around the volume write lock
@@ -205,21 +289,23 @@ class Fastlane:
 
     @staticmethod
     def start(host: str, port: int, backend_port: int,
-              secure_reads: bool = False, backend_host: str = "",
+              secure_reads: bool = False, max_backend: int = 0,
+              backend_host: str = "",
               jwt_write_key: str = "", jwt_read_key: str = "",
               tls_cert: str = "", tls_key: str = "", tls_ca: str = "",
               tls_allowed_cns: str = "") -> "Fastlane":
         """Start an engine on host:port in front of the backend, with one
-        worker a core up to 8, writes served natively (the engine checks a
-        write JWT against jwt_write_key itself) and the engine's default
-        cap on backend connections. Raises
+        worker a core up to 8 and writes served natively (the engine checks
+        a write JWT against jwt_write_key itself). `max_backend` caps the
+        proxied requests in flight to the backend (0: the engine's
+        default; long-poll meta subscriptions bypass the cap). Raises
         RuntimeError with the engine's typed error when it cannot start
         (the port is taken, the OpenSSL runtime or the certs are bad)."""
         lib = _get_lib()
         workers = min(8, (os.cpu_count() or 2))
         h = int(lib.sw_fl_start(host.encode(), port,
                                 (backend_host or host).encode(), backend_port,
-                                workers, 1 if secure_reads else 0, 0, 0,
+                                workers, 1 if secure_reads else 0, 0, max_backend,
                                 jwt_write_key.encode(), jwt_read_key.encode(),
                                 tls_cert.encode(), tls_key.encode(),
                                 tls_ca.encode(), tls_allowed_cns.encode()))
@@ -438,6 +524,30 @@ class Fastlane:
             o += 3 + n_buckets + 1
         return {"bounds_s": bounds_s, "ops": ops}
 
+    def front_metrics(self) -> dict | None:
+        """Front-door accounting of filer mode: per-op native and
+        typed-reason fallback counts, or None once the engine has stopped.
+        Shape: {op: {"native": n, "fallback": {reason: n}}}."""
+        cap = 2 + len(FRONT_OPS) + len(FRONT_OPS) * len(FALLBACK_REASONS) + 64
+        buf = (ctypes.c_ulonglong * cap)()
+        n = int(self._lib.sw_fl_front_metrics(self.handle, buf, cap))
+        if n < 2:
+            return None
+        n_ops, n_reasons = int(buf[0]), int(buf[1])
+        out: dict[str, dict] = {}
+        for i in range(n_ops):
+            fb_base = 2 + n_ops + i * n_reasons
+            out[FRONT_OPS[i]] = {
+                "native": int(buf[2 + i]),
+                "fallback": {FALLBACK_REASONS[j]: int(buf[fb_base + j])
+                             for j in range(n_reasons)},
+            }
+        return out
+
+    def lease_count(self) -> int:
+        """Live (unspent) filer leases in the pool; -1 = engine stopped."""
+        return int(self._lib.sw_fl_filer_lease_count(self.handle))
+
     # --- online-EC stripe accumulator ----------------------------------------
     def ec_online_arm(self, vid: int, stripe_bytes: int, watermark: int) -> bool:
         """Arm (or re-sync) the engine's per-volume stripe accumulator so
@@ -502,14 +612,14 @@ class Fastlane:
         return out
 
 
-def front_service(service, guard_active: bool = False,
+def front_service(service, guard_active: bool = False, max_backend: int = 0,
                   secure_reads: bool = False, jwt_write_key: str = "",
                   jwt_read_key: str = "") -> "Fastlane | None":
     """Start `service` (an HTTPService) behind an engine front when the
     gates allow, else plainly on its requested port (returning None). The
-    master and the volume server share it: one copy of the gate checks and
-    the ephemeral-backend dance. An engine that fails to start raises
-    (after stopping the service): there is no quiet fallback.
+    master, the volume server and the filer share it: one copy of the gate
+    checks and the ephemeral-backend dance. An engine that fails to start
+    raises (after stopping the service): there is no quiet fallback.
 
     With process-wide mTLS configured (`weed/security/tls.go` semantics)
     the ENGINE terminates TLS: client certs are required against the CA,
@@ -537,7 +647,8 @@ def front_service(service, guard_active: bool = False,
     try:
         return Fastlane.start(
             service.host, requested, service.port,
-            secure_reads=secure_reads, jwt_write_key=jwt_write_key,
+            secure_reads=secure_reads, max_backend=max_backend,
+            jwt_write_key=jwt_write_key,
             jwt_read_key=jwt_read_key, **tls_kwargs,
         )
     except BaseException:

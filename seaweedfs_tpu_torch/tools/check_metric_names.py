@@ -24,8 +24,8 @@ plus the reason, state, event-type and fault-point vocabularies.
 actually renders.
 
 plus the usage/heat, cluster-telemetry, spool and qos contracts, and the
-fastlane's front-door reasons. `NOT_PORTED_EVENTS` names the event types
-whose seams come with the filer's and S3's fastlane fronts.
+fastlane's front-door reasons. Every declared event type has a seam in the
+port (`NOT_PORTED_EVENTS` is empty).
 
     python -m seaweedfs_tpu_torch.tools.check_metric_names
 """
@@ -57,9 +57,8 @@ ALERT_SEVERITIES = {"critical", "warning"}
 
 HISTOGRAM_UNITS = ("_seconds", "_bytes")
 
-# event types whose seams come with the filer's and S3's fastlane fronts
-# (the filer's fid lease and front door), not ported yet
-NOT_PORTED_EVENTS = {"lease_churn", "fallback_fastlane"}
+# event types declared without a seam in the port: none
+NOT_PORTED_EVENTS: set[str] = set()
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TESTS = os.path.join(os.path.dirname(_PKG), "tests")

@@ -2,12 +2,15 @@
 pipe (reference: `weed/util/log_buffer/log_buffer.go:30`).
 
 Entries are (ts_ns, payload bytes). The buffer keeps a bounded in-memory
-window; when it exceeds `flush_bytes` or `flush_interval` a flush function
-persists the batch (the filer writes dated segment files under
+window; when the entries not yet flushed exceed `flush_bytes`, or every
+`flush_interval`, a flush function persists the batch (the filer writes dated segment files under
 `/topics/.system/log/...`, `weed/filer/filer_notify.go:62`). Readers pull
 from the in-memory window when their start timestamp is inside it and fall
 back to the flushed segments otherwise (ReadFromBuffer semantics). The
-port's copy of `seaweedfs_tpu/util/log_buffer.py`.
+port's copy of `seaweedfs_tpu/util/log_buffer.py`, whose byte trigger
+counts the whole window, flushed entries included: once the window holds
+`flush_bytes`, every append there wakes a flush of a segment or two
+entries long.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ class LogBuffer:
     ) -> None:
         self._entries: list[tuple[int, bytes]] = []  # sorted by ts_ns
         self._bytes = 0
+        self._unflushed_bytes = 0  # appended since the last flush's batch
         self._lock = threading.Condition()
         # serializes flushers; flush_fn runs OUTSIDE _lock — it may re-enter
         # locks held by appenders (the filer writes segments through its own
@@ -68,9 +72,13 @@ class LogBuffer:
             payload = payload_fn(ts)
             self._entries.append((ts, payload))
             self._bytes += len(payload)
+            self._unflushed_bytes += len(payload)
             self._lock.notify_all()
+            # the window keeps up to `keep` flushed entries for readers, so
+            # it is the bytes not yet flushed that call a flush early
             need_flush = (
-                self._flush_fn is not None and self._bytes >= self._flush_bytes
+                self._flush_fn is not None
+                and self._unflushed_bytes >= self._flush_bytes
             )
         if need_flush:
             if self._flusher is not None:
@@ -93,6 +101,7 @@ class LogBuffer:
             self._flush_fn(batch[0][0], batch[-1][0], batch)
             with self._lock:
                 self._flushed_until_ns = batch[-1][0]
+                self._unflushed_bytes -= sum(len(p) for _, p in batch)
                 # trim the in-memory window but keep a tail for fast readers
                 if len(self._entries) > self._keep:
                     dropped = self._entries[: -self._keep]

@@ -26,6 +26,7 @@ The `corrupt` fault mode (silent bit flips) is exercised by the
 scrub scenario (TestSilentCorruptionScrubHeal), also lint-enforced.
 """
 
+import contextlib
 import os
 import threading
 import time
@@ -91,6 +92,29 @@ def wait_until(fn, timeout=30.0, interval=0.2, msg="condition"):
             return
         time.sleep(interval)
     raise AssertionError(f"timed out waiting for {msg}")
+
+
+@contextlib.contextmanager
+def pumps_held(vs):
+    """Hold `vs`'s fastlane drain loop off its online-EC pumps (it calls
+    `_pump_online_ec` every 20 ms) until the block ends; entering waits for
+    a tick already pumping. A torn parity write is a crash mid-append, the
+    last write the stripe sees: a loop tick that encodes the injected
+    stripe's full rows takes the tear, and the caller's forced tail-row
+    flush then writes past the cut and hides it from parity_health."""
+    gate = threading.Lock()
+    inner = vs._pump_online_ec
+
+    def gated() -> None:
+        with gate:
+            inner()
+
+    vs._pump_online_ec = gated
+    try:
+        with gate:
+            yield
+    finally:
+        del vs._pump_online_ec
 
 
 def fired(point: str) -> int:
@@ -346,17 +370,18 @@ class TestTornParityWrite:
         v.online_ec.pump(force=True)
         assert v.online_ec.parity_health() == 0
 
-        faults.arm("volume.ec.parity.write", "torn", frac=1.0, count=1)
         from seaweedfs_tpu_torch.storage.needle import Needle
 
-        # feed the next stripe, then pump: the encode lands, THEN the
-        # injected tear chops the durable parity tail (crash mid-append)
-        v.write_needle(
-            Needle(cookie=0x99, id=999991, data=os.urandom(BLOCK * 10))
-        )
-        v.online_ec.pump(force=True)
-        faults.disarm_all()
-        assert v.online_ec.parity_health() >= 1
+        with pumps_held(hv):
+            faults.arm("volume.ec.parity.write", "torn", frac=1.0, count=1)
+            # feed the next stripe, then pump: the encode lands, THEN the
+            # injected tear chops the durable parity tail (crash mid-append)
+            v.write_needle(
+                Needle(cookie=0x99, id=999991, data=os.urandom(BLOCK * 10))
+            )
+            v.online_ec.pump(force=True)
+            faults.disarm_all()
+            assert v.online_ec.parity_health() >= 1
 
         # reads never noticed: the .dat is intact
         st, _, body = http_request("GET", url)

@@ -47,6 +47,8 @@ def test_compact_cli_equals_reference(copies, capsys):
 
 
 def test_export_tar_and_dir_equals_reference(copies, capsys, tmp_path):
+    # the fixture's three overwrites carry no last_modified, so each
+    # export stamps their tar members with time.time(): one clock for both
     for how in ("tar", "dir"):
         args = []
         for name, d in zip(("port", "ref"), copies):
@@ -54,7 +56,8 @@ def test_export_tar_and_dir_equals_reference(copies, capsys, tmp_path):
             a += (["-o", str(tmp_path / f"{name}.tar")] if how == "tar"
                   else ["-outputDir", str(tmp_path / f"{name}-out")])
             args.append(a)
-        both(capsys, via(port_main, "export"), via(ref_main, "export"), *args)
+        with pinned_clock():
+            both(capsys, via(port_main, "export"), via(ref_main, "export"), *args)
     assert read(str(tmp_path / "port.tar")) == read(str(tmp_path / "ref.tar"))
     trees = []
     for name in ("port", "ref"):

@@ -1,7 +1,8 @@
 """Cluster flight recorder (stats/events.py) + trace exemplars + SLO
 burn-rate alerting of the port: the JAX package's tests/test_events.py over
-seaweedfs_tpu_torch, less its qos-shed case (in tests/test_torch_qos.py) and
-its fastlane-lease case (the native fastlane is not ported).
+seaweedfs_tpu_torch, less its qos-shed case (in tests/test_torch_qos.py).
+The fastlane-lease case drives both packages' `_fl_lease_refresh` over one
+scripted engine and holds the journaled events equal.
 
 Covers: the closed typed-event registry and its bounded ring, the
 disabled-path overhead guard (one attribute check, like the faults
@@ -732,3 +733,79 @@ def _stop_port_history_loop():
     from seaweedfs_tpu_torch.stats import history
 
     history.default_history().stop()
+
+
+class TestLeaseChurnEvents:
+    """`FilerServer._fl_lease_refresh` of each package, unbound, over a stub
+    engine whose lease_set answers a scripted rc (the real engine only
+    rejects a lease when genuinely broken): the `lease_churn` and
+    `fallback_fastlane` events each journals must be equal, times aside."""
+
+    @staticmethod
+    def _fake_filer(lease_rc: int):
+        import types
+
+        from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
+
+        calls = {"n": 0}
+
+        def lease_set(*a):
+            calls["n"] += 1
+            return lease_rc
+
+        lib = types.SimpleNamespace(
+            sw_fl_filer_lease_set=lease_set,
+            sw_fl_error_str=lambda rc: b"engine says no",
+        )
+        fl = types.SimpleNamespace(stopped=False, tls_client_ok=True,
+                                   lease_count=lambda: 0, _lib=lib, handle=0)
+        fake = types.SimpleNamespace(
+            fastlane=fl,
+            _register_stop=types.SimpleNamespace(is_set=lambda: False),
+            security=types.SimpleNamespace(write_key=b"", read_key=b""),
+            client=types.SimpleNamespace(assign=lambda **kw: {
+                "fid": "5," + format_needle_id_cookie(0x10, 0xabcd),
+                "publicUrl": "127.0.0.1:9333",
+            }),
+            default_replication="000", collection="",
+            _FL_LEASE_POOL=3, _gateway_ordinal=0, _gateway_count=1,
+        )
+        return fake, calls
+
+    @staticmethod
+    def _journal(events_mod, server_cls, lease_rc: int):
+        def lease_events() -> list:
+            return [(e["type"], e.get("volume"), e.get("node"), e["attrs"])
+                    for e in events_mod.recorder().events(limit=0)
+                    if e["type"] in ("lease_churn", "fallback_fastlane")]
+
+        seen = len(lease_events())
+        fake, calls = TestLeaseChurnEvents._fake_filer(lease_rc)
+        server_cls._fl_lease_refresh(fake, count=100)
+        return fake, calls["n"], lease_events()[seen:]
+
+    def test_leased_and_rejected_journal(self):
+        from seaweedfs_tpu.server.filer import FilerServer as RefFilerServer
+        from seaweedfs_tpu.stats import events as ref_events
+        from seaweedfs_tpu_torch.server.filer import FilerServer
+
+        for mod in (ref_events, events):
+            mod.recorder().enable()
+        out = {}
+        for rc in (0, -7):
+            got = [self._journal(mod, cls, rc)
+                   for mod, cls in ((ref_events, RefFilerServer), (events, FilerServer))]
+            assert got[1][1:] == got[0][1:]
+            out[rc] = got[1]
+        fake, n, leased = out[0]
+        assert n == 3  # the pool topped up to its target
+        assert [e[3]["action"] for e in leased] == ["leased"] * 3 and leased[0][1] == 5
+        fake, n, rejected = out[-7]
+        churn = [e for e in rejected if e[0] == "lease_churn"]
+        assert churn and churn[0][3]["action"] == "rejected" and churn[0][3]["rc"] == -7
+        # the rejection names itself as the front-door fallback cause
+        fb = [e for e in rejected if e[0] == "fallback_fastlane"]
+        assert fb and fb[0][3]["reason"] == "lease_rejected"
+        assert fb[0][3]["detail"] == "engine says no"
+        # and the refresh loop armed its backoff
+        assert fake._fl_lease_backoff_until > time.monotonic() - 1

@@ -3,7 +3,9 @@
 Two clusters run in this process: the JAX package's `MasterServer`, two
 `VolumeServer`s and `FilerServer` (its native front door switched off with
 SEAWEEDFS_TPU_DISABLE_FASTLANE=1, so its Python handlers, which the port
-copies, answer), and the port's, all at `device="cpu"`. Both filers get
+copies, answer), and the port's, all at `device="cpu"`, its filer's front
+door off the same way (the engine's front is held against the JAX one in
+`tests/test_torch_filer_native.py`). Both filers get
 `chunk_size = 4096`, set after construction, so the plain MD5 on the CPU
 stays cheap. The same seeded requests go to both.
 
@@ -68,9 +70,13 @@ def _ref_filer(master_url: str, **kw):
 
 
 def _port_filer(master_url: str, **kw):
-    f = FilerServer(master_url, port=0, device="cpu", **kw)
-    f.chunk_size = CHUNK
-    f.start()
+    # the Python handlers answer, as on the JAX side (the native front
+    # door is held against the JAX one in tests/test_torch_filer_native.py)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SEAWEEDFS_TPU_DISABLE_FASTLANE", "1")
+        f = FilerServer(master_url, port=0, device="cpu", **kw)
+        f.chunk_size = CHUNK
+        f.start()
     return f
 
 

@@ -7,7 +7,9 @@ run and apply).
 
 `twin()` runs a JAX cluster (master, one volume server, filers; the native
 front door off with SEAWEEDFS_TPU_DISABLE_FASTLANE=1, so its Python
-handlers answer) and a port cluster (`device="cpu"`) in this process, each
+handlers answer) and a port cluster (`device="cpu"`; its filers' front
+door off the same way, its master and volume server behind their engines)
+in this process, each
 with volume 1 allocated before any write so every chunk lands in it. Both
 filers take `chunk_size = 4096`. The same requests go to both, one at a
 time.
@@ -138,14 +140,19 @@ def _port_servers(tmp, n_filers, filer_kw):
     v.start()
     side = Side("port", m, v, [])
     side.allocate(1)
-    for i in range(n_filers):
-        kw = dict(filer_kw("port", i))
-        if i:
-            kw["peers"] = [side.filers[0].url]
-        f = FilerServer(m.url, port=0, device="cpu", **kw)
-        f.chunk_size = CHUNK
-        f.start()
-        side.filers.append(f)
+    with pytest.MonkeyPatch.context() as mp:
+        # the filers' Python handlers answer, as on the JAX side (the
+        # native front door is held against the JAX one in
+        # tests/test_torch_filer_native.py)
+        mp.setenv("SEAWEEDFS_TPU_DISABLE_FASTLANE", "1")
+        for i in range(n_filers):
+            kw = dict(filer_kw("port", i))
+            if i:
+                kw["peers"] = [side.filers[0].url]
+            f = FilerServer(m.url, port=0, device="cpu", **kw)
+            f.chunk_size = CHUNK
+            f.start()
+            side.filers.append(f)
     return side
 
 

@@ -682,10 +682,10 @@ def test_cluster_check_fail_mode_equal_reference(stub):
 @contextlib.contextmanager
 def _cluster(pkg: str, tmp, security=None):
     """master + volume server + filer (metrics port) + WebDAV + S3 + IAM of
-    one package, in this process. The master and the volume server run
-    behind their fastlane engines, as a deployment does; the others start
-    with the front door off (the filer's and S3's engine fronts are not
-    ported)."""
+    one package, in this process. The master, the volume server and the
+    filer run behind their fastlane engines, as a deployment does; the
+    others start with the front door off (the S3 gateway's engine front is
+    not ported)."""
     if pkg == "ref":
         from seaweedfs_tpu.iamapi.iam_server import IamServer
         from seaweedfs_tpu.s3api.s3_server import S3Server
@@ -714,10 +714,11 @@ def _cluster(pkg: str, tmp, security=None):
             v.start()
             started.append(v)
             assert m.fastlane is not None and v.fastlane is not None
-            mp.setenv("SEAWEEDFS_TPU_DISABLE_FASTLANE", "1")
             f = FilerServer(m.url, port=0, metrics_port=-1, **dev)
             f.start()
             started.append(f)
+            assert f._fl_filer_on
+            mp.setenv("SEAWEEDFS_TPU_DISABLE_FASTLANE", "1")
             w = WebDavServer(f.url, port=0)
             w.start()
             started.append(w)
@@ -755,11 +756,11 @@ def _request_script(c, request) -> None:
 # agree on them here: usage, heat and days-to-full, qos, the telemetry
 # spool and the cluster aggregate (their shapes are held against the JAX
 # package in tests/test_torch_{usage_heat,qos,telemetry_store,
-# cluster_telemetry}.py); and the filer's and S3's fastlane fronts', not
+# cluster_telemetry}.py); and the S3 gateway's fastlane front, not
 # ported
 EXCLUDED_FAMILIES = re.compile(
     r"^SeaweedFS_(usage|heat|node_days|qos|telemetry|cluster)_"
-    r"|^SeaweedFS_volume_heat_|^SeaweedFS_(filer|s3)_fastlane_"
+    r"|^SeaweedFS_volume_heat_|^SeaweedFS_s3_fastlane_"
 )
 
 
@@ -956,7 +957,10 @@ def live(tmp_path_factory):
 def test_live_verbs_name_every_node(live):
     env, vols, f = live["env"], live["vols"], live["filer"]
     for i in range(8):
-        st, _, _ = http_request("PUT", f"{f.url}/live/f{i}", b"y" * 3000)
+        # a query keeps the write on the filer's Python path, whose chain
+        # (filer, the master's assign, the volume's upload) cluster.trace
+        # must show; a native write leaves only the volume's spans
+        st, _, _ = http_request("PUT", f"{f.url}/live/f{i}?replication=000", b"y" * 3000)
         assert st == 201
     tr = run_command(env, "cluster.trace -limit 20")
     assert "roles=filer,master,volume" in tr
