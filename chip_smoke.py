@@ -17,7 +17,8 @@
                           [--qt-large N] [--qt-flood-s S] [--cli-files N]
                           [--cli-bench-n N] [--cli-upload-mib MIB] [--cli-ec-mib MIB]
                           [--fl-files N] [--fl-assign-files N] [--fl-python-files N]
-                          [--fl-online-mib MIB]
+                          [--fl-online-mib MIB] [--fl-filer-files N]
+                          [--fl-filer-large-mib MIB] [--phases NAME,...]
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   nvidia-smi name and power limit, torch's device name
@@ -427,12 +428,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               file missing from its listing or from the replay, a repeated
               fid, no launch or a heat rate of 0. Req/s of every run, the
               engine's p50/p99, the native shares, online GB/s, the wall
-              (limit 30 s)
+              (limit 75 s)
  25. entry    entry() on the card equal to the CPU codec
 Then the {"kernels": [...]} line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when CUDA is not available.
+
+`--phases cdc,filer,...` builds the kernels and runs only the named phases
+of a cluster (cdc, dedup, online, cluster, mesh, filer, scrub, maintenance,
+filer_dedup, s3, volume_side, gateways, sync_mq, secure_ha, observe,
+qos_telemetry, cli, fastlane) at the depths above, each in its own try: one
+JSON line a phase with `ok`, its seconds and its result or traceback, and
+no kernels line or result line; the exit code is 1 when a phase failed.
 """
 
 from __future__ import annotations
@@ -7737,7 +7745,10 @@ FL_SAMPLE = 1024  # needles read back through a Python client and compared
 FL_MINTED = 1024  # /dir/assign answers checked for unique fids
 FL_ONLINE_VID = 901
 FL_COLLECTION = "fl"
-FL_WALL_LIMIT_S = 30.0
+# parts (a) and (b) took 20-23 s; part (c) adds 34-36 s, half of it the
+# reads after the restart, which all miss the empty path cache and go
+# through the Python handlers at about 1,000 reads/s
+FL_WALL_LIMIT_S = 75.0
 FL_CUTS = ("--fl-files (32,768) of `weed benchmark`'s default -n 1,048,576 1 KiB files, with"
            " --fl-assign-files (8,192) and --fl-python-files (4,096): at 131,072, 32,768 and"
            " 16,384 the phase took 85.3 s of its 30 at the script's end on an H100 80GB HBM3"
@@ -8171,6 +8182,30 @@ def read_launches() -> dict:
     return {name: w.launches for name, w in WRAPPERS.items()}
 
 
+def run_phases(phases: dict, names: list[str]) -> int:
+    """Run the named phases alone, each in its own try: one JSON line a
+    phase (ok, seconds, the result or the traceback). 1 when one failed."""
+    unknown = [n for n in names if n not in phases]
+    if unknown:
+        print(f"chip_smoke: unknown phase(s) {unknown}; known: {sorted(phases)}",
+              file=sys.stderr)
+        return 2
+    print(nvidia_smi(), flush=True)
+    failed = []
+    for name in names:
+        t0 = time.perf_counter()
+        try:
+            res = phases[name]()
+        except Exception:
+            failed.append(name)
+            emit(name, ok=False, seconds=time.perf_counter() - t0,
+                 error=traceback.format_exc())
+        else:
+            emit(name, ok=True, seconds=time.perf_counter() - t0, result=res)
+    emit("phases", ok=not failed, failed=failed)
+    return 1 if failed else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8223,6 +8258,8 @@ def main() -> int:
     ap.add_argument("--fl-online-mib", type=int, default=128)
     ap.add_argument("--fl-filer-files", type=int, default=1 << 13)
     ap.add_argument("--fl-filer-large-mib", type=int, default=64)
+    ap.add_argument("--phases", metavar="NAME,...",
+                    help="run only these cluster phases, each in its own try")
     ap.add_argument("--offset5-child", metavar="DIR",
                     help="run only the volume_side phase's 5-byte-offset EC path in DIR")
     args = ap.parse_args()
@@ -8266,6 +8303,49 @@ def main() -> int:
                 for k, v in logs.items()},
          md5_block_sass=md5_block, gf256_unit_sass=gf_unit)
 
+    md5_ops = md5_block["ops"]
+    # the phases of a cluster over their own servers, at the script's depths;
+    # --phases runs a subset of them alone
+    phases = {
+        "cdc": lambda: cdc_phase(dev, args.cdc_uploads, args.stream_mib * MIB, args.seed),
+        "dedup": lambda: dedup_phase(dev, args.dedup_gib * 1024 * MIB // DEDUP_SEGMENT,
+                                     args.seed),
+        "online": lambda: online_phase(dev, args.online_mib * MIB, args.seed),
+        "cluster": lambda: cluster_phase(dev, args.cluster_mib * MIB, args.seed),
+        "mesh": lambda: mesh_phase(dev, args.mesh_volumes, args.mesh_mib * MIB, md5_ops,
+                                   args.seed),
+        "filer": lambda: filer_phase(dev, args.filer_files, args.filer_large_mib * MIB,
+                                     md5_ops, args.seed),
+        "scrub": lambda: scrub_phase(dev, args.scrub_files, args.scrub_mib * MIB, md5_ops,
+                                     args.seed),
+        "maintenance": lambda: maintenance_phase(dev, args.maint_mib * MIB, args.maint_files,
+                                                 args.seed),
+        "filer_dedup": lambda: filer_dedup_phase(dev, args.filer_dedup_uploads, args.seed),
+        "s3": lambda: s3_phase(dev, args.s3_objects, args.s3_seconds, args.s3_clients,
+                               args.s3_multipart_mib * MIB, md5_ops, args.seed),
+        "volume_side": lambda: volume_side_phase(dev, args.tier_mib * MIB, md5_ops, args.seed),
+        "gateways": lambda: gateways_phase(
+            dev, args.gw_dav_files, args.gw_ftp_files, args.gw_ftp_large_mib * MIB,
+            args.gw_mount_mib * MIB, args.gw_small_files, args.gw_remote_mib * MIB, md5_ops,
+            args.seed),
+        "sync_mq": lambda: sync_mq_phase(dev, args.sync_files, args.mq_messages, md5_ops,
+                                         args.seed),
+        "secure_ha": lambda: secure_ha_phase(dev, args.ha_files, args.ha_large_mib * MIB,
+                                             args.ha_ec_mib * MIB, md5_ops, args.seed),
+        "observe": lambda: observe_phase(dev, args.obs_files, args.obs_large,
+                                         args.obs_ec_mib * MIB, args.seed),
+        "qos_telemetry": lambda: qos_telemetry_phase(dev, args.qt_files, args.qt_large,
+                                                     args.qt_flood_s, args.seed),
+        "cli": lambda: cli_phase(dev, args.cli_files, args.cli_bench_n,
+                                 args.cli_upload_mib * MIB, args.cli_ec_mib * MIB, args.seed),
+        "fastlane": lambda: fastlane_phase(
+            dev, args.fl_files, args.fl_assign_files, args.fl_python_files,
+            args.fl_online_mib * MIB, args.fl_filer_files, args.fl_filer_large_mib * MIB,
+            args.seed),
+    }
+    if args.phases:
+        return run_phases(phases, args.phases.split(","))
+
     timed = {"gf256_matmul": kernel_phase(dev, args.seed)}
     timed.update(hash_kernel_phase(dev, args.seed, md5_block["ops"]))
 
@@ -8307,34 +8387,33 @@ def main() -> int:
     check(svc.failed_blobs == 0, "the hash service failed a batch")
 
     zero_launches()
-    cd = cdc_phase(dev, args.cdc_uploads, args.stream_mib * MIB, args.seed)
+    cd = phases["cdc"]()
     launches["gear_hash"] = read_launches()["gear_hash"]
     emit("cdc", launches=launches["gear_hash"], **cd)
     check(launches["gear_hash"] > 0, "the cdc path launched no gear_hash kernel")
 
     # the filer's dedup write path (BASELINE config 4); its own count
-    dd = dedup_phase(dev, args.dedup_gib * 1024 * MIB // DEDUP_SEGMENT, args.seed)
+    dd = phases["dedup"]()
     emit("dedup", **dd)
     launches["gear_hash"] += dd["gear_hash_launches"]
 
     # the volume server's online-EC write path; its own count
-    on = online_phase(dev, args.online_mib * MIB, args.seed)
+    on = phases["online"]()
     emit("online", **on)
     launches["gf256_matmul"] += on["launches"]
     timed["gf256_matmul"]["shapes"].append(on["kernel"])
 
     # the shell's ec.* verbs over a master and four volume servers; its own count
-    cl = cluster_phase(dev, args.cluster_mib * MIB, args.seed)
+    cl = phases["cluster"]()
     emit("cluster", **cl)
     launches["gf256_matmul"] += cl["launches"]
     timed["gf256_matmul"]["shapes"].extend(cl["kernel"])
 
     # the multi-device split (BASELINE config 5 on this host's devices); its own count
-    ms = mesh_phase(dev, args.mesh_volumes, args.mesh_mib * MIB, md5_block["ops"], args.seed)
+    ms = phases["mesh"]()
     emit("mesh", **ms)
     # the filer's HTTP path (BASELINE config 3 as the filer takes it); its own count
-    fl = filer_phase(dev, args.filer_files, args.filer_large_mib * MIB, md5_block["ops"],
-                     args.seed)
+    fl = phases["filer"]()
     emit("filer", switch_interval_s=sys.getswitchinterval(), **fl)
     for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
         launches[name] += ms["launches"][name] + fl["launches"][name]
@@ -8343,7 +8422,7 @@ def main() -> int:
         timed[name]["shapes"].extend(ms["hash_kernels"][name] + fl["hash_kernels"][name])
 
     # the volume integrity plane (replication, scrub, repairs, vacuum); its own count
-    sc = scrub_phase(dev, args.scrub_files, args.scrub_mib * MIB, md5_block["ops"], args.seed)
+    sc = phases["scrub"]()
     emit("scrub", switch_interval_s=sys.getswitchinterval(), **sc)
     for name in ("gf256_matmul", "crc32c_batch"):
         launches[name] += sc["launches"][name]
@@ -8353,7 +8432,7 @@ def main() -> int:
                                                sc["flush_crc_max_abs_err"])
 
     # the maintenance daemon's heals, no shell command after the damage; its own count
-    mt = maintenance_phase(dev, args.maint_mib * MIB, args.maint_files, args.seed)
+    mt = phases["maintenance"]()
     emit("maintenance", switch_interval_s=sys.getswitchinterval(), **mt)
     for name in ("gf256_matmul", "crc32c_batch"):
         launches[name] += mt["launches"][name]
@@ -8361,22 +8440,21 @@ def main() -> int:
                                                mt["flush_crc_max_abs_err"])
 
     # the filer's dedup over HTTP with its reclaim (config 4 as operated); its own count
-    fd = filer_dedup_phase(dev, args.filer_dedup_uploads, args.seed)
+    fd = phases["filer_dedup"]()
     emit("filer_dedup", nvidia_smi=nvidia_smi(), **fd)
     launches["gear_hash"] += fd["launches"]["gear_hash"]
     timed["gear_hash"]["max_abs_err"] = max(timed["gear_hash"]["max_abs_err"],
                                             fd["gear_max_abs_err"])
 
     # the S3 gateway, IAM and warp's mixed load over the filer; its own count
-    s3 = s3_phase(dev, args.s3_objects, args.s3_seconds, args.s3_clients,
-                  args.s3_multipart_mib * MIB, md5_block["ops"], args.seed)
+    s3 = phases["s3"]()
     emit("s3", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **s3)
     for name in ("crc32c_batch", "md5_batch"):
         launches[name] += s3["launches"][name]
         timed[name]["shapes"].extend(s3["hash_kernels"][name])
 
     # the volume side: tiering, every fault mode, 5-byte offsets; its own count
-    vsd = volume_side_phase(dev, args.tier_mib * MIB, md5_block["ops"], args.seed)
+    vsd = phases["volume_side"]()
     emit("volume_side", nvidia_smi=nvidia_smi(), **vsd)
     for name in ("gf256_matmul", "crc32c_batch"):
         launches[name] += vsd["launches"][name]
@@ -8388,24 +8466,21 @@ def main() -> int:
                                                vsd["offset5"]["max_abs_err"])
 
     # the filer's other front doors and remote storage; its own count
-    gw = gateways_phase(dev, args.gw_dav_files, args.gw_ftp_files, args.gw_ftp_large_mib * MIB,
-                        args.gw_mount_mib * MIB, args.gw_small_files, args.gw_remote_mib * MIB,
-                        md5_block["ops"], args.seed)
+    gw = phases["gateways"]()
     emit("gateways", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **gw)
     for name in ("crc32c_batch", "md5_batch"):
         launches[name] += gw["launches"][name]
         timed[name]["shapes"].extend(gw["hash_kernels"][name])
 
     # filer.sync both ways, filer.replicate and filer.backup, the mq broker; its own count
-    sm = sync_mq_phase(dev, args.sync_files, args.mq_messages, md5_block["ops"], args.seed)
+    sm = phases["sync_mq"]()
     emit("sync_mq", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **sm)
     for name in ("crc32c_batch", "md5_batch"):
         launches[name] += sm["launches"][name]
         timed[name]["shapes"].extend(sm["hash_kernels"][name])
 
     # security and raft HA: mTLS and JWT on every path, a leader failover; its own count
-    ha = secure_ha_phase(dev, args.ha_files, args.ha_large_mib * MIB, args.ha_ec_mib * MIB,
-                         md5_block["ops"], args.seed)
+    ha = phases["secure_ha"]()
     emit("secure_ha", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **ha)
     for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
         launches[name] += ha["launches"][name]
@@ -8414,7 +8489,7 @@ def main() -> int:
 
     # the stats core and the debug plane on a loaded cluster; its own count
     l0 = read_launches()
-    ob = observe_phase(dev, args.obs_files, args.obs_large, args.obs_ec_mib * MIB, args.seed)
+    ob = phases["observe"]()
     ob["launches"] = {k: v - l0[k] for k, v in read_launches().items()}
     emit("observe", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(), **ob)
     for name in ("gf256_matmul", "crc32c_batch", "md5_batch"):
@@ -8422,7 +8497,7 @@ def main() -> int:
         launches[name] += ob["launches"][name]
 
     # telemetry, usage and QoS on two filer gateways under a tenant's flood; its own count
-    qt = qos_telemetry_phase(dev, args.qt_files, args.qt_large, args.qt_flood_s, args.seed)
+    qt = phases["qos_telemetry"]()
     emit("qos_telemetry", nvidia_smi=nvidia_smi(), switch_interval_s=sys.getswitchinterval(),
          **qt)
     for name in ("crc32c_batch", "md5_batch"):
@@ -8432,14 +8507,11 @@ def main() -> int:
 
     # the CLI: each role in a process of its own on the card; the kernels run
     # in the children, whose /metrics show it (no launch here to count)
-    cl = cli_phase(dev, args.cli_files, args.cli_bench_n, args.cli_upload_mib * MIB,
-                   args.cli_ec_mib * MIB, args.seed)
+    cl = phases["cli"]()
     emit("cli", nvidia_smi=nvidia_smi(), **cl)
 
     # the native fastlane in front of the master and the volume server; its own count
-    fp = fastlane_phase(dev, args.fl_files, args.fl_assign_files, args.fl_python_files,
-                        args.fl_online_mib * MIB, args.fl_filer_files,
-                        args.fl_filer_large_mib * MIB, args.seed)
+    fp = phases["fastlane"]()
     emit("fastlane", **fp)
     launches["gf256_matmul"] += fp["launches"]
     for name in ("crc32c_batch", "md5_batch"):

@@ -99,7 +99,8 @@ listings, compressible mimes, and cache misses. `_fl_filer_loop` (20 ms)
 drains the engine's entry frames into the store, tops the lease pool up
 and truncates the journal; the Python handlers drain first, so they read
 their own writes; `_fl_on_meta` keeps the path cache coherent. The journal
-lies beside the store's path and is replayed at start (a memory store has
+lies inside the store's own location (`_fl_journal_location`), is held by
+one engine at a time (a flock) and is replayed at start (a memory store has
 none). Python serves everything when `SEAWEEDFS_TPU_DISABLE_FASTLANE=1`,
 behind the IP guard (`white_list`), and on a cipher or dedup filer (their
 chunk transforms are Python's); otherwise a filer mode the engine refuses
@@ -114,6 +115,7 @@ from __future__ import annotations
 import base64
 import copy
 import ctypes
+import fcntl
 import hashlib
 import json
 import logging
@@ -294,6 +296,7 @@ class FilerServer:
         self._fl_thread: threading.Thread | None = None
         self._fl_collector = None
         self._fl_journal_path = ""
+        self._fl_journal_lock: int | None = None  # fd holding the journal's flock
         # set while _fl_apply stores an entry the engine journaled: the
         # engine's path cache already holds it (see _fl_on_meta)
         self._fl_applying = threading.local()
@@ -369,22 +372,15 @@ class FilerServer:
         )
         if self.fastlane is None or self.cipher or self.dedup:
             return
-        if self.filer.store.__class__.__name__ == "MemoryStore":
-            journal = ""  # the store dies with the process; a WAL buys nothing
-        else:
-            # beside the store's path; a store with no local path (etcd,
-            # redis, the SQL servers) journals in the temp directory
-            base = getattr(self.filer.store, "path", None)
-            d = os.path.dirname(os.path.abspath(base)) if base else tempfile.gettempdir()
-            journal = os.path.join(d, "filer_native.journal")
+        journal = self._fl_journal_location()
+        if journal:
+            self._fl_lock_journal(journal)
             self._fl_replay_journal(journal)
         lib, h = self.fastlane._lib, self.fastlane.handle
         rc = int(lib.sw_fl_filer_enable(h, journal.encode(), self.chunk_size,
                                         1 if self.compress else 0))
         if rc != 0:
-            self.fastlane.stop()
-            self.fastlane = None
-            self.service.stop()
+            self._fl_stop_front()
             raise RuntimeError(
                 f"fastlane filer mode refused (journal {journal!r}): "
                 f"{fl_mod.error_str(lib, rc)}")
@@ -397,6 +393,54 @@ class FilerServer:
         self.filer.subscribe(self._fl_on_meta)
         self._fl_push_rules()  # fs.configure prefixes defer to Python
         self._register_front_collector()
+
+    def _fl_journal_location(self) -> str:
+        """Where the engine journals: inside the store's own location, so
+        no two stores share one journal. A directory store (leveldb, lsm)
+        keeps it in its directory, a file store (sqlite) beside its file as
+        `<file>.fljournal`; a store with no local path (etcd, redis, the SQL
+        servers) journals in the temp directory under the front door's
+        host:port. A memory store dies with the process: no journal."""
+        store = self.filer.store
+        base = getattr(store, "path", None)
+        if store.__class__.__name__ == "MemoryStore":
+            return ""
+        if base:
+            base = os.path.abspath(base)
+            if os.path.isdir(base):
+                return os.path.join(base, "filer_native.journal")
+            return base + ".fljournal"
+        return os.path.join(
+            tempfile.gettempdir(),
+            f"filer_native-{self.service.host}_{self.fastlane.port}.journal")
+
+    def _fl_lock_journal(self, journal: str) -> None:
+        """Hold `<journal>.lock` exclusively while this engine journals: a
+        second engine's journal_reset would truncate frames the first has
+        acked and not drained yet. Raises (the front stopped) when another
+        filer's engine holds it."""
+        fd = os.open(journal + ".lock", os.O_RDWR | os.O_CREAT, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BlockingIOError:
+            os.close(fd)
+            self._fl_stop_front()
+            raise RuntimeError(
+                f"fastlane filer mode refused (journal {journal!r}): another "
+                "filer's engine journals there") from None
+        self._fl_journal_lock = fd
+
+    def _fl_stop_front(self) -> None:
+        """Undo a front door whose filer mode did not start."""
+        self.fastlane.stop()
+        self.fastlane = None
+        self.service.stop()
+        self._fl_unlock_journal()
+
+    def _fl_unlock_journal(self) -> None:
+        if self._fl_journal_lock is not None:
+            os.close(self._fl_journal_lock)  # closing the fd drops the flock
+            self._fl_journal_lock = None
 
     FL_FRONT_FAMILIES = (
         "SeaweedFS_filer_fastlane_native_total",
@@ -816,6 +860,7 @@ class FilerServer:
         if self.fastlane is not None:
             self.fastlane.stop()
             self.fastlane = None
+        self._fl_unlock_journal()
         self.service.stop()
         if self.metrics_service is not None:
             self.metrics_service.stop()

@@ -29,7 +29,6 @@ class LogBuffer:
         keep: int = 10_000,
     ) -> None:
         self._entries: list[tuple[int, bytes]] = []  # sorted by ts_ns
-        self._bytes = 0
         self._unflushed_bytes = 0  # appended since the last flush's batch
         self._lock = threading.Condition()
         # serializes flushers; flush_fn runs OUTSIDE _lock — it may re-enter
@@ -71,7 +70,6 @@ class LogBuffer:
             self._last_ts = ts
             payload = payload_fn(ts)
             self._entries.append((ts, payload))
-            self._bytes += len(payload)
             self._unflushed_bytes += len(payload)
             self._lock.notify_all()
             # the window keeps up to `keep` flushed entries for readers, so
@@ -105,7 +103,6 @@ class LogBuffer:
                 # trim the in-memory window but keep a tail for fast readers
                 if len(self._entries) > self._keep:
                     dropped = self._entries[: -self._keep]
-                    self._bytes -= sum(len(p) for _, p in dropped)
                     self._entries = self._entries[-self._keep :]
                     self._dropped_until_ns = dropped[-1][0]
 

@@ -389,18 +389,24 @@ class TestTornParityWrite:
 
         post_json(f"{master.url}/maintenance/enable")
         hv.heartbeat_once()  # deliver the damage audit
+
+        def rebuild_applied() -> tuple:
+            st_hist = get_json(f"{master.url}/debug/maintenance")
+            return st_hist, [
+                line
+                for e in st_hist.get("history", [])
+                if e["task"]["type"] == "ec_rebuild"
+                for line in e.get("applied", [])
+            ]
+
+        # the executor heals before the daemon records the task (it first
+        # releases the admin lease and journals task_done): wait for both
         wait_until(
             lambda: v.online_ec.parity_health() == 0
-            and v.online_ec.active,
-            timeout=30, msg="online parity rearm+re-encode",
+            and v.online_ec.active and rebuild_applied()[1],
+            timeout=30, msg="online parity rearm+re-encode, and its record",
         )
-        st_hist = get_json(f"{master.url}/debug/maintenance")
-        applied = [
-            line
-            for e in st_hist.get("history", [])
-            if e["task"]["type"] == "ec_rebuild"
-            for line in e.get("applied", [])
-        ]
+        st_hist, applied = rebuild_applied()
         assert any("parity re-encoded" in a for a in applied), st_hist
         # and the parity is REAL: a .dat corruption now degrades cleanly
         # (query-string GET rides the Python path, whose CRC check trips

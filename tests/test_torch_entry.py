@@ -20,8 +20,7 @@ from tests._threads import stop_history_loops  # noqa: F401
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "seaweedfs_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "kernel_turns.py", REPO / "s3_stall_probe.py",
-    REPO / "metering_cost.py", REPO / "gc_pauses.py", REPO / "depth_turns.py",
-    REPO / "filer_phases.py"]
+    REPO / "metering_cost.py", REPO / "gc_pauses.py", REPO / "depth_turns.py"]
 
 
 def test_entry_equals_reference():

@@ -338,8 +338,8 @@ def test_journal_replay_after_crash(twin):
         if side.ref:
             assert f1._fl_journal_path == os.path.join(tempfile.gettempdir(),
                                                        "filer_native.journal")
-        else:  # beside the store's path
-            assert f1._fl_journal_path == os.path.join(side.root, "filer_native.journal")
+        else:  # inside the store's own directory
+            assert f1._fl_journal_path == os.path.join(store, "filer_native.journal")
         f1.stop()  # crash: the frames are never applied
         side.filers.remove(f1)
     assert first[1] == first[0] and [a[0] for a in first[0]] == [201, 201]
@@ -410,11 +410,15 @@ def test_secured_cluster_stays_native(twin):
 def test_native_delete_read_your_deletes(twin):
     """A DELETE of a cached entry acks natively (journal + cache
     tombstone) and an immediate GET 404s before the drain lands; the store
-    catches up behind it."""
+    catches up behind it. The writes are drained first: in the JAX filer a
+    write's drain landing after the delete's tombstone puts the entry back
+    in the engine's cache (test_create_drained_after_its_delete)."""
     fs = filers(twin)
     (chunk,) = seeded(6, 20000)
     assert both(fs, "POST", "/d/i.txt", b"inline")[0] == 201
     assert both(fs, "POST", "/d/c.bin", chunk)[0] == 201
+    for f in fs:
+        f._fl_filer_drain()
     before = front(fs)["delete"]["native"]
     # the reads after each delete are answered by the engine's tombstone
     # or, once the drain has applied the delete, by the Python path, so
@@ -437,6 +441,51 @@ def test_native_delete_read_your_deletes(twin):
     st, _, body = both(fs, "GET", "/d/i.txt")
     assert st == 200 and body == b"again"
     same_entries(fs)
+
+
+def test_create_drained_after_its_delete(twin):
+    """A native write, then its native DELETE before the drain has applied
+    the write: when the drain stores the entry after the delete's tombstone,
+    the port's engine keeps the tombstone (the port leaves an entry the
+    engine journaled as the engine cached it) and a GET in that window
+    404s. The JAX filer's meta-log push puts the entry back in the cache,
+    so the same GET answers 200 until the delete's frame drains. Each
+    filer's drain is held at the write's frame while the test deletes, and
+    again after the write is stored while it reads."""
+    fs = filers(twin)
+    got = []
+    for f in fs:
+        at_write, deleted, stored, read = (threading.Event() for _ in range(4))
+        apply = f._fl_apply
+
+        def held(kind, size, mtime, md5, path, *rest, apply=apply, ev=(
+                at_write, deleted, stored, read)):
+            if path == "/rd/a.txt" and kind == 1:
+                ev[0].set()
+                assert ev[1].wait(10)
+                apply(kind, size, mtime, md5, path, *rest)
+                ev[2].set()
+                assert ev[3].wait(10)
+                return
+            apply(kind, size, mtime, md5, path, *rest)
+
+        f._fl_apply = held
+        try:
+            assert answer("POST", f.url + "/rd/a.txt", b"short-lived")[0] == 201
+            assert at_write.wait(10)
+            assert answer("DELETE", f.url + "/rd/a.txt")[0] == 204
+            deleted.set()
+            assert stored.wait(10)
+            got.append(http_request("GET", f.url + "/rd/a.txt")[0])
+            read.set()
+        finally:
+            deleted.set()
+            read.set()
+        wait(lambda f=f: f.filer.find_entry("/rd/a.txt") is None, 5, "the drained delete")
+        del f._fl_apply
+    assert got == [200, 404]
+    fm = [f.fastlane.front_metrics() for f in fs]
+    assert [m["delete"]["native"] for m in fm] == [1, 1]
 
 
 def _fastlane_lines(text: str) -> list[str]:
@@ -578,6 +627,44 @@ def test_filer_relayed_write_joins_caller_trace(twin):
         wait(joined, 5, f"{side.pkg}: fastlane.append joining the caller's trace")
 
 
+def _trace_block(out: str, tid: str) -> list[str]:
+    """One trace's lines of `cluster.trace`, durations aside."""
+    lines = out.splitlines()
+    at = next(i for i, ln in enumerate(lines) if ln.startswith(f"trace {tid} "))
+    block = [lines[at]]
+    for ln in lines[at + 1:]:
+        if not ln.startswith("  "):
+            break
+        block.append(ln)
+    return [re.sub(r"[0-9.]+ms", "ms", ln) for ln in block]
+
+
+def test_native_write_trace_in_cluster_trace(twin):
+    """A filer write the engine serves natively (one leased chunk, no
+    Python handler) still shows in `cluster.trace` under the caller's
+    trace id, with the volume's `fastlane.append` span: the same tree
+    from both packages' shells, durations aside."""
+    fs = filers(twin)
+    tid = "cd54feedcafe0043"
+    (chunk,) = seeded(18, 20000)
+    assert both(fs, "POST", "/trn/chunk.bin", chunk, {"X-Sw-Trace-Id": tid})[0] == 201
+    assert [f.fastlane.front_metrics()["write"]["native"] for f in fs] == [1, 1]
+    blocks = []
+    for side, f in zip(twin, fs):
+        env = (RefCommandEnv if side.ref else CommandEnv)(side.m.url)
+        run = ref_run_command if side.ref else run_command
+
+        def shown(side=side, env=env, run=run) -> bool:
+            side.v.fastlane.drain()
+            return f"trace {tid} " in run(env, "cluster.trace -limit 50")
+
+        wait(shown, 5, f"{side.pkg}: the native write's trace in cluster.trace")
+        blocks.append(_trace_block(run(env, "cluster.trace -limit 50"), tid))
+    assert blocks[1] == blocks[0]
+    assert "roles=volume" in blocks[1][0]
+    assert any(ln.strip().startswith("[volume] fastlane.append ") for ln in blocks[1][1:])
+
+
 def test_lease_survives_volume_deletion(twin):
     """A leased volume deleted before anything was written to it: the
     failed native upload falls back to Python (the client still gets a
@@ -692,7 +779,7 @@ def test_refused_filer_mode_raises(twin):
     for side in twin:
         store = os.path.join(side.root, "filer_store")
         os.makedirs(store)
-    for d in (tempfile.gettempdir(), port.root):
+    for d in (tempfile.gettempdir(), os.path.join(port.root, "filer_store")):
         os.symlink(os.path.join(d, "missing", "journal"),
                    os.path.join(d, "filer_native.journal"))
     f = ref.filer(store_kind="lsm", store_path=os.path.join(ref.root, "filer_store"))
@@ -746,3 +833,106 @@ def test_two_filers_get_distinct_ordinals(twin):
         f1._register_once()  # f1's ordinal, now that f2 is up
         got.append(sorted((f._gateway_ordinal, f._gateway_count) for f in (f1, f2)))
     assert got[1] == got[0] == [(0, 2), (1, 2)]
+
+
+@pytest.fixture
+def port_side(tmp_path, monkeypatch):
+    """The port's master and volume server alone, for what only the port
+    does (the JAX filer journals in one temp-directory file a host)."""
+    own_tmp = tmp_path / "tmpdir"
+    own_tmp.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(own_tmp))
+    side = Side("port", str(tmp_path))
+    try:
+        yield side
+    finally:
+        side.stop()
+
+
+def test_sibling_stores_keep_their_own_journals(port_side):
+    """Two filers whose leveldb stores are sibling directories each
+    journal inside their own store. With writes acked on both and drained
+    on neither, one restarts and replays only its own frames: the other's
+    journal keeps every frame, and its files reach no store but its own."""
+    root = port_side.root
+    stalled, paths = [], {}
+    for name in ("f1", "f2"):
+        store = os.path.join(root, name)
+        f = port_side.filer(store_kind="leveldb", store_path=store)
+        assert f._fl_journal_path == os.path.join(store, "filer_native.journal")
+        f._fl_filer_drain = lambda *a, **k: 0  # a Python stall: nothing drains
+        paths[name] = [f"/{name}/{i}.txt" for i in range(8)]
+        for p in paths[name]:
+            assert answer("POST", f.url + p, p.encode())[0] == 201
+        stalled.append(f)
+    journals = {}
+    for name, f in zip(("f1", "f2"), stalled):
+        with open(f._fl_journal_path, "rb") as fh:
+            journals[name] = fh.read()
+        assert [fr[4] for fr in _frames(FilerServer, journals[name])] == paths[name]
+        f.stop()  # crash: the frames are never applied
+        port_side.filers.remove(f)
+    f1 = port_side.filer(store_kind="leveldb", store_path=os.path.join(root, "f1"))
+    for p in paths["f1"]:
+        e = f1.filer.find_entry(p)
+        assert e is not None and e.content == p.encode()
+    for p in paths["f2"]:
+        assert f1.filer.find_entry(p) is None
+    f1._fl_filer_drain()
+    with open(os.path.join(root, "f2", "filer_native.journal"), "rb") as fh:
+        assert fh.read() == journals["f2"]  # f1's replay and reset left it whole
+    f2 = port_side.filer(store_kind="leveldb", store_path=os.path.join(root, "f2"))
+    for p in paths["f2"]:
+        assert f2.filer.find_entry(p).content == p.encode()
+    assert f2.filer.find_entry(paths["f1"][0]) is None
+
+
+def test_second_engine_on_a_journal_is_refused(port_side):
+    """A second filer on a store whose journal a live engine holds raises
+    and leaves nothing listening; the first serves on, and its acked
+    frames stay in its journal until its own drain applies them."""
+    store = os.path.join(port_side.root, "shared")
+    f1 = port_side.filer(store_kind="lsm", store_path=store)
+    f1._fl_filer_drain = lambda *a, **k: 0
+    assert answer("POST", f1.url + "/held/a.txt", b"held")[0] == 201
+    f2 = FilerServer(port_side.m.url, port=0, device="cpu", store_kind="lsm",
+                     store_path=store)
+    try:
+        with pytest.raises(RuntimeError, match="another filer's engine"):
+            f2.start()
+        assert f2.fastlane is None and not f2._fl_filer_on
+        with pytest.raises(OSError):
+            socket.create_connection(("127.0.0.1", f2.service.port), timeout=1).close()
+    finally:
+        f2.stop()
+    with open(f1._fl_journal_path, "rb") as fh:
+        assert [fr[4] for fr in _frames(FilerServer, fh.read())] == ["/held/a.txt"]
+    del f1._fl_filer_drain  # the class's drain again
+    assert answer("GET", f1.url + "/held/a.txt")[2] == b"held"
+
+
+@pytest.mark.parametrize("kind", ["leveldb", "sqlite", "memory", "no_path"])
+def test_journal_location_by_store(tmp_path, monkeypatch, kind):
+    """Each store kind's journal: inside a directory store, beside a file
+    store, none for memory, and for a store with no local path one in the
+    temp directory named after the front door's host:port."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    d = tmp_path / "store"
+    d.mkdir()
+    stores = {
+        "leveldb": types.SimpleNamespace(path=str(d)),
+        "sqlite": types.SimpleNamespace(path=str(tmp_path / "a.db")),
+        "memory": MemoryStore(),
+        "no_path": types.SimpleNamespace(),
+    }
+    stub = types.SimpleNamespace(
+        filer=types.SimpleNamespace(store=stores[kind]),
+        service=types.SimpleNamespace(host="127.0.0.1"),
+        fastlane=types.SimpleNamespace(port=18888))
+    want = {
+        "leveldb": str(d / "filer_native.journal"),
+        "sqlite": str(tmp_path / "a.db") + ".fljournal",
+        "memory": "",
+        "no_path": str(tmp_path / "filer_native-127.0.0.1_18888.journal"),
+    }
+    assert FilerServer._fl_journal_location(stub) == want[kind]

@@ -959,7 +959,8 @@ def test_live_verbs_name_every_node(live):
     for i in range(8):
         # a query keeps the write on the filer's Python path, whose chain
         # (filer, the master's assign, the volume's upload) cluster.trace
-        # must show; a native write leaves only the volume's spans
+        # must show; a native write leaves only the volume's spans (held in
+        # test_torch_filer_native.py::test_native_write_trace_in_cluster_trace)
         st, _, _ = http_request("PUT", f"{f.url}/live/f{i}?replication=000", b"y" * 3000)
         assert st == 201
     tr = run_command(env, "cluster.trace -limit 20")
